@@ -5,14 +5,18 @@
 //
 //   K1 kkt_assemble_scaled   batch.py:333-336, 409-413  assemble K(delta) and
 //                            its Jacobi scaling kd, write Ks = kd K kd
-//   K2 lu_factor_batched     batch.py:414  partial-pivot LU of Ks (f32)
+//   K2 lu_factor_batched     batch.py:414  partial-pivot LU of Ks (f32), two
+//                            variants chosen by N: lu_factor_cluster (a lane
+//                            per thread-block cluster, the matrix in shared
+//                            memory) and lu_factor_unblocked (a lane per
+//                            block, the matrix in global memory)
 //   K3 lu_solve_batched      batch.py:416-418  kd * lu_solve(lu, piv, kd * v)
 //   K4 advance_state         batch.py:449-512  fraction-to-boundary step,
 //                            dual safeguards and barrier update (f64)
 //
 // Layout follows the JAX package: lanes first, row-major. Every entry point
-// is a plain C function that launches on the caller's stream and returns
-// cudaGetLastError(). Build (no PyTorch headers):
+// is a plain C function that returns a CUDA error code; a launch goes to the
+// caller's stream and returns cudaGetLastError(). Build (no PyTorch headers):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libauglu.so auglu.cu
 //
@@ -21,9 +25,12 @@
 // which nvcc never contracts into FMAs. Clamps are written as comparisons
 // that let a NaN through, as torch.clamp and jnp.clip do.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -102,26 +109,368 @@ __global__ void kkt_assemble_scaled_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K2: right-looking unblocked partial-pivot LU, one thread block per lane.
-// The 1.18 MB lane matrix is far above the 227 KB of shared memory, so it
-// stays in global memory and is served from L2 (50 MB holds every lane at
-// the slice's batch). Per column: block-wide argmax of |a_ik| (warp
-// shuffles, then one shared slot per warp; ties keep the lower row as
-// LAPACK's isamax does), row swap, column scale by division, and a rank-1
-// update of the trailing block in which consecutive threads own
-// consecutive columns (coalesced) and the multiplier a_ik is a broadcast
-// load. Bound by the trailing-update traffic through L2: about
-// 2 N^3 / 3 * 8 bytes per lane. A zero pivot is not clamped: the division
-// makes inf/NaN that reach the solution, so the caller's finiteness test
-// fails and the regularization ladder retries, as with LAPACK in the JAX
-// package.
+// K2 semantics, both variants: LAPACK getrf on each lane's row-major N x N
+// f32 matrix, in place: unit-lower L below the diagonal, U on and above it,
+// 1-based int32 pivots; the pivot is the first row of largest |a_ik| (ties
+// keep the lower row, as LAPACK's isamax), and a column of NaNs keeps the
+// diagonal. A zero pivot is not clamped: the division makes inf/NaN that
+// reach the solution, so the caller's finiteness test fails and the
+// regularization ladder retries, as with LAPACK in the JAX package.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void argmax_warp(float& best, int& bidx) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, best, off);
+    const int oi = __shfl_down_sync(0xffffffffu, bidx, off);
+    if (ov > best || (ov == best && oi < bidx)) { best = ov; bidx = oi; }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, cluster variant: replaces jax.scipy.linalg.lu_factor at
+// awebox_tpu/parallel/batch.py:414 wherever a lane fits a cluster's shared
+// memory (N <= ~580, the slice's N = 543 included).
+//
+// What bounds the unblocked variant below on this card: one SM per lane (16
+// of 132 SMs at B = 16, one SM for a one-lane ladder retry) and N^3/3
+// read-modify-writes through L2 per lane. Here a lane is one thread-block
+// cluster of C <= 8 CTAs on C SMs, whose shared memories together hold the
+// whole lane matrix (8 x 215 KB at N = 543): the lane is read from HBM once
+// and written once, and every update runs out of shared memory.
+//
+// Columns are dealt to the CTAs block-cyclically in panels of NB: panel g
+// (global columns g*NB ..) lives on CTA g % C as its local panel g / C,
+// whole columns (all N rows, column-major, leading dimension ld) in dynamic
+// shared memory. Per panel p, right-looking blocked LU:
+//   1. the owner factors its NB columns alone, each thread holding its
+//      rows of the panel in registers (per column: argmax fused into the
+//      previous column's update, two block barriers);
+//   2. cluster barrier; every CTA copies the panel's pivots and its rows
+//      p0.. (L11 over L21) from the owner's shared memory (DSMEM) into its
+//      own L buffer. The owner does not touch the panel's columns again
+//      before the next panel's barrier, so one cluster barrier per panel
+//      suffices;
+//   3. every CTA applies the NB row swaps to all of its columns apart from
+//      the panel itself (LAPACK laswp, factored columns included), solves
+//      its part of U12 = L11^-1 A12 (a thread per column) and updates
+//      A22 -= L21 U12 on its trailing columns with 4x4 register tiles in
+//      IEEE f32 FMA on the CUDA cores (no tensor cores: TF32 would be the
+//      analog of the TPU's bf16 passes, which did not converge).
+// What still bounds it (H100, N = 543, one lane ~0.6 ms): the owner's
+// column-by-column panel factor, ~0.3 ms on the critical path while the
+// other CTAs wait at the cluster barrier, and the DSMEM copy, ~0.1 ms, in
+// which the owner's SM serves all C readers. A look-ahead would overlap the
+// factor with the trailing updates (later work).
+// Global rows are 4*N bytes apart, 16-byte aligned only when N % 4 == 0,
+// so the lane is loaded by 4-byte cp.async (every element of a CTA in
+// flight at once; a half-warp covers a 64-byte row segment of a panel) and
+// stored by coalesced 4-byte stores. The DSMEM copy and the pivot search
+// are latency-bound too: a warp copies one panel column with all of its
+// loads issued before its stores, and the argmax reduces by redux.sync.
+// ---------------------------------------------------------------------------
+constexpr int K2C_THREADS = 512;
+constexpr int K2C_WARPS = K2C_THREADS / 32;
+constexpr int K2C_NB = 16;
+constexpr int K2C_ROWS = 2;           // panel rows a thread holds: N <= 1024
+constexpr int K2C_MAX_CLUSTER = 8;    // the portable cluster size
+constexpr int K2C_ROWSTEP = K2C_THREADS / K2C_NB;   // rows per pass of the load
+static_assert(K2C_WARPS == K2C_NB, "a warp per panel column in the DSMEM copy");
+
+__device__ __forceinline__ void fms4(float4& acc, const float4& l, float u) {
+  acc.x -= l.x * u; acc.y -= l.y * u; acc.z -= l.z * u; acc.w -= l.w * u;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Pivot search by key: |a| as its bits plus one (non-negative floats order
+// as their bits, +inf included), 0 for no candidate or NaN, so a NaN is
+// never chosen. argmax_redux leaves the warp's largest key in key and the
+// lowest row holding it in row (the first maximum, as LAPACK's isamax).
+__device__ __forceinline__ unsigned amax_key(float x) {
+  const float a = fabsf(x);
+  return (a == a) ? __float_as_uint(a) + 1u : 0u;
+}
+
+__device__ __forceinline__ void argmax_redux(unsigned& key, int& row) {
+  const unsigned m = __reduce_max_sync(0xffffffffu, key);
+  row = (int)__reduce_min_sync(0xffffffffu, key == m ? (unsigned)row : 0xffffffffu);
+  key = m;
+}
+
+// Unblocked LU of the owner's panel: columns P + k*ld (k < w), global rows
+// p0..N-1. Each thread holds its rows p0 + tid + s*K2C_THREADS of the panel
+// in registers (N - p0 <= K2C_ROWS * K2C_THREADS); per column every warp
+// reduces the per-warp argmax slots itself, the owners of rows p and gk
+// publish them through s_prow / s_krow, and every row below is scaled and
+// updated in registers. Pivots go to s_piv (0-based, read by the cluster)
+// and pv.
+__device__ void factor_panel(float* __restrict__ P, int ld, int p0, int w, int N,
+                             int* s_piv, int32_t* __restrict__ pv, unsigned* s_key,
+                             int* s_row, float* s_prow, float* s_krow) {
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  float v[K2C_ROWS][K2C_NB];
+  int row[K2C_ROWS];
+  unsigned key = 0u;
+  int brow = N;
+#pragma unroll
+  for (int s = 0; s < K2C_ROWS; ++s) {
+    row[s] = p0 + tid + s * K2C_THREADS;
+#pragma unroll
+    for (int c = 0; c < K2C_NB; ++c) {
+      v[s][c] = (row[s] < N && c < w) ? P[c * ld + row[s]] : 0.0f;
+    }
+    if (row[s] < N && amax_key(v[s][0]) > key) { key = amax_key(v[s][0]); brow = row[s]; }
+  }
+  argmax_redux(key, brow);
+  if (wl == 0) { s_key[warp] = key; s_row[warp] = brow; }
+#pragma unroll
+  for (int k = 0; k < K2C_NB; ++k) {
+    if (k < w) {
+      const int gk = p0 + k;
+      __syncthreads();                  // the slots of column k are in
+      key = wl < K2C_WARPS ? s_key[wl] : 0u;
+      brow = wl < K2C_WARPS ? s_row[wl] : N;
+      argmax_redux(key, brow);
+      const int p = key ? brow : gk;    // column of NaNs: keep the diagonal
+#pragma unroll
+      for (int s = 0; s < K2C_ROWS; ++s) {
+        if (row[s] == p) {
+#pragma unroll
+          for (int c = 0; c < K2C_NB; ++c) s_prow[c] = v[s][c];
+        }
+        if (row[s] == gk) {
+#pragma unroll
+          for (int c = 0; c < K2C_NB; ++c) s_krow[c] = v[s][c];
+        }
+      }
+      if (tid == 0) { s_piv[k] = p; pv[gk] = p + 1; }
+      __syncthreads();                  // rows p and gk are published
+      const float pivot = s_prow[k];
+      key = 0u;
+      brow = N;
+#pragma unroll
+      for (int s = 0; s < K2C_ROWS; ++s) {
+        if (row[s] == gk) {
+#pragma unroll
+          for (int c = 0; c < K2C_NB; ++c) v[s][c] = s_prow[c];
+        } else if (row[s] == p) {
+#pragma unroll
+          for (int c = 0; c < K2C_NB; ++c) v[s][c] = s_krow[c];
+        }
+        if (row[s] > gk && row[s] < N) {
+          const float l = v[s][k] / pivot;
+          v[s][k] = l;
+#pragma unroll
+          for (int c = k + 1; c < K2C_NB; ++c) v[s][c] -= l * s_prow[c];
+          if (k + 1 < w && amax_key(v[s][k + 1]) > key) { key = amax_key(v[s][k + 1]); brow = row[s]; }
+        }
+      }
+      if (k + 1 < w) {
+        argmax_redux(key, brow);
+        if (wl == 0) { s_key[warp] = key; s_row[warp] = brow; }
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < K2C_ROWS; ++s) {
+    if (row[s] < N) {
+#pragma unroll
+      for (int c = 0; c < K2C_NB; ++c) {
+        if (c < w) P[c * ld + row[s]] = v[s][c];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(K2C_THREADS, 1)
+lu_factor_cluster_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv,
+                         int N, int ld, int cols) {
+  extern __shared__ float4 k2c_dyn[];
+  __shared__ unsigned s_key[K2C_WARPS];
+  __shared__ int s_row[K2C_WARPS];
+  __shared__ int s_piv[K2C_NB];   // pivots of the panel this CTA factored last
+  __shared__ int s_pl[K2C_NB];    // pivots of the current panel, local copy
+  __shared__ float s_prow[K2C_NB], s_krow[K2C_NB];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x;
+  const int rank = (int)cluster.block_rank();
+  const int lane = blockIdx.x / C;
+  float* As = reinterpret_cast<float*>(k2c_dyn);   // [cols][ld] this CTA's columns
+  float* Ls = As + (size_t)cols * ld;              // [NB][ld] the current L panel
+  float* Us = Ls + (size_t)K2C_NB * ld;            // [NB][cols] U12 of this CTA
+  float* a = Ks + (size_t)lane * N * N;
+  int32_t* pv = piv + (size_t)lane * N;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int n_panels = (N + K2C_NB - 1) / K2C_NB;
+  const int n_local = (n_panels - rank + C - 1) / C;
+  const int ncl = n_local * K2C_NB;   // local columns, the last panel padded with zeros
+  const int Nr = (N + 3) & ~3;        // rows the 4-row tiles cover
+  const int lc = tid % K2C_NB, li = tid / K2C_NB;   // the load's column and first row
+
+  // load: column lp*NB + lc holds global column j; rows N..ld-1 are zero
+  for (int lp = 0; lp < n_local; ++lp) {
+    const int j = (lp * C + rank) * K2C_NB + lc;
+    float* col = As + (size_t)(lp * K2C_NB + lc) * ld;
+    for (int i = li; i < ld; i += K2C_ROWSTEP) {
+      if (j < N && i < N) {
+        cp_async4(col + i, a + (size_t)i * N + j);
+      } else {
+        col[i] = 0.0f;
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  for (int p = 0; p < n_panels; ++p) {
+    const int owner = p % C;
+    const int lpo = p / C;               // the panel's local index on its owner
+    const int p0 = p * K2C_NB;
+    const int w = min(K2C_NB, N - p0);
+    if (rank == owner) {
+      factor_panel(As + (size_t)lpo * K2C_NB * ld, ld, p0, w, N, s_piv, pv, s_key, s_row,
+                   s_prow, s_krow);
+    }
+    cluster.sync();
+
+    // pivots and rows p0..Nr-1 of the panel from the owner's shared memory,
+    // a warp per column
+    const float* rP = cluster.map_shared_rank(As, owner) + (size_t)lpo * K2C_NB * ld;
+    const int* rpiv = cluster.map_shared_rank(s_piv, owner);
+    if (tid < w) s_pl[tid] = rpiv[tid];
+    if (warp < w) {
+      const float4* src = reinterpret_cast<const float4*>(rP + warp * ld);
+      float4* dst = reinterpret_cast<float4*>(Ls + warp * ld);
+      const int q0 = p0 >> 2, q1 = Nr >> 2;
+      float4 r[K2C_ROWS * K2C_THREADS / 128];
+#pragma unroll
+      for (int s = 0; s < K2C_ROWS * K2C_THREADS / 128; ++s) {
+        const int q = q0 + wl + 32 * s;
+        if (q < q1) r[s] = src[q];
+      }
+#pragma unroll
+      for (int s = 0; s < K2C_ROWS * K2C_THREADS / 128; ++s) {
+        const int q = q0 + wl + 32 * s;
+        if (q < q1) dst[q] = r[s];
+      }
+    }
+    __syncthreads();
+
+    // the panel's row swaps on every column held here but the panel itself
+    for (int c = tid; c < ncl; c += K2C_THREADS) {
+      if (rank == owner && c / K2C_NB == lpo) continue;
+      float* col = As + (size_t)c * ld;
+      for (int k = 0; k < w; ++k) {
+        const int r = s_pl[k];
+        if (r != p0 + k) {
+          const float t = col[p0 + k];
+          col[p0 + k] = col[r];
+          col[r] = t;
+        }
+      }
+    }
+
+    // trailing columns: the local panels after panel p (all full width)
+    const int lp_start = (p < rank) ? 0 : (p - rank) / C + 1;
+    const int c0 = lp_start * K2C_NB;
+    const int ntc = ncl - c0;
+    if (ntc > 0) {                      // uniform over the CTA
+      __syncthreads();
+      // U12 = L11^-1 A12, unit lower, a thread per column
+      for (int c = tid; c < ntc; c += K2C_THREADS) {
+        float* col = As + (size_t)(c0 + c) * ld + p0;
+        float u[K2C_NB];
+#pragma unroll
+        for (int k = 0; k < K2C_NB; ++k) u[k] = col[k];
+#pragma unroll
+        for (int k = 1; k < K2C_NB; ++k) {
+#pragma unroll
+          for (int t = 0; t < k; ++t) u[k] -= Ls[t * ld + p0 + k] * u[t];
+        }
+#pragma unroll
+        for (int k = 0; k < K2C_NB; ++k) {
+          col[k] = u[k];
+          Us[k * cols + c] = u[k];
+        }
+      }
+      __syncthreads();
+      // A22 -= L21 U12 on rows p0+NB..Nr-1; consecutive threads take
+      // consecutive 4-row groups of one 4-column group
+      const int r0 = p0 + K2C_NB;
+      const int nrg = (Nr - r0) >> 2, ncg = ntc >> 2;
+      for (int t = tid; t < nrg * ncg; t += K2C_THREADS) {
+        const int cgi = t / nrg, rg = t - cgi * nrg;
+        const int i0 = r0 + 4 * rg, j0 = 4 * cgi;
+        float4* dst[4];
+        float4 acc[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          dst[c] = reinterpret_cast<float4*>(As + (size_t)(c0 + j0 + c) * ld + i0);
+          acc[c] = *dst[c];
+        }
+#pragma unroll
+        for (int k = 0; k < K2C_NB; ++k) {
+          const float4 l = *reinterpret_cast<const float4*>(Ls + k * ld + i0);
+          const float4 u = *reinterpret_cast<const float4*>(Us + k * cols + j0);
+          fms4(acc[0], l, u.x);
+          fms4(acc[1], l, u.y);
+          fms4(acc[2], l, u.z);
+          fms4(acc[3], l, u.w);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) *dst[c] = acc[c];
+      }
+    }
+    __syncthreads();
+  }
+  cluster.sync();   // no CTA leaves while another may still read its shared memory
+
+  for (int lp = 0; lp < n_local; ++lp) {
+    const int j = (lp * C + rank) * K2C_NB + lc;
+    if (j >= N) continue;
+    const float* col = As + (size_t)(lp * K2C_NB + lc) * ld;
+    for (int i = li; i < N; i += K2C_ROWSTEP) a[(size_t)i * N + j] = col[i];
+  }
+}
+
+// the cluster variant's launch configuration: B clusters of C CTAs
+cudaLaunchConfig_t k2c_config(int B, int C, int smem, void* stream,
+                              cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(K2C_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// ---------------------------------------------------------------------------
+// K2, unblocked variant: right-looking unblocked partial-pivot LU, one
+// thread block per lane, for lanes that no cluster's shared memory holds
+// (N = 1055 of the n_k = 8 system: 4.45 MB per lane). The matrix stays in
+// global memory and is served from L2. Per column: block-wide argmax of
+// |a_ik| (warp shuffles, then one shared slot per warp), row swap, column
+// scale by division, and a rank-1 update of the trailing block in which
+// consecutive threads own consecutive columns (coalesced) and the
+// multiplier a_ik is a broadcast load. Bound by the trailing update: about
+// N^3/3 read-modify-writes of a 4-byte word through L2 per lane (~0.43 GB
+// moved at N = 543), pulled by one SM.
 // ---------------------------------------------------------------------------
 constexpr int K2_THREADS = 1024;
 constexpr int K2_COLS = 128;                 // columns per pass
 constexpr int K2_ROWSTEP = K2_THREADS / K2_COLS;
 
 __global__ void __launch_bounds__(K2_THREADS)
-lu_factor_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N) {
+lu_factor_unblocked_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N) {
   __shared__ float s_val[K2_THREADS / 32];
   __shared__ int s_idx[K2_THREADS / 32];
   __shared__ int s_p;
@@ -139,11 +488,7 @@ lu_factor_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N) {
       float v = fabsf(a[(size_t)i * N + k]);
       if (v > best) { best = v; bidx = i; }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      float ov = __shfl_down_sync(0xffffffffu, best, off);
-      int oi = __shfl_down_sync(0xffffffffu, bidx, off);
-      if (ov > best || (ov == best && oi < bidx)) { best = ov; bidx = oi; }
-    }
+    argmax_warp(best, bidx);
     if (wl == 0) { s_val[warp] = best; s_idx[warp] = bidx; }
     __syncthreads();
     if (tid == 0) {
@@ -391,8 +736,42 @@ int kkt_assemble_scaled(const void* W, const void* A, const void* Dr,
   return (int)cudaGetLastError();
 }
 
-int lu_factor_batched(void* Ks, void* piv, int B, int N, void* stream) {
-  lu_factor_kernel<<<B, K2_THREADS, 0, (cudaStream_t)stream>>>(
+// How many clusters of C CTAs with smem bytes of dynamic shared memory each
+// the card runs at once; written to *max_clusters (int).
+int lu_factor_cluster_occupancy(int C, int smem, void* max_clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)lu_factor_cluster_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k2c_config(1, C, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      (int*)max_clusters, (const void*)lu_factor_cluster_kernel, &cfg);
+}
+
+// The layout (C CTAs per lane, cols columns of leading dimension ld per
+// CTA, smem bytes of dynamic shared memory) is computed in one place,
+// kernels.lu_factor_geometry; only the limits compiled into the kernel
+// are checked here.
+int lu_factor_cluster(void* Ks, void* piv, int B, int N, int C, int cols,
+                      int ld, int smem, void* stream) {
+  if (N > K2C_ROWS * K2C_THREADS || C < 1 || C > K2C_MAX_CLUSTER) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)lu_factor_cluster_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k2c_config(B, C, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, lu_factor_cluster_kernel, (float*)Ks,
+                           (int32_t*)piv, N, ld, cols);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int lu_factor_unblocked(void* Ks, void* piv, int B, int N, void* stream) {
+  lu_factor_unblocked_kernel<<<B, K2_THREADS, 0, (cudaStream_t)stream>>>(
       (float*)Ks, (int32_t*)piv, N);
   return (int)cudaGetLastError();
 }

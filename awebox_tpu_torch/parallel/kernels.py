@@ -7,6 +7,7 @@ wrapper                replaces (awebox_tpu/parallel/batch.py)       dtype
 kkt_assemble_scaled    K(delta) assembly + Jacobi scale, :333-336,   f32
                        :409-413
 lu_factor_batched      jax.scipy.linalg.lu_factor, :414              f32
+                       (cluster or unblocked variant, by N)
 lu_solve_batched       ksolve = kd * lu_solve(kd * v), :416-418      f32
 advance_state          _advance_state, :449-512                      f64
 =====================  ===========================================  ==========
@@ -27,10 +28,14 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
+# lu_factor_batched counts every factor; lu_factor_cluster and
+# lu_factor_unblocked say which of K2's two variants ran
 LAUNCHES = {'kkt_assemble_scaled': 0, 'lu_factor_batched': 0,
+            'lu_factor_cluster': 0, 'lu_factor_unblocked': 0,
             'lu_solve_batched': 0, 'advance_state': 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -42,10 +47,12 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # argument types of the C entry points of csrc/auglu.cu, in order; every
-# entry point returns cudaGetLastError() as an int
+# entry point returns a CUDA error code as an int
 SIGNATURES = {
     'kkt_assemble_scaled': [_P] * 7 + [_I] * 3 + [_P],
-    'lu_factor_batched': [_P, _P, _I, _I, _P],
+    'lu_factor_cluster_occupancy': [_I, _I, _P],
+    'lu_factor_cluster': [_P, _P] + [_I] * 6 + [_P],
+    'lu_factor_unblocked': [_P, _P, _I, _I, _P],
     'lu_solve_batched': [_P] * 5 + [_I, _I, _P],
     'advance_state': [_P] * 26 + [_I] * 4 + [_D] * 3 + [_P],
 }
@@ -180,9 +187,66 @@ def lu_factor_batched_plain(Ks):
     return lu, piv
 
 
+LU_CLUSTER_MAX = 8          # CTAs per cluster (the portable limit, K2C_MAX_CLUSTER)
+LU_NB = 16                  # panel width, compiled into the cluster kernel (K2C_NB)
+SMEM_PER_BLOCK = 232_448    # shared memory one H100 block may use, bytes
+LU_STATIC_SMEM = 1_024      # room for the kernel's static shared arrays (384 B)
+
+
+class LUGeometry(NamedTuple):
+    """How K2 lays one lane out: ``variant`` 'cluster' runs a cluster of
+    ``C`` CTAs, each holding ``cols_per_cta`` whole columns (panels of
+    ``nb`` dealt block-cyclically, leading dimension ``ld``) in
+    ``smem_bytes`` of dynamic shared memory; 'unblocked' runs one block on
+    the matrix in global memory (the other fields then describe that).
+    This is the one place that computes the layout: the cluster kernel
+    takes C, cols_per_cta, ld and smem_bytes as they are."""
+    variant: str
+    C: int
+    nb: int
+    cols_per_cta: int
+    ld: int
+    smem_bytes: int
+
+
+def lu_factor_geometry(N: int) -> LUGeometry:
+    """K2's variant and layout for N x N lanes: the cluster variant when a
+    lane fits the shared memory of LU_CLUSTER_MAX CTAs, else unblocked."""
+    panels = -(-N // LU_NB)
+    C = min(LU_CLUSTER_MAX, panels)
+    cols = -(-panels // C) * LU_NB
+    ld = -(-N // 4) * 4           # float4 rows; not a multiple of the 32
+    if ld % 32 == 0:              # banks, so a row across columns spreads
+        ld += 4
+    # f32: the CTA's columns, the current L panel and the CTA's U12 block
+    smem = 4 * (cols * ld + LU_NB * ld + LU_NB * cols)
+    if smem + LU_STATIC_SMEM > SMEM_PER_BLOCK:
+        return LUGeometry('unblocked', 1, 1, N, N, 0)
+    return LUGeometry('cluster', C, LU_NB, cols, ld, smem)
+
+
+_max_clusters = {}
+
+
+def lu_cluster_max_active(geom: LUGeometry) -> int:
+    """Clusters of this geometry the card runs at once (asked once per
+    geometry); raises if it cannot run one."""
+    key = (geom.C, geom.smem_bytes)
+    if key not in _max_clusters:
+        count = ctypes.c_int(0)
+        _check('lu_factor_cluster_occupancy', library().lu_factor_cluster_occupancy(
+            geom.C, geom.smem_bytes, ctypes.byref(count)))
+        if count.value < 1:
+            raise RuntimeError(f'lu_factor_cluster: a cluster of {geom.C} CTAs with '
+                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
+        _max_clusters[key] = count.value
+    return _max_clusters[key]
+
+
 def lu_factor_batched(Ks):
     """(B,N,N) f32 -> (lu, piv (B,N) int32). On CUDA the factorization
-    overwrites Ks in place and returns it as lu."""
+    overwrites Ks in place and returns it as lu; the variant is
+    lu_factor_geometry(N)'s."""
     if not Ks.is_cuda:
         return lu_factor_batched_plain(Ks)
     name = 'lu_factor_batched'
@@ -190,9 +254,17 @@ def lu_factor_batched(Ks):
     B, N, N2 = Ks.shape
     if N != N2:
         raise ValueError(f'{name}: square matrices expected')
+    geom = lu_factor_geometry(N)
     piv = torch.empty(B, N, dtype=torch.int32, device=Ks.device)
-    _check(name, library().lu_factor_batched(_ptr(Ks), _ptr(piv), B, N, _stream()))
+    if geom.variant == 'cluster':
+        lu_cluster_max_active(geom)
+        _check(name, library().lu_factor_cluster(
+            _ptr(Ks), _ptr(piv), B, N, geom.C, geom.cols_per_cta, geom.ld,
+            geom.smem_bytes, _stream()))
+    else:
+        _check(name, library().lu_factor_unblocked(_ptr(Ks), _ptr(piv), B, N, _stream()))
     LAUNCHES[name] += 1
+    LAUNCHES[f'lu_factor_{geom.variant}'] += 1
     return Ks, piv
 
 

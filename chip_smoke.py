@@ -11,13 +11,18 @@ entry points, and checks the hand-written CUDA kernels on the way:
   2. build    compile awebox_tpu_torch/csrc/auglu.cu with nvcc (sm_90a)
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes, on anchor-derived and random systems, with the
-              times of both (median of 25 runs, CUDA events)
+              times of both (median of 25 runs, CUDA events); the LU factor
+              K2 in both variants, each where lu_factor_geometry takes it:
+              the cluster kernel at N=543, B = 1, 16 and 128, the unblocked
+              one at N=1055 B=2; K2 and cuSOLVER are also timed queued
+              behind a device sleep, which hides the host's dispatch
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
               9.5..10.5 m/s from tests/artifacts/bench_anchor_nk4_d3.npz,
               iterated to convergence (at most 100 iterations); every lane
               must latch KKT error <= 1e-5 and pass the f64 dynamics
               residual check <= 1e-4
-  5. path     every kernel launched during the slice run; state on the card
+  5. path     every kernel of the path launched during the slice run, every
+              factor through the cluster variant; state on the card
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -47,9 +52,12 @@ def require(ok, what):
         raise RuntimeError(f'chip_smoke check failed: {what}')
 
 
-def cuda_median_ms(fn, setup=None, n=N_TIMED):
+def cuda_median_ms(fn, setup=None, n=N_TIMED, queued=False):
     """Median device time of fn() in ms over n runs, each bracketed by CUDA
-    events after an untimed warm-up; setup() runs untimed before each."""
+    events after an untimed warm-up; setup() runs untimed before each. With
+    queued, the events and fn's launches are enqueued behind a ~0.1 s
+    device sleep, so the time is the card's alone even where fn's host side
+    (dispatch, a library's per-matrix calls) is slower than its device work."""
     import torch
     if setup is not None:
         setup()
@@ -60,6 +68,8 @@ def cuda_median_ms(fn, setup=None, n=N_TIMED):
             setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(200_000_000)
         start.record()
         fn()
         end.record()
@@ -129,6 +139,7 @@ def main():
     trial = Trial(bench_options(), 'chip_smoke').build()
     ocp = trial.ocp
     n, m = ocp.vstruct.total, ocp.n_eq + ocp.n_ineq
+    N = n + m
     anchor = dict(np.load(ANCHOR))
     state, P64, lbw, ubw, free, u_refs = wind_sweep_problem(trial, anchor, B, device=dev)
     vals_fn, jac_fn, hess_fn = make_structured_derivs(ocp)
@@ -169,49 +180,98 @@ def main():
     # held to the plain solve on cuSOLVER's factor: 1e-3 of max |x|, the
     # f32 forward error of triangular solves at cond(Ks) ~ 1e9 after the
     # Jacobi scaling.
+    # K2 has two variants, chosen by N (kernels.lu_factor_geometry): the
+    # cluster kernel at the slice's N, held at B = 1, 16 and 128 (the B=16
+    # systems repeated), and the unblocked kernel, held on a random saddle
+    # system of the n_k=8 size N=1055 at B=2, which only it takes.
+    # cuSOLVER's time as called moves between runs with the host's load
+    # (at N >= 512 PyTorch calls its getrf once per lane), so both factors
+    # are timed queued too.
     c = eq_a['b'].to(f32).contiguous()
-    lu_k, piv_k = kernels.lu_factor_batched(Ks_p.clone())
-    lu_p, piv_p = kernels.lu_factor_batched_plain(Ks_p)
-    lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()   # cuSOLVER's is column-major
-    x_k = kernels.lu_solve_batched(lu_k, piv_k, kd_p, c)
-    x_p = kernels.lu_solve_batched_plain(lu_p, piv_p, kd_p, c)
-    x_kp = kernels.lu_solve_batched(lu_p, piv_p, kd_p, c)
-    torch.cuda.synchronize()
+    geom = kernels.lu_factor_geometry(N)
+    require(geom.variant == 'cluster', f'N={N} does not take the cluster variant: {geom}')
+    max_clusters = kernels.lu_cluster_max_active(geom)
+    phase('kernels', f'K2 geometry at N={N}: {geom}; {max_clusters} clusters run at once')
 
     def plu(lu, piv):
         P, L, U = torch.lu_unpack(lu, piv)
         return P @ L @ U
-    dev_k = float((plu(lu_k, piv_k) - Ks_p).abs().max())
-    dev_p = float((plu(lu_p, piv_p) - Ks_p).abs().max())
-    require(dev_k <= 10 * max(dev_p, 1e-6), f'K2: |P L U - Ks| {dev_k:.3e} vs plain {dev_p:.3e}')
 
-    def scaled_res(x):
-        z = (x / kd_p).to(f64)
-        cc = (kd_p * c).to(f64)
-        r = (Ks_p.to(f64) @ z[:, :, None])[:, :, 0] - cc
+    def scaled_res(Ks, kd, c, x):
+        z = (x / kd).to(f64)
+        cc = (kd * c).to(f64)
+        r = (Ks.to(f64) @ z[:, :, None])[:, :, 0] - cc
         return (r.abs().amax(dim=1) / cc.abs().amax(dim=1)).cpu().numpy()
-    res_k, res_p = scaled_res(x_k), scaled_res(x_p)
-    require(np.isfinite(res_k).all() and np.isfinite(res_p).all(), 'K2+K3: non-finite residual')
-    require((res_k <= 10 * np.maximum(res_p, 1e-7)).all(), f'K2+K3 residuals {res_k} vs plain {res_p}')
+
+    def hold_k2(tag, Ks, kd, c, variant):
+        """Factor Ks with the kernel, which must take ``variant``, and with
+        cuSOLVER, solve both, apply the gates above, and time both factors."""
+        before = kernels.LAUNCHES[f'lu_factor_{variant}']
+        lu_k, piv_k = kernels.lu_factor_batched(Ks.clone())
+        require(kernels.LAUNCHES[f'lu_factor_{variant}'] == before + 1,
+                f'K2 {tag}: the {variant} variant did not run')
+        lu_p, piv_p = kernels.lu_factor_batched_plain(Ks)
+        lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()   # cuSOLVER's is column-major
+        x_k = kernels.lu_solve_batched(lu_k, piv_k, kd, c)
+        x_p = kernels.lu_solve_batched_plain(lu_p, piv_p, kd, c)
+        torch.cuda.synchronize()
+        dev_k = float((plu(lu_k, piv_k) - Ks).abs().max())
+        dev_p = float((plu(lu_p, piv_p) - Ks).abs().max())
+        require(dev_k <= 10 * max(dev_p, 1e-6),
+                f'K2 {variant} {tag}: |P L U - Ks| {dev_k:.3e} vs plain {dev_p:.3e}')
+        res_k, res_p = scaled_res(Ks, kd, c, x_k), scaled_res(Ks, kd, c, x_p)
+        require(np.isfinite(res_k).all() and np.isfinite(res_p).all(),
+                f'K2+K3 {variant} {tag}: non-finite residual')
+        require((res_k <= 10 * np.maximum(res_p, 1e-7)).all(),
+                f'K2+K3 {variant} {tag}: residuals {res_k} vs plain {res_p}')
+        work = torch.empty_like(Ks)
+        factor = lambda: kernels.lu_factor_batched(work)
+        refill = lambda: work.copy_(Ks)
+        plain = lambda: kernels.lu_factor_batched_plain(Ks)
+        out = dict(max_abs_err=float((plu(lu_k, piv_k) - plu(lu_p, piv_p)).abs().max()),
+                   ms=cuda_median_ms(factor, setup=refill),
+                   plain_ms=cuda_median_ms(plain),
+                   queued_ms=cuda_median_ms(factor, setup=refill, queued=True),
+                   plain_queued_ms=cuda_median_ms(plain, queued=True))
+        phase('kernels', f'K2 {variant} {tag}: max |P L U - Ks| kernel {dev_k:.3e} vs plain '
+              f'{dev_p:.3e} (max |Ks| {float(Ks.abs().max()):.3e}); K2+K3 scaled residual '
+              f'max {res_k.max():.3e} vs plain {res_p.max():.3e}; {out["ms"]:.3f} ms vs '
+              f'plain {out["plain_ms"]:.3f} ms; queued {out["queued_ms"]:.3f} ms vs '
+              f'plain {out["plain_queued_ms"]:.3f} ms')
+        return out
+
+    cluster_at = {}
+    for Bk in (1, B, 8 * B):
+        rep = (Bk + B - 1) // B
+        args2 = [t.repeat(rep, *([1] * (t.dim() - 1)))[:Bk].contiguous() for t in (Ks_p, kd_p, c)]
+        cluster_at[f'B={Bk}'] = hold_k2(f'N={N} B={Bk}', *args2, 'cluster')
+    rng = np.random.default_rng(1)
+    n8, m8 = 540, 515
+    sys8 = [torch.as_tensor(a, dtype=f64, device=dev) for a in random_systems(rng, n8, m8, 2)]
+    eq8 = batch.equilibrate(*sys8, torch.ones(n8, dtype=f64, device=dev), 1e-8)
+    Ks8, kd8 = kernels.kkt_assemble_scaled(eq8['W32'], eq8['A32'], eq8['Dr32'], eq8['free32'],
+                                           torch.full((2,), 1e-8, dtype=f64, device=dev))
+    require(kernels.lu_factor_geometry(n8 + m8).variant == 'unblocked',
+            'N=1055 does not take the unblocked variant')
+    report['lu_factor_unblocked'] = dict(
+        hold_k2(f'N={n8 + m8} B=2', Ks8, kd8, eq8['b'].to(f32).contiguous(), 'unblocked'),
+        N=n8 + m8, B=2)
+    report['lu_factor_cluster'] = dict(cluster_at[f'B={B}'], at=cluster_at,
+                                       max_active_clusters=max_clusters)
+
+    lu_p, piv_p = kernels.lu_factor_batched_plain(Ks_p)
+    lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()
+    x_p = kernels.lu_solve_batched_plain(lu_p, piv_p, kd_p, c)
+    x_kp = kernels.lu_solve_batched(lu_p, piv_p, kd_p, c)
+    torch.cuda.synchronize()
     err3 = float((x_kp - x_p).abs().max())
     require(err3 <= 1e-3 * float(x_p.abs().max()), f'K3: max |x - x_plain| {err3:.3e}')
-    Ks_work = torch.empty_like(Ks_p)
-    report['lu_factor_batched'] = dict(
-        max_abs_err=float((plu(lu_k, piv_k) - plu(lu_p, piv_p)).abs().max()),
-        ms=cuda_median_ms(lambda: kernels.lu_factor_batched(Ks_work),
-                          setup=lambda: Ks_work.copy_(Ks_p)),
-        plain_ms=cuda_median_ms(lambda: kernels.lu_factor_batched_plain(Ks_p)))
     report['lu_solve_batched'] = dict(
         max_abs_err=err3,
         ms=cuda_median_ms(lambda: kernels.lu_solve_batched(lu_p, piv_p, kd_p, c)),
         plain_ms=cuda_median_ms(lambda: kernels.lu_solve_batched_plain(lu_p, piv_p, kd_p, c)))
-    phase('kernels', f'K2 lu_factor_batched: max |P L U - Ks| kernel {dev_k:.3e} vs '
-          f'plain {dev_p:.3e} (max |Ks| {float(Ks_p.abs().max()):.3e}); '
-          f'{report["lu_factor_batched"]["ms"]:.3f} ms vs plain '
-          f'{report["lu_factor_batched"]["plain_ms"]:.3f} ms')
     phase('kernels', f'K3 lu_solve_batched: max |x - x_plain| {err3:.3e} (max |x| '
-          f'{float(x_p.abs().max()):.3e}); K2+K3 scaled residual max {res_k.max():.3e} '
-          f'vs plain {res_p.max():.3e}; {report["lu_solve_batched"]["ms"]:.3f} ms vs '
+          f'{float(x_p.abs().max()):.3e}); {report["lu_solve_batched"]["ms"]:.3f} ms vs '
           f'plain {report["lu_solve_batched"]["plain_ms"]:.3f} ms')
 
     # the whole direction solve (K1-K3 + refinement + ladder) on the card
@@ -329,12 +389,18 @@ def main():
     require(np.isfinite(powers).all(), f'non-finite average power {powers}')
 
     # --- 5. path check ----------------------------------------------------
-    require(all(v > 0 for v in launches.values()), f'a kernel did not run in the slice: {launches}')
+    # at N=543 every factor takes the cluster variant; the unblocked one
+    # serves lanes no cluster holds and is held above at N=1055
+    on_path = [k for k in launches if k != 'lu_factor_unblocked']
+    require(all(launches[k] > 0 for k in on_path), f'a kernel did not run in the slice: {launches}')
+    require(launches['lu_factor_cluster'] == launches['lu_factor_batched'],
+            f'a factor of the slice did not take the cluster variant: {launches}')
     require(all(v.is_cuda for v in res['state'].values()), 'the state left the card')
     phase('path', f'kernel launches in the slice run: {launches}')
 
     sources = {'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
-               'lu_factor_batched': 'awebox_tpu/parallel/batch.py:414',
+               'lu_factor_cluster': 'awebox_tpu/parallel/batch.py:414',
+               'lu_factor_unblocked': 'awebox_tpu/parallel/batch.py:414',
                'lu_solve_batched': 'awebox_tpu/parallel/batch.py:416',
                'advance_state': 'awebox_tpu/parallel/batch.py:449'}
     print(json.dumps({'kernels': [

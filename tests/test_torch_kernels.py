@@ -65,6 +65,158 @@ def random_step_inputs(B=4, n=40, n_eq=20, n_ineq=8, seed=17, device='cpu'):
     return (state, direction, ok, err_d, err_k, t(lbw), t(ubw), 0.99, 0.4, 1e-8)
 
 
+def cluster_lu_mirror(A, C=8, nb=16):
+    """Plain-PyTorch mirror of csrc/auglu.cu's lu_factor_cluster_kernel on
+    one (N, N) f32 matrix, with the kernel's bookkeeping: panel g of nb
+    columns lives on owner g % C as its local panel g // C; per panel the
+    owner factors it (first largest |a|, NaN never chosen, a NaN column keeps
+    the diagonal, no clamp of a zero pivot), then every owner applies the
+    panel's row swaps to all its columns but the panel itself, solves its
+    U12 block and applies the rank-nb update to its trailing local panels
+    (those from lp_start on). Returns (lu, piv) like lu_factor_ex."""
+    N = A.shape[0]
+    panels = -(-N // nb)
+    C = min(C, panels)
+    n_local = [(panels - r + C - 1) // C for r in range(C)]
+    local = []
+    for r in range(C):
+        X = torch.zeros(N, n_local[r] * nb, dtype=A.dtype)
+        for lp in range(n_local[r]):
+            g0 = (lp * C + r) * nb
+            w = min(nb, N - g0)
+            X[:, lp * nb:lp * nb + w] = A[:, g0:g0 + w]
+        local.append(X)
+    piv = torch.empty(N, dtype=torch.int32)
+    for p in range(panels):
+        owner, lpo, p0 = p % C, p // C, p * nb
+        w = min(nb, N - p0)
+        P = local[owner][:, lpo * nb:lpo * nb + w]
+        s_piv = []
+        for k in range(w):
+            gk = p0 + k
+            a = P[gk:, k].abs()
+            a = torch.where(torch.isnan(a), torch.tensor(-1., dtype=a.dtype), a)
+            pr = gk + int(torch.argmax(a)) if float(a.max()) >= 0 else gk
+            if pr != gk:
+                P[[gk, pr], :] = P[[pr, gk], :]
+            s_piv.append(pr)
+            piv[gk] = pr + 1
+            P[gk + 1:, k] = P[gk + 1:, k] / P[gk, k]
+            P[gk + 1:, k + 1:] -= P[gk + 1:, k:k + 1] * P[gk:gk + 1, k + 1:]
+        L = P[p0:, :].clone()
+        for r in range(C):
+            X = local[r]
+            keep = torch.ones(X.shape[1], dtype=torch.bool)
+            if r == owner:
+                keep[lpo * nb:lpo * nb + w] = False
+            for k, pr in enumerate(s_piv):
+                if pr != p0 + k:
+                    rows = X[[p0 + k, pr], :]
+                    X[[pr, p0 + k], :] = torch.where(keep, rows, X[[pr, p0 + k], :])
+            lp_start = 0 if p < r else (p - r) // C + 1
+            c0 = lp_start * nb
+            if c0 < X.shape[1]:
+                U = torch.linalg.solve_triangular(L[:w, :w], X[p0:p0 + w, c0:],
+                                                  upper=False, unitriangular=True)
+                X[p0:p0 + w, c0:] = U
+                X[p0 + w:, c0:] -= L[w:, :] @ U
+    lu = torch.empty_like(A)
+    for r in range(C):
+        for lp in range(n_local[r]):
+            g0 = (lp * C + r) * nb
+            w = min(nb, N - g0)
+            lu[:, g0:g0 + w] = local[r][:, lp * nb:lp * nb + w]
+    return lu, piv
+
+
+def separated_pivots(N, seed):
+    """An f32 matrix whose partial pivots are well separated: the rows of
+    diag(d) + 0.05 noise with d in [1, 3], permuted, so every candidate row
+    differs from the next by far more than rounding."""
+    rng = np.random.default_rng(seed)
+    M = np.diag(rng.uniform(1., 3., N)) + 0.05 * rng.standard_normal((N, N)) / np.sqrt(N)
+    return torch.as_tensor(M[rng.permutation(N)], dtype=torch.float32)
+
+
+@pytest.mark.parametrize('N', [37, 130, 543])
+def test_cluster_lu_mirror_matches_lapack(N):
+    """The cluster kernel's algorithm (mirrored on the CPU) against LAPACK
+    getrf on the same f32 input: identical pivots where the pivots are well
+    separated, and P L U reproducing a random Gaussian matrix to 1e-5 of
+    max |A| (f32 backward error of partial pivoting at these N)."""
+    A = separated_pivots(N, seed=N)
+    lu, piv = cluster_lu_mirror(A)
+    lu_ref, piv_ref, _ = torch.linalg.lu_factor_ex(A)
+    assert torch.equal(piv, piv_ref)
+    np.testing.assert_allclose(lu.numpy(), lu_ref.numpy(), rtol=0, atol=1e-5)
+    G = torch.as_tensor(np.random.default_rng(N + 1).standard_normal((N, N)),
+                        dtype=torch.float32)
+    lu, piv = cluster_lu_mirror(G)
+    P, L, U = torch.lu_unpack(lu, piv)
+    err = float((P @ L @ U - G).abs().max()) / float(G.abs().max())
+    assert err <= 1e-5, err
+
+
+def test_cluster_lu_mirror_tie_nan_and_singular():
+    """A tie picks the lower row; a column of NaNs keeps the diagonal; a
+    singular lane (a zero column) gives non-finite factors, where LAPACK
+    leaves a zero on U's diagonal: either way the solve is non-finite and
+    the delta ladder retries."""
+    N = 40
+    A = separated_pivots(N, seed=5)
+    A[:, 0] = 0.
+    A[7, 0] = A[19, 0] = -2.5      # |a| ties at rows 3, 7 and 19: row 3 wins
+    A[3, 0] = 2.5
+    _, piv = cluster_lu_mirror(A)
+    assert int(piv[0]) == 4         # row 3, 1-based
+    A = separated_pivots(N, seed=6)
+    A[:, 21] = float('nan')
+    _, piv = cluster_lu_mirror(A)
+    ref = torch.linalg.lu_factor_ex(separated_pivots(N, seed=6))[1]
+    assert torch.equal(piv[:21], ref[:21])
+    assert torch.equal(piv[21:], torch.arange(22, N + 1, dtype=torch.int32))
+    A = separated_pivots(N, seed=7)
+    A[:, 12] = 0.
+    lu, piv = cluster_lu_mirror(A)
+    assert not bool(torch.isfinite(lu).all())
+    lu_ref, piv_ref, info = torch.linalg.lu_factor_ex(A)
+    assert int(info) > 0 and float(torch.diagonal(lu_ref).abs().min()) == 0.
+    b = torch.ones(N, 1)
+    assert not bool(torch.isfinite(torch.linalg.lu_solve(lu, piv, b)).all())
+    assert not bool(torch.isfinite(torch.linalg.lu_solve(lu_ref, piv_ref, b)).all())
+
+
+@pytest.mark.parametrize('N', [37, 130, 543, 577, 600, 1055])
+def test_lu_factor_geometry(N):
+    """The cluster variant at the slice's N=543 within one block's shared
+    memory, the unblocked one at the n_k=8 system's N=1055; a cluster
+    layout stays within a block's shared memory, covers all N columns
+    exactly once and fits each CTA's columns, and the kernel's compiled
+    limits hold (C <= 8, N <= 1024 panel rows in registers)."""
+    from awebox_tpu_torch.parallel import kernels
+    g = kernels.lu_factor_geometry(N)
+    if N == 543:
+        assert g.variant == 'cluster' and g.C == 8 and g.nb == 16
+    if N == 1055:
+        assert g.variant == 'unblocked'
+    if g.variant == 'unblocked':
+        return
+    assert g.smem_bytes + kernels.LU_STATIC_SMEM <= 232_448
+    assert 1 <= g.C <= 8 and N <= 1024
+    assert g.ld >= N and g.ld % 4 == 0 and g.ld % 32 != 0
+    # the CTA's columns alone take cols_per_cta * ld floats of it
+    assert 4 * g.cols_per_cta * g.ld < g.smem_bytes
+    panels = -(-N // g.nb)
+    seen = []
+    for r in range(g.C):
+        n_local = (panels - r + g.C - 1) // g.C
+        assert 1 <= n_local and n_local * g.nb <= g.cols_per_cta
+        for lp in range(n_local):
+            g0 = (lp * g.C + r) * g.nb
+            seen += list(range(g0, min(N, g0 + g.nb)))
+    assert sorted(seen) == list(range(N))
+
+
 def test_kkt_assembly_plain_is_the_jax_formula():
     """K1's plain version computes awebox_tpu/parallel/batch.py:333-336,
     409-413 exactly: the same f32 operations in the same order (checked bit
@@ -185,3 +337,79 @@ def test_direction_solve_on_card_matches_cpu(cuda):
         ref = out_h[k].numpy()
         np.testing.assert_allclose(out_c[k].cpu().numpy(), ref, rtol=0,
                                    atol=1e-6 * np.abs(ref).max())
+
+
+def plu_and_residual_gates(A, lu, piv, variant):
+    """Holds a factor of A (B, N, N) on the card to cuSOLVER's: max |P L U - A|
+    within 10x of cuSOLVER's (f32 backward error of pivoted LU times the
+    growth factor, which differ by rounding order), and the scaled residual
+    |A x - c| / |c| of the K3 solve within 10x of the plain solve's."""
+    from awebox_tpu_torch.parallel import kernels
+    B, N, _ = A.shape
+    lu_p, piv_p = kernels.lu_factor_batched_plain(A)
+    lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()
+    ones = torch.ones(B, N, device=A.device)
+    c = torch.as_tensor(np.random.default_rng(N).standard_normal((B, N)),
+                        dtype=torch.float32, device=A.device)
+
+    def plu(lu, piv):
+        P, L, U = torch.lu_unpack(lu, piv)
+        return P @ L @ U
+
+    def res(x):
+        r = (A.double() @ x.double()[:, :, None])[:, :, 0] - c.double()
+        return (r.abs().amax(dim=1) / c.double().abs().amax(dim=1)).cpu().numpy()
+    dev_k = (plu(lu, piv) - A).abs().amax(dim=(1, 2)).cpu().numpy()
+    dev_p = (plu(lu_p, piv_p) - A).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert (dev_k <= 10 * np.maximum(dev_p, 1e-6)).all(), (variant, dev_k, dev_p)
+    res_k = res(kernels.lu_solve_batched(lu, piv, ones, c))
+    res_p = res(kernels.lu_solve_batched_plain(lu_p, piv_p, ones, c))
+    assert np.isfinite(res_k).all(), variant
+    assert (res_k <= 10 * np.maximum(res_p, 1e-7)).all(), (variant, res_k, res_p)
+
+
+@pytest.mark.cuda
+def test_lu_factor_cluster_matches_plain_on_card(cuda):
+    """The cluster variant of K2 against cuSOLVER and the CPU mirror of its
+    algorithm, at N = 37 and 543 and B = 1, 3 and 16: pivots equal to cuSOLVER's on matrices
+    with well-separated pivots, the P L U and scaled-residual gates, a
+    singular lane (a zero column) with a non-finite factor and solve, and a
+    lane with a NaN column whose pivots are the mirror's (the diagonal from
+    that column on). The counter of the cluster variant moves once per
+    factor. Then the unblocked variant at N=1055, B=2, which no cluster
+    holds."""
+    from awebox_tpu_torch.parallel import kernels
+    for N, B in ((N, B) for N in (37, 543) for B in (1, 3, 16)):
+        A = torch.stack([separated_pivots(N, seed=100 * B + b) for b in range(B)])
+        bad = {}
+        if B > 1:
+            sing, nanl = B // 3, B - 1
+            A[sing, :, N // 3] = 0.
+            A[nanl, :, N // 2] = float('nan')
+            bad = {sing: 'singular', nanl: 'nan'}
+        Ac = A.to(cuda)
+        before = dict(kernels.LAUNCHES)
+        lu, piv = kernels.lu_factor_batched(Ac.clone())
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['lu_factor_cluster'] == before['lu_factor_cluster'] + 1
+        assert kernels.LAUNCHES['lu_factor_batched'] == before['lu_factor_batched'] + 1
+        good = [b for b in range(B) if b not in bad]
+        piv_p = kernels.lu_factor_batched_plain(Ac[good])[1]
+        assert torch.equal(piv[good], piv_p.contiguous())
+        plu_and_residual_gates(Ac[good].contiguous(), lu[good].contiguous(),
+                               piv[good].contiguous(), 'cluster')
+        for b, kind in bad.items():
+            x = kernels.lu_solve_batched(lu[b:b + 1], piv[b:b + 1], torch.ones(1, N, device=cuda),
+                                         torch.ones(1, N, device=cuda))
+            assert not bool(torch.isfinite(x).all()), kind
+            if kind == 'singular':
+                assert not bool(torch.isfinite(lu[b]).all())
+            else:
+                assert torch.equal(piv[b].cpu(), cluster_lu_mirror(A[b])[1])
+    A = torch.as_tensor(np.random.default_rng(9).standard_normal((2, 1055, 1055)),
+                        dtype=torch.float32, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    lu, piv = kernels.lu_factor_batched(A.clone())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['lu_factor_unblocked'] == before['lu_factor_unblocked'] + 1
+    plu_and_residual_gates(A, lu, piv, 'unblocked')
