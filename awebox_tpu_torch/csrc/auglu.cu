@@ -10,7 +10,9 @@
 //                            per thread-block cluster, the matrix in shared
 //                            memory) and lu_factor_unblocked (a lane per
 //                            block, the matrix in global memory)
-//   K3 lu_solve_batched      batch.py:416-418  kd * lu_solve(lu, piv, kd * v)
+//   K3 lu_solve_batched      batch.py:416-418  kd * lu_solve(lu, piv, kd * v),
+//                            a tiled triangular solve, the factor streamed
+//                            through shared memory
 //   K4 advance_state         batch.py:449-512  fraction-to-boundary step,
 //                            dual safeguards and barrier update (f64)
 //
@@ -541,71 +543,351 @@ lu_factor_unblocked_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, in
 }
 
 // ---------------------------------------------------------------------------
-// K3: x = kd * lu_solve(lu, piv, kd * v), one thread block per lane. The
-// right-hand side lives in shared memory; pivots are applied in order by
-// one thread (N swaps), then each row of the unit-lower forward and the
-// upper back substitution is one block-wide dot product over a contiguous
-// (coalesced) row of the factor. Bound by latency: 2N dependent block
-// reductions per solve, each reading at most N floats.
+// K3: x = kd * lu_solve(lu, piv, kd * v), replacing jax.scipy.linalg.lu_solve
+// inside ksolve (awebox_tpu/parallel/batch.py:416-418); one CTA of 8 warps
+// per lane, any N.
+//
+// What bounds a triangular solve on this card is its dependent chain, not
+// its bytes: one lane's factor (1.18 MB at N = 543) takes 0.35 us of HBM
+// time, but a row-by-row solve is 2N dependent block-wide reductions, each
+// behind an L2 round trip. This design cuts the chain to 2 ceil(N/32) tile
+// steps (34 at N = 543), one block barrier each:
+//   - The factor is cut into 32 x 32 tiles. Forward (unit L) runs over
+//     column tiles t = 0..T-1, back (U) over t = T-1..0. In step t, warp 0
+//     solves the diagonal tile in registers (32 steps of shuffle broadcast
+//     and FMA; U's diagonal by its reciprocal, taken off the chain: on the
+//     chain an IEEE division cost ~0.8 us a tile). One barrier
+//     publishes the 32 values. Warp 0 then applies them to the next tile's
+//     rows (look-ahead) and goes on to that diagonal tile, while warps 1-7
+//     apply them to the remaining rows below (above, for U) in its shadow:
+//     a lane per row, one 128-byte row segment per tile (right-looking).
+//   - The factor streams through shared memory ahead of use. Each warp knows
+//     the tiles it consumes (warp 0 the diagonal and look-ahead tiles, warp
+//     w >= 1 every 7th remaining tile of a step) and keeps its next sw tiles
+//     in flight in its own ring of sw slots, a copy issued only once the
+//     slot's tile is used (warp 0 refills after its next diagonal solve, so
+//     no copy is issued on the chain). Rows are 4N bytes apart,
+//     so at odd N a row segment starts anywhere in a 16-byte block and TMA
+//     does not apply; the warp copies the aligned 16-byte blocks that cover
+//     each segment by cp.async.cg (4-byte copies issued too slowly: with
+//     them the loads held the chain back by half its time), and each lane
+//     reads its row from its own offset. No load sits on the chain.
+//   - The pivots are off the chain: LAPACK's sequential interchanges are
+//     composed per chunk of 32 in parallel (each lane traces its row and its
+//     pivot row back through the chunk's swaps), then warp 0 applies the
+//     ceil(N/32) chunk permutations as gathers, instead of N serial swaps.
+// Numerics: IEEE f32 FMA on the CUDA cores; nothing is skipped for a zero
+// entry, so a non-finite factor reaches x and the delta ladder retries.
+// What still bounds it (H100, N = 543, ~77 us at B = 1 and 16, phase cuts
+// of awebox_tpu_torch/probes/solve_phases.py): ~2.3 us a step, of which the
+// diagonal chain takes ~0.55; the tile copies cost ~0.65 a step though no
+// wait on them is ever taken (they share the memory pipe with the chain's
+// shuffles and shared loads), warps 1-7 ~0.25, the barrier ~0.1.
 // ---------------------------------------------------------------------------
 constexpr int K3_THREADS = 256;
+constexpr int K3_WARPS = K3_THREADS / 32;
+constexpr int K3_NB = 32;                  // tile width: a warp
+constexpr int K3_CHUNKS = K3_NB / 4 + 1;  // aligned 16-byte blocks that cover a row of a tile
+constexpr int K3_TILE = 1168;              // floats per ring slot: k3_base(31) + 4 K3_CHUNKS,
+                                           // rounded up to 16 bytes
+constexpr unsigned K3_FULL = 0xffffffffu;
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (wl == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.0f;
-  if (tid == 0) {
-    for (int w = 0; w < K3_THREADS / 32; ++w) s += red[w];
-  }
-  return s;  // valid in thread 0 only
+// The step sequence: step s < T solves column tile s of L, step s >= T
+// column tile 2T-1-s of U. Step s has k3_ntiles tiles: index 0 is the
+// diagonal tile, 1 the look-ahead tile (the rows solved next), 2.. the rest,
+// in the order of the solve. Warp 0 owns indices 0 and 1, warp w >= 1 the
+// indices w+1, w+8, ...
+__device__ __forceinline__ int k3_ntiles(int s, int T) { return (s < T ? T : 2 * T) - s; }
+
+__device__ __forceinline__ int k3_first(int warp) { return warp == 0 ? 0 : warp + 1; }
+
+__device__ __forceinline__ int k3_stride(int warp) { return warp == 0 ? 1 : K3_WARPS - 1; }
+
+// row tile of index idx of step s (its column tile is the step's)
+__device__ __forceinline__ int k3_row_tile(int s, int idx, int T) {
+  return s < T ? s + idx : 2 * T - 1 - s - idx;
 }
 
-__global__ void __launch_bounds__(K3_THREADS)
+// A warp's walk over its own tiles, in the order it consumes them; s == 2T
+// once no tile is left.
+struct K3Walk {
+  int s, idx;
+  __device__ __forceinline__ void settle(int T, int warp) {
+    while (s < 2 * T && idx >= (warp == 0 ? min(2, k3_ntiles(s, T)) : k3_ntiles(s, T))) {
+      ++s;
+      idx = k3_first(warp);
+    }
+  }
+};
+
+// Row r of a tile lives in its slot from k3_base(r) on, as the K3_CHUNKS
+// aligned 16-byte blocks that cover it; its first entry sits k3_shift floats
+// into the first block. The 4 (r / 8) offset puts the 32 rows' entries k on
+// 32 different banks when N is odd (the shift then runs through 0..3 with r).
+__device__ __forceinline__ int k3_base(int r) { return r * 4 * K3_CHUNKS + 4 * (r >> 3); }
+
+__device__ __forceinline__ int k3_shift(const float* row) {
+  return (int)((uintptr_t)row >> 2) & 3;
+}
+
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, bool copy) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(copy ? 16 : 0) : "memory");
+}
+
+// A lane's share of every tile copy, computed once: its i-th block is block
+// c4[i] / 4 of row r[i] (block q = 32 i + lane of the tile's 32 K3_CHUNKS),
+// r[i] N floats into the tile and off[i] floats into the slot.
+struct K3Blocks {
+  int r[K3_CHUNKS], c4[K3_CHUNKS], rN[K3_CHUNKS], off[K3_CHUNKS];
+
+  __device__ __forceinline__ void init(int N, int wl) {
+#pragma unroll
+    for (int i = 0; i < K3_CHUNKS; ++i) {
+      const int q = i * 32 + wl;
+      r[i] = q / K3_CHUNKS;
+      c4[i] = 4 * (q - r[i] * K3_CHUNKS);
+      rN[i] = r[i] * N;
+      off[i] = k3_base(r[i]) + c4[i];
+    }
+  }
+};
+
+// The warp copies tile (ti, tj) of the lane's factor a into slot, one
+// 16-byte block per lane and instruction. A block is read only if it holds
+// an entry of the tile, so no read leaves the factor's rows; the others,
+// rows past N included, are filled with zeros. Entries of the next row that
+// share a block with the tile's last columns are zeroed by k3_row.
+__device__ __forceinline__ void k3_load(float* slot, const K3Blocks& b,
+                                        const float* __restrict__ a, int N, int ti, int tj) {
+  const int rows = min(K3_NB, N - ti * K3_NB);
+  const int cols = min(K3_NB, N - tj * K3_NB);
+  const float* tile = a + (size_t)ti * K3_NB * N + tj * K3_NB;
+#pragma unroll
+  for (int i = 0; i < K3_CHUNKS; ++i) {
+    const float* row = tile + b.rN[i];
+    const int shift = k3_shift(row);
+    cp_async16_zfill(slot + b.off[i], row - shift + b.c4[i],
+                     b.r[i] < rows && b.c4[i] < shift + cols);
+  }
+}
+
+// The lane's row of tile (ti, tj) in a slot that has landed; the columns
+// past N are zeroed (the last column tile only).
+__device__ __forceinline__ float* k3_row(float* slot, const float* __restrict__ a, int N,
+                                         int ti, int tj, int wl) {
+  const float* src = a + (size_t)(ti * K3_NB + wl) * N + tj * K3_NB;
+  float* row = slot + k3_base(wl) + k3_shift(src);
+  for (int k = N - tj * K3_NB; k < K3_NB; ++k) row[k] = 0.0f;
+  return row;
+}
+
+// A warp's ring of SW slots over its own tiles: tile k lands in slot k % SW.
+// Of the tiles taken, `freed` were given back; giving tile k back issues the
+// copy of tile k + SW into its slot, so no copy is issued before a tile is
+// used. Each copy is one cp.async group: tile k has landed once at most
+// SW - 1 - (taken - freed) groups are pending.
+template <int SW>
+struct K3Ring {
+  float* slots;
+  const float* a;
+  int N, T, warp, wl;
+  K3Walk ahead;
+  K3Blocks blocks;
+  int taken, freed;
+
+  __device__ __forceinline__ void issue(float* slot) {
+    if (ahead.s < 2 * T) {
+      k3_load(slot, blocks, a, N, k3_row_tile(ahead.s, ahead.idx, T),
+              ahead.s < T ? ahead.s : 2 * T - 1 - ahead.s);
+      ahead.idx += k3_stride(warp);
+      ahead.settle(T, warp);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  __device__ __forceinline__ void start() {
+    blocks.init(N, wl);
+    ahead = {0, k3_first(warp)};
+    ahead.settle(T, warp);
+    taken = freed = 0;
+#pragma unroll
+    for (int i = 0; i < SW; ++i) issue(slots + i * K3_TILE);
+  }
+
+  __device__ __forceinline__ float* take() {
+    if (taken == freed) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(SW - 1) : "memory");
+    } else {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(SW - 2) : "memory");
+    }
+    __syncwarp();
+    return slots + (taken++ % SW) * K3_TILE;
+  }
+
+  __device__ __forceinline__ void give_back_all() {
+    __syncwarp();                     // every lane is done with the slots
+    while (freed < taken) issue(slots + (freed++ % SW) * K3_TILE);
+  }
+};
+
+template <int SW>
+__global__ void __launch_bounds__(K3_THREADS, 1)
 lu_solve_kernel(const float* __restrict__ lu, const int32_t* __restrict__ piv,
                 const float* __restrict__ kd, const float* __restrict__ v,
                 float* __restrict__ x, int N) {
-  extern __shared__ float y[];
-  __shared__ float red[K3_THREADS / 32];
+  extern __shared__ float4 k3_dyn[];
+  const int T = (N + K3_NB - 1) / K3_NB;
+  const int Np = T * K3_NB;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  float* y = reinterpret_cast<float*>(k3_dyn) + (size_t)K3_WARPS * SW * K3_TILE;  // [Np]
+  int* src_a = reinterpret_cast<int*>(y + Np);   // [Np] row k takes row src_a[k] ...
+  int* src_b = src_a + Np;                       // ... and its pivot row dst_b[k]
+  int* dst_b = src_b + Np;                       //     row src_b[k], in k's chunk
   const int lane = blockIdx.x;
   const float* a = lu + (size_t)lane * N * N;
   const int32_t* pv = piv + (size_t)lane * N;
   const float* kdl = kd + (size_t)lane * N;
-  const int tid = threadIdx.x;
 
-  for (int i = tid; i < N; i += K3_THREADS) {
-    y[i] = __fmul_rn(kdl[i], v[(size_t)lane * N + i]);
+  // the warp's first sw tiles in flight
+  K3Ring<SW> ring;
+  ring.slots = reinterpret_cast<float*>(k3_dyn) + (size_t)warp * SW * K3_TILE;
+  ring.a = a;
+  ring.N = N;
+  ring.T = T;
+  ring.warp = warp;
+  ring.wl = wl;
+  ring.start();
+
+  // y = P (kd * v): per chunk of 32 interchanges, lane q traces row c0+q and
+  // its pivot row back through the chunk's swaps (rows past N swap with
+  // themselves); then warp 0 applies the chunks in order as gathers. Two
+  // lanes that write one row write the same value.
+  for (int i = tid; i < Np; i += K3_THREADS) {
+    y[i] = i < N ? __fmul_rn(kdl[i], v[(size_t)lane * N + i]) : 0.0f;
+  }
+  for (int c = warp; c < T; c += K3_WARPS) {
+    const int k = c * K3_NB + wl;
+    const int p = k < N ? pv[k] - 1 : k;
+    int ra = k, rb = p;
+#pragma unroll
+    for (int q = K3_NB - 1; q >= 0; --q) {
+      const int pq = __shfl_sync(K3_FULL, p, q);
+      const int kq = c * K3_NB + q;
+      ra = ra == kq ? pq : (ra == pq ? kq : ra);
+      rb = rb == kq ? pq : (rb == pq ? kq : rb);
+    }
+    src_a[k] = ra;
+    src_b[k] = rb;
+    dst_b[k] = p;
   }
   __syncthreads();
-  if (tid == 0) {
-    for (int k = 0; k < N; ++k) {
-      const int p = pv[k] - 1;
-      if (p != k) { float t = y[k]; y[k] = y[p]; y[p] = t; }
+  if (warp == 0) {
+    for (int c = 0; c < T; ++c) {
+      const int k = c * K3_NB + wl;
+      const float va = y[src_a[k]], vb = y[src_b[k]];
+      __syncwarp();
+      if (k < N) {
+        y[k] = va;
+        y[dst_b[k]] = vb;
+      }
+      __syncwarp();
     }
   }
+
+  for (int s = 0; s < 2 * T; ++s) {
+    const bool fwd = s < T;
+    const int t = fwd ? s : 2 * T - 1 - s;
+    const int r0 = t * K3_NB;
+    const int w = min(K3_NB, N - r0);
+    const int n = k3_ntiles(s, T);
+    float yj = 0.0f;                  // warp 0: lane wl's entry of the diagonal tile
+    if (warp == 0) {
+      const float* D = k3_row(ring.take(), a, N, t, t, wl);
+      float d[K3_NB];
+#pragma unroll
+      for (int k = 0; k < K3_NB; ++k) d[k] = D[k];
+      yj = y[r0 + wl];
+      // rows past N (lanes >= w of the last tile) hold zeros and meet only
+      // zero entries of the tile, so no lane is masked
+      if (fwd) {                      // unit lower: y_j -= L_jk y_k, k < j
+#pragma unroll
+        for (int k = 0; k < K3_NB - 1; ++k) {
+          const float yk = __shfl_sync(K3_FULL, yj, k);
+          if (wl > k) yj = fmaf(-d[k], yk, yj);
+        }
+      } else {                        // upper: y_k *= 1/U_kk, then y_j -= U_jk y_k, j < k
+        // the reciprocal (IEEE, within an ulp of getrs's division) is taken
+        // off the chain, once per lane; rows past N scale their zero by 1
+        const float rinv = wl < w ? 1.0f / D[wl] : 1.0f;
+#pragma unroll
+        for (int k = K3_NB - 1; k >= 0; --k) {
+          if (wl == k) yj *= rinv;
+          if (k > 0) {
+            const float yk = __shfl_sync(K3_FULL, yj, k);
+            if (wl < k) yj = fmaf(-d[k], yk, yj);
+          }
+        }
+      }
+      if (wl < w) {
+        y[r0 + wl] = yj;
+      } else {
+        yj = 0.0f;                    // rows past N stay zero
+      }
+      ring.give_back_all();           // this tile and the last look-ahead tile
+    }
+    __syncthreads();                  // the tile's values are out; every update of step s-1 is in
+
+    if (warp == 0) {
+      if (n > 1) {                    // look-ahead: the rows solved next
+        const int ti = k3_row_tile(s, 1, T), row = ti * K3_NB + wl;
+        const float* M = k3_row(ring.take(), a, N, ti, t, wl);   // given back after
+        float acc[4] = {y[row], 0.0f, 0.0f, 0.0f};               // the next diagonal
+#pragma unroll
+        for (int k = 0; k < K3_NB; ++k) {
+          acc[k & 3] = fmaf(-M[k], __shfl_sync(K3_FULL, yj, k), acc[k & 3]);
+        }
+        if (row < N) y[row] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      }
+    } else if (warp + 1 < n) {
+      float yt[K3_NB];
+#pragma unroll
+      for (int k = 0; k < K3_NB; ++k) yt[k] = y[r0 + k];
+      for (int idx = warp + 1; idx < n; idx += K3_WARPS - 1) {
+        const int ti = k3_row_tile(s, idx, T), row = ti * K3_NB + wl;
+        const float* M = k3_row(ring.take(), a, N, ti, t, wl);
+        float acc[4] = {y[row], 0.0f, 0.0f, 0.0f};   // four chains of 8 FMAs
+#pragma unroll
+        for (int k = 0; k < K3_NB; ++k) acc[k & 3] = fmaf(-M[k], yt[k], acc[k & 3]);
+        if (row < N) y[row] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        ring.give_back_all();
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-
-  // forward substitution, unit lower triangle
-  for (int i = 1; i < N; ++i) {
-    float part = 0.0f;
-    for (int j = tid; j < i; j += K3_THREADS) part += a[(size_t)i * N + j] * y[j];
-    const float s = block_sum(part, red);
-    if (tid == 0) y[i] -= s;
-    __syncthreads();
-  }
-  // back substitution, upper triangle
-  for (int i = N - 1; i >= 0; --i) {
-    float part = 0.0f;
-    for (int j = i + 1 + tid; j < N; j += K3_THREADS) part += a[(size_t)i * N + j] * y[j];
-    const float s = block_sum(part, red);
-    if (tid == 0) y[i] = (y[i] - s) / a[(size_t)i * N + i];
-    __syncthreads();
-  }
-
   for (int i = tid; i < N; i += K3_THREADS) {
     x[(size_t)lane * N + i] = __fmul_rn(kdl[i], y[i]);
   }
+}
+
+// dynamic shared memory of lu_solve_kernel<sw> at N
+constexpr size_t k3_smem(int sw, int N) {
+  return sizeof(float) * (size_t)K3_WARPS * sw * K3_TILE
+      + 16 * (size_t)((N + K3_NB - 1) / K3_NB * K3_NB);
+}
+
+template <int SW>
+int k3_launch(const void* lu, const void* piv, const void* kd, const void* v, void* x,
+              int B, int N, int smem, void* stream) {
+  if ((size_t)smem < k3_smem(SW, N)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute((const void*)lu_solve_kernel<SW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  lu_solve_kernel<SW><<<B, K3_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)lu, (const int32_t*)piv, (const float*)kd, (const float*)v, (float*)x, N);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -776,12 +1058,16 @@ int lu_factor_unblocked(void* Ks, void* piv, int B, int N, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// sw, the ring slots per warp, and smem, the dynamic shared memory, come
+// from kernels.lu_solve_geometry; only that smem covers sw at N is checked.
 int lu_solve_batched(const void* lu, const void* piv, const void* kd,
-                     const void* v, void* x, int B, int N, void* stream) {
-  lu_solve_kernel<<<B, K3_THREADS, N * sizeof(float), (cudaStream_t)stream>>>(
-      (const float*)lu, (const int32_t*)piv, (const float*)kd,
-      (const float*)v, (float*)x, N);
-  return (int)cudaGetLastError();
+                     const void* v, void* x, int B, int N, int sw, int smem,
+                     void* stream) {
+  switch (sw) {
+    case 5: return k3_launch<5>(lu, piv, kd, v, x, B, N, smem, stream);
+    case 2: return k3_launch<2>(lu, piv, kd, v, x, B, N, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int advance_state(const void* w, const void* s, const void* y, const void* lam,

@@ -53,7 +53,7 @@ SIGNATURES = {
     'lu_factor_cluster_occupancy': [_I, _I, _P],
     'lu_factor_cluster': [_P, _P] + [_I] * 6 + [_P],
     'lu_factor_unblocked': [_P, _P, _I, _I, _P],
-    'lu_solve_batched': [_P] * 5 + [_I, _I, _P],
+    'lu_solve_batched': [_P] * 5 + [_I] * 4 + [_P],
     'advance_state': [_P] * 26 + [_I] * 4 + [_D] * 3 + [_P],
 }
 
@@ -275,6 +275,32 @@ def lu_solve_batched_plain(lu, piv, kd, v):
     return kd * torch.linalg.lu_solve(lu, piv, (kd * v)[:, :, None])[:, :, 0]
 
 
+SOLVE_NB = 32               # tile width, compiled into the solve kernel (K3_NB)
+SOLVE_WARPS = 8             # warps per lane (K3_WARPS)
+SOLVE_TILE = 1168           # f32 per ring slot: a 32-row tile in 16-byte blocks (K3_TILE)
+SOLVE_RING = (5, 2)         # ring slots per warp the kernel is compiled for, deepest first
+
+
+class SolveGeometry(NamedTuple):
+    """How K3 lays one lane out in shared memory: each of the ``SOLVE_WARPS``
+    warps streams its tiles through a ring of ``sw`` slots of ``SOLVE_TILE``
+    f32, beside the lane's right-hand side and its pivot bookkeeping (four
+    words per padded row); ``smem_bytes`` in all."""
+    sw: int
+    smem_bytes: int
+
+
+def lu_solve_geometry(N: int) -> SolveGeometry:
+    """K3's ring depth for N x N lanes: the deepest ring that fits one
+    block's shared memory beside the N-long vectors."""
+    rows = -(-N // SOLVE_NB) * SOLVE_NB
+    for sw in SOLVE_RING:
+        smem = 4 * SOLVE_WARPS * sw * SOLVE_TILE + 16 * rows
+        if smem + LU_STATIC_SMEM <= SMEM_PER_BLOCK:
+            return SolveGeometry(sw, smem)
+    raise ValueError(f'lu_solve_batched: N={N} leaves no room for the tile ring')
+
+
 def lu_solve_batched(lu, piv, kd, v):
     """(B,N,N) f32, (B,N) int32, (B,N) f32, (B,N) f32 -> (B,N) f32."""
     if not lu.is_cuda:
@@ -285,9 +311,11 @@ def lu_solve_batched(lu, piv, kd, v):
     B, N, _ = lu.shape
     if piv.shape != (B, N) or kd.shape != (B, N) or v.shape != (B, N):
         raise ValueError(f'{name}: inconsistent shapes')
+    geom = lu_solve_geometry(N)
     x = torch.empty(B, N, dtype=f32, device=lu.device)
     _check(name, library().lu_solve_batched(
-        _ptr(lu), _ptr(piv), _ptr(kd), _ptr(v), _ptr(x), B, N, _stream()))
+        _ptr(lu), _ptr(piv), _ptr(kd), _ptr(v), _ptr(x), B, N, geom.sw,
+        geom.smem_bytes, _stream()))
     LAUNCHES[name] += 1
     return x
 

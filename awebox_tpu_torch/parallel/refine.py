@@ -40,12 +40,17 @@ from .kernels import STATE_KEYS
 
 
 def wind_sweep_problem(trial, anchor, B, spread=0.05, u_ref=10.0,
-                       device='cpu', mu0=1e-5):
+                       device='cuda', mu0=1e-5):
     """Lanes with u_ref spread +-spread around u_ref, all starting from the
     solved state ``anchor`` (a mapping with w, s, y, lam, zl, zu), under the
     final-step bounds relaxed by 1e-8 as the host solver left them.
 
-    Returns (state, P64, lbw, ubw, free, u_refs), tensors on ``device``."""
+    Returns (state, P64, lbw, ubw, free, u_refs), tensors on ``device``: the
+    card unless the caller passes ``device='cpu'``. Without a card, a CUDA
+    device raises instead of leaving the lanes on the CPU."""
+    if torch.device(device).type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'wind_sweep_problem: device {device!r} asked for, but no '
+                           "CUDA card is available (pass device='cpu' for the CPU)")
     ocp = trial.ocp
     V0 = build_initial_guess(ocp)
     base_P = build_p_fix(ocp, build_reference(ocp, V0))

@@ -14,15 +14,20 @@ entry points, and checks the hand-written CUDA kernels on the way:
               times of both (median of 25 runs, CUDA events); the LU factor
               K2 in both variants, each where lu_factor_geometry takes it:
               the cluster kernel at N=543, B = 1, 16 and 128, the unblocked
-              one at N=1055 B=2; K2 and cuSOLVER are also timed queued
-              behind a device sleep, which hides the host's dispatch
+              one at N=1055 B=2; the LU solve K3 on each of those shapes,
+              on K2's factor and on cuSOLVER's; K1-K4 and the library calls
+              (cuSOLVER's getrf, torch.linalg.lu_solve) are also timed queued
+              behind a device sleep, which hides the host's dispatch; each
+              kernel's bound (bytes over HBM rate or f32 operations over the
+              CUDA cores' peak) is computed from its shapes
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
               9.5..10.5 m/s from tests/artifacts/bench_anchor_nk4_d3.npz,
               iterated to convergence (at most 100 iterations); every lane
               must latch KKT error <= 1e-5 and pass the f64 dynamics
               residual check <= 1e-4
   5. path     every kernel of the path launched during the slice run, every
-              factor through the cluster variant; state on the card
+              factor through the cluster variant, three solves per factor;
+              state on the card
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -152,6 +157,17 @@ def main():
     delta = torch.full((B,), 1e-8, dtype=f64, device=dev)
     report = {}
 
+    def bound(nbytes, ops):
+        """The least time the card could take for the work, in ms, and what
+        sets it: the larger of the bytes over HBM3's 3.35 TB/s and the f32
+        operations over the 67 TFLOP/s of the CUDA cores (H100 SXM data
+        sheet, at 700 W)."""
+        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+        return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
     # K1: anchor-derived K(delta); the kernel rounds exactly as the plain
     # version (same f32 operations, no contraction), so the bound is 2 ulp
     args1 = (eq_a['W32'], eq_a['A32'], eq_a['Dr32'], eq_a['free32'], delta)
@@ -163,35 +179,38 @@ def main():
     ok1 = bool(((Ks_k - Ks_p).abs() <= 2 * ulp * Ks_p.abs()).all()) \
         and bool(((kd_k - kd_p).abs() <= 2 * ulp * kd_p.abs()).all())
     require(ok1, f'K1 disagrees with its plain version: max abs {err1:.3e}')
-    report['kkt_assemble_scaled'] = dict(
-        max_abs_err=err1,
-        ms=cuda_median_ms(lambda: kernels.kkt_assemble_scaled(*args1)),
-        plain_ms=cuda_median_ms(lambda: kernels.kkt_assemble_scaled_plain(*args1)))
+    k1 = lambda: kernels.kkt_assemble_scaled(*args1)
+    b1, by1 = bound(nbytes(*args1, Ks_k, kd_k), 0)
+    report['kkt_assemble_scaled'] = r1 = dict(
+        max_abs_err=err1, ms=cuda_median_ms(k1), queued_ms=cuda_median_ms(k1, queued=True),
+        plain_ms=cuda_median_ms(lambda: kernels.kkt_assemble_scaled_plain(*args1)),
+        bound_ms=b1, bound_by=by1, library_ms=None)
     phase('kernels', f'K1 kkt_assemble_scaled: max abs diff {err1:.3e} (bound 2 ulp '
-          f'relative), {report["kkt_assemble_scaled"]["ms"]:.3f} ms vs plain '
-          f'{report["kkt_assemble_scaled"]["plain_ms"]:.3f} ms')
+          f'relative), {r1["ms"]:.4f} ms, queued {r1["queued_ms"]:.4f} ms, vs plain '
+          f'{r1["plain_ms"]:.3f} ms; bound {b1:.4f} ms ({by1})')
 
     # K2+K3: factor and solve the anchor-derived Ks. LU ties may pick other
     # rows than cuSOLVER, so the factors are compared through P L U, which
     # must reproduce Ks as closely as cuSOLVER's does (within 10x of its
     # max deviation: f32 backward error of pivoted LU times the growth
     # factor), and solutions through their scaled residuals
-    # ||Ks z - c|| / ||c|| (c = kd b), within 10x of each other. K3 alone is
-    # held to the plain solve on cuSOLVER's factor: 1e-3 of max |x|, the
-    # f32 forward error of triangular solves at cond(Ks) ~ 1e9 after the
-    # Jacobi scaling.
+    # ||Ks z - c|| / ||c|| (c = kd b), within 10x of each other. K3 is held
+    # on each factor, K2's and cuSOLVER's, to the plain solve on the same
+    # factor: 1e-3 of max |x|, the f32 forward error of triangular solves at
+    # cond(Ks) ~ 1e9 after the Jacobi scaling.
     # K2 has two variants, chosen by N (kernels.lu_factor_geometry): the
     # cluster kernel at the slice's N, held at B = 1, 16 and 128 (the B=16
     # systems repeated), and the unblocked kernel, held on a random saddle
     # system of the n_k=8 size N=1055 at B=2, which only it takes.
     # cuSOLVER's time as called moves between runs with the host's load
-    # (at N >= 512 PyTorch calls its getrf once per lane), so both factors
-    # are timed queued too.
+    # (at N >= 512 PyTorch calls its getrf once per lane), so the factors
+    # and the solves are timed queued too.
     c = eq_a['b'].to(f32).contiguous()
     geom = kernels.lu_factor_geometry(N)
     require(geom.variant == 'cluster', f'N={N} does not take the cluster variant: {geom}')
     max_clusters = kernels.lu_cluster_max_active(geom)
-    phase('kernels', f'K2 geometry at N={N}: {geom}; {max_clusters} clusters run at once')
+    phase('kernels', f'K2 geometry at N={N}: {geom}; {max_clusters} clusters run at once; '
+          f'K3 geometry: {kernels.lu_solve_geometry(N)}')
 
     def plu(lu, piv):
         P, L, U = torch.lu_unpack(lu, piv)
@@ -203,16 +222,32 @@ def main():
         r = (Ks.to(f64) @ z[:, :, None])[:, :, 0] - cc
         return (r.abs().amax(dim=1) / cc.abs().amax(dim=1)).cpu().numpy()
 
+    def hold_k3(tag, lu, piv, kd, c):
+        """K3 on one factor against the plain solve on the same factor;
+        returns K3's x and its max deviation."""
+        before = kernels.LAUNCHES['lu_solve_batched']
+        x_k = kernels.lu_solve_batched(lu, piv, kd, c)
+        x_p = kernels.lu_solve_batched_plain(lu, piv, kd, c)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES['lu_solve_batched'] == before + 1, f'K3 {tag}: no launch')
+        err = float((x_k - x_p).abs().max())
+        require(err <= 1e-3 * float(x_p.abs().max()),
+                f'K3 {tag}: max |x - x_plain| {err:.3e}, max |x| {float(x_p.abs().max()):.3e}')
+        return x_k, err
+
     def hold_k2(tag, Ks, kd, c, variant):
         """Factor Ks with the kernel, which must take ``variant``, and with
-        cuSOLVER, solve both, apply the gates above, and time both factors."""
+        cuSOLVER, hold K3 on both factors, apply the gates above, and time
+        both factors and both solves. Returns K2's and K3's records."""
+        B_, N_ = Ks.shape[0], Ks.shape[1]
         before = kernels.LAUNCHES[f'lu_factor_{variant}']
         lu_k, piv_k = kernels.lu_factor_batched(Ks.clone())
         require(kernels.LAUNCHES[f'lu_factor_{variant}'] == before + 1,
                 f'K2 {tag}: the {variant} variant did not run')
-        lu_p, piv_p = kernels.lu_factor_batched_plain(Ks)
-        lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()   # cuSOLVER's is column-major
-        x_k = kernels.lu_solve_batched(lu_k, piv_k, kd, c)
+        lu_raw, piv_raw = kernels.lu_factor_batched_plain(Ks)   # cuSOLVER's is column-major
+        lu_p, piv_p = lu_raw.contiguous(), piv_raw.contiguous()
+        x_k, err_k = hold_k3(f'{tag} on the {variant} factor', lu_k, piv_k, kd, c)
+        x_kp, err_p = hold_k3(f'{tag} on cuSOLVER\'s factor', lu_p, piv_p, kd, c)
         x_p = kernels.lu_solve_batched_plain(lu_p, piv_p, kd, c)
         torch.cuda.synchronize()
         dev_k = float((plu(lu_k, piv_k) - Ks).abs().max())
@@ -220,31 +255,55 @@ def main():
         require(dev_k <= 10 * max(dev_p, 1e-6),
                 f'K2 {variant} {tag}: |P L U - Ks| {dev_k:.3e} vs plain {dev_p:.3e}')
         res_k, res_p = scaled_res(Ks, kd, c, x_k), scaled_res(Ks, kd, c, x_p)
-        require(np.isfinite(res_k).all() and np.isfinite(res_p).all(),
+        res_kp = scaled_res(Ks, kd, c, x_kp)
+        require(np.isfinite(res_k).all() and np.isfinite(res_p).all() and np.isfinite(res_kp).all(),
                 f'K2+K3 {variant} {tag}: non-finite residual')
         require((res_k <= 10 * np.maximum(res_p, 1e-7)).all(),
                 f'K2+K3 {variant} {tag}: residuals {res_k} vs plain {res_p}')
+        require((res_kp <= 10 * np.maximum(res_p, 1e-7)).all(),
+                f'K3 on cuSOLVER\'s factor {tag}: residuals {res_kp} vs plain {res_p}')
         work = torch.empty_like(Ks)
         factor = lambda: kernels.lu_factor_batched(work)
         refill = lambda: work.copy_(Ks)
-        plain = lambda: kernels.lu_factor_batched_plain(Ks)
-        out = dict(max_abs_err=float((plu(lu_k, piv_k) - plu(lu_p, piv_p)).abs().max()),
-                   ms=cuda_median_ms(factor, setup=refill),
-                   plain_ms=cuda_median_ms(plain),
-                   queued_ms=cuda_median_ms(factor, setup=refill, queued=True),
-                   plain_queued_ms=cuda_median_ms(plain, queued=True))
+        plain = lambda: kernels.lu_factor_batched_plain(Ks)   # one library call, lu_factor_ex
+        k2_bound, k2_by = bound(8 * B_ * N_ * N_ + 4 * B_ * N_, 2 / 3 * B_ * N_ ** 3)
+        k2 = dict(max_abs_err=float((plu(lu_k, piv_k) - plu(lu_p, piv_p)).abs().max()),
+                  ms=cuda_median_ms(factor, setup=refill),
+                  plain_ms=cuda_median_ms(plain),
+                  queued_ms=cuda_median_ms(factor, setup=refill, queued=True),
+                  plain_queued_ms=cuda_median_ms(plain, queued=True),
+                  bound_ms=k2_bound, bound_by=k2_by)
+        k2['library_ms'], k2['library_queued_ms'] = k2['plain_ms'], k2['plain_queued_ms']
+        # K3 and the library timed on cuSOLVER's factor, each in its own layout
+        rhs = (kd * c)[:, :, None]
+        solve = lambda: kernels.lu_solve_batched(lu_p, piv_p, kd, c)
+        library = lambda: torch.linalg.lu_solve(lu_raw, piv_raw, rhs)
+        k3_bound, k3_by = bound(4 * B_ * N_ * N_ + 16 * B_ * N_, 2 * B_ * N_ * N_)
+        k3 = dict(max_abs_err=max(err_k, err_p),
+                  ms=cuda_median_ms(solve), queued_ms=cuda_median_ms(solve, queued=True),
+                  plain_ms=cuda_median_ms(lambda: kernels.lu_solve_batched_plain(lu_p, piv_p, kd, c)),
+                  library_ms=cuda_median_ms(library),
+                  library_queued_ms=cuda_median_ms(library, queued=True),
+                  bound_ms=k3_bound, bound_by=k3_by)
         phase('kernels', f'K2 {variant} {tag}: max |P L U - Ks| kernel {dev_k:.3e} vs plain '
               f'{dev_p:.3e} (max |Ks| {float(Ks.abs().max()):.3e}); K2+K3 scaled residual '
-              f'max {res_k.max():.3e} vs plain {res_p.max():.3e}; {out["ms"]:.3f} ms vs '
-              f'plain {out["plain_ms"]:.3f} ms; queued {out["queued_ms"]:.3f} ms vs '
-              f'plain {out["plain_queued_ms"]:.3f} ms')
-        return out
+              f'max {res_k.max():.3e} vs plain {res_p.max():.3e}; {k2["ms"]:.3f} ms vs '
+              f'plain {k2["plain_ms"]:.3f} ms; queued {k2["queued_ms"]:.3f} ms vs '
+              f'plain {k2["plain_queued_ms"]:.3f} ms; bound {k2_bound:.4f} ms ({k2_by})')
+        phase('kernels', f'K3 {tag}: max |x - x_plain| on the {variant} factor {err_k:.3e}, '
+              f'on cuSOLVER\'s {err_p:.3e} (max |x| {float(x_p.abs().max()):.3e}), residual on '
+              f'cuSOLVER\'s factor max {res_kp.max():.3e}; {k3["ms"]:.4f} ms, queued '
+              f'{k3["queued_ms"]:.4f} ms; plain {k3["plain_ms"]:.3f} ms; torch.linalg.lu_solve '
+              f'{k3["library_ms"]:.3f} ms, queued {k3["library_queued_ms"]:.3f} ms; bound '
+              f'{k3_bound:.4f} ms ({k3_by})')
+        return k2, k3
 
-    cluster_at = {}
+    cluster_at, solve_at = {}, {}
     for Bk in (1, B, 8 * B):
         rep = (Bk + B - 1) // B
         args2 = [t.repeat(rep, *([1] * (t.dim() - 1)))[:Bk].contiguous() for t in (Ks_p, kd_p, c)]
-        cluster_at[f'B={Bk}'] = hold_k2(f'N={N} B={Bk}', *args2, 'cluster')
+        cluster_at[f'B={Bk}'], solve_at[f'N={N} B={Bk}'] = hold_k2(f'N={N} B={Bk}', *args2,
+                                                                     'cluster')
     rng = np.random.default_rng(1)
     n8, m8 = 540, 515
     sys8 = [torch.as_tensor(a, dtype=f64, device=dev) for a in random_systems(rng, n8, m8, 2)]
@@ -253,26 +312,12 @@ def main():
                                            torch.full((2,), 1e-8, dtype=f64, device=dev))
     require(kernels.lu_factor_geometry(n8 + m8).variant == 'unblocked',
             'N=1055 does not take the unblocked variant')
-    report['lu_factor_unblocked'] = dict(
-        hold_k2(f'N={n8 + m8} B=2', Ks8, kd8, eq8['b'].to(f32).contiguous(), 'unblocked'),
-        N=n8 + m8, B=2)
+    k2_8, solve_at[f'N={n8 + m8} B=2'] = hold_k2(
+        f'N={n8 + m8} B=2', Ks8, kd8, eq8['b'].to(f32).contiguous(), 'unblocked')
+    report['lu_factor_unblocked'] = dict(k2_8, N=n8 + m8, B=2)
     report['lu_factor_cluster'] = dict(cluster_at[f'B={B}'], at=cluster_at,
                                        max_active_clusters=max_clusters)
-
-    lu_p, piv_p = kernels.lu_factor_batched_plain(Ks_p)
-    lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()
-    x_p = kernels.lu_solve_batched_plain(lu_p, piv_p, kd_p, c)
-    x_kp = kernels.lu_solve_batched(lu_p, piv_p, kd_p, c)
-    torch.cuda.synchronize()
-    err3 = float((x_kp - x_p).abs().max())
-    require(err3 <= 1e-3 * float(x_p.abs().max()), f'K3: max |x - x_plain| {err3:.3e}')
-    report['lu_solve_batched'] = dict(
-        max_abs_err=err3,
-        ms=cuda_median_ms(lambda: kernels.lu_solve_batched(lu_p, piv_p, kd_p, c)),
-        plain_ms=cuda_median_ms(lambda: kernels.lu_solve_batched_plain(lu_p, piv_p, kd_p, c)))
-    phase('kernels', f'K3 lu_solve_batched: max |x - x_plain| {err3:.3e} (max |x| '
-          f'{float(x_p.abs().max()):.3e}); {report["lu_solve_batched"]["ms"]:.3f} ms vs '
-          f'plain {report["lu_solve_batched"]["plain_ms"]:.3f} ms')
+    report['lu_solve_batched'] = dict(solve_at[f'N={N} B={B}'], at=solve_at)
 
     # the whole direction solve (K1-K3 + refinement + ladder) on the card
     # against the plain path on the CPU, on make_system-style random saddle
@@ -344,19 +389,23 @@ def main():
         err4 = max(err4, float(d.max()))
         rel4 = max(rel4, float((d / o_p[k].abs().clamp(min=1e-300)).max()))
     require(rel4 <= 1e-14, f'K4 relative error {rel4:.3e}')
-    report['advance_state'] = dict(
-        max_abs_err=err4,
-        ms=cuda_median_ms(lambda: kernels.advance_state(*args4)),
-        plain_ms=cuda_median_ms(lambda: kernels.advance_state_plain(*args4)))
+    k4 = lambda: kernels.advance_state(*args4)
+    b4, by4 = bound(nbytes(*st.values(), *direction4, ok4, err_d4, err_k4, lbw, ubw,
+                           *o_k.values()), 0)
+    report['advance_state'] = r4 = dict(
+        max_abs_err=err4, ms=cuda_median_ms(k4), queued_ms=cuda_median_ms(k4, queued=True),
+        plain_ms=cuda_median_ms(lambda: kernels.advance_state_plain(*args4)),
+        bound_ms=b4, bound_by=by4, library_ms=None)
     phase('kernels', f'K4 advance_state: max rel diff {rel4:.3e} (bound 1e-14), '
-          f'{report["advance_state"]["ms"]:.3f} ms vs plain '
-          f'{report["advance_state"]["plain_ms"]:.3f} ms')
+          f'{r4["ms"]:.4f} ms, queued {r4["queued_ms"]:.4f} ms, vs plain '
+          f'{r4["plain_ms"]:.3f} ms; bound {b4:.5f} ms ({by4})')
 
     # one iteration from the anchor on the card against the plain path on
     # the CPU, 2 lanes: the iterates agree to 1e-6 of the step (the f32
     # factors differ by pivot ties and rounding; two f64 refinement sweeps
     # bring both directions to the same f64 solution within that)
-    state_h, P64_h, lbw_h, ubw_h, free_h, _ = wind_sweep_problem(trial, anchor, 2)
+    state_h, P64_h, lbw_h, ubw_h, free_h, _ = wind_sweep_problem(trial, anchor, 2,
+                                                                 device='cpu')
     sel = torch.tensor([0, B - 1], device=dev)
     it_c = make_refiner(ocp, lbw, ubw, free)(_take_lanes(state, sel),
                                              _take_lanes(P64, sel))
@@ -395,6 +444,9 @@ def main():
     require(all(launches[k] > 0 for k in on_path), f'a kernel did not run in the slice: {launches}')
     require(launches['lu_factor_cluster'] == launches['lu_factor_batched'],
             f'a factor of the slice did not take the cluster variant: {launches}')
+    # every attempt solves once and refines twice on its factor
+    require(launches['lu_solve_batched'] == 3 * launches['lu_factor_batched'],
+            f'the slice did not solve three times per factor: {launches}')
     require(all(v.is_cuda for v in res['state'].values()), 'the state left the card')
     phase('path', f'kernel launches in the slice run: {launches}')
 

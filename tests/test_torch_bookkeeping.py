@@ -129,12 +129,29 @@ def test_wind_sweep_problem_matches_bench_setup():
     from awebox_tpu_torch.parallel.refine import wind_sweep_problem
     from tests.test_torch_support import anchor, jax_sweep
     state_j, P_j, lbw_j, ubw_j, free_j = jax_sweep(3)
-    state, P, lbw, ubw, free, u_refs = wind_sweep_problem(torch_trial(), anchor(), 3)
+    state, P, lbw, ubw, free, u_refs = wind_sweep_problem(torch_trial(), anchor(), 3,
+                                                          device='cpu')
     assert_tree_equal(state_j, {k: v.numpy() for k, v in state.items()})
     assert_tree_equal(P_j, to_numpy_tree({k: v for k, v in P.items()}))
     for a, b in ((lbw_j, lbw), (ubw_j, ubw), (free_j, free)):
         assert np.array_equal(a, b.numpy())
     np.testing.assert_array_equal(u_refs, [9.5, 10.0, 10.5])
+
+
+def test_wind_sweep_problem_defaults_to_the_card():
+    """The entry point's lanes go to the card unless the caller asks for the
+    CPU; without a card the default raises rather than returning CPU
+    tensors."""
+    import inspect
+    from awebox_tpu_torch.parallel.refine import wind_sweep_problem
+    from tests.test_torch_support import anchor
+    assert inspect.signature(wind_sweep_problem).parameters['device'].default == 'cuda'
+    if torch.cuda.is_available():
+        state = wind_sweep_problem(torch_trial(), anchor(), 2)[0]
+        assert all(v.is_cuda for v in state.values())
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA card'):
+            wind_sweep_problem(torch_trial(), anchor(), 2)
 
 
 @pytest.mark.parametrize('collocation', [(3, 'radau'), (4, 'legendre'), (2, 'radau')])

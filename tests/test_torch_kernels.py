@@ -129,6 +129,149 @@ def cluster_lu_mirror(A, C=8, nb=16):
     return lu, piv
 
 
+def chunk_permutation(piv, N, nb=32):
+    """csrc/auglu.cu's lu_solve_kernel pivot handling on arange(N): per chunk
+    of nb interchanges, every row k of the chunk and its pivot row p_k take
+    the rows found by tracing them back through the chunk's swaps (rows past
+    N swap with themselves), applied chunk after chunk as gathers. Returns
+    perm with (P b)[i] = b[perm[i]]."""
+    T = -(-N // nb)
+    p = [int(piv[k]) - 1 if k < N else k for k in range(T * nb)]
+    perm = list(range(T * nb))
+    for c in range(T):
+        ks = range(c * nb, (c + 1) * nb)
+        src = {}
+        for k in ks:
+            for start in (k, p[k]):
+                r = start
+                for q in reversed(ks):
+                    r = p[q] if r == q else (q if r == p[q] else r)
+                src[start] = r
+        vals = {dst: perm[r] for dst, r in src.items()}   # gathered before any write
+        for dst, val in vals.items():
+            if dst < N:
+                perm[dst] = val
+    return torch.tensor(perm[:N])
+
+
+def sequential_permutation(piv, N):
+    """LAPACK's laswp: the interchanges applied one by one to arange(N)."""
+    perm = list(range(N))
+    for k in range(N):
+        p = int(piv[k]) - 1
+        perm[k], perm[p] = perm[p], perm[k]
+    return torch.tensor(perm)
+
+
+def tiled_solve_mirror(lu, piv, kd, v, nb=32):
+    """Plain-PyTorch mirror of lu_solve_kernel on one lane, f32: y = P (kd v)
+    by chunk_permutation; forward over column tiles of the unit-lower L, then
+    back over column tiles of U from the last (ragged) one, each tile solved
+    column by column (times the reciprocal of U's diagonal) and then applied to the rows
+    below (above) column by column, the kernel's order of operations apart
+    from its fused multiply-adds. Returns kd * y."""
+    N = lu.shape[0]
+    T = -(-N // nb)
+    y = (kd * v)[chunk_permutation(piv, N, nb)].clone()
+    for t in range(T):
+        r0, r1 = t * nb, min(N, (t + 1) * nb)
+        for k in range(r0, r1):
+            y[k + 1:r1] -= lu[k + 1:r1, k] * y[k]
+        for k in range(r0, r1):
+            y[r1:] -= lu[r1:, k] * y[k]
+    for t in reversed(range(T)):
+        r0, r1 = t * nb, min(N, (t + 1) * nb)
+        for k in reversed(range(r0, r1)):
+            y[k] = y[k] * (1 / lu[k, k])
+            y[r0:k] -= lu[r0:k, k] * y[k]
+        for k in range(r0, r1):
+            y[:r0] -= lu[:r0, k] * y[k]
+    return kd * y
+
+
+def scaled_residual(A, kd, v, x):
+    """max |A z - kd v| / max |kd v| with z = x / kd, in f64, per lane: the
+    residual of the system the scaled solve solves."""
+    z = (x / kd).double()
+    c = (kd * v).double()
+    r = (A.double() @ z[..., None])[..., 0] - c
+    return (r.abs().amax(dim=-1) / c.abs().amax(dim=-1)).cpu().numpy()
+
+
+def gaussian_lanes(B, N, seed, device='cpu'):
+    """B Gaussian f32 matrices (pivoting on nearly every column) with kd in
+    [0.5, 2] and v standard normal."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return (f32(rng.standard_normal((B, N, N))), f32(rng.uniform(0.5, 2., (B, N))),
+            f32(rng.standard_normal((B, N))))
+
+
+@pytest.mark.parametrize('N', [37, 130, 543, 1055])
+def test_tiled_solve_mirror_matches_lapack(N):
+    """The solve kernel's algorithm (mirrored on the CPU) on LAPACK's f32
+    factor: its composed permutation is LAPACK's sequential interchanges
+    exactly, and its scaled residual is within 10x of torch.linalg.lu_solve's
+    on the same factor (f32 forward and back substitution differ only in
+    the order of sums). N mod 32 is 5, 2, 31 and 31: the ragged last tile."""
+    from awebox_tpu_torch.parallel import kernels
+    A, kd, v = gaussian_lanes(1, N, seed=N)
+    lu, piv, _ = torch.linalg.lu_factor_ex(A[0])
+    assert torch.equal(chunk_permutation(piv, N), sequential_permutation(piv, N))
+    x = tiled_solve_mirror(lu, piv, kd[0], v[0])
+    x_p = kernels.lu_solve_batched_plain(lu[None], piv[None], kd, v)[0]
+    res, res_p = scaled_residual(A[0], kd[0], v[0], x), scaled_residual(A[0], kd[0], v[0], x_p)
+    assert np.isfinite(res) and res <= 10 * max(res_p, 1e-7), (res, res_p)
+    assert float((x - x_p).abs().max()) <= 1e-3 * float(x_p.abs().max())
+
+
+def test_chunk_permutation_is_sequential_interchanges():
+    """Interchanges that chain inside a chunk, across chunks, onto one row
+    and onto rows past the chunk compose as LAPACK applies them one by one."""
+    rng = np.random.default_rng(4)
+    for N in (1, 5, 32, 33, 64, 100, 543):
+        for trial in range(20):
+            span = [1, 3, 40, N][trial % 4]
+            piv = [k + 1 + int(rng.integers(0, min(span, N - k))) for k in range(N)]
+            piv = torch.tensor(piv, dtype=torch.int32)
+            assert torch.equal(chunk_permutation(piv, N), sequential_permutation(piv, N)), \
+                (N, trial)
+
+
+def test_tiled_solve_mirror_non_finite_lanes():
+    """A singular lane (a zero column: LAPACK leaves a zero on U's diagonal)
+    and a lane with a NaN column give a non-finite x in the mirror, as in the
+    plain solve: nothing is skipped, so the delta ladder sees the failure."""
+    from awebox_tpu_torch.parallel import kernels
+    N = 41
+    ones = torch.ones(N)
+    for kind in ('singular', 'nan'):
+        A = separated_pivots(N, seed=11)
+        A[:, 17] = 0. if kind == 'singular' else float('nan')
+        lu, piv, _ = torch.linalg.lu_factor_ex(A)
+        x = tiled_solve_mirror(lu, piv, ones, ones)
+        x_p = kernels.lu_solve_batched_plain(lu[None], piv[None], ones[None], ones[None])
+        assert not bool(torch.isfinite(x).all()), kind
+        assert not bool(torch.isfinite(x_p).all()), kind
+
+
+@pytest.mark.parametrize('N', [37, 543, 1055, 4000])
+def test_lu_solve_geometry(N):
+    """K3's ring: five slots a warp at the slice's N=543 and at N=1055,
+    within one block's shared memory beside the four words a padded row
+    needs; a shallower ring where the vectors leave less room. A slot holds
+    a 32-row tile as the nine 16-byte blocks that cover each row, the rows
+    placed at 36 r + 4 (r // 8)."""
+    from awebox_tpu_torch.parallel import kernels
+    g = kernels.lu_solve_geometry(N)
+    assert g.sw in kernels.SOLVE_RING
+    assert g.sw == (5 if N <= 1055 else 2)   # 4000: 64 KB of vectors
+    assert kernels.SOLVE_TILE >= 36 * 31 + 4 * 3 + 36 and kernels.SOLVE_TILE % 4 == 0
+    rows = -(-N // 32) * 32
+    assert g.smem_bytes == 4 * 8 * g.sw * kernels.SOLVE_TILE + 16 * rows
+    assert g.smem_bytes + kernels.LU_STATIC_SMEM <= 232_448
+
+
 def separated_pivots(N, seed):
     """An f32 matrix whose partial pivots are well separated: the rows of
     diag(d) + 0.05 noise with d in [1, 3], permuted, so every candidate row
@@ -413,3 +556,38 @@ def test_lu_factor_cluster_matches_plain_on_card(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['lu_factor_unblocked'] == before['lu_factor_unblocked'] + 1
     plu_and_residual_gates(A, lu, piv, 'unblocked')
+
+
+@pytest.mark.cuda
+def test_lu_solve_matches_plain_on_card(cuda):
+    """The tiled K3 on cuSOLVER's factors at N = 37, 543 and 1055 (ragged
+    last tiles of 5, 31 and 31 rows) and B = 1, 3 and 16: within 1e-3 of
+    max |x| of the plain solve on the same factor (f32 forward error of the
+    substitutions on Gaussian matrices), a scaled residual within 10x of the
+    plain's, the counter moving once per call; a singular lane and a lane
+    with a NaN column give a non-finite x, as in the plain solve."""
+    from awebox_tpu_torch.parallel import kernels
+    for N, B in ((N, B) for N in (37, 543, 1055) for B in (1, 3, 16)):
+        A, kd, v = gaussian_lanes(B, N, seed=N + B, device=cuda)
+        bad = {}
+        if B > 1:
+            A[0, :, N // 3] = 0.
+            A[B - 1, :, N // 2] = float('nan')
+            bad = {0: 'singular', B - 1: 'nan'}
+        lu, piv = kernels.lu_factor_batched_plain(A)
+        lu, piv = lu.contiguous(), piv.contiguous()
+        before = kernels.LAUNCHES['lu_solve_batched']
+        x = kernels.lu_solve_batched(lu, piv, kd, v)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['lu_solve_batched'] == before + 1
+        x_p = kernels.lu_solve_batched_plain(lu, piv, kd, v)
+        good = [b for b in range(B) if b not in bad]
+        err = float((x[good] - x_p[good]).abs().max())
+        assert err <= 1e-3 * float(x_p[good].abs().max()), (N, B, err)
+        res = scaled_residual(A[good], kd[good], v[good], x[good])
+        res_p = scaled_residual(A[good], kd[good], v[good], x_p[good])
+        assert np.isfinite(res).all() and (res <= 10 * np.maximum(res_p, 1e-7)).all(), \
+            (N, B, res, res_p)
+        for b, kind in bad.items():
+            assert not bool(torch.isfinite(x[b]).all()), (N, B, kind)
+            assert not bool(torch.isfinite(x_p[b]).all()), (N, B, kind)

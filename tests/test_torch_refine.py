@@ -59,7 +59,7 @@ def jax_refiner(eval_f32):
 
 def port_problem():
     from awebox_tpu_torch.parallel.refine import wind_sweep_problem
-    return wind_sweep_problem(torch_trial(), anchor(), B)
+    return wind_sweep_problem(torch_trial(), anchor(), B, device='cpu')
 
 
 def test_three_iterations_in_lockstep_with_jax():
