@@ -1,10 +1,15 @@
 // Hand-written Hopper kernels of the augmented-KKT interior-point direction.
 //
 // They replace the XLA operations that awebox_tpu/parallel/batch.py runs in
-// _auglu_solve (factor='lu') and _advance_state:
+// direction, _auglu_solve (factor='lu') and _advance_state:
 //
-//   K1 kkt_assemble_scaled   batch.py:333-336, 409-413  assemble K(delta) and
-//                            its Jacobi scaling kd, write Ks = kd K kd
+//   K1 newton_kkt            batch.py:154-180, 320-336, 409-413  the Newton
+//                            system, its row equilibration and the scaled
+//                            K(delta_w), in two phases: newton_rows (a warp
+//                            per constraint row, a thread per variable) and
+//                            newton_tiles (32x32 tiles of Ks);
+//                            kkt_assemble_scaled runs the same tile kernel
+//                            on the lanes a delta-ladder retry assembles
 //   K2 lu_factor_batched     batch.py:414  partial-pivot LU of Ks (f32), two
 //                            variants chosen by N: lu_factor_cluster (a lane
 //                            per thread-block cluster, the matrix in shared
@@ -13,12 +18,16 @@
 //   K3 lu_solve_batched      batch.py:416-418  kd * lu_solve(lu, piv, kd * v),
 //                            a tiled triangular solve, the factor streamed
 //                            through shared memory
-//   K4 advance_state         batch.py:449-512  fraction-to-boundary step,
-//                            dual safeguards and barrier update (f64)
+//   K4 ip_step               batch.py:189-198, 449-512  the direction from
+//                            the solution (ds, dzl, dzu, err), the
+//                            fraction-to-boundary step, dual safeguards and
+//                            barrier update (f64)
 //
 // Layout follows the JAX package: lanes first, row-major. Every entry point
 // is a plain C function that returns a CUDA error code; a launch goes to the
-// caller's stream and returns cudaGetLastError(). Build (no PyTorch headers):
+// caller's stream and returns cudaGetLastError(). newton_rows, newton_tiles
+// and ip_step take their many tensors as one host array of pointers, in the
+// order of their structs below (kernels.NEWTON_FIELDS, STEP_FIELDS). Build (no PyTorch headers):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libauglu.so auglu.cu
 //
@@ -31,21 +40,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// K1: assembly + Jacobi scaling.
-// Bound by bytes: N*N*4 bytes written per lane (1.18 MB at N = 543) against
-// (n*n + 2*m*n)*4 bytes read. Grid (row tiles, lanes); each block first
-// recomputes the lane's N scale factors into shared memory (N divides and
-// square roots, negligible next to its tile), then streams whole rows so
-// that stores are coalesced. kd is written by the first tile of each lane.
+// Shared helpers. Clamps and min/max let a NaN through, as torch.clamp,
+// torch.minimum and jnp.minimum do (fmin/fmax would drop it).
 // ---------------------------------------------------------------------------
-constexpr int K1_ROWS = 8;
-constexpr int K1_THREADS = 256;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float clamp_lo(float x, float lo) {
   return (x < lo) ? lo : x;  // NaN passes through
@@ -55,57 +60,378 @@ __device__ __forceinline__ float clamp_hi(float x, float hi) {
   return (x > hi) ? hi : x;  // NaN passes through
 }
 
-__global__ void kkt_assemble_scaled_kernel(
-    const float* __restrict__ W, const float* __restrict__ A,
-    const float* __restrict__ Dr, const float* __restrict__ freev,
-    const double* __restrict__ delta, float* __restrict__ Ks,
-    float* __restrict__ kd_out, int n, int m) {
-  extern __shared__ float kd[];
-  const int N = n + m;
-  const int lane = blockIdx.y;
-  const float* Wl = W + (size_t)lane * n * n;
-  const float* Al = A + (size_t)lane * m * n;
-  const float* Drl = Dr + (size_t)lane * m;
-  float* Kl = Ks + (size_t)lane * N * N;
-  const float d32 = __double2float_rn(delta[lane]);
+__device__ __forceinline__ double nmin(double a, double b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
+}
 
-  for (int t = threadIdx.x; t < N; t += blockDim.x) {
-    float diag;
-    if (t < n) {
-      diag = fabsf(__fadd_rn(Wl[(size_t)t * n + t], __fmul_rn(d32, freev[t])));
-    } else {
-      diag = Drl[t - n];
+__device__ __forceinline__ double nmax(double a, double b) {
+  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+
+// torch.where(torch.isfinite(x), x, 0.): the sanitizing of the derivatives
+__device__ __forceinline__ float fin32(float x) { return isfinite(x) ? x : 0.0f; }
+
+__device__ __forceinline__ double fin64(double x) { return isfinite(x) ? x : 0.0; }
+
+// a / b rounded to nearest, as __ddiv_rn, with the operands that send the
+// division to its slow path on this card (an infinite or zero operand:
+// every unbounded variable has dl = inf) answered inline by IEEE's rules
+__device__ __forceinline__ double div_rn(double a, double b) {
+  if (isfinite(a) && isfinite(b) && a != 0.0 && b != 0.0) return __ddiv_rn(a, b);
+  const unsigned long long sign =
+      (unsigned long long)(__double_as_longlong(a) ^ __double_as_longlong(b)) & 0x8000000000000000ull;
+  if (a != a || b != b || (isinf(a) && isinf(b)) || (a == 0.0 && b == 0.0)) {
+    return __longlong_as_double(0x7ff8000000000000ll);   // NaN
+  }
+  if (isinf(a) || b == 0.0) return __longlong_as_double((long long)(sign | 0x7ff0000000000000ull));
+  return __longlong_as_double((long long)sign);           // a zero or b infinite: a signed zero
+}
+
+// K(delta)'s Jacobi factor of one diagonal entry:
+// clip(1/sqrt(clip(d, 1e-8)), 0, 1e4) in f32, as kkt_assemble_scaled_plain
+__device__ __forceinline__ float jacobi(float d) {
+  const float r = 1.0f / sqrtf(clamp_lo(d, 1e-8f));
+  return clamp_hi(clamp_lo(r, 0.0f), 1e4f);
+}
+
+// ---------------------------------------------------------------------------
+// K1 newton_kkt: the barrier-Newton system, its row equilibration and the
+// scaled augmented matrix Ks = kd K(delta_w) kd, in one kernel pair. It
+// replaces awebox_tpu/parallel/batch.py:154-180 (sanitizing, sigma, W0, A,
+// D, r1, r2), :320-331 (row equilibration rn, the f32 casts, D_reg, r2_e,
+// b) and :333-336, 409-413 (K(delta) and its Jacobi scaling), and equals the
+// plain composition (kernels.newton_kkt_plain) bit for bit: every entry is
+// computed in the same order, f64 where the plain code works in f64, then
+// rounded once to f32.
+//
+// What bounds it: bytes. At B=16 it must read JE, JI and H in f32 (9.7 MB)
+// and write Ks (18.9 MB) and the f64 images of W0 and A' that the
+// refinement reads (19.4 MB): 14.5 us at 3.35 TB/s. A row-per-block
+// assembly reads the A'^T block with a stride of n floats across a warp,
+// one 32-byte sector per 4-byte entry, and recomputes all N scale factors
+// in every block; upstream, the plain composition runs ~75 eager passes
+// over O(n^2) f64 data. Here:
+//   phase 1 (newton_rows_kernel, grid (row blocks + variable blocks, B)):
+//     a warp per constraint row i of [JE; JI] loads the row once, coalesced,
+//     into registers: A_ij = fin(J_ij) free_j (written in f64 for the r1
+//     product), rn_i = 1 / max_j |A_ij| (warp shuffles), A'_ij = f32(A_ij)
+//     rn_i (its f64 image written), D_reg, Dr32, r2_e, b's lower half and
+//     kd of the dual rows; a thread per variable j computes sigma_j, W0_jj
+//     and kd_j;
+//   between the phases the wrapper runs A^T nu as the one batched
+//     torch.matmul of the plain version, on phase 1's f64 A: a plain matrix
+//     product, which the JAX package too leaves to XLA, and the only way to
+//     get cuBLAS's summation order, hence r1, bit for bit;
+//   phase 2 (kkt_tiles_kernel, grid (tiles of 32x32, B)): each tile is
+//     built straight from H and J (in f32 where free is 0 or 1, which is
+//     exact), W0's entries written beside it as f64; the A'^T entries go
+//     through a padded shared tile (33 columns), so loads and stores are
+//     both coalesced; kd is read once per tile from phase 1; every load of
+//     a thread is issued before the tile's one barrier; the tiles of column
+//     0 finish r1 and b's upper half.
+// Phase 2 needs every kd of its lane and phase 1's A for the product, so
+// the phases are two launches: a cluster per lane could share kd through
+// DSMEM, but not wait on cuBLAS between them.
+// What still bounds it (H100, B=16, phase cuts of
+// awebox_tpu_torch/probes/fused_phases.py): the design moves ~73 MB, not
+// the 48 MB of the bound, since A is written in f64 for cuBLAS (9.4 MB)
+// and read back by it, and J is read by both phases. Phase 1 takes ~10 us
+// (its stores ~3); the product ~4.5; phase 2 ~25, of which its stores
+// alone ~15-19 and an empty grid of its 4624 blocks ~3.6. Taller tiles
+// (64 rows) and fewer resident blocks were slower.
+//
+// The retry assembly (kkt_assemble_scaled, the delta ladder's lanes) runs
+// the same tile kernel on the f32 W0 and A' of the failing lanes, the
+// tiles computing their scale factors themselves and those of column 0
+// writing kd.
+// ---------------------------------------------------------------------------
+constexpr int K1_TILE = 32;                     // columns of a tile
+constexpr int K1_TROWS_TILE = 32;               // rows of a tile
+constexpr int K1_TROWS = 8;                     // thread rows of a tile block
+constexpr int K1_THREADS = K1_TILE * K1_TROWS;
+constexpr int K1_WARPS = K1_THREADS / 32;       // constraint rows per phase-1 block
+constexpr int K1_ROW_REGS = 24;                 // a row's entries per lane: n <= 768
+constexpr int K1_MIN_BLOCKS = 8;                // tile blocks an SM holds at once: 32 registers
+
+// Pointers of one newton_kkt call, in the order of kernels.NEWTON_FIELDS
+// (lanes first, row-major; lbw, ubw and free are shared by all lanes).
+struct NewtonPtrs {
+  const float* JE;         // (B, n_eq, n)
+  const float* JI;         // (B, n_ineq, n)
+  const float* H;          // (B, n, n)
+  const double* gradf;     // (B, n)
+  const double* cE;        // (B, n_eq)
+  const double* cI;        // (B, n_ineq)
+  const double* w;         // (B, n)
+  const double* s;         // (B, n_ineq)
+  const double* y;         // (B, n_eq)
+  const double* lam;       // (B, n_ineq)
+  const double* zl;        // (B, n)
+  const double* zu;        // (B, n)
+  const double* mu;        // (B,)
+  const double* lbw;       // (n,)
+  const double* ubw;       // (n,)
+  const double* free;      // (n,)
+  float* Ks;               // (B, N, N) out
+  float* kd;               // (B, N) out
+  double* W64;             // (B, n, n) out: f64 image of f32(W0)
+  double* A64;             // (B, m, n) out: f64 image of A' = f32(A) rn
+  double* rn;              // (B, m) out
+  double* D_reg;           // (B, m) out
+  float* Dr32;             // (B, m) out
+  double* r2_e;            // (B, m) out
+  double* b;               // (B, N) out: [r1, -r2_e]
+  double* r1;              // (B, n) out
+  double* Araw;            // (B, m, n) scratch: A = [JE; JI] free in f64
+  double* nu;              // (B, m) scratch: [y, lam]
+  float* diag32;           // (B, n) scratch: f32(W0_jj)
+  float* rn32;             // (B, m) scratch: rn in f32
+  const double* Atnu;      // (B, n): A^T nu, the wrapper's product
+};
+static_assert(sizeof(NewtonPtrs) == 31 * sizeof(void*), "NewtonPtrs is an array of pointers");
+
+// A'_rc in f32: f32(fin(J_rc) free_c) rn_r, J = [JE; JI]; where free_c is 1
+// or 0 the f64 round trip is exact and skipped
+__device__ __forceinline__ float a_prime(const NewtonPtrs& p, int lane, int r, int c, int n,
+                                         int n_eq, int n_ineq) {
+  const float* J = r < n_eq ? p.JE + ((size_t)lane * n_eq + r) * n
+                            : p.JI + ((size_t)lane * n_ineq + (r - n_eq)) * n;
+  const float v = fin32(J[c]);
+  const double f = p.free[c];
+  const float a = f == 1.0 ? v
+                : f == 0.0 ? __fmul_rn(v, 0.0f)
+                           : __double2float_rn(__dmul_rn((double)v, f));
+  return __fmul_rn(a, p.rn32[(size_t)lane * (n_eq + n_ineq) + r]);
+}
+
+__global__ void __launch_bounds__(K1_THREADS)
+newton_rows_kernel(NewtonPtrs p, int n, int n_eq, int n_ineq, double delta_w, double delta_c) {
+  const int lane = blockIdx.y;
+  const int m = n_eq + n_ineq, N = n + m;
+  const int row_blocks = (m + K1_WARPS - 1) / K1_WARPS;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const double mu = p.mu[lane];
+  if ((int)blockIdx.x < row_blocks) {
+    const int i = blockIdx.x * K1_WARPS + warp;   // a warp per constraint row
+    if (i >= m) return;
+    const float* __restrict__ J = i < n_eq ? p.JE + ((size_t)lane * n_eq + i) * n
+                                           : p.JI + ((size_t)lane * n_ineq + (i - n_eq)) * n;
+    const size_t orow = ((size_t)lane * m + i) * n;
+    // the row's scalars (the same address across the warp) and the row in
+    // registers, every load issued before the first store
+    const bool eq = i < n_eq;
+    const size_t oq = eq ? (size_t)lane * n_eq + i : (size_t)lane * n_ineq + (i - n_eq);
+    const double nu = eq ? p.y[oq] : p.lam[oq];
+    const double c = eq ? p.cE[oq] : p.cI[oq];
+    const double sq = eq ? 0.0 : p.s[oq];
+    float v[K1_ROW_REGS];
+    double amax = 0.0;
+#pragma unroll
+    for (int t = 0; t < K1_ROW_REGS; ++t) {
+      const int j = wl + 32 * t;
+      v[t] = j < n ? fin32(J[j]) : 0.0f;
+      if (j < n) amax = nmax(amax, fabs(__dmul_rn((double)v[t], p.free[j])));
     }
-    float r = 1.0f / sqrtf(clamp_lo(diag, 1e-8f));
-    r = clamp_hi(clamp_lo(r, 0.0f), 1e4f);
-    kd[t] = r;
-    if (blockIdx.x == 0) kd_out[(size_t)lane * N + t] = r;
+    for (int off = 16; off > 0; off >>= 1) {
+      amax = nmax(amax, __shfl_xor_sync(FULL_MASK, amax, off));
+    }
+    // rn = f32(clip(1 / clip(max |A_i.|, 1e-10, 1e10), 0, 1e6))
+    const double rinv = __ddiv_rn(1.0, nmin(nmax(amax, 1e-10), 1e10));
+    const float rn32 = __double2float_rn(nmin(nmax(rinv, 0.0), 1e6));
+#pragma unroll
+    for (int t = 0; t < K1_ROW_REGS; ++t) {
+      const int j = wl + 32 * t;
+      if (j < n) {
+        const double a = __dmul_rn((double)v[t], p.free[j]);
+        p.Araw[orow + j] = a;
+        p.A64[orow + j] = (double)__fmul_rn(__double2float_rn(a), rn32);
+      }
+    }
+    if (wl != 0) return;
+    const size_t oi = (size_t)lane * m + i;
+    const double rn = (double)rn32;
+    double D, r2;
+    if (eq) {
+      D = delta_c;
+      r2 = fin64(c);
+    } else {
+      const double lam_safe = nmax(nu, 1e-12);
+      D = __dadd_rn(div_rn(sq, lam_safe), delta_c);
+      r2 = __dadd_rn(fin64(c), div_rn(mu, lam_safe));
+    }
+    const double r2e = __dmul_rn(r2, rn);
+    const double Dreg = __dadd_rn(__dmul_rn(__dmul_rn(D, rn), rn), delta_c);
+    const float Dr = __double2float_rn(Dreg);
+    p.nu[oi] = nu;
+    p.rn[oi] = rn;
+    p.rn32[oi] = rn32;
+    p.r2_e[oi] = r2e;
+    p.D_reg[oi] = Dreg;
+    p.Dr32[oi] = Dr;
+    p.b[(size_t)lane * N + n + i] = -r2e;
+    p.kd[(size_t)lane * N + n + i] = jacobi(Dr);
+  } else {
+    const int j = (blockIdx.x - row_blocks) * K1_THREADS + tid;   // a thread per variable
+    if (j >= n) return;
+    const size_t oj = (size_t)lane * n + j;
+    const double wj = p.w[oj], fj = p.free[j];
+    const double dl = nmax(__dsub_rn(wj, p.lbw[j]), 1e-20);
+    const double du = nmax(__dsub_rn(p.ubw[j], wj), 1e-20);
+    const double sigma = nmin(nmax(__dadd_rn(div_rn(p.zl[oj], dl), div_rn(p.zu[oj], du)),
+                                   0.0), 1e16);
+    // W0_jj = (H_jj + sigma_j) free_j free_j + (1 - free_j)
+    const double h = (double)fin32(p.H[oj * n + j]);
+    const float d32 = __double2float_rn(__dadd_rn(__dmul_rn(__dadd_rn(h, sigma), __dmul_rn(fj, fj)),
+                                                  __dsub_rn(1.0, fj)));
+    p.diag32[oj] = d32;
+    const float kw = __fmul_rn(__double2float_rn(delta_w), __double2float_rn(fj));
+    p.kd[(size_t)lane * N + j] = jacobi(fabsf(__fadd_rn(d32, kw)));
+  }
+}
+
+// Where phase 2 takes its entries: from the Newton system (newton_kkt) ...
+struct FusedTiles {
+  NewtonPtrs p;
+  int n, n_eq, n_ineq;
+  float d32;   // f32(delta_w)
+
+  __device__ __forceinline__ float delta(int) const { return d32; }
+  __device__ __forceinline__ float free32(int i) const { return __double2float_rn(p.free[i]); }
+  __device__ __forceinline__ float kd(int lane, int i) const {
+    return p.kd[(size_t)lane * (n + n_eq + n_ineq) + i];
+  }
+  __device__ __forceinline__ float dr(int lane, int r) const {
+    return p.Dr32[(size_t)lane * (n_eq + n_ineq) + r];
+  }
+  __device__ __forceinline__ float a(int lane, int r, int c) const {
+    return a_prime(p, lane, r, c, n, n_eq, n_ineq);
+  }
+  // f32(W0_ij); W0 = (H + diag sigma) (free free^T) + diag(1 - free), the
+  // diagonal from phase 1. Off it, f32((f64(h) + 0) ff + 0) with ff =
+  // free_i free_j is h + 0 (which turns -0 into +0) where ff is 1 and +0
+  // where ff is 0, exactly: the f64 round trip only for other free values
+  __device__ __forceinline__ float w(int lane, int i, int j) const {
+    if (i == j) return p.diag32[(size_t)lane * n + i];
+    const float h = fin32(p.H[((size_t)lane * n + i) * n + j]);
+    const double ff = __dmul_rn(p.free[i], p.free[j]);
+    if (ff == 1.0) return __fadd_rn(h, 0.0f);
+    if (ff == 0.0) return 0.0f;
+    return __double2float_rn(__dadd_rn(__dmul_rn(__dadd_rn((double)h, 0.0), ff), 0.0));
+  }
+  // the f64 image of W0 that the refinement reads
+  __device__ __forceinline__ void w_out(int lane, int i, int j, float v) const {
+    p.W64[((size_t)lane * n + i) * n + j] = (double)v;
+  }
+  // the tiles of column 0: r1 = -(gradf + A^T nu - mu/dl + mu/du) free and
+  // b's upper half, for the tile's rows i0 ..
+  __device__ __forceinline__ void finish(int lane, int i0, const float*) const {
+    const int i = i0 + (int)threadIdx.x;
+    if (threadIdx.x >= K1_TROWS_TILE || i >= n) return;
+    const size_t oi = (size_t)lane * n + i;
+    const double mu = p.mu[lane], wi = p.w[oi];
+    const double dl = nmax(__dsub_rn(wi, p.lbw[i]), 1e-20);
+    const double du = nmax(__dsub_rn(p.ubw[i], wi), 1e-20);
+    const double g = __dadd_rn(__dsub_rn(__dadd_rn(fin64(p.gradf[oi]), p.Atnu[oi]),
+                                         div_rn(mu, dl)), div_rn(mu, du));
+    const double r1 = __dmul_rn(-g, p.free[i]);
+    p.r1[oi] = r1;
+    p.b[(size_t)lane * (n + n_eq + n_ineq) + i] = r1;
+  }
+};
+
+// ... or from the f32 W0 and A' of the lanes a ladder retry assembles
+struct RetryTiles {
+  const float* W;       // (B, n, n)
+  const float* A;       // (B, m, n)
+  const float* Dr;      // (B, m)
+  const float* fr;      // (n,)
+  const double* dl;     // (B,) the lanes' delta
+  float* kd_out;        // (B, N)
+  int n, m;
+
+  __device__ __forceinline__ float delta(int lane) const { return __double2float_rn(dl[lane]); }
+  __device__ __forceinline__ float free32(int i) const { return fr[i]; }
+  __device__ __forceinline__ float kd(int lane, int i) const {
+    const float d = i < n ? fabsf(__fadd_rn(W[((size_t)lane * n + i) * n + i],
+                                            __fmul_rn(delta(lane), fr[i])))
+                          : dr(lane, i - n);
+    return jacobi(d);
+  }
+  __device__ __forceinline__ float dr(int lane, int r) const { return Dr[(size_t)lane * m + r]; }
+  __device__ __forceinline__ float a(int lane, int r, int c) const {
+    return A[((size_t)lane * m + r) * n + c];
+  }
+  __device__ __forceinline__ float w(int lane, int i, int j) const {
+    return W[((size_t)lane * n + i) * n + j];
+  }
+  __device__ __forceinline__ void w_out(int, int, int, float) const {}
+  // the tiles of column 0 write kd of their rows
+  __device__ __forceinline__ void finish(int lane, int i0, const float* kdr) const {
+    const int i = i0 + (int)threadIdx.x;
+    if (threadIdx.x < K1_TROWS_TILE && i < n + m) kd_out[(size_t)lane * (n + m) + i] = kdr[threadIdx.x];
+  }
+};
+
+// Ks = kd K(delta) kd, one tile of K1_TROWS_TILE rows and 32 columns per
+// block (grid (tiles, lanes)); thread (tx, ty) holds column tx of the tile
+// rows ty, ty + 8, ...
+template <class Src>
+__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
+kkt_tiles_kernel(Src src, float* __restrict__ Ks, int n, int m) {
+  constexpr int TR = K1_TROWS_TILE, R = TR / K1_TROWS;
+  __shared__ float at[K1_TILE][TR + 1];   // A'^T entries of the tile, transposed
+  __shared__ float kdr[TR], kdc[K1_TILE];
+  const int N = n + m, TC = (N + K1_TILE - 1) / K1_TILE;
+  const int lane = blockIdx.y, ti = blockIdx.x / TC, tj = blockIdx.x % TC;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int i0 = ti * TR, j0 = tj * K1_TILE;
+  for (int r = threadIdx.x; r < TR; r += K1_THREADS) {
+    if (i0 + r < N) kdr[r] = src.kd(lane, i0 + r);
+  }
+  if (ty == K1_TROWS - 1 && j0 + tx < N) kdc[tx] = src.kd(lane, j0 + tx);
+  if (i0 < n && j0 + K1_TILE > n) {   // the tile holds A'^T entries: rows < n, columns >= n
+    for (int k = ty; k < K1_TILE; k += K1_TROWS) {
+      const int col = j0 + k;   // A' row col - n, columns i0 + c: coalesced over tx
+#pragma unroll
+      for (int c = tx; c < TR; c += 32) {
+        if (col >= n && col < N && i0 + c < n) at[k][c] = src.a(lane, col - n, i0 + c);
+      }
+    }
+  }
+  // the thread's own entries, loaded in the same round as the shared ones
+  // (before the barrier)
+  const int j = j0 + tx;
+  float w[R], k[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const int i = i0 + ty + K1_TROWS * t;
+    w[t] = 0.0f;
+    k[t] = 0.0f;
+    if (i < N && j < N) {
+      if (i < n) {
+        if (j < n) {   // W0 + delta diag(free)
+          w[t] = src.w(lane, i, j);
+          k[t] = __fadd_rn(w[t], __fmul_rn(src.delta(lane), i == j ? src.free32(i) : 0.0f));
+        }
+      } else if (j < n) {
+        k[t] = src.a(lane, i - n, j);
+      } else {
+        k[t] = (i == j) ? -src.dr(lane, i - n) : -0.0f;
+      }
+    }
   }
   __syncthreads();
-
-  const int row0 = blockIdx.x * K1_ROWS;
-  for (int r = 0; r < K1_ROWS; ++r) {
-    const int i = row0 + r;
-    if (i >= N) break;
-    const float kdi = kd[i];
-    float* Krow = Kl + (size_t)i * N;
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      float k;
-      if (i < n) {
-        if (j < n) {
-          k = Wl[(size_t)i * n + j];
-          if (i == j) k = __fadd_rn(k, __fmul_rn(d32, freev[i]));
-        } else {
-          k = Al[(size_t)(j - n) * n + i];  // A^T block
-        }
-      } else {
-        if (j < n) {
-          k = Al[(size_t)(i - n) * n + j];
-        } else {
-          k = (i == j) ? -Drl[i - n] : -0.0f;
-        }
-      }
-      Krow[j] = __fmul_rn(__fmul_rn(k, kdi), kd[j]);
+  if (tj == 0) src.finish(lane, i0, kdr);
+  if (j >= N) return;
+  float* Kl = Ks + (size_t)lane * N * N;
+  const float kdj = kdc[tx];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const int r = ty + K1_TROWS * t, i = i0 + r;
+    if (i < N) {
+      if (i < n && j >= n) k[t] = at[tx][r];
+      Kl[(size_t)i * N + j] = __fmul_rn(__fmul_rn(k[t], kdr[r]), kdj);
+      if (i < n && j < n) src.w_out(lane, i, j, w[t]);
     }
   }
 }
@@ -891,130 +1217,274 @@ int k3_launch(const void* lu, const void* piv, const void* kd, const void* v, vo
 }
 
 // ---------------------------------------------------------------------------
-// K4: fraction-to-boundary step + dual safeguards + barrier update, f64,
-// one thread block per lane. Two passes over the lane's O(n) vectors: the
-// min-ratio reductions (block-wide, NaN-propagating like jnp.min), then the
-// elementwise updates. Bound by latency and launch: a few KB per lane.
+// K4 ip_step: the direction from the solution and the interior-point step,
+// f64, one kernel. It replaces awebox_tpu/parallel/batch.py:189-198 (the ok
+// sanitizing, dy/dlam, ds = -(cI + s) - JI dw, dzl, dzu, err_d, err_p) and
+// _advance_state, :449-512 (fraction-to-boundary step, dual safeguards and
+// the barrier update), and computes what kernels.ip_step_plain computes: the
+// same f64 operations in the same order, but for JI dw, which sums in
+// another order than cuBLAS.
+//
+// What bounds it: latency and the launch, not bytes (~70 KB per lane at
+// B=16, 0.2 us of HBM time). A step kernel alone runs after ~30 eager
+// PyTorch ops, and one in two passes re-reads the lane's vectors from
+// global memory, with two block reductions of three barriers each. Here one
+// CTA of 16 warps per lane issues every load of its variables and duals
+// first, into registers (K4_ITEMS each a thread), and forms dl, du, the
+// directions and the ratios once; a warp per inequality row forms JI dw in
+// f64 by shuffles from its own dw entries, so nothing waits on a barrier
+// before the one reduction: alpha, alpha_z, err_d and err_p in one round of
+// warp shuffles and one barrier. Unbounded variables have dl = du = inf,
+// and an f64 division by inf takes the slow path of the division: div_rn
+// answers those operands inline (it halved the kernel, 14.5 -> 7.1 us on
+// the H100 at B=16; phase cuts of awebox_tpu_torch/probes/fused_phases.py).
+// What still bounds it there: the one round of loads and pass 1 ~2.5 us,
+// JI dw ~1, the divisions ~1.2, the updates ~1.5, the launch ~0.9.
 // ---------------------------------------------------------------------------
-constexpr int K4_THREADS = 256;
+constexpr int K4_THREADS = 512;
+constexpr int K4_WARPS = K4_THREADS / 32;
+constexpr int K4_ITEMS = 2;   // variables (and duals) per thread: n, m <= 1024
 
-// minimum/maximum that return NaN when either operand is NaN, like
-// torch.minimum and jnp.minimum (fmin/fmax would drop the NaN)
-__device__ __forceinline__ double nmin(double a, double b) {
-  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
-}
-
-__device__ __forceinline__ double nmax(double a, double b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
+// Pointers of one ip_step call, in the order of kernels.STEP_FIELDS.
+struct StepPtrs {
+  const double* x;         // (B, N): the solution [dw'; dnu'] of the scaled system
+  const uint8_t* ok;       // (B,) bool
+  const double* rn;        // (B, m)
+  const double* r1;        // (B, n)
+  const double* cE;        // (B, n_eq)
+  const double* cI;        // (B, n_ineq)
+  const float* JI;         // (B, n_ineq, n)
+  const double* w;         // (B, n)
+  const double* s;         // (B, n_ineq)
+  const double* y;         // (B, n_eq)
+  const double* lam;       // (B, n_ineq)
+  const double* zl;        // (B, n)
+  const double* zu;        // (B, n)
+  const double* mu;        // (B,)
+  const double* lbw;       // (n,)
+  const double* ubw;       // (n,)
+  const double* free;      // (n,)
+  double* w_o;             // the new state, shaped as its inputs
+  double* s_o;
+  double* y_o;
+  double* lam_o;
+  double* zl_o;
+  double* zu_o;
+  double* mu_o;
+  double* err_o;
+  double* ds_o;            // (B, n_ineq) or null: the step's ds, for checks
+};
+static_assert(sizeof(StepPtrs) == 26 * sizeof(void*), "StepPtrs is an array of pointers");
 
 // -tau * val / dval where dval < 0, else +inf (the ftb ratio)
 __device__ __forceinline__ double ftb_ratio(double val, double dval, double tau) {
-  return (dval < 0.0) ? __ddiv_rn(__dmul_rn(-tau, val), dval) : INFINITY;
-}
-
-__device__ __forceinline__ double block_min(double v, double* red) {
-  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  for (int off = 16; off > 0; off >>= 1) v = nmin(v, __shfl_down_sync(0xffffffffu, v, off));
-  if (wl == 0) red[warp] = v;
-  __syncthreads();
-  if (tid == 0) {
-    double s = red[0];
-    for (int w = 1; w < K4_THREADS / 32; ++w) s = nmin(s, red[w]);
-    red[0] = s;
-  }
-  __syncthreads();
-  const double out = red[0];
-  __syncthreads();
-  return out;
+  return (dval < 0.0) ? div_rn(__dmul_rn(-tau, val), dval) : INFINITY;
 }
 
 __global__ void __launch_bounds__(K4_THREADS)
-advance_state_kernel(
-    const double* __restrict__ w, const double* __restrict__ s,
-    const double* __restrict__ y, const double* __restrict__ lam,
-    const double* __restrict__ zl, const double* __restrict__ zu,
-    const double* __restrict__ mu, const double* __restrict__ dw,
-    const double* __restrict__ dy, const double* __restrict__ dlam,
-    const double* __restrict__ ds, const double* __restrict__ dzl,
-    const double* __restrict__ dzu, const uint8_t* __restrict__ ok,
-    const double* __restrict__ err_d, const double* __restrict__ err_kkt,
-    const double* __restrict__ lbw, const double* __restrict__ ubw,
-    double* __restrict__ w_o, double* __restrict__ s_o,
-    double* __restrict__ y_o, double* __restrict__ lam_o,
-    double* __restrict__ zl_o, double* __restrict__ zu_o,
-    double* __restrict__ mu_o, double* __restrict__ err_o,
-    int n, int n_eq, int n_ineq, double tau, double kappa_mu, double mu_min) {
-  __shared__ double red[K4_THREADS / 32];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t on = (size_t)b * n, oe = (size_t)b * n_eq, oi = (size_t)b * n_ineq;
-  const double mu_b = mu[b];
+ip_step_kernel(StepPtrs p, int n, int n_eq, int n_ineq, double tau, double kappa_mu,
+               double mu_min) {
+  extern __shared__ double ds_s[];   // [n_ineq]
+  __shared__ double red[4][K4_WARPS];
+  const int lane = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int m = n_eq + n_ineq, N = n + m;
+  const size_t on = (size_t)lane * n, om = (size_t)lane * m;
+  const size_t oe = (size_t)lane * n_eq, oi = (size_t)lane * n_ineq;
+  const double* xl = p.x + (size_t)lane * N;
+  const double mu = p.mu[lane];
+  const bool ok = p.ok[lane] != 0;
+  double ra = 1.0, rz = 1.0, err_d = 0.0, err_p = 0.0;   // ftb starts its min at 1
 
-  // pass 1: fraction-to-boundary ratios (initial 1.0 as in the JAX ftb)
-  double ra = 1.0, rz = 1.0;
-  for (int i = tid; i < n; i += K4_THREADS) {
-    const double wi = w[on + i], dwi = dw[on + i];
-    const double dl = nmax(__dadd_rn(wi, -lbw[i]), 1e-20);
-    const double du = nmax(__dadd_rn(ubw[i], -wi), 1e-20);
-    ra = nmin(ra, ftb_ratio(dl, dwi, tau));
-    ra = nmin(ra, ftb_ratio(du, -dwi, tau));
-    rz = nmin(rz, ftb_ratio(nmax(zl[on + i], 1e-300), dzl[on + i], tau));
-    rz = nmin(rz, ftb_ratio(nmax(zu[on + i], 1e-300), dzu[on + i], tau));
+  // every load of the thread's variables and duals first, then the arithmetic
+  double wv[K4_ITEMS], xv[K4_ITEMS], fv[K4_ITEMS], lbv[K4_ITEMS], ubv[K4_ITEMS], zlv[K4_ITEMS],
+      zuv[K4_ITEMS], r1v[K4_ITEMS];
+  double rnv[K4_ITEMS], xnv[K4_ITEMS], cv[K4_ITEMS], yv[K4_ITEMS], sv[K4_ITEMS], lamv[K4_ITEMS];
+#pragma unroll
+  for (int t = 0; t < K4_ITEMS; ++t) {
+    const int i = tid + t * K4_THREADS;
+    if (i < n) {
+      wv[t] = p.w[on + i]; xv[t] = xl[i]; fv[t] = p.free[i]; lbv[t] = p.lbw[i];
+      ubv[t] = p.ubw[i]; zlv[t] = p.zl[on + i]; zuv[t] = p.zu[on + i]; r1v[t] = p.r1[on + i];
+    }
+    if (i < m) {
+      rnv[t] = p.rn[om + i]; xnv[t] = xl[n + i];
+      if (i < n_eq) {
+        cv[t] = p.cE[oe + i]; yv[t] = p.y[oe + i];
+      } else {
+        const int q = i - n_eq;
+        cv[t] = p.cI[oi + q]; sv[t] = p.s[oi + q]; lamv[t] = p.lam[oi + q];
+      }
+    }
   }
-  for (int i = tid; i < n_ineq; i += K4_THREADS) {
-    ra = nmin(ra, ftb_ratio(s[oi + i], ds[oi + i], tau));
-    rz = nmin(rz, ftb_ratio(nmax(lam[oi + i], 1e-12), dlam[oi + i], tau));
-  }
-  const double alpha = nmin(block_min(ra, red), 1.0);
-  const double alpha_z = nmin(block_min(rz, red), 1.0);
 
-  // pass 2: updates
-  const double ks = 1e10;  // kappa_sigma corridor
-  for (int i = tid; i < n; i += K4_THREADS) {
-    const double wn = __dadd_rn(w[on + i], __dmul_rn(alpha, dw[on + i]));
-    w_o[on + i] = wn;
-    const double lb = lbw[i], ub = ubw[i];
-    const bool fl = isfinite(lb), fu = isfinite(ub);
-    double zln = fl ? __dadd_rn(zl[on + i], __dmul_rn(alpha_z, dzl[on + i])) : 0.0;
-    double zun = fu ? __dadd_rn(zu[on + i], __dmul_rn(alpha_z, dzu[on + i])) : 0.0;
-    const double dl = nmax(__dadd_rn(wn, -lb), 1e-20);
-    const double du = nmax(__dadd_rn(ub, -wn), 1e-20);
-    zln = nmin(nmax(zln, __ddiv_rn(mu_b, __dmul_rn(ks, dl))), __ddiv_rn(__dmul_rn(ks, mu_b), dl));
-    zun = nmin(nmax(zun, __ddiv_rn(mu_b, __dmul_rn(ks, du))), __ddiv_rn(__dmul_rn(ks, mu_b), du));
-    zl_o[on + i] = fl ? zln : 0.0;
-    zu_o[on + i] = fu ? zun : 0.0;
+  // the variables: dw, dzl, dzu and their ratios, err_d
+  double dwv[K4_ITEMS], dzlv[K4_ITEMS], dzuv[K4_ITEMS];
+#pragma unroll
+  for (int t = 0; t < K4_ITEMS; ++t) {
+    const int i = tid + t * K4_THREADS;
+    if (i < n) {
+      double dw = __dmul_rn(xv[t], fv[t]);
+      dw = (ok && isfinite(dw)) ? dw : 0.0;
+      const double zl = zlv[t], zu = zuv[t];
+      const double dl = nmax(__dsub_rn(wv[t], lbv[t]), 1e-20);
+      const double du = nmax(__dsub_rn(ubv[t], wv[t]), 1e-20);
+      const double dzl = __dsub_rn(__dsub_rn(div_rn(mu, dl), zl), div_rn(__dmul_rn(zl, dw), dl));
+      const double dzu = __dadd_rn(__dsub_rn(div_rn(mu, du), zu), div_rn(__dmul_rn(zu, dw), du));
+      dwv[t] = dw; dzlv[t] = dzl; dzuv[t] = dzu;
+      ra = nmin(ra, ftb_ratio(dl, dw, tau));
+      ra = nmin(ra, ftb_ratio(du, -dw, tau));
+      rz = nmin(rz, ftb_ratio(nmax(zl, 1e-300), dzl, tau));
+      rz = nmin(rz, ftb_ratio(nmax(zu, 1e-300), dzu, tau));
+      err_d = nmax(err_d, fabs(r1v[t]));
+    }
   }
-  for (int i = tid; i < n_eq; i += K4_THREADS) {
-    const double yn = __dadd_rn(y[oe + i], __dmul_rn(alpha, dy[oe + i]));
-    y_o[oe + i] = nmin(nmax(yn, -1e10), 1e10);
+  // the duals: dnu = rn x[n:], dy and dlam, the lam ratios, err_p
+  double dnuv[K4_ITEMS];
+#pragma unroll
+  for (int t = 0; t < K4_ITEMS; ++t) {
+    const int k = tid + t * K4_THREADS;
+    if (k < m) {
+      double d = __dmul_rn(rnv[t], xnv[t]);
+      d = (ok && isfinite(d)) ? d : 0.0;
+      dnuv[t] = d;
+      if (k < n_eq) {
+        err_p = nmax(err_p, fabs(fin64(cv[t])));
+      } else {
+        rz = nmin(rz, ftb_ratio(nmax(lamv[t], 1e-12), d, tau));
+        err_p = nmax(err_p, fabs(__dadd_rn(fin64(cv[t]), sv[t])));
+      }
+    }
   }
-  for (int i = tid; i < n_ineq; i += K4_THREADS) {
-    const double ln = __dadd_rn(lam[oi + i], __dmul_rn(alpha_z, dlam[oi + i]));
-    lam_o[oi + i] = nmin(nmax(ln, 1e-16), 1e10);
-    const double sn = __dadd_rn(s[oi + i], __dmul_rn(alpha, ds[oi + i]));
-    s_o[oi + i] = nmax(sn, 1e-16);
+  // ds = -(cI + s) - JI dw, a warp per inequality row, each forming the dw
+  // entries it needs from x itself, so no barrier waits for them
+  for (int q = warp; q < n_ineq; q += K4_WARPS) {
+    const float* J = p.JI + (oi + q) * n;
+    double acc = 0.0;
+#pragma unroll 8
+    for (int j = wl; j < n; j += 32) {
+      double dw = __dmul_rn(xl[j], p.free[j]);
+      dw = (ok && isfinite(dw)) ? dw : 0.0;
+      acc = fma((double)fin32(J[j]), dw, acc);
+    }
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL_MASK, acc, off);
+    if (wl == 0) {
+      const double sq = p.s[oi + q];
+      const double ds = __dsub_rn(-__dadd_rn(fin64(p.cI[oi + q]), sq), acc);
+      ds_s[q] = ds;
+      if (p.ds_o) p.ds_o[oi + q] = ds;
+      ra = nmin(ra, ftb_ratio(sq, ds, tau));
+    }
+  }
+
+  // alpha, alpha_z, err_d, err_p over the lane: warp shuffles, one barrier
+  for (int off = 16; off > 0; off >>= 1) {
+    ra = nmin(ra, __shfl_xor_sync(FULL_MASK, ra, off));
+    rz = nmin(rz, __shfl_xor_sync(FULL_MASK, rz, off));
+    err_d = nmax(err_d, __shfl_xor_sync(FULL_MASK, err_d, off));
+    err_p = nmax(err_p, __shfl_xor_sync(FULL_MASK, err_p, off));
+  }
+  if (wl == 0) {
+    red[0][warp] = ra;
+    red[1][warp] = rz;
+    red[2][warp] = err_d;
+    red[3][warp] = err_p;
+  }
+  __syncthreads();   // the warps' partials and ds are in shared memory
+#pragma unroll
+  for (int v = 0; v < K4_WARPS; ++v) {
+    ra = nmin(ra, red[0][v]);
+    rz = nmin(rz, red[1][v]);
+    err_d = nmax(err_d, red[2][v]);
+    err_p = nmax(err_p, red[3][v]);
+  }
+  const double alpha = nmin(ra, 1.0), alpha_z = nmin(rz, 1.0);
+
+  // the updates
+  const double ks = 1e10;   // kappa_sigma corridor
+#pragma unroll
+  for (int t = 0; t < K4_ITEMS; ++t) {
+    const int i = tid + t * K4_THREADS;
+    if (i < n) {
+      const double wn = __dadd_rn(wv[t], __dmul_rn(alpha, dwv[t]));
+      p.w_o[on + i] = wn;
+      const double lb = lbv[t], ub = ubv[t];
+      const bool fl = isfinite(lb), fu = isfinite(ub);
+      double zln = fl ? __dadd_rn(zlv[t], __dmul_rn(alpha_z, dzlv[t])) : 0.0;
+      double zun = fu ? __dadd_rn(zuv[t], __dmul_rn(alpha_z, dzuv[t])) : 0.0;
+      const double dl = nmax(__dsub_rn(wn, lb), 1e-20);
+      const double du = nmax(__dsub_rn(ub, wn), 1e-20);
+      zln = nmin(nmax(zln, div_rn(mu, __dmul_rn(ks, dl))), div_rn(__dmul_rn(ks, mu), dl));
+      zun = nmin(nmax(zun, div_rn(mu, __dmul_rn(ks, du))), div_rn(__dmul_rn(ks, mu), du));
+      p.zl_o[on + i] = fl ? zln : 0.0;
+      p.zu_o[on + i] = fu ? zun : 0.0;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < K4_ITEMS; ++t) {
+    const int k = tid + t * K4_THREADS;
+    if (k < n_eq) {
+      const double yn = __dadd_rn(yv[t], __dmul_rn(alpha, dnuv[t]));
+      p.y_o[oe + k] = nmin(nmax(yn, -1e10), 1e10);
+    } else if (k < m) {
+      const int q = k - n_eq;
+      const double ln = __dadd_rn(lamv[t], __dmul_rn(alpha_z, dnuv[t]));
+      p.lam_o[oi + q] = nmin(nmax(ln, 1e-16), 1e10);
+      const double sn = __dadd_rn(sv[t], __dmul_rn(alpha, ds_s[q]));
+      p.s_o[oi + q] = nmax(sn, 1e-16);
+    }
   }
   if (tid == 0) {
-    const double mu_new = nmax(nmin(__dmul_rn(kappa_mu, mu_b), __dmul_rn(0.1, err_d[b])), mu_min);
-    mu_o[b] = ok[b] ? mu_new : mu_b;
-    err_o[b] = err_kkt[b];
+    const double mu_new = nmax(nmin(__dmul_rn(kappa_mu, mu), __dmul_rn(0.1, err_d)), mu_min);
+    p.mu_o[lane] = ok ? mu_new : mu;
+    p.err_o[lane] = nmax(err_d, err_p);
   }
 }
+
+// The launch floor: an empty kernel, timed by chip_smoke.py beside K1-K4.
+__global__ void noop_kernel() {}
 
 }  // namespace
 
 extern "C" {
 
+// kernels.NEWTON_FIELDS pointers, in order, as a host array
+int newton_rows(const void* const* ptrs, int B, int n, int n_eq, int n_ineq, double delta_w,
+                double delta_c, void* stream) {
+  if (n > 32 * K1_ROW_REGS) return (int)cudaErrorInvalidValue;
+  NewtonPtrs p;
+  memcpy(&p, ptrs, sizeof p);
+  const int m = n_eq + n_ineq;
+  const dim3 grid((m + K1_WARPS - 1) / K1_WARPS + (n + K1_THREADS - 1) / K1_THREADS, B);
+  newton_rows_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(p, n, n_eq, n_ineq, delta_w,
+                                                                     delta_c);
+  return (int)cudaGetLastError();
+}
+
+// after newton_rows and the product Atnu = A^T nu on phase 1's A
+int newton_tiles(const void* const* ptrs, int B, int n, int n_eq, int n_ineq, double delta_w,
+                 void* stream) {
+  FusedTiles src;
+  memcpy(&src.p, ptrs, sizeof src.p);
+  src.n = n;
+  src.n_eq = n_eq;
+  src.n_ineq = n_ineq;
+  src.d32 = (float)delta_w;
+  const int N = n + n_eq + n_ineq;
+  const dim3 grid(((N + K1_TROWS_TILE - 1) / K1_TROWS_TILE) * ((N + K1_TILE - 1) / K1_TILE), B);
+  kkt_tiles_kernel<FusedTiles><<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
+      src, src.p.Ks, n, n_eq + n_ineq);
+  return (int)cudaGetLastError();
+}
+
 int kkt_assemble_scaled(const void* W, const void* A, const void* Dr,
                         const void* freev, const void* delta, void* Ks,
                         void* kd, int B, int n, int m, void* stream) {
+  const RetryTiles src = {(const float*)W, (const float*)A, (const float*)Dr,
+                          (const float*)freev, (const double*)delta, (float*)kd, n, m};
   const int N = n + m;
-  dim3 grid((N + K1_ROWS - 1) / K1_ROWS, B);
-  kkt_assemble_scaled_kernel<<<grid, K1_THREADS, N * sizeof(float),
-                               (cudaStream_t)stream>>>(
-      (const float*)W, (const float*)A, (const float*)Dr, (const float*)freev,
-      (const double*)delta, (float*)Ks, (float*)kd, n, m);
+  const dim3 grid(((N + K1_TROWS_TILE - 1) / K1_TROWS_TILE) * ((N + K1_TILE - 1) / K1_TILE), B);
+  kkt_tiles_kernel<RetryTiles><<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
+      src, (float*)Ks, n, m);
   return (int)cudaGetLastError();
 }
 
@@ -1070,25 +1540,22 @@ int lu_solve_batched(const void* lu, const void* piv, const void* kd,
   }
 }
 
-int advance_state(const void* w, const void* s, const void* y, const void* lam,
-                  const void* zl, const void* zu, const void* mu,
-                  const void* dw, const void* dy, const void* dlam,
-                  const void* ds, const void* dzl, const void* dzu,
-                  const void* ok, const void* err_d, const void* err_kkt,
-                  const void* lbw, const void* ubw, void* w_o, void* s_o,
-                  void* y_o, void* lam_o, void* zl_o, void* zu_o, void* mu_o,
-                  void* err_o, int B, int n, int n_eq, int n_ineq,
-                  double tau, double kappa_mu, double mu_min, void* stream) {
-  advance_state_kernel<<<B, K4_THREADS, 0, (cudaStream_t)stream>>>(
-      (const double*)w, (const double*)s, (const double*)y,
-      (const double*)lam, (const double*)zl, (const double*)zu,
-      (const double*)mu, (const double*)dw, (const double*)dy,
-      (const double*)dlam, (const double*)ds, (const double*)dzl,
-      (const double*)dzu, (const uint8_t*)ok, (const double*)err_d,
-      (const double*)err_kkt, (const double*)lbw, (const double*)ubw,
-      (double*)w_o, (double*)s_o, (double*)y_o, (double*)lam_o,
-      (double*)zl_o, (double*)zu_o, (double*)mu_o, (double*)err_o, n, n_eq,
-      n_ineq, tau, kappa_mu, mu_min);
+// kernels.STEP_FIELDS pointers, in order, as a host array (ds_o may be null)
+int ip_step(const void* const* ptrs, int B, int n, int n_eq, int n_ineq, double tau,
+            double kappa_mu, double mu_min, void* stream) {
+  if (n > K4_ITEMS * K4_THREADS || n_eq + n_ineq > K4_ITEMS * K4_THREADS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  StepPtrs p;
+  memcpy(&p, ptrs, sizeof p);
+  const size_t smem = sizeof(double) * (size_t)n_ineq;
+  ip_step_kernel<<<B, K4_THREADS, smem, (cudaStream_t)stream>>>(p, n, n_eq, n_ineq, tau,
+                                                                kappa_mu, mu_min);
+  return (int)cudaGetLastError();
+}
+
+int noop(int blocks, void* stream) {
+  noop_kernel<<<blocks, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

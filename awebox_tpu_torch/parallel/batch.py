@@ -13,10 +13,11 @@ The direction factors the row-equilibrated augmented KKT system
 in f32 with Jacobi scaling and partial-pivot LU, then runs two sweeps of
 f64-residual refinement, inside a delta ladder (x100, at most ``n_ladder``
 retries) that re-attempts only the lanes whose solution is non-finite or
-larger than ``dw_cap``. The O(n^3) factor and the O(n^2) assembly and
-triangular solves are the hand-written kernels of ``kernels.py``; the
-sanitising, sigma, W0, A, D, r1/r2, the f64 residual matvecs and
-ds/dzl/dzu/err stay plain torch, as the JAX package leaves them to XLA.
+larger than ``dw_cap``. Every piece but the refinement is a hand-written
+kernel of ``kernels.py``: the Newton system with its equilibration and
+K(delta_w) (newton_kkt), the factor, the triangular solves, and the
+direction from the solution with the step (ip_step). The f64 residual
+matvecs and the ladder's bookkeeping stay plain torch.
 """
 from __future__ import annotations
 
@@ -57,138 +58,92 @@ def make_ip_step(ocp, delta_w: float = 1e-8, delta_c: float = 1e-8,
             + (hess_fn(W, Y, LAM, P),)
 
     def direction(state, derivs_out, lbw, ubw, free):
-        s, zl, zu, mu = state['s'], state['zl'], state['zu'], state['mu']
-        m_ = mu[:, None]
-        sys_ = newton_system(state, derivs_out, lbw, ubw, free, delta_c)
-        dl, du, r1, cE, cI = (sys_[k] for k in ('dl', 'du', 'r1', 'cE', 'cI'))
-        dw, dnu, ok = _auglu_solve(sys_['W0'], sys_['A'], sys_['D'], r1,
-                                   sys_['r2'], free, n, delta_w, delta_c,
-                                   n_ladder, ladder_factor)
-        okc = ok[:, None]
-        dw = torch.where(okc & torch.isfinite(dw), dw, 0.)
-        dnu = torch.where(okc & torch.isfinite(dnu), dnu, 0.)
-        dy, dlam = dnu[:, :n_eq].contiguous(), dnu[:, n_eq:].contiguous()
-        ds = -(cI + s) - (sys_['JI'].to(dw.dtype) @ dw[:, :, None])[:, :, 0]
-        dzl = m_ / dl - zl - zl * dw / dl
-        dzu = m_ / du - zu + zu * dw / du
-        err_d = torch.abs(r1).amax(dim=1)
-        err_p = torch.maximum(torch.abs(cE).amax(dim=1),
-                              torch.abs(cI + s).amax(dim=1))
-        return kernels.advance_state(
-            state, (dw, dy, dlam, ds, dzl, dzu), ok, err_d,
-            torch.maximum(err_d, err_p), lbw, ubw, tau, kappa_mu, mu_min)
+        sys_ = kernels.newton_kkt(state, derivs_out, lbw, ubw, free, delta_w, delta_c)
+        x, ok = _ladder_solve(sys_, free, n, delta_w, n_ladder, ladder_factor)
+        return kernels.ip_step(x, ok, sys_['rn'], sys_['r1'], state, derivs_out, lbw, ubw,
+                               free, tau, kappa_mu, mu_min)
 
     return derivs_fn, direction
 
 
-def newton_system(state, derivs_out, lbw, ubw, free, delta_c=1e-8):
-    """The barrier-Newton system of one iteration (batch.py:146-180): the
-    sanitized derivatives, W0 = H + diag(sigma) masked by free, A = [JE; JI]
-    masked by free, the dual regularization D and the right-hand sides
-    r1, r2. Everything f64 except JE/JI/H as given."""
-    w, s, y, lam = state['w'], state['s'], state['y'], state['lam']
-    zl, zu, mu = state['zl'], state['zu'], state['mu']
-    f64 = w.dtype
-    m_ = mu[:, None]
-
-    fval, gradf, cE, cI, JE, JI, H = derivs_out
-    # non-finite derivatives (iterate escaped the model's domain) must not
-    # poison the linear algebra: sanitize, the ladder then produces a
-    # heavily damped (near-gradient) step
-    def fin(x):
-        return torch.where(torch.isfinite(x), x, 0.)
-    gradf, cE, cI = fin(gradf), fin(cE), fin(cI)
-    JE, JI, H = fin(JE), fin(JI), fin(H)
-
-    dl = torch.clamp(w - lbw, min=1e-20)
-    du = torch.clamp(ubw - w, min=1e-20)
-    sigma = torch.clamp(zl / dl + zu / du, 0., 1e16)
-    W0 = H.to(f64) + torch.diag_embed(sigma)
-    W0 = W0 * (free[:, None] * free[None, :]) + torch.diag(1. - free)
-
-    A = torch.cat([JE, JI], dim=1).to(f64) * free[None, :]
-    lam_safe = torch.clamp(lam, min=1e-12)
-    D = torch.cat([torch.full_like(y, delta_c), s / lam_safe + delta_c], dim=1)
-    r2 = torch.cat([cE, cI + m_ / lam_safe], dim=1)
-    nu = torch.cat([y, lam], dim=1)
-    r1 = -(gradf + (A.transpose(1, 2) @ nu[:, :, None])[:, :, 0]
-           - m_ / dl + m_ / du) * free
-    return dict(W0=W0, A=A, D=D, r1=r1, r2=r2, cE=cE, cI=cI, JI=JI,
-                dl=dl, du=du)
-
-
-def equilibrate(W0, A, D, r1, r2, free, delta_ce):
-    """Row equilibration A' = R A and the f32 pieces of K(delta)
-    (batch.py:314-331): returns rn, W32, A32, Dr32, free32 and the f64
-    right-hand side b and regularized D."""
-    fdt, rdt = torch.float32, W0.dtype
-    # all O(n^2) assembly stays f32; f64 appears only in O(n) vectors and in
-    # the refinement residual, computed from f64 casts of the f32 matrices
-    # (their f32-rounded values ARE the system being solved)
-    rn32 = torch.clamp(1.0 / torch.clamp(torch.abs(A).amax(dim=2), 1e-10, 1e10),
-                       0., 1e6).to(fdt)
-    rn = rn32.to(rdt)
-    r2_e = r2 * rn
-    D_reg = D * rn * rn + delta_ce
-    return dict(rn=rn, W32=W0.to(fdt).contiguous(),
-                A32=(A.to(fdt) * rn32[:, :, None]).contiguous(),
-                Dr32=D_reg.to(fdt).contiguous(), free32=free.to(fdt).contiguous(),
-                D_reg=D_reg, r2_e=r2_e, b=torch.cat([r1, -r2_e], dim=1))
-
-
-def _auglu_solve(W0, A, D, r1, r2, free, n, delta_w, delta_ce, n_ladder,
-                 ladder_factor, dw_cap=1e4, n_refine=2):
+def _ladder_solve(sys_, free, n, delta_w, n_ladder, ladder_factor, dw_cap=1e4,
+                  n_refine=2):
     """f32 LU of the row-equilibrated augmented KKT system with f64-residual
-    refinement, batched over lanes (batch.py:275-336, 404-446, factor='lu').
+    refinement, batched over lanes (batch.py:404-446, factor='lu'), from
+    newton_kkt's output: the first attempt factors its Ks (K(delta_w) of
+    every lane); lanes whose solution is non-finite or has |dw|_inf > dw_cap
+    retry with delta raised x ladder_factor, at most n_ladder times, each
+    retry assembling K(delta) of its lanes alone.
 
-    W0 (B,n,n), A (B,m,n), D, r2 (B,m), r1 (B,n) are f64, free (n,) f64.
-    Returns (dw (B,n), dnu (B,m), ok (B,) bool). A lane is ok when its
-    solution is finite and |dw|_inf <= dw_cap; failed lanes retry with
-    delta raised x ladder_factor, at most n_ladder times."""
-    fdt, rdt = torch.float32, W0.dtype
-    B = W0.shape[0]
-    eq = equilibrate(W0, A, D, r1, r2, free, delta_ce)
-    rn, W32, A32, Dr32, free32 = (eq[k] for k in ('rn', 'W32', 'A32', 'Dr32', 'free32'))
-    D_reg, r2_e, b = eq['D_reg'], eq['r2_e'], eq['b']
-    W64 = W32.to(rdt)
-    A64 = A32.to(rdt)
+    Returns (x (B, N) f64, the solution [dw'; dnu'] of the scaled system,
+    and ok (B,) bool)."""
+    fdt = torch.float32
+    W64, A64, D_reg, r1, r2_e, b = (sys_[k] for k in ('W64', 'A64', 'D_reg', 'r1', 'r2_e', 'b'))
+    rdt = b.dtype
+    B = b.shape[0]
 
-    def attempt(idx, delta):
-        """Solve for the lanes idx at their regularizations delta (len(idx),)."""
-        Ks, kd = kernels.kkt_assemble_scaled(W32[idx], A32[idx], Dr32[idx],
-                                             free32, delta)
+    def attempt(Ks, kd, idx, delta):
+        """Solve for the lanes idx (None: all) at their regularizations
+        delta, a (len(idx),) tensor or, for all lanes, a float."""
         lu, piv = kernels.lu_factor_batched(Ks)
+        take = (lambda t: t) if idx is None else (lambda t: t[idx])
+        dcol = delta if idx is None else delta[:, None]
 
         def ksolve(v):
             return kernels.lu_solve_batched(lu, piv, kd, v.to(fdt).contiguous()).to(rdt)
 
-        x = ksolve(b[idx])
-        Wi, Ai, Di = W64[idx], A64[idx], D_reg[idx]
+        x = ksolve(take(b))
+        Wi, Ai, Di, r1i, r2i = (take(t) for t in (W64, A64, D_reg, r1, r2_e))
         for _ in range(n_refine):
             xw, xnu = x[:, :n], x[:, n:]
-            r_w = r1[idx] - ((Wi @ xw[:, :, None])[:, :, 0]
-                             + delta[:, None] * (free * xw)
-                             + (Ai.transpose(1, 2) @ xnu[:, :, None])[:, :, 0])
-            r_nu = -r2_e[idx] - ((Ai @ xw[:, :, None])[:, :, 0] - Di * xnu)
+            r_w = r1i - ((Wi @ xw[:, :, None])[:, :, 0] + dcol * (free * xw)
+                         + (Ai.transpose(1, 2) @ xnu[:, :, None])[:, :, 0])
+            r_nu = -r2i - ((Ai @ xw[:, :, None])[:, :, 0] - Di * xnu)
             x = x + ksolve(torch.cat([r_w, r_nu], dim=1))
         ok = torch.isfinite(x).all(dim=1) & (torch.abs(x[:, :n]).amax(dim=1) <= dw_cap)
         return x, ok
 
-    all_lanes = torch.arange(B, device=W0.device)
-    delta = torch.full((B,), delta_w, dtype=rdt, device=W0.device)
-    x, ok = attempt(all_lanes, delta)
+    x, ok = attempt(sys_['Ks'], sys_['kd'], None, delta_w)
     # the ladder: retry only the lanes that still fail
+    delta = None
     for _ in range(n_ladder):
         bad = torch.nonzero(~ok).flatten()
         if bad.numel() == 0:
             break
+        if delta is None:
+            delta = torch.full((B,), delta_w, dtype=rdt, device=b.device)
+            free32, Dr32 = free.to(fdt), sys_['Dr32']
         delta[bad] = torch.clamp(delta[bad] * ladder_factor, min=delta_w)
-        xb, okb = attempt(bad, delta[bad])
+        Ks, kd = kernels.kkt_assemble_scaled(W64[bad].to(fdt), A64[bad].to(fdt), Dr32[bad],
+                                             free32, delta[bad])
+        xb, okb = attempt(Ks, kd, bad, delta[bad])
         x[bad] = xb
         ok[bad] = okb
-    dw = x[:, :n] * free
-    dnu = rn * x[:, n:]
-    return dw, dnu, ok
+    return x, ok
+
+
+def _auglu_solve(W0, A, D, r1, r2, free, n, delta_w, delta_ce, n_ladder,
+                 ladder_factor, dw_cap=1e4, n_refine=2):
+    """The direction solve from an assembled Newton system (batch.py:275-336,
+    404-446, factor='lu'): equilibrate, K(delta_w) by the retry assembly,
+    then _ladder_solve.
+
+    The direction no longer calls it (newton_kkt builds the system and
+    K(delta_w) in one kernel pair); it stays as the counterpart of the JAX
+    package's _auglu_solve, the entry for raw (W0, A, D, r1, r2) systems
+    through which the parity tests and chip_smoke.py hold the LU solve and
+    the delta ladder to the JAX package and to the CPU.
+
+    W0 (B,n,n), A (B,m,n), D, r2 (B,m), r1 (B,n) are f64, free (n,) f64.
+    Returns (dw (B,n), dnu (B,m), ok (B,) bool)."""
+    rdt = W0.dtype
+    eq = kernels.equilibrate(W0, A, D, r1, r2, free, delta_ce)
+    delta = torch.full((W0.shape[0],), delta_w, dtype=rdt, device=W0.device)
+    Ks, kd = kernels.kkt_assemble_scaled(eq['W32'], eq['A32'], eq['Dr32'], eq['free32'], delta)
+    sys_ = dict(Ks=Ks, kd=kd, W64=eq['W32'].to(rdt), A64=eq['A32'].to(rdt), D_reg=eq['D_reg'],
+                Dr32=eq['Dr32'], r1=r1, r2_e=eq['r2_e'], b=eq['b'])
+    x, ok = _ladder_solve(sys_, free, n, delta_w, n_ladder, ladder_factor, dw_cap, n_refine)
+    return x[:, :n] * free, eq['rn'] * x[:, n:], ok
 
 
 def stack_p(p_list):

@@ -11,23 +11,32 @@ entry points, and checks the hand-written CUDA kernels on the way:
   2. build    compile awebox_tpu_torch/csrc/auglu.cu with nvcc (sm_90a)
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes, on anchor-derived and random systems, with the
-              times of both (median of 25 runs, CUDA events); the LU factor
-              K2 in both variants, each where lu_factor_geometry takes it:
-              the cluster kernel at N=543, B = 1, 16 and 128, the unblocked
-              one at N=1055 B=2; the LU solve K3 on each of those shapes,
-              on K2's factor and on cuSOLVER's; K1-K4 and the library calls
+              times of both (median of 25 runs, CUDA events): K1 newton_kkt
+              (the Newton system and K(delta_w)) bit for bit and K4 ip_step
+              (the direction from the solution and the step) at its stated
+              tolerances, each at B = 1, 16 and 128 and on random systems
+              with non-finite J/H entries, pinned variables and infinite
+              bounds; the retry assembly bit for bit; the LU factor K2 in
+              both variants, each where lu_factor_geometry takes it: the
+              cluster kernel at N=543, B = 1, 16 and 128, the unblocked one
+              at N=1055 B=2; the LU solve K3 on each of those shapes, on K2's
+              factor and on cuSOLVER's; every kernel and the library calls
               (cuSOLVER's getrf, torch.linalg.lu_solve) are also timed queued
-              behind a device sleep, which hides the host's dispatch; each
-              kernel's bound (bytes over HBM rate or f32 operations over the
-              CUDA cores' peak) is computed from its shapes
+              behind a device sleep, which hides the host's dispatch, beside
+              an empty kernel's time (the launch floor); each kernel's bound
+              (bytes over HBM rate or operations over the CUDA cores' peak)
+              is computed from its shapes; the aten operations and the time
+              of one direction call
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
               9.5..10.5 m/s from tests/artifacts/bench_anchor_nk4_d3.npz,
               iterated to convergence (at most 100 iterations); every lane
               must latch KKT error <= 1e-5 and pass the f64 dynamics
               residual check <= 1e-4
-  5. path     every kernel of the path launched during the slice run, every
-              factor through the cluster variant, three solves per factor;
-              state on the card
+  5. path     every kernel of the path launched during the slice run: K1
+              and K4 once per iteration, the retry assembly once per ladder
+              retry, every factor through the cluster variant, three solves
+              per factor; no plain piece of the Newton system or of the step
+              called; state on the card
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -35,6 +44,7 @@ result. Run from the repository root:
 
     python3 chip_smoke.py
 """
+import importlib.util
 import json
 import os
 import subprocess
@@ -117,6 +127,7 @@ def main():
     from awebox_tpu_torch.parallel.refine import (average_power, make_refiner,
                                                   refine, wind_sweep_problem)
     from awebox_tpu_torch.ocp.structured import make_structured_derivs
+    from awebox_tpu_torch.probes.direction_ops import count_and_time
 
     dev = torch.device('cuda')
     f32, f64 = torch.float32, torch.float64
@@ -151,43 +162,104 @@ def main():
     w, y, lam = state['w'], state['y'], state['lam']
     dv = tuple(vals_fn(w, y, lam, P64)) + tuple(J.to(f32) for J in jac_fn(w, P64)) \
         + (hess_fn(w, y, lam, P64).to(f32),)
-    sys_ = batch.newton_system(state, dv, lbw, ubw, free)
-    eq_a = batch.equilibrate(sys_['W0'], sys_['A'], sys_['D'], sys_['r1'],
-                             sys_['r2'], free, 1e-8)
     delta = torch.full((B,), 1e-8, dtype=f64, device=dev)
     report = {}
 
-    def bound(nbytes, ops):
+    def bound(nbytes, ops=0, peak=67e12):
         """The least time the card could take for the work, in ms, and what
-        sets it: the larger of the bytes over HBM3's 3.35 TB/s and the f32
-        operations over the 67 TFLOP/s of the CUDA cores (H100 SXM data
-        sheet, at 700 W)."""
-        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+        sets it: the larger of the bytes over HBM3's 3.35 TB/s and the
+        operations over their peak (H100 SXM data sheet, at 700 W): f32 on
+        the CUDA cores 67 TFLOP/s, f64 34 TFLOP/s."""
+        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / peak * 1e3
         return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    # K1: anchor-derived K(delta); the kernel rounds exactly as the plain
-    # version (same f32 operations, no contraction), so the bound is 2 ulp
-    args1 = (eq_a['W32'], eq_a['A32'], eq_a['Dr32'], eq_a['free32'], delta)
+    # the launch floor: an empty kernel, as called and queued
+    floor = dict(ms=cuda_median_ms(kernels.launch_floor),
+                 queued_ms=cuda_median_ms(kernels.launch_floor, queued=True))
+    phase('kernels', f'launch floor (empty kernel): {floor["ms"]:.4f} ms, queued '
+          f'{floor["queued_ms"]:.4f} ms')
+
+    def lanes(tree, Bk):
+        """The B anchor lanes repeated (or cut) to Bk lanes."""
+        if isinstance(tree, dict):
+            return {k: lanes(v, Bk) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(lanes(v, Bk) for v in tree)
+        rep = (Bk + B - 1) // B
+        return tree.repeat(rep, *([1] * (tree.dim() - 1)))[:Bk].contiguous()
+
+    # K1 newton_kkt: the Newton system, its equilibration and K(delta_w),
+    # bit for bit against the plain composition (the same operations in the
+    # same order; r1 through the same cuBLAS product), on the anchor's
+    # systems at B = 1, 16 and 128 and on random systems with non-finite
+    # J/H entries, pinned variables and infinite bounds
+    def hold_k1(tag, args):
+        before = kernels.LAUNCHES['newton_kkt']
+        out = kernels.newton_kkt(*args, 1e-8, 1e-8)
+        ref = kernels.newton_kkt_plain(*args, 1e-8, 1e-8)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES['newton_kkt'] == before + 1, f'K1 {tag}: no launch')
+        differ = [k for k in ref if not torch.equal(out[k], ref[k])]
+        require(not differ, f'K1 {tag}: {differ} differ from the plain composition')
+        k1 = lambda: kernels.newton_kkt(*args, 1e-8, 1e-8)
+        state_, dv_ = args[0], args[1]
+        ins = [dv_[k] for k in range(1, 7)] + [state_[k] for k in ('w', 's', 'y', 'lam', 'zl',
+                                                                    'zu', 'mu')] + list(args[2:])
+        # bound_ms counts the outputs as this design writes them, W0 and A'
+        # as f64 images for the refinement's f64 products; bound_f32_images_ms
+        # counts those two at the 4 bytes of the f32 values they hold
+        b_, by_ = bound(nbytes(*ins, *out.values()))
+        b32, _ = bound(nbytes(*ins, *out.values()) - 4 * (out['W64'].numel() + out['A64'].numel()))
+        rec = dict(max_abs_err=0.0, ms=cuda_median_ms(k1), queued_ms=cuda_median_ms(k1, queued=True),
+                   plain_ms=cuda_median_ms(lambda: kernels.newton_kkt_plain(*args, 1e-8, 1e-8)),
+                   bound_ms=b_, bound_by=by_, bound_f32_images_ms=b32, library_ms=None,
+                   launch_floor_ms=floor['ms'], launch_floor_queued_ms=floor['queued_ms'])
+        phase('kernels', f'K1 newton_kkt {tag}: {len(ref)} outputs bit for bit; {rec["ms"]:.4f} ms, '
+              f'queued {rec["queued_ms"]:.4f} ms, vs plain {rec["plain_ms"]:.3f} ms; bound '
+              f'{b_:.4f} ms ({by_}; W0 and A\' in f32: {b32:.4f} ms)')
+        return out, ref, rec
+
+    # the input generators and the tolerances of K4 are the kernel tests' own
+    # (loaded by path: an installed package may own the name 'tests')
+    spec = importlib.util.spec_from_file_location(
+        'test_torch_kernels', os.path.join(HERE, 'tests', 'test_torch_kernels.py'))
+    ktests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ktests)
+    newton_inputs, step_gaps, step_solution, step_within_tolerance = (
+        ktests.newton_inputs, ktests.step_gaps, ktests.step_solution, ktests.step_within_tolerance)
+    k1_at, k1_out = {}, {}
+    for Bk in (1, B, 8 * B):
+        args = (lanes(state, Bk), lanes(dv, Bk), lbw, ubw, free)
+        k1_out[Bk], ref_a, k1_at[f'B={Bk}'] = hold_k1(f'anchor B={Bk}', args)
+        if Bk == B:
+            ref16 = ref_a
+    rand_args = newton_inputs(B=B, n=n, n_eq=ocp.n_eq, n_ineq=ocp.n_ineq, seed=3, device=dev)
+    _, rand_ref, k1_at['random B=16'] = hold_k1('random B=16', rand_args)
+    report['newton_kkt'] = dict(k1_at[f'B={B}'], at=k1_at)
+
+    # the retry assembly: K(delta) of the lanes a ladder retry takes, from
+    # the f32 W0 and A'; bit for bit, at three deltas
+    f32w = lambda t: t.to(f32).contiguous()
+    args1 = (f32w(ref16['W64']), f32w(ref16['A64']), ref16['Dr32'],
+             free.to(f32).contiguous(), 10.0 ** torch.linspace(-8, 0, B, dtype=f64, device=dev))
     Ks_k, kd_k = kernels.kkt_assemble_scaled(*args1)
-    Ks_p, kd_p = kernels.kkt_assemble_scaled_plain(*args1)
+    Ks_r, kd_r = kernels.kkt_assemble_scaled_plain(*args1)
     torch.cuda.synchronize()
-    err1 = max(float((Ks_k - Ks_p).abs().max()), float((kd_k - kd_p).abs().max()))
-    ulp = torch.finfo(f32).eps
-    ok1 = bool(((Ks_k - Ks_p).abs() <= 2 * ulp * Ks_p.abs()).all()) \
-        and bool(((kd_k - kd_p).abs() <= 2 * ulp * kd_p.abs()).all())
-    require(ok1, f'K1 disagrees with its plain version: max abs {err1:.3e}')
-    k1 = lambda: kernels.kkt_assemble_scaled(*args1)
-    b1, by1 = bound(nbytes(*args1, Ks_k, kd_k), 0)
+    require(torch.equal(Ks_k, Ks_r) and torch.equal(kd_k, kd_r),
+            'the retry assembly disagrees with its plain version')
+    k1r = lambda: kernels.kkt_assemble_scaled(*args1)
+    b1, by1 = bound(nbytes(*args1, Ks_k, kd_k))
     report['kkt_assemble_scaled'] = r1 = dict(
-        max_abs_err=err1, ms=cuda_median_ms(k1), queued_ms=cuda_median_ms(k1, queued=True),
+        max_abs_err=0.0, ms=cuda_median_ms(k1r), queued_ms=cuda_median_ms(k1r, queued=True),
         plain_ms=cuda_median_ms(lambda: kernels.kkt_assemble_scaled_plain(*args1)),
         bound_ms=b1, bound_by=by1, library_ms=None)
-    phase('kernels', f'K1 kkt_assemble_scaled: max abs diff {err1:.3e} (bound 2 ulp '
-          f'relative), {r1["ms"]:.4f} ms, queued {r1["queued_ms"]:.4f} ms, vs plain '
+    phase('kernels', f'retry assembly kkt_assemble_scaled: bit for bit at delta 1e-8..1, '
+          f'{r1["ms"]:.4f} ms, queued {r1["queued_ms"]:.4f} ms, vs plain '
           f'{r1["plain_ms"]:.3f} ms; bound {b1:.4f} ms ({by1})')
+    Ks_p, kd_p = ref16['Ks'], ref16['kd']
 
     # K2+K3: factor and solve the anchor-derived Ks. LU ties may pick other
     # rows than cuSOLVER, so the factors are compared through P L U, which
@@ -205,7 +277,7 @@ def main():
     # cuSOLVER's time as called moves between runs with the host's load
     # (at N >= 512 PyTorch calls its getrf once per lane), so the factors
     # and the solves are timed queued too.
-    c = eq_a['b'].to(f32).contiguous()
+    c = ref16['b'].to(f32).contiguous()
     geom = kernels.lu_factor_geometry(N)
     require(geom.variant == 'cluster', f'N={N} does not take the cluster variant: {geom}')
     max_clusters = kernels.lu_cluster_max_active(geom)
@@ -307,7 +379,7 @@ def main():
     rng = np.random.default_rng(1)
     n8, m8 = 540, 515
     sys8 = [torch.as_tensor(a, dtype=f64, device=dev) for a in random_systems(rng, n8, m8, 2)]
-    eq8 = batch.equilibrate(*sys8, torch.ones(n8, dtype=f64, device=dev), 1e-8)
+    eq8 = kernels.equilibrate(*sys8, torch.ones(n8, dtype=f64, device=dev), 1e-8)
     Ks8, kd8 = kernels.kkt_assemble_scaled(eq8['W32'], eq8['A32'], eq8['Dr32'], eq8['free32'],
                                            torch.full((2,), 1e-8, dtype=f64, device=dev))
     require(kernels.lu_factor_geometry(n8 + m8).variant == 'unblocked',
@@ -368,37 +440,56 @@ def main():
           f'{ar_h[regular].max():.3e}; ladder lane: {retries} retries on the card, '
           f'dw_0 card {dw0_c:.6e}, cpu {dw0_h:.6e}')
 
-    # K4: random f64 states with active bounds; same f64 operations in the
-    # same order, so the bound is 1e-14 relative
-    g = torch.Generator(device='cpu').manual_seed(1)
-    ni, ne = ocp.n_ineq, ocp.n_eq
-    rnd = lambda *s: torch.randn(*s, generator=g, dtype=f64).to(dev)
-    st = {k: state[k].clone() for k in ('w', 's', 'y', 'lam', 'zl', 'zu', 'mu')}
-    st['w'] = torch.where(torch.isfinite(lbw) & (rnd(B, n) > 1.), lbw + 1e-9, st['w'])
-    st['mu'] = torch.full((B,), 1e-5, dtype=f64, device=dev)
-    direction4 = (rnd(B, n), rnd(B, ne), rnd(B, ni) * 1e-3, rnd(B, ni), rnd(B, n), rnd(B, n))
-    ok4 = rnd(B) > -1.
-    err_d4, err_k4 = rnd(B).abs(), rnd(B).abs()
-    args4 = (st, direction4, ok4, err_d4, err_k4, lbw, ubw, 0.99, 0.4, 1e-8)
-    o_k = kernels.advance_state(*args4)
-    o_p = kernels.advance_state_plain(*args4)
-    torch.cuda.synchronize()
-    err4, rel4 = 0., 0.
-    for k in o_p:
-        d = (o_k[k] - o_p[k]).abs()
-        err4 = max(err4, float(d.max()))
-        rel4 = max(rel4, float((d / o_p[k].abs().clamp(min=1e-300)).max()))
-    require(rel4 <= 1e-14, f'K4 relative error {rel4:.3e}')
-    k4 = lambda: kernels.advance_state(*args4)
-    b4, by4 = bound(nbytes(*st.values(), *direction4, ok4, err_d4, err_k4, lbw, ubw,
-                           *o_k.values()), 0)
-    report['advance_state'] = r4 = dict(
-        max_abs_err=err4, ms=cuda_median_ms(k4), queued_ms=cuda_median_ms(k4, queued=True),
-        plain_ms=cuda_median_ms(lambda: kernels.advance_state_plain(*args4)),
-        bound_ms=b4, bound_by=by4, library_ms=None)
-    phase('kernels', f'K4 advance_state: max rel diff {rel4:.3e} (bound 1e-14), '
-          f'{r4["ms"]:.4f} ms, queued {r4["queued_ms"]:.4f} ms, vs plain '
-          f'{r4["plain_ms"]:.3f} ms; bound {b4:.5f} ms ({by4})')
+    # K4 ip_step: the direction from the solution and the step, against its
+    # plain version at tests/test_torch_kernels.py's TOL_STEP / TOL_DS (JI dw
+    # sums in another order): on the anchor's solutions at B = 1, 16 and 128
+    # and on random solutions (a NaN entry, a failed lane) of the random
+    # systems above
+    def hold_k4(tag, x, ok, sys_, args):
+        n_ineq = args[0]['s'].shape[1]
+        ds_k, ds_p = (torch.empty(x.shape[0], n_ineq, dtype=f64, device=dev) for _ in range(2))
+        step = (x, ok, sys_['rn'], sys_['r1']) + tuple(args) + (0.99, 0.4, 1e-8)
+        before = kernels.LAUNCHES['ip_step']
+        o_k = kernels.ip_step(*step, ds_out=ds_k)
+        o_p = kernels.ip_step_plain(*step, ds_out=ds_p)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES['ip_step'] == before + 1, f'K4 {tag}: no launch')
+        gaps = step_gaps(o_k, o_p, args[0], ds_k, ds_p, x, ok, args[1], args[4])
+        require(step_within_tolerance(gaps), f'K4 {tag}: gaps over tolerance {gaps}')
+        # past the gate, a NaN difference is one of entries NaN on both sides
+        err = max(float((o_k[k] - o_p[k]).abs().nan_to_num().max()) for k in o_p)
+        k4 = lambda: kernels.ip_step(*step)
+        st, dv_ = args[0], args[1]
+        ins = [x, ok, sys_['rn'], sys_['r1'], dv_[2], dv_[3], dv_[5]] + list(st.values()) \
+            + list(args[2:])
+        b_, by_ = bound(nbytes(*ins, *o_k.values()), 2 * x.shape[0] * n_ineq * free.numel(), 34e12)
+        rec = dict(max_abs_err=err, ms=cuda_median_ms(k4), queued_ms=cuda_median_ms(k4, queued=True),
+                   plain_ms=cuda_median_ms(lambda: kernels.ip_step_plain(*step)),
+                   bound_ms=b_, bound_by=by_, library_ms=None, gaps=gaps,
+                   launch_floor_ms=floor['ms'], launch_floor_queued_ms=floor['queued_ms'])
+        phase('kernels', f'K4 ip_step {tag}: gaps over tolerance max {max(gaps.values()):.3f} '
+              f'(ds {gaps["ds"]:.3f}), max abs diff {err:.3e}; {rec["ms"]:.4f} ms, queued '
+              f'{rec["queued_ms"]:.4f} ms, vs plain {rec["plain_ms"]:.3f} ms; bound {b_:.5f} ms '
+              f'({by_}); launch floor queued {floor["queued_ms"]:.4f} ms')
+        return rec
+
+    k4_at = {}
+    for Bk in (1, B, 8 * B):
+        sys_k = k1_out[Bk]
+        st_k = {k: lanes(state, Bk)[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu', 'mu')}
+        x_k, ok_k = batch._ladder_solve(sys_k, free, n, 1e-8, 7, 100.)
+        k4_at[f'B={Bk}'] = hold_k4(f'anchor B={Bk}', x_k, ok_k, sys_k,
+                                   (st_k, lanes(dv, Bk), lbw, ubw, free))
+    x_r, ok_r = step_solution(B, N, device=dev)
+    k4_at['random B=16'] = hold_k4('random B=16', x_r, ok_r, rand_ref, rand_args)
+    report['ip_step'] = dict(k4_at[f'B={B}'], at=k4_at)
+
+    # aten operations one direction call dispatches on the card, and its time
+    _, direction = batch.make_ip_step(ocp, kappa_mu=0.4)
+    n_ops, dir_ms = count_and_time(lambda: direction(state, dv, lbw, ubw, free), N_TIMED)
+    dir_ms = sorted(dir_ms)[N_TIMED // 2]
+    phase('kernels', f'one direction call at B={B}: {n_ops} aten ops dispatched, '
+          f'{dir_ms:.3f} ms (host clock, synchronized, median of {N_TIMED})')
 
     # one iteration from the anchor on the card against the plain path on
     # the CPU, 2 lanes: the iterates agree to 1e-6 of the step (the f32
@@ -417,9 +508,26 @@ def main():
           f'(step {step:.3e})')
 
     # --- 4. the slice -----------------------------------------------------
+    # the plain pieces of the Newton system and of the step are counted
+    # while the slice runs: on the card none may run
+    plain_calls = {k: 0 for k in ('newton_system', 'equilibrate', 'kkt_assemble_scaled_plain',
+                                  'newton_kkt_plain', 'advance_state', 'ip_step_plain')}
+    saved = {k: getattr(kernels, k) for k in plain_calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            plain_calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+    for k in plain_calls:
+        setattr(kernels, k, counted(k))
     kernels.reset_launch_counts()
-    res = refine(ocp, state, P64, lbw, ubw, free, tol=1e-5, verify_tol=1e-4,
-                 max_iter=100, kappa_mu=0.4, time_pieces=True)
+    try:
+        res = refine(ocp, state, P64, lbw, ubw, free, tol=1e-5, verify_tol=1e-4,
+                     max_iter=100, kappa_mu=0.4, time_pieces=True)
+    finally:
+        for k, fn in saved.items():
+            setattr(kernels, k, fn)
     launches = dict(kernels.LAUNCHES)
     it = res['n_iter']
     conv = res['converged'].cpu().numpy()
@@ -439,22 +547,32 @@ def main():
 
     # --- 5. path check ----------------------------------------------------
     # at N=543 every factor takes the cluster variant; the unblocked one
-    # serves lanes no cluster holds and is held above at N=1055
-    on_path = [k for k in launches if k != 'lu_factor_unblocked']
+    # serves lanes no cluster holds and is held above at N=1055. The retry
+    # assembly runs once per delta-ladder retry, a factor beyond the one per
+    # iteration: the slice may need none; it is held above, and on the card
+    # in the direction solve's ladder lane
+    on_path = [k for k in launches if k not in ('lu_factor_unblocked', 'kkt_assemble_scaled')]
     require(all(launches[k] > 0 for k in on_path), f'a kernel did not run in the slice: {launches}')
+    require(launches['newton_kkt'] == it and launches['ip_step'] == it,
+            f'K1 and K4 did not run once per iteration ({it}): {launches}')
+    require(launches['kkt_assemble_scaled'] == launches['lu_factor_batched'] - it,
+            f'the retry assembly did not run once per retry: {launches}')
+    require(not any(plain_calls.values()), f'plain pieces ran in the slice: {plain_calls}')
     require(launches['lu_factor_cluster'] == launches['lu_factor_batched'],
             f'a factor of the slice did not take the cluster variant: {launches}')
     # every attempt solves once and refines twice on its factor
     require(launches['lu_solve_batched'] == 3 * launches['lu_factor_batched'],
             f'the slice did not solve three times per factor: {launches}')
     require(all(v.is_cuda for v in res['state'].values()), 'the state left the card')
-    phase('path', f'kernel launches in the slice run: {launches}')
+    phase('path', f'kernel launches in the slice run: {launches}; plain pieces called: '
+          f'{plain_calls}')
 
-    sources = {'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
+    sources = {'newton_kkt': 'awebox_tpu/parallel/batch.py:154',
+               'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
                'lu_factor_cluster': 'awebox_tpu/parallel/batch.py:414',
                'lu_factor_unblocked': 'awebox_tpu/parallel/batch.py:414',
                'lu_solve_batched': 'awebox_tpu/parallel/batch.py:416',
-               'advance_state': 'awebox_tpu/parallel/batch.py:449'}
+               'ip_step': 'awebox_tpu/parallel/batch.py:189'}
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', source='awebox_tpu_torch/csrc/auglu.cu',
              replaces=sources[k], launches=launches[k], **report[k])

@@ -5,12 +5,14 @@ wrapper runs its plain PyTorch version. The kernels themselves, which run
 only on a CUDA card, are tested in test_torch_kernels.py.
 """
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
 
 from tests.test_batch_auglu import make_system
+from tests.test_torch_kernels import newton_inputs, step_solution
 from tests.test_torch_support import jax_sweep, jax_trial, torch_trial
 
 torch.set_num_threads(1)
@@ -203,6 +205,89 @@ def test_advance_state_matches_jax():
         np.testing.assert_allclose(b, a, rtol=1e-14, atol=0, err_msg=k)
     # the failed lane held its barrier, the others contracted it
     np.testing.assert_array_equal(out_t['mu'][1].numpy(), state['mu'][1])
+
+
+def newton_case(case):
+    """(state, derivs, lbw, ubw, free) as tensors: the anchor's first
+    iteration (two lanes), or random inputs with non-finite J, H, gradf, cE
+    and cI entries, pinned variables and infinite bounds."""
+    if case == 'random':
+        return newton_inputs()
+    state, derivs, lbw, ubw, free = anchor_inputs()
+    as_t = torch.as_tensor
+    return ({k: as_t(v) for k, v in state.items()}, tuple(as_t(d) for d in derivs),
+            as_t(lbw), as_t(ubw), as_t(free))
+
+
+@pytest.mark.parametrize('case', ['anchor', 'random'])
+def test_newton_kkt_plain_is_the_unfused_composition(case):
+    """K1's plain version (what newton_kkt runs on CPU tensors) equals the
+    unfused pieces bit for bit: newton_system, equilibrate, then
+    kkt_assemble_scaled_plain at delta_w on every lane, gathered as the
+    ladder's first attempt gathered them, and the f64 casts of W32 and A32
+    that the refinement reads. Sanitizing leaves every output finite."""
+    from awebox_tpu_torch.parallel import kernels
+    state, derivs, lbw, ubw, free = newton_case(case)
+    out = kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8)
+    f64 = torch.float64
+    sys_ = kernels.newton_system(state, derivs, lbw, ubw, free, 1e-8)
+    eq = kernels.equilibrate(sys_['W0'], sys_['A'], sys_['D'], sys_['r1'], sys_['r2'], free, 1e-8)
+    idx = torch.arange(sys_['W0'].shape[0])
+    delta = torch.full((len(idx),), 1e-8, dtype=f64)
+    Ks, kd = kernels.kkt_assemble_scaled_plain(eq['W32'][idx], eq['A32'][idx], eq['Dr32'][idx],
+                                               eq['free32'], delta)
+    expect = dict(Ks=Ks, kd=kd, W64=eq['W32'].to(f64), A64=eq['A32'].to(f64), rn=eq['rn'],
+                  D_reg=eq['D_reg'], Dr32=eq['Dr32'], r2_e=eq['r2_e'], b=eq['b'],
+                  r1=sys_['r1'])
+    assert set(out) == set(expect)
+    for k, v in expect.items():
+        assert torch.equal(out[k], v), k
+        assert bool(torch.isfinite(out[k]).all()), k
+
+
+@pytest.mark.parametrize('case', ['anchor', 'random'])
+def test_ip_step_plain_is_the_unfused_step(case):
+    """K4's plain version (what ip_step runs on CPU tensors) equals, bit for
+    bit, the unfused lines: dw and dnu from the solution x, sanitized by ok
+    and finiteness, ds, dzl, dzu, err_d and err_p from newton_system's
+    sanitized values and dl, du, then advance_state. On the anchor x is the
+    ladder's solution; the random case has a NaN entry and a failed lane,
+    whose barrier is held."""
+    from awebox_tpu_torch.parallel import batch, kernels
+    state, derivs, lbw, ubw, free = newton_case(case)
+    n, n_eq, n_ineq = free.shape[0], state['y'].shape[1], state['s'].shape[1]
+    sys_k = kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8)
+    if case == 'anchor':
+        x, ok = batch._ladder_solve(sys_k, free, n, 1e-8, N_LADDER, LADDER)
+        assert bool(ok.all())
+    else:
+        x, ok = step_solution(*sys_k['b'].shape)
+    ds = torch.empty(x.shape[0], n_ineq, dtype=torch.float64)
+    args = (lbw, ubw, 0.99, 0.4, 1e-8)
+    out = kernels.ip_step(x, ok, sys_k['rn'], sys_k['r1'], state, derivs, lbw, ubw, free,
+                          *args[2:], ds_out=ds)
+    sys_ = kernels.newton_system(state, derivs, lbw, ubw, free, 1e-8)
+    s, zl, zu, m_ = state['s'], state['zl'], state['zu'], state['mu'][:, None]
+    dw, dnu = x[:, :n] * free, sys_k['rn'] * x[:, n:]
+    okc = ok[:, None]
+    dw = torch.where(okc & torch.isfinite(dw), dw, 0.)
+    dnu = torch.where(okc & torch.isfinite(dnu), dnu, 0.)
+    dy, dlam = dnu[:, :n_eq].contiguous(), dnu[:, n_eq:].contiguous()
+    ds_ref = -(sys_['cI'] + s) - (sys_['JI'].to(dw.dtype) @ dw[:, :, None])[:, :, 0]
+    dzl = m_ / sys_['dl'] - zl - zl * dw / sys_['dl']
+    dzu = m_ / sys_['du'] - zu + zu * dw / sys_['du']
+    err_d = torch.abs(sys_['r1']).amax(dim=1)
+    err_p = torch.maximum(torch.abs(sys_['cE']).amax(dim=1),
+                          torch.abs(sys_['cI'] + s).amax(dim=1))
+    ref = kernels.advance_state(state, (dw, dy, dlam, ds_ref, dzl, dzu), ok, err_d,
+                                torch.maximum(err_d, err_p), *args)
+    assert torch.equal(ds, ds_ref)
+    assert set(out) == set(ref)
+    for k, v in ref.items():
+        assert torch.equal(out[k], v), k
+        assert bool(torch.isfinite(v).all()), k
+    if case == 'random':
+        assert torch.equal(out['mu'][1], state['mu'][1])
 
 
 def test_lu_plain_solves_like_jax_lu():

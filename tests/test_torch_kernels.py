@@ -65,6 +65,179 @@ def random_step_inputs(B=4, n=40, n_eq=20, n_ineq=8, seed=17, device='cpu'):
     return (state, direction, ok, err_d, err_k, t(lbw), t(ubw), 0.99, 0.4, 1e-8)
 
 
+def newton_inputs(B=3, n=40, n_eq=20, n_ineq=8, seed=5, device='cpu'):
+    """newton_kkt and ip_step inputs (state, derivs_out, lbw, ubw, free):
+    f32 JE, JI, H with NaN and inf entries and an all-zero row of JE, f64
+    gradf, cE, cI with non-finite entries, pinned variables (free = 0),
+    infinite bounds, w within 1e-9 of finite lower bounds, a lam below its
+    1e-12 floor, rows of J over six decades and H over five."""
+    rng = np.random.default_rng(seed)
+    lbw = np.where(rng.uniform(size=n) < 0.6, -1.0, -np.inf)
+    ubw = np.where(rng.uniform(size=n) < 0.5, 1.0, np.inf)
+    free = (rng.uniform(size=n) > 0.15).astype(float)
+    free[0] = 0.
+    w = rng.uniform(-0.9, 0.9, (B, n))
+    w = np.where(np.isfinite(lbw) & (rng.uniform(size=(B, n)) < 0.3), lbw + 1e-9, w)
+    H = rng.standard_normal((B, n, n)) * 10.0 ** rng.uniform(-2, 3, (B, n, 1))
+    JE = rng.standard_normal((B, n_eq, n)) * 10.0 ** rng.uniform(-3, 3, (B, n_eq, 1))
+    JI = rng.standard_normal((B, n_ineq, n)) * 10.0 ** rng.uniform(-3, 3, (B, n_ineq, 1))
+    gradf, cE, cI = (rng.standard_normal((B, k)) for k in (n, n_eq, n_ineq))
+    H[0, 3, 5], H[-1, 2, 2], JE[0, 1, 4], JI[-1, 0, 6] = np.nan, np.inf, -np.inf, np.nan
+    JE[-1, 5, :] = 0.
+    gradf[0, 7], cE[-1, 3], cI[0, 1] = np.nan, np.inf, np.nan
+    lam = np.abs(rng.standard_normal((B, n_ineq))) * 1e-2
+    lam[0, 2] = 1e-14
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device=device)
+    state = dict(w=f64(w), s=f64(np.abs(rng.standard_normal((B, n_ineq))) + 1e-6),
+                 y=f64(rng.standard_normal((B, n_eq))), lam=f64(lam),
+                 zl=f64(np.abs(rng.standard_normal((B, n)))),
+                 zu=f64(np.abs(rng.standard_normal((B, n)))),
+                 mu=f64(10.0 ** rng.uniform(-7, -2, B)))
+    derivs = (f64(np.zeros(B)), f64(gradf), f64(cE), f64(cI), f32(JE), f32(JI), f32(H))
+    return state, derivs, f64(lbw), f64(ubw), f64(free)
+
+
+def step_solution(B, N, seed=6, device='cpu'):
+    """A solution x (B, N) f64 of the scaled system with a NaN entry, and ok
+    (B,) with lane 1 failed, for ip_step."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N)) * 10.0 ** rng.uniform(-3, 1, (B, N))
+    x[0, 3] = np.nan
+    return (torch.as_tensor(x, device=device),
+            torch.as_tensor(np.arange(B) != 1, device=device))
+
+
+# ip_step against its plain version: the kernel sums JI dw in another order
+# than the plain product, so ds agrees to 1e-13 of the sum's scale
+# |cI + s| + |JI| |dw| (n f64 roundings, ~3e-14 at n = 280). alpha takes
+# ds's ratio -tau s / ds where that is the least, so it agrees to the same
+# relative order, and w, y, s (old + alpha d) agree to 1e-12 of
+# |old| + |new - old|; zl and zu to 1e-10 relative: the corridor divides by
+# the new dl, which the fraction-to-boundary rule keeps above (1 - tau) of
+# its old value, amplifying alpha's gap by up to tau / (1 - tau) = 99.
+# lam, mu and err do not depend on ds: 1e-14 relative (the same f64
+# operations in the same order).
+TOL_STEP = {'w': 1e-12, 'y': 1e-12, 's': 1e-12, 'zl': 1e-10, 'zu': 1e-10,
+            'lam': 1e-14, 'mu': 1e-14, 'err': 1e-14}
+TOL_DS = 1e-13
+
+
+def gap_over(a, a_p, tol_scale):
+    """max |a - a_p| / tol_scale over the entries where a and a_p differ;
+    equal entries (both NaN, or the same infinity, included) count 0, and an
+    entry NaN on one side only, or that no finite tolerance covers, counts
+    inf, so a stray NaN never passes."""
+    same = (a == a_p) | (torch.isnan(a) & torch.isnan(a_p))
+    gap = torch.where(same, 0., (a - a_p).abs() / tol_scale)
+    return float(torch.nan_to_num(gap, nan=float('inf')).max())
+
+
+def step_gaps(out, out_p, state, ds, ds_p, x, ok, derivs, free):
+    """The largest gap of ip_step's outputs from the plain version's, each
+    over its tolerance (<= 1 passes): per TOL_STEP and TOL_DS above."""
+    gaps = {}
+    for k, tol in TOL_STEP.items():
+        if k in ('w', 'y', 's'):
+            scale = state[k].abs() + (out_p[k] - state[k]).abs()
+        else:
+            scale = out_p[k].abs()
+        gaps[k] = gap_over(out[k], out_p[k], tol * scale)
+    n = free.shape[0]
+    dw = x[:, :n] * free
+    dw = torch.where(ok[:, None] & torch.isfinite(dw), dw, 0.)
+    fin = lambda t: torch.where(torch.isfinite(t), t, 0.)
+    cI, JI = fin(derivs[3]), fin(derivs[5]).double()
+    scale = (cI + state['s']).abs() + (JI.abs() @ dw.abs()[:, :, None])[:, :, 0]
+    gaps['ds'] = gap_over(ds, ds_p, TOL_DS * scale)
+    return gaps
+
+
+def step_within_tolerance(gaps):
+    """Every gap of step_gaps within its tolerance."""
+    return all(g <= 1. for g in gaps.values())
+
+
+def kkt_tile_mirror(state, derivs_out, lbw, ubw, free, delta_w, delta_c, nb=32):
+    """Plain-PyTorch mirror of csrc/auglu.cu's newton_kkt on the CPU with the
+    kernel's bookkeeping: phase 1 a row of [JE; JI] at a time (A', rn, Dr32,
+    kd of the dual rows) and the variables' diagonal W0_jj and kd; phase 2
+    in 32x32 tiles, each entry of a tile by its region (W0 + delta diag(free)
+    with the diagonal from phase 1, A'^T read transposed from the tile of A'
+    rows that its columns name, A', -diag(Dr32)) and scaled by the tile's
+    kd. Every entry starts as NaN, so one that no tile writes shows. Returns
+    Ks, kd, W64, A64."""
+    _, _, _, _, JE, JI, H = derivs_out
+    f32, f64 = torch.float32, torch.float64
+    B, n = state['w'].shape
+    n_eq, n_ineq = JE.shape[1], JI.shape[1]
+    m = n_eq + n_ineq
+    N, T = n + m, -(-(n + m) // nb)
+    fin = lambda t: torch.where(torch.isfinite(t), t, 0.)
+    jacobi = lambda d: torch.clamp(1.0 / torch.sqrt(torch.clamp(d, min=1e-8)), 0., 1e4)
+    nan = float('nan')
+    Ks = torch.full((B, N, N), nan, dtype=f32)
+    kd = torch.full((B, N), nan, dtype=f32)
+    W64, A64 = torch.full((B, n, n), nan, dtype=f64), torch.full((B, m, n), nan, dtype=f64)
+    rn32, Dr = torch.empty(B, m, dtype=f32), torch.empty(B, m, dtype=f32)
+    d32 = torch.tensor(delta_w, dtype=f64).to(f32)
+    free32 = free.to(f32)
+
+    def a_prime(lane, r, c):
+        row = JE[lane, r] if r < n_eq else JI[lane, r - n_eq]
+        return (fin(row[c]).to(f64) * free[c]).to(f32) * rn32[lane, r]
+
+    for lane in range(B):
+        for i in range(m):                 # phase 1: a warp per constraint row
+            row = JE[lane, i] if i < n_eq else JI[lane, i - n_eq]
+            a = fin(row).to(f64) * free
+            rn32[lane, i] = torch.clamp(1.0 / torch.clamp(a.abs().max(), 1e-10, 1e10), 0., 1e6)
+            A64[lane, i] = (a.to(f32) * rn32[lane, i]).to(f64)
+            if i < n_eq:
+                D = torch.tensor(delta_c, dtype=f64)
+            else:
+                q = i - n_eq
+                D = state['s'][lane, q] / torch.clamp(state['lam'][lane, q], min=1e-12) + delta_c
+            rn = rn32[lane, i].to(f64)
+            Dr[lane, i] = (D * rn * rn + delta_c).to(f32)
+            kd[lane, n + i] = jacobi(Dr[lane, i])
+        w, zl, zu = (state[k][lane] for k in ('w', 'zl', 'zu'))   # a thread per variable
+        dl, du = torch.clamp(w - lbw, min=1e-20), torch.clamp(ubw - w, min=1e-20)
+        sigma = torch.clamp(zl / dl + zu / du, 0., 1e16)
+        diag = ((fin(torch.diagonal(H[lane])).to(f64) + sigma) * (free * free)
+                + (1. - free)).to(f32)
+        kd[lane, :n] = jacobi(torch.abs(diag + d32 * free32))
+        for ti in range(T):                # phase 2: the tiles
+            for tj in range(T):
+                i0, j0 = ti * nb, tj * nb
+                kdr, kdc = kd[lane, i0:i0 + nb], kd[lane, j0:j0 + nb]
+                at = torch.full((nb, nb), nan, dtype=f32)
+                if i0 < n and j0 + nb > n:
+                    c = torch.arange(i0, min(i0 + nb, n))
+                    for k in range(nb):
+                        if n <= j0 + k < N:
+                            at[k, :len(c)] = a_prime(lane, j0 + k - n, c)
+                j = torch.arange(j0, min(j0 + nb, N))
+                tx = j - j0
+                for r in range(min(nb, N - i0)):
+                    i = i0 + r
+                    k = torch.empty(len(j), dtype=f32)
+                    left = j < n
+                    if i < n:
+                        jw = j[left]
+                        h = fin(H[lane, i, jw]).to(f64)
+                        wv = ((h + 0.) * (free[i] * free[jw]) + 0.).to(f32)
+                        wv = torch.where(jw == i, diag[i], wv)
+                        W64[lane, i, jw] = wv.to(f64)
+                        k[left] = wv + d32 * torch.where(jw == i, free32[i], 0.)
+                        k[~left] = at[tx[~left], r]
+                    else:
+                        k[left] = a_prime(lane, i - n, j[left])
+                        k[~left] = torch.where(j[~left] == i, -Dr[lane, i - n], -0.)
+                    Ks[lane, i, j] = k * kdr[r] * kdc[tx]
+    return Ks, kd, W64, A64
+
+
 def cluster_lu_mirror(A, C=8, nb=16):
     """Plain-PyTorch mirror of csrc/auglu.cu's lu_factor_cluster_kernel on
     one (N, N) f32 matrix, with the kernel's bookkeeping: panel g of nb
@@ -388,6 +561,63 @@ def test_kkt_assembly_plain_is_the_jax_formula():
     assert abs(float(kd[0, 4]) - 1e4) <= 1.
 
 
+@pytest.mark.parametrize('n, n_eq, n_ineq', [(20, 12, 5), (70, 52, 8), (280, 247, 16)])
+def test_kkt_tile_mirror_matches_plain(n, n_eq, n_ineq):
+    """newton_kkt's bookkeeping, mirrored on the CPU, reproduces the plain
+    composition (newton_system, equilibrate, kkt_assemble_scaled_plain)
+    exactly at N = 37, 130 and 543: ragged last tiles of 5, 2 and 31 rows,
+    tiles that straddle the W0/A' border (n mod 32 = 20, 6, 24), the A'^T
+    tiles read transposed, the identity of pinned rows, non-finite entries
+    sanitized. Every entry of Ks, kd, W64 and A64 is written."""
+    from awebox_tpu_torch.parallel import kernels
+    args = newton_inputs(B=2, n=n, n_eq=n_eq, n_ineq=n_ineq, seed=n)
+    mirror = kkt_tile_mirror(*args, 1e-8, 1e-8)
+    ref = kernels.newton_kkt_plain(*args, 1e-8, 1e-8)
+    for k, v in zip(('Ks', 'kd', 'W64', 'A64'), mirror):
+        assert torch.equal(v, ref[k]), k
+
+
+@pytest.mark.parametrize('key', list(TOL_STEP) + ['ds'])
+def test_step_gate_fails_on_a_stray_nan(key):
+    """The K4 gate of the card test and chip_smoke.py (step_gaps,
+    step_within_tolerance) passes the plain outputs against themselves, NaN
+    entries on both sides included, and fails when a single entry of one
+    output, ds included, is NaN where the plain version's is finite."""
+    from awebox_tpu_torch.parallel import kernels
+    state, derivs, lbw, ubw, free = newton_inputs()
+    sys_ = kernels.newton_kkt_plain(state, derivs, lbw, ubw, free, 1e-8, 1e-8)
+    x, ok = step_solution(*sys_['b'].shape)
+    ds_p = torch.empty_like(state['s'])
+    out_p = kernels.ip_step_plain(x, ok, sys_['rn'], sys_['r1'], state, derivs, lbw, ubw, free,
+                                  0.99, 0.4, 1e-8, ds_out=ds_p)
+    both_nan = {k: v.clone() for k, v in out_p.items()}
+    both_nan[key if key != 'ds' else 'w'][0] = float('nan')
+    gaps = step_gaps(both_nan, both_nan, state, ds_p, ds_p, x, ok, derivs, free)
+    assert step_within_tolerance(gaps), gaps
+    out, ds = {k: v.clone() for k, v in out_p.items()}, ds_p.clone()
+    flat = (ds if key == 'ds' else out[key]).view(-1)
+    flat[int(torch.nonzero(torch.isfinite(flat))[-1])] = float('nan')
+    gaps = step_gaps(out, out_p, state, ds, ds_p, x, ok, derivs, free)
+    assert gaps[key] == float('inf') and not step_within_tolerance(gaps), gaps
+
+
+def test_pointer_structs_match_the_field_orders():
+    """newton_kkt and ip_step hand their tensors to csrc/auglu.cu as one array
+    of pointers: kernels.NEWTON_FIELDS and STEP_FIELDS must name the fields
+    of the structs NewtonPtrs and StepPtrs in their order (a mismatch would
+    only show as wrong memory read on the card)."""
+    from awebox_tpu_torch.parallel import kernels
+    with open(kernels.SOURCE) as fh:
+        src = fh.read()
+
+    def fields(name):
+        body = src[src.index(f'struct {name} {{'):]
+        return tuple(re.findall(r'\*\s*(\w+);', body[:body.index('};')]))
+    assert fields('NewtonPtrs') == kernels.NEWTON_FIELDS
+    assert fields('StepPtrs') == kernels.STEP_FIELDS
+    assert set(kernels.NEWTON_OUTPUTS) <= set(kernels.NEWTON_FIELDS)
+
+
 def test_wrappers_take_the_plain_version_on_cpu_only():
     """On CPU tensors no kernel is built or launched and no count moves,
     through the whole direction solve and the step."""
@@ -398,6 +628,10 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
     dw, dnu, ok = batch._auglu_solve(*sys_, n, 1e-8, 1e-8, N_LADDER, LADDER)
     assert bool(ok.all()) and bool(torch.isfinite(dw).all())
     kernels.advance_state(*random_step_inputs())
+    state, derivs, lbw, ubw, free = newton_inputs()
+    out = kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8)
+    x, ok = step_solution(*out['b'].shape)
+    kernels.ip_step(x, ok, out['rn'], out['r1'], state, derivs, lbw, ubw, free, 0.99, 0.4, 1e-8)
     assert kernels.LAUNCHES == before
     assert kernels._lib is None
 
@@ -434,28 +668,39 @@ def cuda():
 
 @pytest.mark.cuda
 def test_assembly_and_step_kernels_match_plain_on_card(cuda):
-    """K1 bit for bit (the same f32 operations, no FMA contraction) and K4 to
-    1e-14 relative (the same f64 operations), each counted once."""
+    """K1 (newton_kkt, the Newton system and K(delta_w)) and the retry
+    assembly bit for bit (the same operations in the same order, no FMA
+    contraction; r1 through the same cuBLAS product), and K4 (ip_step) at
+    TOL_STEP / TOL_DS, each counted once per call. The inputs have NaN and
+    inf entries, pinned variables and infinite bounds, at N = 37, 130, 543."""
     from awebox_tpu_torch.parallel import kernels
-    rng = np.random.default_rng(3)
-    B, n, m = 3, 40, 25
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
-    args1 = (f32(rng.standard_normal((B, n, n))), f32(rng.standard_normal((B, m, n))),
-             f32(np.abs(rng.standard_normal((B, m))) * 1e-3), f32(np.ones(n)),
-             torch.tensor([1e-8, 1e-4, 1.0], dtype=torch.float64, device=cuda))
-    before = dict(kernels.LAUNCHES)
-    Ks, kd = kernels.kkt_assemble_scaled(*args1)
-    Ks_p, kd_p = kernels.kkt_assemble_scaled_plain(*args1)
-    args4 = random_step_inputs(device=cuda)
-    out = kernels.advance_state(*args4)
-    out_p = kernels.advance_state_plain(*args4)
-    torch.cuda.synchronize()
-    assert torch.equal(Ks, Ks_p) and torch.equal(kd, kd_p)
-    for k in out_p:
-        np.testing.assert_allclose(out[k].cpu().numpy(), out_p[k].cpu().numpy(),
-                                   rtol=1e-14, atol=0, err_msg=k)
-    assert kernels.LAUNCHES['kkt_assemble_scaled'] == before['kkt_assemble_scaled'] + 1
-    assert kernels.LAUNCHES['advance_state'] == before['advance_state'] + 1
+    for n, n_eq, n_ineq in ((20, 12, 5), (70, 52, 8), (280, 247, 16)):
+        state, derivs, lbw, ubw, free = newton_inputs(B=3, n=n, n_eq=n_eq, n_ineq=n_ineq,
+                                                      seed=n, device=cuda)
+        before = dict(kernels.LAUNCHES)
+        out = kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8)
+        ref = kernels.newton_kkt_plain(state, derivs, lbw, ubw, free, 1e-8, 1e-8)
+        torch.cuda.synchronize()
+        assert set(out) == set(ref)
+        for k in ref:
+            assert torch.equal(out[k], ref[k]), (n, k)
+        f32 = torch.float32
+        delta = torch.tensor([1e-8, 1e-4, 1.0], dtype=torch.float64, device=cuda)
+        args1 = (ref['W64'].to(f32), ref['A64'].to(f32), ref['Dr32'], free.to(f32), delta)
+        Ks, kd = kernels.kkt_assemble_scaled(*args1)
+        Ks_p, kd_p = kernels.kkt_assemble_scaled_plain(*args1)
+        x, ok = step_solution(3, n + n_eq + n_ineq, device=cuda)
+        ds, ds_p = (torch.empty(3, n_ineq, dtype=torch.float64, device=cuda) for _ in range(2))
+        step = (x, ok, ref['rn'], ref['r1'], state, derivs, lbw, ubw, free, 0.99, 0.4, 1e-8)
+        new = kernels.ip_step(*step, ds_out=ds)
+        new_p = kernels.ip_step_plain(*step, ds_out=ds_p)
+        torch.cuda.synchronize()
+        assert torch.equal(Ks, Ks_p) and torch.equal(kd, kd_p), n
+        assert set(new) == set(new_p)
+        gaps = step_gaps(new, new_p, state, ds, ds_p, x, ok, derivs, free)
+        assert step_within_tolerance(gaps), (n, gaps)
+        for k in ('newton_kkt', 'kkt_assemble_scaled', 'ip_step'):
+            assert kernels.LAUNCHES[k] == before[k] + 1, k
 
 
 @pytest.mark.cuda
