@@ -1,7 +1,8 @@
 // Hand-written Hopper kernels of the augmented-KKT interior-point direction.
 //
 // They replace the XLA operations that awebox_tpu/parallel/batch.py runs in
-// direction, _auglu_solve (factor='lu') and _advance_state:
+// direction, _auglu_solve (factor='lu' and factor='qr', stateless) and
+// _advance_state:
 //
 //   K1 newton_kkt            batch.py:154-180, 320-336, 409-413  the Newton
 //                            system, its row equilibration and the scaled
@@ -22,6 +23,20 @@
 //                            the solution (ds, dzl, dzu, err), the
 //                            fraction-to-boundary step, dual safeguards and
 //                            barrier update (f64)
+//   K1, unscaled             batch.py:333-336  the same tile kernel writing
+//                            K(delta) itself (no Jacobi scale, no kd) for
+//                            the QR factor: newton_tiles with scaled = 0,
+//                            kkt_assemble_scaled with a null kd
+//   K5 ruiz_scale            batch.py:375-381  three Ruiz sweeps, M = s K s
+//   K6 qr_factor_batched     batch.py:382  Householder QR of M (f32) in
+//                            LAPACK's geqrf layout, two variants chosen by
+//                            N: qr_factor_cluster (a lane per thread-block
+//                            cluster, the matrix in shared memory) and
+//                            qr_factor_global (a lane per block, the matrix
+//                            in global memory)
+//   K7 qr_solve_batched      batch.py:344-346  R^-1 Q^T v: the reflectors
+//                            applied 32 at a time, then a tiled back
+//                            substitution
 //
 // Layout follows the JAX package: lanes first, row-major. Every entry point
 // is a plain C function that returns a CUDA error code; a launch goes to the
@@ -172,8 +187,8 @@ struct NewtonPtrs {
   const double* lbw;       // (n,)
   const double* ubw;       // (n,)
   const double* free;      // (n,)
-  float* Ks;               // (B, N, N) out
-  float* kd;               // (B, N) out
+  float* Ks;               // (B, N, N) out: kd K(delta_w) kd, or K(delta_w) where kd is null
+  float* kd;               // (B, N) out, or null for the unscaled K
   double* W64;             // (B, n, n) out: f64 image of f32(W0)
   double* A64;             // (B, m, n) out: f64 image of A' = f32(A) rn
   double* rn;              // (B, m) out
@@ -269,7 +284,7 @@ newton_rows_kernel(NewtonPtrs p, int n, int n_eq, int n_ineq, double delta_w, do
     p.D_reg[oi] = Dreg;
     p.Dr32[oi] = Dr;
     p.b[(size_t)lane * N + n + i] = -r2e;
-    p.kd[(size_t)lane * N + n + i] = jacobi(Dr);
+    if (p.kd) p.kd[(size_t)lane * N + n + i] = jacobi(Dr);   // null: the unscaled K
   } else {
     const int j = (blockIdx.x - row_blocks) * K1_THREADS + tid;   // a thread per variable
     if (j >= n) return;
@@ -284,8 +299,10 @@ newton_rows_kernel(NewtonPtrs p, int n, int n_eq, int n_ineq, double delta_w, do
     const float d32 = __double2float_rn(__dadd_rn(__dmul_rn(__dadd_rn(h, sigma), __dmul_rn(fj, fj)),
                                                   __dsub_rn(1.0, fj)));
     p.diag32[oj] = d32;
-    const float kw = __fmul_rn(__double2float_rn(delta_w), __double2float_rn(fj));
-    p.kd[(size_t)lane * N + j] = jacobi(fabsf(__fadd_rn(d32, kw)));
+    if (p.kd) {
+      const float kw = __fmul_rn(__double2float_rn(delta_w), __double2float_rn(fj));
+      p.kd[(size_t)lane * N + j] = jacobi(fabsf(__fadd_rn(d32, kw)));
+    }
   }
 }
 
@@ -297,8 +314,9 @@ struct FusedTiles {
 
   __device__ __forceinline__ float delta(int) const { return d32; }
   __device__ __forceinline__ float free32(int i) const { return __double2float_rn(p.free[i]); }
+  // the unscaled K (p.kd null) multiplies by 1, which is exact
   __device__ __forceinline__ float kd(int lane, int i) const {
-    return p.kd[(size_t)lane * (n + n_eq + n_ineq) + i];
+    return p.kd ? p.kd[(size_t)lane * (n + n_eq + n_ineq) + i] : 1.0f;
   }
   __device__ __forceinline__ float dr(int lane, int r) const {
     return p.Dr32[(size_t)lane * (n_eq + n_ineq) + r];
@@ -346,12 +364,13 @@ struct RetryTiles {
   const float* Dr;      // (B, m)
   const float* fr;      // (n,)
   const double* dl;     // (B,) the lanes' delta
-  float* kd_out;        // (B, N)
+  float* kd_out;        // (B, N), or null for the unscaled K
   int n, m;
 
   __device__ __forceinline__ float delta(int lane) const { return __double2float_rn(dl[lane]); }
   __device__ __forceinline__ float free32(int i) const { return fr[i]; }
   __device__ __forceinline__ float kd(int lane, int i) const {
+    if (!kd_out) return 1.0f;
     const float d = i < n ? fabsf(__fadd_rn(W[((size_t)lane * n + i) * n + i],
                                             __fmul_rn(delta(lane), fr[i])))
                           : dr(lane, i - n);
@@ -368,7 +387,9 @@ struct RetryTiles {
   // the tiles of column 0 write kd of their rows
   __device__ __forceinline__ void finish(int lane, int i0, const float* kdr) const {
     const int i = i0 + (int)threadIdx.x;
-    if (threadIdx.x < K1_TROWS_TILE && i < n + m) kd_out[(size_t)lane * (n + m) + i] = kdr[threadIdx.x];
+    if (kd_out && threadIdx.x < K1_TROWS_TILE && i < n + m) {
+      kd_out[(size_t)lane * (n + m) + i] = kdr[threadIdx.x];
+    }
   }
 };
 
@@ -1440,7 +1461,654 @@ ip_step_kernel(StepPtrs p, int n, int n_eq, int n_ineq, double tau, double kappa
   }
 }
 
-// The launch floor: an empty kernel, timed by chip_smoke.py beside K1-K4.
+// ---------------------------------------------------------------------------
+// K5 ruiz_scale: three Ruiz sweeps from s = 1 and the scaled matrix,
+// replacing awebox_tpu/parallel/batch.py:375-381:
+//   rr_i = sqrt(clip(max_j |M_ij|, 1e-12)),  s_i <- s_i / rr_i,
+//   M_ij <- (K_ij s_i) s_j,
+// all f32, and equal to kernels.ruiz_scale_plain bit for bit: the maximum is
+// exact, the two products of an entry are rounded one after the other, the
+// square root and the division are IEEE. A NaN in a row passes through the
+// maximum and the clip into that row's s, as jnp.max and jnp.clip pass it.
+//
+// What bounds it: bytes. The function reads K once and writes M once (37.7 MB
+// at N = 543, B = 16: 11 us at 3.35 TB/s), but every sweep needs all of the
+// lane's s of the sweep before, so a lane cannot be scaled in one pass. The
+// design keeps the passes parallel instead of the lane resident: each sweep
+// is one launch over all rows of all lanes, a warp per row (coalesced row
+// reads, the lane's s from L1), writing only N floats a lane; K (18.9 MB at
+// B = 16) stays in the 50 MB L2 between the four passes, so HBM sees about
+// the bound's bytes. At B = 128 (151 MB) the passes stream from HBM: four
+// reads and one write, 2.5x the bound's bytes.
+// ---------------------------------------------------------------------------
+constexpr int K5_THREADS = 256;
+constexpr int K5_WARPS = K5_THREADS / 32;
+
+__device__ __forceinline__ float nmaxf(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+
+// one sweep: s_out from s_in (null: s = 1, the first sweep, where M = K)
+__global__ void __launch_bounds__(K5_THREADS)
+ruiz_sweep_kernel(const float* __restrict__ K, const float* __restrict__ s_in,
+                  float* __restrict__ s_out, int N) {
+  const int lane = blockIdx.y, warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  const int i = blockIdx.x * K5_WARPS + warp;   // a warp per row
+  if (i >= N) return;
+  const float* __restrict__ row = K + ((size_t)lane * N + i) * N;
+  const float* __restrict__ s = s_in ? s_in + (size_t)lane * N : nullptr;
+  const float si = s ? s[i] : 1.0f;
+  float mx = 0.0f;
+  for (int j = wl; j < N; j += 32) {
+    const float sj = s ? s[j] : 1.0f;
+    mx = nmaxf(mx, fabsf(__fmul_rn(__fmul_rn(row[j], si), sj)));
+  }
+  for (int off = 16; off > 0; off >>= 1) mx = nmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, off));
+  if (wl == 0) {
+    s_out[(size_t)lane * N + i] = __fdiv_rn(si, __fsqrt_rn(clamp_lo(mx, 1e-12f)));
+  }
+}
+
+// M = (K s_i) s_j with the last sweep's s
+__global__ void __launch_bounds__(K5_THREADS)
+ruiz_apply_kernel(const float* __restrict__ K, const float* __restrict__ s_all,
+                  float* __restrict__ M, int N) {
+  const int lane = blockIdx.y, warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  const int i = blockIdx.x * K5_WARPS + warp;
+  if (i >= N) return;
+  const size_t o = ((size_t)lane * N + i) * N;
+  const float* __restrict__ s = s_all + (size_t)lane * N;
+  const float si = s[i];
+  for (int j = wl; j < N; j += 32) M[o + j] = __fmul_rn(__fmul_rn(K[o + j], si), s[j]);
+}
+
+// ---------------------------------------------------------------------------
+// K6 semantics, both variants: LAPACK geqrf on each lane's row-major N x N
+// f32 matrix M, written to qr: R on and above the diagonal, reflector k's
+// entries below it (v_k has an implied 1 at row k), tau (N,);
+// H_k = I - tau_k v_k v_k^T, Q = H_0 .. H_{N-1}, each reflector by larfg's
+// rule without its rescaling loop: beta = -sign(alpha) sqrt(alpha^2 + |x|^2),
+// tau = (beta - alpha) / beta, v = x / (alpha - beta), and tau = 0 (H = I)
+// where the column below the diagonal is zero. No Q is formed: the JAX
+// package multiplies by Q^T, K7 applies the reflectors. A zero column leaves
+// a zero on R's diagonal and a NaN entry NaNs, so the solve is non-finite
+// and the delta ladder retries, as with LAPACK in the JAX package.
+// ---------------------------------------------------------------------------
+
+// larfg on (alpha, |x|^2): returns beta, sets tau and the scale 1/(alpha - beta)
+__device__ __forceinline__ float larfg(float alpha, float xnorm2, float& tau, float& scale) {
+  if (xnorm2 == 0.0f) {   // H = I (a NaN norm takes the other branch)
+    tau = 0.0f;
+    scale = 0.0f;
+    return alpha;
+  }
+  const float beta = -copysignf(sqrtf(fmaf(alpha, alpha, xnorm2)), alpha);
+  tau = (beta - alpha) / beta;
+  scale = 1.0f / (alpha - beta);
+  return beta;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL_MASK, x, off);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// K6, cluster variant: replaces jnp.linalg.qr at
+// awebox_tpu/parallel/batch.py:382 wherever a lane fits a cluster's shared
+// memory (the slice's N = 543 included).
+//
+// What bounds it: operations (4/3 N^3 f32 per lane), but like the LU factor
+// it is held by its dependent chain: N reflectors, each a norm over a column
+// and then a product with every trailing column. The layout is K2's: a lane
+// is one cluster of C <= 8 CTAs whose shared memories hold it (whole
+// columns, column-major, panels of NB = 16 dealt block-cyclically), read
+// from HBM once and written once. Unlike LU there is no row swap, and a
+// reflector acts on a trailing column by one dot product and one update of
+// that column alone, so a warp that owns a column needs no block barrier:
+//   1. the owner factors its panel with a warp per column, each column in
+//      the warp's registers (K6_ROWS entries a lane): warp k forms
+//      reflector k (norm by shuffles), writes it to the panel, and after
+//      one block barrier the warps of the later columns apply it to theirs;
+//   2. cluster barrier; every CTA copies the panel's rows p0.. and its taus
+//      from the owner's shared memory (DSMEM);
+//   3. every warp takes K6_NC trailing columns of its CTA into registers
+//      and applies the panel's 16 reflectors to them in turn (each read
+//      once for the K6_NC columns; their dots reduce side by side by
+//      shuffles), with no barrier in between.
+// IEEE f32 FMA on the CUDA cores, as K2. What still bounds it (H100, N = 543,
+// phase cuts of awebox_tpu_torch/probes/qr_phases.py): the owner's panel,
+// two dependent shuffle reductions a column while seven CTAs wait, and the
+// trailing update's instruction count (a shared-memory load and two FMAs an
+// entry), not its arithmetic.
+// ---------------------------------------------------------------------------
+constexpr int K6_THREADS = 512;
+constexpr int K6_WARPS = K6_THREADS / 32;
+constexpr int K6_NB = 16;
+constexpr int K6_ROWS = 20;           // column entries a lane holds: N <= 640
+constexpr int K6_NC = 3;              // trailing columns a warp updates side by side
+constexpr int K6_ROWSTEP = K6_THREADS / K6_NB;
+static_assert(K6_WARPS == K6_NB, "a warp per panel column");
+
+// A warp holds a column as a[t] = row wl + 32 t, t = T0 .. K6_ROWS - 1: T0 is
+// compiled in (the panels' first row p0 rounded down to 128 rows, see
+// k6_panels), so every loop over t unrolls without a branch; rows outside
+// p0..N-1 hold zeros and meet zeros of v.
+//
+// Reflector k (global column and row gk) applied to the NC columns a warp
+// holds: a_q -= tau v (v^T a_q), v read once from the panel column V
+// (implied 1 at gk, zeros above). The NC dot products reduce side by side,
+// so their shuffles overlap.
+template <int NC, int T0>
+__device__ __forceinline__ void k6_apply(float (&a)[NC][K6_ROWS], const float* __restrict__ V,
+                                         float tau, int gk, int N, int wl) {
+  float v[K6_ROWS];
+  float dot[NC][2];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) dot[q][0] = dot[q][1] = 0.0f;
+#pragma unroll
+  for (int t = T0; t < K6_ROWS; ++t) {
+    const int r = wl + 32 * t;
+    v[t] = (r > gk && r < N) ? V[r] : (r == gk ? 1.0f : 0.0f);
+#pragma unroll
+    for (int q = 0; q < NC; ++q) dot[q][t & 1] = fmaf(v[t], a[q][t], dot[q][t & 1]);
+  }
+#pragma unroll
+  for (int q = 0; q < NC; ++q) dot[q][0] += dot[q][1];
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int q = 0; q < NC; ++q) dot[q][0] += __shfl_xor_sync(FULL_MASK, dot[q][0], off);
+  }
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const float f = tau * dot[q][0];
+#pragma unroll
+    for (int t = T0; t < K6_ROWS; ++t) a[q][t] = fmaf(-f, v[t], a[q][t]);
+  }
+}
+
+// a warp's column, rows p0..N-1 (padded rows of the column hold zeros)
+template <int T0>
+__device__ __forceinline__ void k6_load(float (&a)[K6_ROWS], const float* __restrict__ col,
+                                        int p0, int N, int wl) {
+#pragma unroll
+  for (int t = T0; t < K6_ROWS; ++t) {
+    const int r = wl + 32 * t;
+    a[t] = (r >= p0 && r < N) ? col[r] : 0.0f;
+  }
+}
+
+template <int T0>
+__device__ __forceinline__ void k6_store(const float (&a)[K6_ROWS], float* __restrict__ col,
+                                         int p0, int N, int wl) {
+#pragma unroll
+  for (int t = T0; t < K6_ROWS; ++t) {
+    const int r = wl + 32 * t;
+    if (r >= p0 && r < N) col[r] = a[t];
+  }
+}
+
+// The panel's w reflectors (V: [w][ld], taus tl) applied, one after the
+// other, to the NC trailing columns col0, col0 + stride, .. of a warp (those
+// below ncols), which stay in registers in between.
+template <int NC, int T0>
+__device__ __forceinline__ void k6_trailing(float* __restrict__ As, int ld, int col0, int stride,
+                                            int ncols, const float* __restrict__ V,
+                                            const float* tl, int w, int p0, int N, int wl) {
+  float a[NC][K6_ROWS];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {   // a column past ncols reads a valid one and is not stored
+    k6_load<T0>(a[q], As + (size_t)min(col0 + q * stride, ncols - 1) * ld, p0, N, wl);
+  }
+  for (int k = 0; k < w; ++k) k6_apply<NC, T0>(a, V + (size_t)k * ld, tl[k], p0 + k, N, wl);
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    if (col0 + q * stride < ncols) k6_store<T0>(a[q], As + (size_t)(col0 + q * stride) * ld, p0, N, wl);
+  }
+}
+
+// Householder QR of the owner's panel: columns P + k*ld (k < w), global rows
+// p0..N-1, a warp per column. Taus go to s_tau (read by the cluster) and tl.
+template <int T0>
+__device__ __forceinline__ void qr_panel(float* __restrict__ P, int ld, int p0, int w, int N,
+                                         float* s_tau, float* __restrict__ tl) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  float a1[1][K6_ROWS];
+  float (&a)[K6_ROWS] = a1[0];
+  k6_load<T0>(a, P + (size_t)min(warp, w - 1) * ld, p0, N, wl);   // warps past w idle
+  for (int k = 0; k < w; ++k) {
+    const int gk = p0 + k;
+    if (warp == k) {
+      float mine = 0.0f, x2[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int t = T0; t < K6_ROWS; ++t) {
+        const int r = wl + 32 * t;
+        if (r == gk) mine = a[t];
+        const float below = r > gk ? a[t] : 0.0f;
+        x2[t & 1] = fmaf(below, below, x2[t & 1]);
+      }
+      const float alpha = __shfl_sync(FULL_MASK, mine, gk & 31);
+      float tau, scale;
+      const float beta = larfg(alpha, warp_sum(x2[0] + x2[1]), tau, scale);
+#pragma unroll
+      for (int t = T0; t < K6_ROWS; ++t) {
+        const int r = wl + 32 * t;
+        a[t] = r == gk ? beta : (r > gk ? a[t] * scale : a[t]);
+      }
+      k6_store<T0>(a, P + (size_t)k * ld, p0, N, wl);
+      if (wl == 0) { s_tau[k] = tau; tl[gk] = tau; }
+    }
+    __syncthreads();                    // reflector k is in the panel
+    if (warp > k && warp < w) k6_apply<1, T0>(a1, P + (size_t)k * ld, s_tau[k], gk, N, wl);
+  }
+}
+
+// What a CTA of the cluster kernel knows of its lane
+struct K6Lane {
+  float* As;        // [cols][ld] this CTA's columns
+  float* Vs;        // [NB][ld] the current panel's reflectors
+  float* s_tau;     // [NB] taus of the panel this CTA factored last
+  float* s_tl;      // [NB] taus of the current panel, local copy
+  float* tl;        // (N,) the lane's taus
+  int N, ld, C, rank, ncl;
+};
+
+// Panels p_begin .. p_end - 1, whose first rows lie in 32 T0 .. 32 T0 + 127
+template <int T0>
+__device__ __forceinline__ void k6_panels(cg::cluster_group& cluster, const K6Lane& L,
+                                          int p_begin, int p_end) {
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int N = L.N, ld = L.ld, C = L.C, rank = L.rank;
+  const int Nr = (N + 3) & ~3;        // rows the float4 copy covers (<= ld)
+  for (int p = p_begin; p < p_end; ++p) {
+    const int owner = p % C;
+    const int lpo = p / C;               // the panel's local index on its owner
+    const int p0 = p * K6_NB;
+    const int w = min(K6_NB, N - p0);
+    if (rank == owner) qr_panel<T0>(L.As + (size_t)lpo * K6_NB * ld, ld, p0, w, N, L.s_tau, L.tl);
+    cluster.sync();
+
+    // trailing columns: the local panels after panel p
+    const int lp_start = (p < rank) ? 0 : (p - rank) / C + 1;
+    const int c0 = lp_start * K6_NB;
+    const int ntc = L.ncl - c0;
+    if (ntc > 0) {                      // uniform over the CTA
+      // taus and rows p0..Nr-1 of the panel from the owner's shared memory,
+      // a warp per column
+      const float* rP = cluster.map_shared_rank(L.As, owner) + (size_t)lpo * K6_NB * ld;
+      const float* rtau = cluster.map_shared_rank(L.s_tau, owner);
+      if (tid < w) L.s_tl[tid] = rtau[tid];
+      if (warp < w) {
+        const float4* s4 = reinterpret_cast<const float4*>(rP + (size_t)warp * ld);
+        float4* d4 = reinterpret_cast<float4*>(L.Vs + (size_t)warp * ld);
+        for (int q = (p0 >> 2) + wl; q < (Nr >> 2); q += 32) d4[q] = s4[q];
+      }
+      __syncthreads();
+      // warp u takes the trailing columns u, u + 16, ..: K6_NC at a time
+      for (int c = warp; c < ntc; c += K6_WARPS * K6_NC) {
+        k6_trailing<K6_NC, T0>(L.As + (size_t)c0 * ld, ld, c, K6_WARPS, ntc, L.Vs, L.s_tl, w,
+                               p0, N, wl);
+      }
+    }
+    __syncthreads();                    // this CTA's columns are updated before its next panel
+  }
+}
+
+__global__ void __launch_bounds__(K6_THREADS, 1)
+qr_factor_cluster_kernel(const float* __restrict__ M, float* __restrict__ qr,
+                         float* __restrict__ tau, int N, int ld, int cols) {
+  extern __shared__ float4 k6_dyn[];
+  __shared__ float s_tau[K6_NB];
+  __shared__ float s_tl[K6_NB];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x;
+  const int rank = (int)cluster.block_rank();
+  const int lane = blockIdx.x / C;
+  float* As = reinterpret_cast<float*>(k6_dyn);
+  const float* src = M + (size_t)lane * N * N;
+  float* dst = qr + (size_t)lane * N * N;
+  const int tid = threadIdx.x;
+  const int n_panels = (N + K6_NB - 1) / K6_NB;
+  const int n_local = (n_panels - rank + C - 1) / C;
+  const int lc = tid % K6_NB, li = tid / K6_NB;   // the load's column and first row
+  // the last local panel is padded with zero columns
+  const K6Lane L = {As, As + (size_t)cols * ld, s_tau, s_tl, tau + (size_t)lane * N,
+                    N, ld, C, rank, n_local * K6_NB};
+
+  // load: column lp*NB + lc holds global column j; rows N..ld-1 are zero
+  for (int lp = 0; lp < n_local; ++lp) {
+    const int j = (lp * C + rank) * K6_NB + lc;
+    float* col = As + (size_t)(lp * K6_NB + lc) * ld;
+    for (int i = li; i < ld; i += K6_ROWSTEP) {
+      if (j < N && i < N) {
+        cp_async4(col + i, src + (size_t)i * N + j);
+      } else {
+        col[i] = 0.0f;
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // eight panels of 16 columns start within the same 128 rows: T0 = 0, 4, ..
+  k6_panels<0>(cluster, L, 0, min(8, n_panels));
+  k6_panels<4>(cluster, L, 8, min(16, n_panels));
+  k6_panels<8>(cluster, L, 16, min(24, n_panels));
+  k6_panels<12>(cluster, L, 24, min(32, n_panels));
+  k6_panels<16>(cluster, L, 32, n_panels);
+  cluster.sync();   // no CTA leaves while another may still read its shared memory
+
+  for (int lp = 0; lp < n_local; ++lp) {
+    const int j = (lp * C + rank) * K6_NB + lc;
+    if (j >= N) continue;
+    const float* col = As + (size_t)(lp * K6_NB + lc) * ld;
+    for (int i = li; i < N; i += K6_ROWSTEP) dst[(size_t)i * N + j] = col[i];
+  }
+}
+
+// the cluster variant's launch configuration: B clusters of C CTAs
+cudaLaunchConfig_t k6_config(int B, int C, int smem, void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = k2c_config(B, C, smem, stream, attr);
+  cfg.blockDim = dim3(K6_THREADS);
+  return cfg;
+}
+
+// ---------------------------------------------------------------------------
+// K6, global variant: unblocked Householder QR, one thread block per lane,
+// for lanes that no cluster's shared memory holds (N = 1055 of the n_k = 8
+// system). The lane is copied to qr and factored there, served from L2. Per
+// column: the norm below the diagonal (a block reduction), the reflector
+// into shared memory, then w = v^T A and A -= tau v w^T over the trailing
+// columns in passes of K6G_COLS columns, consecutive threads on consecutive
+// columns (coalesced), K6G_ROWSTEP row groups reduced through shared memory.
+// Bound like K2's unblocked variant: about N^3 4-byte accesses through L2
+// per lane, pulled by one SM.
+// ---------------------------------------------------------------------------
+constexpr int K6G_THREADS = 1024;
+constexpr int K6G_COLS = 128;                 // columns per pass
+constexpr int K6G_ROWSTEP = K6G_THREADS / K6G_COLS;
+
+__global__ void __launch_bounds__(K6G_THREADS)
+qr_factor_global_kernel(const float* __restrict__ M, float* __restrict__ qr,
+                        float* __restrict__ tau, int N) {
+  extern __shared__ float k6g_v[];             // [N] the current reflector
+  __shared__ float red[K6G_ROWSTEP][K6G_COLS];
+  __shared__ float s_part[K6G_THREADS / 32];
+  const int lane = blockIdx.x;
+  const float* src = M + (size_t)lane * N * N;
+  float* a = qr + (size_t)lane * N * N;
+  float* tl = tau + (size_t)lane * N;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int jo = tid % K6G_COLS, io = tid / K6G_COLS;
+  for (size_t e = tid; e < (size_t)N * N; e += K6G_THREADS) a[e] = src[e];
+  __syncthreads();
+
+  for (int k = 0; k < N; ++k) {
+    // --- the reflector of column k
+    const float alpha = a[(size_t)k * N + k];
+    float x2 = 0.0f;
+    for (int i = k + 1 + tid; i < N; i += K6G_THREADS) {
+      const float x = a[(size_t)i * N + k];
+      k6g_v[i] = x;
+      x2 = fmaf(x, x, x2);
+    }
+    x2 = warp_sum(x2);
+    if (wl == 0) s_part[warp] = x2;
+    __syncthreads();                    // every thread has read alpha
+    x2 = 0.0f;
+#pragma unroll
+    for (int v = 0; v < K6G_THREADS / 32; ++v) x2 += s_part[v];
+    float tk, scale;
+    const float beta = larfg(alpha, x2, tk, scale);
+    for (int i = k + 1 + tid; i < N; i += K6G_THREADS) {
+      const float x = k6g_v[i] * scale;
+      k6g_v[i] = x;
+      a[(size_t)i * N + k] = x;
+    }
+    if (tid == 0) {
+      k6g_v[k] = 1.0f;
+      a[(size_t)k * N + k] = beta;
+      tl[k] = tk;
+    }
+    __syncthreads();                    // the reflector is in shared memory
+    if (tk == 0.0f) continue;           // H = I; uniform over the block
+
+    // --- A[k:, k+1:] -= tau v (v^T A[k:, k+1:])
+    for (int jb = k + 1; jb < N; jb += K6G_COLS) {
+      const int j = jb + jo;
+      float part = 0.0f;
+      if (j < N) {
+        for (int i = k + io; i < N; i += K6G_ROWSTEP) part = fmaf(k6g_v[i], a[(size_t)i * N + j], part);
+      }
+      red[io][jo] = part;
+      __syncthreads();
+      float wj = 0.0f;
+#pragma unroll
+      for (int g = 0; g < K6G_ROWSTEP; ++g) wj += red[g][jo];
+      const float f = tk * wj;
+      if (j < N) {
+        for (int i = k + io; i < N; i += K6G_ROWSTEP) {
+          a[(size_t)i * N + j] = fmaf(-f, k6g_v[i], a[(size_t)i * N + j]);
+        }
+      }
+      __syncthreads();                  // red is free again; the column's updates are in
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7: x = R^-1 (Q^T v) from K6's factor (or LAPACK's: the same layout),
+// replacing msolve at awebox_tpu/parallel/batch.py:344-346 (the JAX package
+// forms Q and multiplies by Q^T; here the reflectors are applied, the same
+// function with other roundings). One CTA of WARPS warps per lane.
+//
+// What bounds it: the dependent chain, as K3. Its bytes are the factor once
+// (1.18 MB a lane at N = 543, 0.35 us of HBM time), but Q^T v is N
+// reflectors one after the other, each a dot product over a strided column
+// of the row-major factor, and R^-1 is N dependent rows. The design walks
+// both in ceil(N/32) steps, and reads every entry of the factor once, in
+// coalesced 128-byte row segments staged through shared memory:
+//   - Q^T v, 32 reflectors (a panel) at a time. The warps stream the panel's
+//     rows (a lane per reflector), stage them, and accumulate both
+//     w0 = V^T y and the panel's Gram matrix G = V^T V, a row's 32 entries
+//     read back as eight 16-byte broadcasts (by shuffles the Gram matrix
+//     alone took the SM's whole shuffle rate: 32 a row). The 32 dependent
+//     dot products v_c^T (H_{c-1} .. H_0 y) then follow without touching
+//     the factor: w_c = w0_c - sum_{j<c} G_cj t_j, t_c = tau_c w_c, a forward
+//     substitution of 32 shuffle-and-FMA steps in warp 0. Then y -= V t, a
+//     thread per staged row.
+//   - R x = y over column tiles from the last: warp 0 solves the 32 x 32
+//     diagonal tile in registers (the diagonal by its reciprocal, as K3; the
+//     next tile's entries loaded right after) while the other warps stage
+//     the rows above; then a thread per row updates them.
+// Sums run in a fixed order, so a lane's bits do not depend on its batch.
+// Nothing is skipped for a zero or non-finite entry, so a singular or NaN
+// factor reaches x and the delta ladder retries.
+// ---------------------------------------------------------------------------
+constexpr int K7_NB = 32;                  // reflectors per panel, tile width: a warp
+constexpr int K7_LDV = 36;                 // floats per staged row: 16-byte rows whose float4
+                                           // reads by 8 consecutive rows hit 8 bank groups
+
+// entry (r, col) of V: the factor's below the diagonal, an implied 1 on it
+__device__ __forceinline__ float k7_v(const float* __restrict__ a, int N, int r, int col) {
+  return (col < N && r > col) ? a[(size_t)r * N + col] : (r == col ? 1.0f : 0.0f);
+}
+
+// sum_k row[k] z[k] over a staged row and 32 values z, both 16-byte aligned
+__device__ __forceinline__ float k7_dot32(const float* row, const float* z) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  const float4* z4 = reinterpret_cast<const float4*>(z);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int q = 0; q < K7_NB / 4; ++q) {
+    const float4 r = r4[q], zz = z4[q];
+    acc[0] = fmaf(r.x, zz.x, acc[0]);
+    acc[1] = fmaf(r.y, zz.y, acc[1]);
+    acc[2] = fmaf(r.z, zz.z, acc[2]);
+    acc[3] = fmaf(r.w, zz.w, acc[3]);
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// the diagonal tile t, a row per lane; rows and columns past N: the identity
+__device__ __forceinline__ void k7_diag(float (&d)[K7_NB], const float* __restrict__ a, int N,
+                                        int t, int wl) {
+  const int r0 = t * K7_NB, row = r0 + wl;
+#pragma unroll
+  for (int k = 0; k < K7_NB; ++k) {
+    d[k] = (row < N && r0 + k < N) ? a[(size_t)row * N + r0 + k] : (k == wl ? 1.0f : 0.0f);
+  }
+}
+
+template <int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+qr_solve_kernel(const float* __restrict__ qr, const float* __restrict__ tau,
+                const float* __restrict__ v, float* __restrict__ x, int N) {
+  constexpr int THREADS = WARPS * 32;
+  extern __shared__ float4 k7_dyn[];
+  __shared__ float G_f[K7_NB][K7_NB + 1];               // the panel's Gram matrix
+  __shared__ float w_s[K7_NB];
+  __shared__ __align__(16) float t_s[K7_NB];
+  const int T = (N + K7_NB - 1) / K7_NB, Np = T * K7_NB;
+  float* y = reinterpret_cast<float*>(k7_dyn);          // [Np]
+  float* sV = y + Np;                                   // [Np][LDV] staged rows
+  float* Gp = sV + (size_t)Np * K7_LDV;                 // [WARPS][NB][LDV] partial Gram matrices
+  float* wp = Gp + WARPS * K7_NB * K7_LDV;              // [WARPS][NB] partial V^T y
+  const int lane = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const float* a = qr + (size_t)lane * N * N;
+  for (int i = tid; i < Np; i += THREADS) y[i] = i < N ? v[(size_t)lane * N + i] : 0.0f;
+  __syncthreads();
+
+  // y <- Q^T y = H_{N-1} .. H_0 y, a panel of 32 reflectors at a time
+  for (int p = 0; p < T; ++p) {
+    const int p0 = p * K7_NB, col = p0 + wl;
+    float g[K7_NB];
+#pragma unroll
+    for (int j = 0; j < K7_NB; ++j) g[j] = 0.0f;
+    float w0 = 0.0f;
+    // two rows a pass: both loads in flight before the first is used
+    for (int r = p0 + warp; r < N; r += 2 * WARPS) {
+      const int r2 = r + WARPS;
+      const float va = k7_v(a, N, r, col);
+      const float vb = r2 < N ? k7_v(a, N, r2, col) : 0.0f;
+      float* ra = sV + (size_t)(r - p0) * K7_LDV;
+      float* rb = sV + (size_t)(r2 - p0) * K7_LDV;
+      ra[wl] = va;
+      if (r2 < N) rb[wl] = vb;
+      __syncwarp();
+      w0 = fmaf(va, y[r], w0);
+      if (r2 < N) w0 = fmaf(vb, y[r2], w0);
+#pragma unroll
+      for (int q = 0; q < K7_NB / 4; ++q) {
+        const float4 ua = reinterpret_cast<const float4*>(ra)[q];
+        g[4 * q] = fmaf(va, ua.x, g[4 * q]);
+        g[4 * q + 1] = fmaf(va, ua.y, g[4 * q + 1]);
+        g[4 * q + 2] = fmaf(va, ua.z, g[4 * q + 2]);
+        g[4 * q + 3] = fmaf(va, ua.w, g[4 * q + 3]);
+      }
+      if (r2 < N) {                     // uniform over the warp
+#pragma unroll
+        for (int q = 0; q < K7_NB / 4; ++q) {
+          const float4 ub = reinterpret_cast<const float4*>(rb)[q];
+          g[4 * q] = fmaf(vb, ub.x, g[4 * q]);
+          g[4 * q + 1] = fmaf(vb, ub.y, g[4 * q + 1]);
+          g[4 * q + 2] = fmaf(vb, ub.z, g[4 * q + 2]);
+          g[4 * q + 3] = fmaf(vb, ub.w, g[4 * q + 3]);
+        }
+      }
+    }
+    float4* gp4 = reinterpret_cast<float4*>(Gp + (size_t)(warp * K7_NB + wl) * K7_LDV);
+#pragma unroll
+    for (int q = 0; q < K7_NB / 4; ++q) {
+      gp4[q] = make_float4(g[4 * q], g[4 * q + 1], g[4 * q + 2], g[4 * q + 3]);
+    }
+    wp[warp * K7_NB + wl] = w0;
+    __syncthreads();
+    // the warps' partials summed in their order, an entry a thread
+    for (int e = tid; e < K7_NB * K7_NB; e += THREADS) {
+      const int c = e >> 5, j = e & 31;
+      float sum = 0.0f;
+#pragma unroll
+      for (int u = 0; u < WARPS; ++u) sum += Gp[(size_t)(u * K7_NB + c) * K7_LDV + j];
+      G_f[c][j] = sum;
+    }
+    if (tid < K7_NB) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int u = 0; u < WARPS; ++u) sum += wp[u * K7_NB + tid];
+      w_s[tid] = sum;
+    }
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+      for (int j = 0; j < K7_NB; ++j) g[j] = G_f[wl][j];
+      float wc = w_s[wl];
+      const float tc = col < N ? tau[(size_t)lane * N + col] : 0.0f;
+      // w_c = w0_c - sum_{j<c} G_cj t_j: lane j's t is final at step j
+#pragma unroll
+      for (int j = 0; j < K7_NB - 1; ++j) {
+        const float tj = __shfl_sync(FULL_MASK, tc * wc, j);
+        if (wl > j) wc = fmaf(-g[j], tj, wc);
+      }
+      t_s[wl] = tc * wc;
+    }
+    __syncthreads();
+    for (int r = p0 + tid; r < N; r += THREADS) {   // y -= V t, a thread per staged row
+      y[r] -= k7_dot32(sV + (size_t)(r - p0) * K7_LDV, t_s);
+    }
+    __syncthreads();
+  }
+
+  // R x = y, column tiles from the last (ragged) one
+  float d[K7_NB];
+  if (warp == 0) k7_diag(d, a, N, T - 1, wl);
+  for (int t = T - 1; t >= 0; --t) {
+    const int r0 = t * K7_NB;
+    if (warp == 0) {
+      float yj = y[r0 + wl];
+      const float dinv = 1.0f / d[wl];
+#pragma unroll
+      for (int k = K7_NB - 1; k >= 0; --k) {
+        if (wl == k) yj *= dinv;
+        if (k > 0) {
+          const float yk = __shfl_sync(FULL_MASK, yj, k);
+          if (wl < k) yj = fmaf(-d[k], yk, yj);
+        }
+      }
+      y[r0 + wl] = yj;
+      if (t > 0) k7_diag(d, a, N, t - 1, wl);   // in flight during the update below
+    } else {
+      // the rows above, columns r0..r0+31, staged by the other warps
+      for (int r = warp - 1; r < r0; r += WARPS - 1) {
+        sV[(size_t)r * K7_LDV + wl] = r0 + wl < N ? a[(size_t)r * N + r0 + wl] : 0.0f;
+      }
+    }
+    __syncthreads();
+    for (int r = tid; r < r0; r += THREADS) y[r] -= k7_dot32(sV + (size_t)r * K7_LDV, y + r0);
+    __syncthreads();
+  }
+  for (int i = tid; i < N; i += THREADS) x[(size_t)lane * N + i] = y[i];
+}
+
+// dynamic shared memory of qr_solve_kernel<warps> at N
+constexpr size_t k7_smem(int warps, int N) {
+  return sizeof(float) * ((size_t)((N + K7_NB - 1) / K7_NB * K7_NB) * (1 + K7_LDV)
+                          + (size_t)warps * K7_NB * (K7_LDV + 1));
+}
+
+template <int WARPS>
+int k7_launch(const void* qr, const void* tau, const void* v, void* x, int B, int N, int smem,
+              void* stream) {
+  if ((size_t)smem < k7_smem(WARPS, N)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute((const void*)qr_solve_kernel<WARPS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  qr_solve_kernel<WARPS><<<B, WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const float*)qr, (const float*)tau, (const float*)v, (float*)x, N);
+  return (int)cudaGetLastError();
+}
+
+// The launch floor: an empty kernel, timed by chip_smoke.py beside K1-K7.
 __global__ void noop_kernel() {}
 
 }  // namespace
@@ -1552,6 +2220,68 @@ int ip_step(const void* const* ptrs, int B, int n, int n_eq, int n_ineq, double 
   ip_step_kernel<<<B, K4_THREADS, smem, (cudaStream_t)stream>>>(p, n, n_eq, n_ineq, tau,
                                                                 kappa_mu, mu_min);
   return (int)cudaGetLastError();
+}
+
+// s_a, s_b: (B, N) scratch for the first two sweeps' s
+int ruiz_scale(const void* K, void* M, void* s, void* s_a, void* s_b, int B, int N,
+               void* stream) {
+  const dim3 grid((N + K5_WARPS - 1) / K5_WARPS, B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  ruiz_sweep_kernel<<<grid, K5_THREADS, 0, st>>>((const float*)K, nullptr, (float*)s_a, N);
+  ruiz_sweep_kernel<<<grid, K5_THREADS, 0, st>>>((const float*)K, (const float*)s_a,
+                                                 (float*)s_b, N);
+  ruiz_sweep_kernel<<<grid, K5_THREADS, 0, st>>>((const float*)K, (const float*)s_b,
+                                                 (float*)s, N);
+  ruiz_apply_kernel<<<grid, K5_THREADS, 0, st>>>((const float*)K, (const float*)s, (float*)M, N);
+  return (int)cudaGetLastError();
+}
+
+// as lu_factor_cluster_occupancy, for the QR cluster kernel
+int qr_factor_cluster_occupancy(int C, int smem, void* max_clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)qr_factor_cluster_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k6_config(1, C, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      (int*)max_clusters, (const void*)qr_factor_cluster_kernel, &cfg);
+}
+
+// The layout comes from kernels.qr_factor_geometry; only the limits
+// compiled into the kernel are checked here.
+int qr_factor_cluster(const void* M, void* qr, void* tau, int B, int N, int C, int cols,
+                      int ld, int smem, void* stream) {
+  if (N > 32 * K6_ROWS || ld > 32 * K6_ROWS || C < 1 || C > K2C_MAX_CLUSTER) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)qr_factor_cluster_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k6_config(B, C, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, qr_factor_cluster_kernel, (const float*)M, (float*)qr,
+                           (float*)tau, N, ld, cols);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int qr_factor_global(const void* M, void* qr, void* tau, int B, int N, void* stream) {
+  qr_factor_global_kernel<<<B, K6G_THREADS, sizeof(float) * (size_t)N, (cudaStream_t)stream>>>(
+      (const float*)M, (float*)qr, (float*)tau, N);
+  return (int)cudaGetLastError();
+}
+
+// warps, the warps per lane, and smem, the dynamic shared memory, come from
+// kernels.qr_solve_geometry; only that smem covers warps at N is checked.
+int qr_solve_batched(const void* qr, const void* tau, const void* v, void* x, int B, int N,
+                     int warps, int smem, void* stream) {
+  switch (warps) {
+    case 16: return k7_launch<16>(qr, tau, v, x, B, N, smem, stream);
+    case 8: return k7_launch<8>(qr, tau, v, x, B, N, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int noop(int blocks, void* stream) {

@@ -14,6 +14,13 @@ lu_factor_batched      jax.scipy.linalg.lu_factor, :414              f32
 lu_solve_batched       ksolve = kd * lu_solve(kd * v), :416-418      f32
 ip_step                the direction from the solution and           f64
                        _advance_state, :189-198, :449-512
+kkt_assemble           the unscaled K(delta) of the QR factor,       f32
+                       :333-336 (newton_kkt with scaled=False
+                       builds it with the Newton system)
+ruiz_scale             three Ruiz sweeps M = s K s, :375-381         f32
+qr_factor_batched      jnp.linalg.qr, :382, as packed Householder    f32
+                       reflectors (cluster or global variant, by N)
+qr_solve_batched       msolve = R^-1 Q^T v, :344-346                 f32
 =====================  ===========================================  ==========
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
@@ -38,10 +45,14 @@ import torch
 
 # newton_kkt counts its kernel pair once; lu_factor_batched counts every
 # factor, lu_factor_cluster and lu_factor_unblocked say which of K2's two
-# variants ran
+# variants ran; likewise qr_factor_batched with qr_factor_cluster and
+# qr_factor_global; ruiz_scale counts its three sweeps and its scaling pass
+# once
 LAUNCHES = {'newton_kkt': 0, 'kkt_assemble_scaled': 0, 'lu_factor_batched': 0,
             'lu_factor_cluster': 0, 'lu_factor_unblocked': 0,
-            'lu_solve_batched': 0, 'ip_step': 0}
+            'lu_solve_batched': 0, 'ip_step': 0,
+            'kkt_assemble': 0, 'ruiz_scale': 0, 'qr_factor_batched': 0,
+            'qr_factor_cluster': 0, 'qr_factor_global': 0, 'qr_solve_batched': 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -62,6 +73,11 @@ SIGNATURES = {
     'lu_factor_unblocked': [_P, _P, _I, _I, _P],
     'lu_solve_batched': [_P] * 5 + [_I] * 4 + [_P],
     'ip_step': [_P] + [_I] * 4 + [_D] * 3 + [_P],
+    'ruiz_scale': [_P] * 5 + [_I] * 2 + [_P],
+    'qr_factor_cluster_occupancy': [_I, _I, _P],
+    'qr_factor_cluster': [_P] * 3 + [_I] * 6 + [_P],
+    'qr_factor_global': [_P] * 3 + [_I] * 2 + [_P],
+    'qr_solve_batched': [_P] * 4 + [_I] * 4 + [_P],
     'noop': [_I, _P],
 }
 
@@ -205,32 +221,47 @@ def equilibrate(W0, A, D, r1, r2, free, delta_ce):
                 D_reg=D_reg, r2_e=r2_e, b=torch.cat([r1, -r2_e], dim=1))
 
 
-def kkt_assemble_scaled_plain(W32, A32, Dr32, free32, delta):
-    """Ks = kd K(delta) kd and kd, with
-    K(delta) = [[W32 + delta diag(free), A32^T], [A32, -diag(Dr32)]] and
-    kd = clip(1/sqrt(clip(|diag K|, 1e-8)), 0, 1e4) (|.| on the W block;
-    the Dr block enters as is), all in f32 (batch.py:333-336, 409-413)."""
+def kkt_assemble_plain(W32, A32, Dr32, free32, delta):
+    """K(delta) = [[W32 + delta diag(free), A32^T], [A32, -diag(Dr32)]] in f32
+    (batch.py:333-336), delta a (B,) tensor: the matrix the QR factor
+    equilibrates and factors, and the one the LU factor Jacobi-scales."""
     B, n, _ = W32.shape
     d32 = delta.to(torch.float32)
     Wd = W32 + d32[:, None, None] * torch.diag_embed(free32.expand(B, n))
-    K = torch.cat([torch.cat([Wd, A32.transpose(1, 2)], dim=2),
-                   torch.cat([A32, -torch.diag_embed(Dr32)], dim=2)], dim=1)
-    kdiag = torch.cat([torch.abs(torch.diagonal(Wd, dim1=1, dim2=2)), Dr32], dim=1)
+    return torch.cat([torch.cat([Wd, A32.transpose(1, 2)], dim=2),
+                      torch.cat([A32, -torch.diag_embed(Dr32)], dim=2)], dim=1)
+
+
+def kkt_assemble_scaled_plain(W32, A32, Dr32, free32, delta):
+    """Ks = kd K(delta) kd and kd, with K(delta) of kkt_assemble_plain and
+    kd = clip(1/sqrt(clip(|diag K|, 1e-8)), 0, 1e4) (|.| on the W block;
+    the Dr block enters as is), all in f32 (batch.py:333-336, 409-413)."""
+    n = W32.shape[1]
+    K = kkt_assemble_plain(W32, A32, Dr32, free32, delta)
+    kdiag = torch.cat([torch.abs(torch.diagonal(K, dim1=1, dim2=2)[:, :n]), Dr32], dim=1)
     kd = torch.clamp(1.0 / torch.sqrt(torch.clamp(kdiag, min=1e-8)), 0., 1e4)
     return K * kd[:, :, None] * kd[:, None, :], kd
 
 
-def newton_kkt_plain(state, derivs_out, lbw, ubw, free, delta_w, delta_c):
-    """newton_system, equilibrate and kkt_assemble_scaled_plain at delta_w
-    for every lane: the system the first attempt of the direction solves.
-    Returns Ks, kd (f32), the f64 images W64, A64 of the f32 W0 and A' (the
-    refinement's matrices), rn, D_reg, r2_e, b, r1 (f64) and Dr32 (f32)."""
+def newton_kkt_plain(state, derivs_out, lbw, ubw, free, delta_w, delta_c, scaled=True):
+    """newton_system, equilibrate and K(delta_w) of every lane: the system
+    the first attempt of the direction solves. With ``scaled`` (the LU
+    factor) K(delta_w) comes Jacobi-scaled as Ks with kd, from
+    kkt_assemble_scaled_plain; without (the QR factor) as K, from
+    kkt_assemble_plain. Returns Ks, kd or K (f32), the f64 images W64, A64
+    of the f32 W0 and A' (the refinement's matrices), rn, D_reg, r2_e, b, r1
+    (f64) and Dr32 (f32)."""
     rdt = state['w'].dtype
     sys_ = newton_system(state, derivs_out, lbw, ubw, free, delta_c)
     eq = equilibrate(sys_['W0'], sys_['A'], sys_['D'], sys_['r1'], sys_['r2'], free, delta_c)
     delta = torch.full((sys_['W0'].shape[0],), delta_w, dtype=rdt, device=free.device)
-    Ks, kd = kkt_assemble_scaled_plain(eq['W32'], eq['A32'], eq['Dr32'], eq['free32'], delta)
-    return dict(Ks=Ks, kd=kd, W64=eq['W32'].to(rdt), A64=eq['A32'].to(rdt), rn=eq['rn'],
+    pieces = (eq['W32'], eq['A32'], eq['Dr32'], eq['free32'], delta)
+    if scaled:
+        Ks, kd = kkt_assemble_scaled_plain(*pieces)
+        mats = dict(Ks=Ks, kd=kd)
+    else:
+        mats = dict(K=kkt_assemble_plain(*pieces))
+    return dict(mats, W64=eq['W32'].to(rdt), A64=eq['A32'].to(rdt), rn=eq['rn'],
                 D_reg=eq['D_reg'], Dr32=eq['Dr32'], r2_e=eq['r2_e'], b=eq['b'], r1=sys_['r1'])
 
 
@@ -249,14 +280,16 @@ def _pointers(tensors, fields):
         *[None if tensors.get(k) is None else tensors[k].data_ptr() for k in fields])
 
 
-def newton_kkt(state, derivs_out, lbw, ubw, free, delta_w, delta_c):
-    """The Newton system and the scaled K(delta_w) of every lane in one
-    kernel pair (newton_rows, then A^T nu, then newton_tiles); equal to
-    newton_kkt_plain bit for bit. state: the f64 (B, .) iterates and mu;
-    derivs_out: (fval, gradf, cE, cI f64, JE, JI, H f32); lbw, ubw, free (n,)
-    f64. Returns newton_kkt_plain's dict."""
+def newton_kkt(state, derivs_out, lbw, ubw, free, delta_w, delta_c, scaled=True):
+    """The Newton system and K(delta_w) of every lane in one kernel pair
+    (newton_rows, then A^T nu, then newton_tiles); equal to newton_kkt_plain
+    bit for bit. state: the f64 (B, .) iterates and mu; derivs_out: (fval,
+    gradf, cE, cI f64, JE, JI, H f32); lbw, ubw, free (n,) f64. Returns
+    newton_kkt_plain's dict: with ``scaled`` Ks and kd, without it K alone
+    (the kernels get a null kd: none is written, and the tiles are scaled
+    by 1)."""
     if not state['w'].is_cuda:
-        return newton_kkt_plain(state, derivs_out, lbw, ubw, free, delta_w, delta_c)
+        return newton_kkt_plain(state, derivs_out, lbw, ubw, free, delta_w, delta_c, scaled)
     name = 'newton_kkt'
     f32, f64 = torch.float32, torch.float64
     _, gradf, cE, cI, JE, JI, H = derivs_out
@@ -274,7 +307,8 @@ def newton_kkt(state, derivs_out, lbw, ubw, free, delta_w, delta_c):
         raise ValueError(f'{name}: inconsistent shapes (or no equality or inequality rows, '
                          f'or n > {NEWTON_ROW_MAX})')
     new = lambda shape, dt: torch.empty(shape, dtype=dt, device=H.device)
-    t.update(Ks=new((B, N, N), f32), kd=new((B, N), f32), W64=new((B, n, n), f64),
+    t.update(Ks=new((B, N, N), f32), kd=new((B, N), f32) if scaled else None,
+             W64=new((B, n, n), f64),
              A64=new((B, m, n), f64), rn=new((B, m), f64), D_reg=new((B, m), f64),
              Dr32=new((B, m), f32), r2_e=new((B, m), f64), b=new((B, N), f64),
              r1=new((B, n), f64), Araw=new((B, m, n), f64), nu=new((B, m), f64),
@@ -287,16 +321,16 @@ def newton_kkt(state, derivs_out, lbw, ubw, free, delta_w, delta_c):
     _check(name, lib.newton_tiles(_pointers(t, NEWTON_FIELDS), B, n, n_eq, n_ineq,
                                   float(delta_w), stream))
     LAUNCHES[name] += 1
-    return {k: t[k] for k in NEWTON_OUTPUTS}
+    out = {k: t[k] for k in NEWTON_OUTPUTS}
+    if not scaled:
+        out['K'] = out.pop('Ks')
+        del out['kd']
+    return out
 
 
-def kkt_assemble_scaled(W32, A32, Dr32, free32, delta):
-    """(B,n,n), (B,m,n), (B,m) f32, (n,) f32, (B,) f64 -> Ks (B,N,N), kd (B,N):
-    the delta ladder's retry assembly, newton_kkt's tile kernel on the f32
-    W0 and A' of the retried lanes."""
-    if not W32.is_cuda:
-        return kkt_assemble_scaled_plain(W32, A32, Dr32, free32, delta)
-    name = 'kkt_assemble_scaled'
+def _assemble(name, W32, A32, Dr32, free32, delta, scaled):
+    """The tile kernel on the f32 W0 and A' of the lanes given: Ks and kd,
+    or the unscaled K and None."""
     f32 = torch.float32
     _require(name, (W32, f32), (A32, f32), (Dr32, f32), (free32, f32),
              (delta, torch.float64))
@@ -307,12 +341,29 @@ def kkt_assemble_scaled(W32, A32, Dr32, free32, delta):
             or delta.shape != (B,):
         raise ValueError(f'{name}: inconsistent shapes')
     Ks = torch.empty(B, N, N, dtype=f32, device=W32.device)
-    kd = torch.empty(B, N, dtype=f32, device=W32.device)
+    kd = torch.empty(B, N, dtype=f32, device=W32.device) if scaled else None
     _check(name, library().kkt_assemble_scaled(
         _ptr(W32), _ptr(A32), _ptr(Dr32), _ptr(free32), _ptr(delta),
-        _ptr(Ks), _ptr(kd), B, n, m, _stream()))
+        _ptr(Ks), None if kd is None else _ptr(kd), B, n, m, _stream()))
     LAUNCHES[name] += 1
     return Ks, kd
+
+
+def kkt_assemble_scaled(W32, A32, Dr32, free32, delta):
+    """(B,n,n), (B,m,n), (B,m) f32, (n,) f32, (B,) f64 -> Ks (B,N,N), kd (B,N):
+    the delta ladder's retry assembly of the LU factor, newton_kkt's tile
+    kernel on the f32 W0 and A' of the retried lanes."""
+    if not W32.is_cuda:
+        return kkt_assemble_scaled_plain(W32, A32, Dr32, free32, delta)
+    return _assemble('kkt_assemble_scaled', W32, A32, Dr32, free32, delta, True)
+
+
+def kkt_assemble(W32, A32, Dr32, free32, delta):
+    """Same arguments -> K (B,N,N), the unscaled K(delta): the QR factor's
+    retry assembly, the same tile kernel writing no kd and scaling by none."""
+    if not W32.is_cuda:
+        return kkt_assemble_plain(W32, A32, Dr32, free32, delta)
+    return _assemble('kkt_assemble', W32, A32, Dr32, free32, delta, False)[0]
 
 
 # --- K2 ----------------------------------------------------------------------
@@ -591,7 +642,189 @@ def ip_step(x, ok, rn, r1, state, derivs_out, lbw, ubw, free, tau, kappa_mu, mu_
     return out
 
 
+# --- K5 ----------------------------------------------------------------------
+
+RUIZ_SWEEPS = 3             # as batch.py:377; csrc/auglu.cu's ruiz_scale launches as many
+
+
+def ruiz_scale_plain(K):
+    """Three Ruiz sweeps from s = 1 (batch.py:375-381): rr = sqrt(clip(max_j
+    |M_ij|, 1e-12)), s <- s / rr, M <- K s_i s_j, all f32, the maximum over
+    each row. Returns (M (B,N,N), s (B,N)). A NaN in a row passes through
+    the clip into that row's s, as in the JAX package."""
+    s = torch.ones(K.shape[:2], dtype=K.dtype, device=K.device)
+    M = K
+    for _ in range(RUIZ_SWEEPS):
+        rr = torch.sqrt(torch.clamp(M.abs().amax(dim=2), min=1e-12))
+        s = s / rr
+        M = K * s[:, :, None] * s[:, None, :]
+    return M, s
+
+
+def ruiz_scale(K):
+    """(B,N,N) f32 -> (M (B,N,N), s (B,N)) f32, equal to ruiz_scale_plain bit
+    for bit (a maximum, one square root and one division a row, two
+    products an entry, each rounded as PyTorch rounds them): three sweep
+    launches, a warp per row, then one pass that writes M."""
+    if not K.is_cuda:
+        return ruiz_scale_plain(K)
+    name = 'ruiz_scale'
+    _require(name, (K, torch.float32))
+    B, N, N2 = K.shape
+    if N != N2:
+        raise ValueError(f'{name}: square matrices expected')
+    M = torch.empty_like(K)
+    s = torch.empty(B, N, dtype=torch.float32, device=K.device)
+    s_a, s_b = torch.empty_like(s), torch.empty_like(s)
+    _check(name, library().ruiz_scale(_ptr(K), _ptr(M), _ptr(s), _ptr(s_a), _ptr(s_b), B, N,
+                                      _stream()))
+    LAUNCHES[name] += 1
+    return M, s
+
+
+# --- K6 ----------------------------------------------------------------------
+
+def qr_factor_batched_plain(M):
+    """Householder QR in LAPACK's geqrf layout: R on and above the diagonal,
+    the reflectors v_k (unit leading entry implied) below it, and tau (B,N);
+    H_k = I - tau_k v_k v_k^T, Q = H_0 H_1 .. H_{N-1}."""
+    return torch.geqrf(M)
+
+
+QR_NB = 16                  # panel width of the cluster kernel (K6_NB): a warp per column
+QR_ROW_MAX = 640            # rows a warp holds in registers (32 * K6_ROWS)
+
+
+class QRGeometry(NamedTuple):
+    """How K6 lays one lane out, as LUGeometry: 'cluster' runs a cluster of
+    ``C`` CTAs, each holding ``cols_per_cta`` whole columns (panels of ``nb``
+    dealt block-cyclically, leading dimension ``ld``) and a copy of the
+    current panel's reflectors in ``smem_bytes`` of dynamic shared memory;
+    'global' runs one block on the matrix in global memory."""
+    variant: str
+    C: int
+    nb: int
+    cols_per_cta: int
+    ld: int
+    smem_bytes: int
+
+
+def qr_factor_geometry(N: int) -> QRGeometry:
+    """K6's variant and layout for N x N lanes: the cluster variant when a
+    lane fits the shared memory of LU_CLUSTER_MAX CTAs and a warp's
+    registers hold a column, else the global one."""
+    panels = -(-N // QR_NB)
+    C = min(LU_CLUSTER_MAX, panels)
+    cols = -(-panels // C) * QR_NB
+    ld = -(-N // 4) * 4           # float4 rows of the panel copy
+    # f32: the CTA's columns and the current panel's reflectors
+    smem = 4 * (cols * ld + QR_NB * ld)
+    if N > QR_ROW_MAX or smem + LU_STATIC_SMEM > SMEM_PER_BLOCK:
+        return QRGeometry('global', 1, 1, N, N, 0)
+    return QRGeometry('cluster', C, QR_NB, cols, ld, smem)
+
+
+def qr_cluster_max_active(geom: QRGeometry) -> int:
+    """Clusters of this geometry the card runs at once (asked once per
+    geometry); raises if it cannot run one."""
+    key = ('qr', geom.C, geom.smem_bytes)
+    if key not in _max_clusters:
+        count = ctypes.c_int(0)
+        _check('qr_factor_cluster_occupancy', library().qr_factor_cluster_occupancy(
+            geom.C, geom.smem_bytes, ctypes.byref(count)))
+        if count.value < 1:
+            raise RuntimeError(f'qr_factor_cluster: a cluster of {geom.C} CTAs with '
+                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
+        _max_clusters[key] = count.value
+    return _max_clusters[key]
+
+
+def qr_factor_batched(M):
+    """(B,N,N) f32 -> (qr (B,N,N), tau (B,N)) f32 in geqrf's layout; M is
+    kept (the refinement's residual reads it). The variant is
+    qr_factor_geometry(N)'s. Signs follow LAPACK's larfg (beta = -sign(alpha)
+    |x|), but a factor is unique only up to rounding: compare |diag R| and
+    solutions, not entries."""
+    if not M.is_cuda:
+        return qr_factor_batched_plain(M)
+    name = 'qr_factor_batched'
+    _require(name, (M, torch.float32))
+    B, N, N2 = M.shape
+    if N != N2:
+        raise ValueError(f'{name}: square matrices expected')
+    geom = qr_factor_geometry(N)
+    qr = torch.empty_like(M)
+    tau = torch.empty(B, N, dtype=torch.float32, device=M.device)
+    if geom.variant == 'cluster':
+        qr_cluster_max_active(geom)
+        _check(name, library().qr_factor_cluster(
+            _ptr(M), _ptr(qr), _ptr(tau), B, N, geom.C, geom.cols_per_cta, geom.ld,
+            geom.smem_bytes, _stream()))
+    else:
+        _check(name, library().qr_factor_global(_ptr(M), _ptr(qr), _ptr(tau), B, N, _stream()))
+    LAUNCHES[name] += 1
+    LAUNCHES[f'qr_factor_{geom.variant}'] += 1
+    return qr, tau
+
+
+# --- K7 ----------------------------------------------------------------------
+
+def qr_solve_batched_plain(qr, tau, v):
+    """R^-1 (Q^T v) from a geqrf factor, all f32 (batch.py:344-346): the
+    reflectors applied by ormqr, then the triangular solve with R."""
+    y = torch.ormqr(qr, tau, v[:, :, None], left=True, transpose=True)
+    return torch.linalg.solve_triangular(torch.triu(qr), y, upper=True)[:, :, 0]
+
+
+QR_SOLVE_NB = 32            # reflectors per panel and tile width of the solve (K7_NB): a warp
+QR_SOLVE_LDV = 36           # f32 per staged row of a panel or tile (K7_LDV)
+QR_SOLVE_WARPS = (16, 8)    # warps per lane the kernel is compiled for, most first
+QR_SOLVE_STATIC_SMEM = 5_120   # room for the kernel's static arrays (4480 B)
+
+
+class QRSolveGeometry(NamedTuple):
+    """How K7 lays one lane out: ``tiles`` panels of ``QR_SOLVE_NB``
+    reflectors, then as many tile steps of the back substitution, by
+    ``warps`` warps; ``smem_bytes`` of dynamic shared memory hold the
+    right-hand side padded to whole tiles, a staged row of ``QR_SOLVE_LDV``
+    f32 for each of its entries, and every warp's partial Gram matrix and
+    partial V^T y."""
+    tiles: int
+    warps: int
+    smem_bytes: int
+
+
+def qr_solve_geometry(N: int) -> QRSolveGeometry:
+    """K7's layout for N x N lanes: the most warps whose partial sums fit one
+    block's shared memory beside the staged rows."""
+    tiles = -(-N // QR_SOLVE_NB)
+    rows = tiles * QR_SOLVE_NB
+    for warps in QR_SOLVE_WARPS:
+        smem = 4 * (rows * (1 + QR_SOLVE_LDV) + warps * QR_SOLVE_NB * (QR_SOLVE_LDV + 1))
+        if smem + QR_SOLVE_STATIC_SMEM <= SMEM_PER_BLOCK:
+            return QRSolveGeometry(tiles, warps, smem)
+    raise ValueError(f'qr_solve_batched: N={N} leaves no room for the staged rows')
+
+
+def qr_solve_batched(qr, tau, v):
+    """(B,N,N) f32 in geqrf's layout, (B,N) f32, (B,N) f32 -> (B,N) f32."""
+    if not qr.is_cuda:
+        return qr_solve_batched_plain(qr, tau, v)
+    name = 'qr_solve_batched'
+    f32 = torch.float32
+    _require(name, (qr, f32), (tau, f32), (v, f32))
+    B, N, _ = qr.shape
+    if tau.shape != (B, N) or v.shape != (B, N):
+        raise ValueError(f'{name}: inconsistent shapes')
+    geom = qr_solve_geometry(N)
+    x = torch.empty(B, N, dtype=f32, device=qr.device)
+    _check(name, library().qr_solve_batched(_ptr(qr), _ptr(tau), _ptr(v), _ptr(x), B, N,
+                                            geom.warps, geom.smem_bytes, _stream()))
+    LAUNCHES[name] += 1
+    return x
+
+
 def launch_floor():
     """Launches the empty kernel once: the least a launch costs, the floor
-    that chip_smoke.py times beside K1-K4. Not counted in LAUNCHES."""
+    that chip_smoke.py times beside K1-K7. Not counted in LAUNCHES."""
     _check('noop', library().noop(1, _stream()))

@@ -8,8 +8,10 @@ four pieces:
     vals       f64 objective, gradient, equalities, inequalities
     jac        f32 per-node constraint Jacobians scattered into dense JE/JI
     hess       f32 per-node exact Lagrangian Hessians scattered into dense H
-    direction  the f32 augmented-KKT LU direction with f64 refinement, then
-               the f64 step and barrier update
+    direction  the f32-factored augmented-KKT direction with f64 refinement
+               (Ruiz-equilibrated Householder QR by default, as bench.py
+               runs it, or Jacobi-scaled LU), then the f64 step and barrier
+               update
 
 The state and the values stay f64. The Jacobians and the Hessian enter the
 direction in f32, as in the JAX package, but are evaluated in f64 and then
@@ -82,13 +84,14 @@ def wind_sweep_problem(trial, anchor, B, spread=0.05, u_ref=10.0,
     return state, P64, as64(lbw), as64(ubw), as64(free), u_refs
 
 
-def make_refiner(ocp, lbw, ubw, free, kappa_mu=0.4):
-    """Returns one_iter(state, P64, times=None) -> state. With a dict
+def make_refiner(ocp, lbw, ubw, free, kappa_mu=0.4, auglu_factor='qr'):
+    """Returns one_iter(state, P64, times=None) -> state, its direction
+    through the ``auglu_factor`` factor ('qr' or 'lu'). With a dict
     ``times``, each piece is synchronized and its seconds added under
     vals/jac/hess/direction."""
     vals_fn, jac_fn, hess_fn = make_structured_derivs(ocp)
     _, direction = make_ip_step(ocp, kkt='auglu', split=True,
-                                kappa_mu=kappa_mu, auglu_factor='lu')
+                                kappa_mu=kappa_mu, auglu_factor=auglu_factor)
 
     def one_iter(state, P64, times=None):
         clock = _Clock(state['w'].device, times)
@@ -127,13 +130,14 @@ class _Clock:
 
 
 def refine(ocp, state, P64, lbw, ubw, free, tol=1e-5, verify_tol=1e-4,
-           max_iter=100, kappa_mu=0.4, time_pieces=False):
-    """Iterate every lane until all lanes latched at ``tol`` or ``max_iter``.
+           max_iter=100, kappa_mu=0.4, time_pieces=False, auglu_factor='qr'):
+    """Iterate every lane until all lanes latched at ``tol`` or ``max_iter``,
+    with the direction of ``auglu_factor`` ('qr', the default, or 'lu').
 
     Returns a dict: state, n_iter, latched (B,), eq_res (B,) (f64 max |eq|
     of the final iterate), converged (B,), seconds (loop wall time, device
     synchronized), and with ``time_pieces`` the per-piece seconds."""
-    one_iter = make_refiner(ocp, lbw, ubw, free, kappa_mu)
+    one_iter = make_refiner(ocp, lbw, ubw, free, kappa_mu, auglu_factor)
     B = state['w'].shape[0]
     cuda = state['w'].is_cuda
     latched = torch.zeros(B, dtype=torch.bool, device=state['w'].device)

@@ -2,7 +2,9 @@
 """Counts the aten operations that one direction call dispatches on the
 card, and times the call, for the port in the tree at --root (default: this
 checkout), at the slice's shape: the bench configuration, B=16 lanes from
-tests/artifacts/bench_anchor_nk4_d3.npz, the derivatives at the anchor.
+tests/artifacts/bench_anchor_nk4_d3.npz, the derivatives at the anchor, with
+the factor --factor ('qr', the port's default, or 'lu'; a tree from before
+the QR factor takes only 'lu').
 
 Two trees are compared in one call on one card, e.g. a parent commit
 unpacked (``git archive``) into a directory that .gitignore lists, in turns:
@@ -69,6 +71,7 @@ def main():
     ap.add_argument('--lanes', type=int, default=16)
     ap.add_argument('--runs', type=int, default=25)
     ap.add_argument('--profile', action='store_true')
+    ap.add_argument('--factor', default='qr', choices=('qr', 'lu'))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('direction_ops: no CUDA device', file=sys.stderr)
@@ -91,12 +94,12 @@ def main():
     w, y, lam = state['w'], state['y'], state['lam']
     dv = tuple(vals_fn(w, y, lam, P64)) + tuple(J.to(f32) for J in jac_fn(w, P64)) \
         + (hess_fn(w, y, lam, P64).to(f32),)
-    _, direction = make_ip_step(ocp, kappa_mu=0.4)
+    _, direction = make_ip_step(ocp, kappa_mu=0.4, auglu_factor=args.factor)
     call = lambda: direction(state, dv, lbw, ubw, free)
     n_ops, times = count_and_time(call, args.runs)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({'root': os.path.relpath(root, os.getcwd()), 'card': smi, 'lanes': args.lanes,
+    print(json.dumps({'root': os.path.relpath(root, os.getcwd()), 'card': smi, 'lanes': args.lanes, 'factor': args.factor,
                       'ops': n_ops, 'direction_ms': statistics.median(times),
                       'direction_ms_min': min(times)}), flush=True)
     if args.profile:

@@ -53,7 +53,7 @@ def edit(start, end, *pairs, regex=None):
     return apply
 
 
-K4 = ('__global__ void __launch_bounds__(K4_THREADS)\nip_step_kernel', '// The launch floor')
+K4 = ('__global__ void __launch_bounds__(K4_THREADS)\nip_step_kernel', '// K5 ruiz_scale')
 ROWS = ('newton_rows_kernel(NewtonPtrs p', '// Where phase 2 takes its entries')
 TILES = ('kkt_tiles_kernel(Src src', '// K2 semantics')
 # a result that keeps the cut kernel's remaining work alive
@@ -103,7 +103,8 @@ CUTS = {
         ('    if (i == j) return p.diag32[(size_t)lane * n + i];\n    const float h',
          '    return 1.0f;\n    const float h'),
         ('    return a_prime(p, lane, r, c, n, n_eq, n_ineq);', '    return 1.0f;'),
-        ('    return p.kd[(size_t)lane * (n + n_eq + n_ineq) + i];', '    return 1.0f;'))],
+        ('    return p.kd ? p.kd[(size_t)lane * (n + n_eq + n_ineq) + i] : 1.0f;',
+         '    return 1.0f;'))],
     'K1 tiles: empty': [edit(*TILES, ('  const int N = n + m, TC = (N + K1_TILE - 1) / K1_TILE;',
                                       '  return;\n  const int N = n + m, TC = (N + K1_TILE - 1) / K1_TILE;'))],
 }

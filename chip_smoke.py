@@ -12,7 +12,8 @@ entry points, and checks the hand-written CUDA kernels on the way:
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes, on anchor-derived and random systems, with the
               times of both (median of 25 runs, CUDA events): K1 newton_kkt
-              (the Newton system and K(delta_w)) bit for bit and K4 ip_step
+              (the Newton system and K(delta_w), Jacobi-scaled for the LU
+              factor and unscaled for the QR factor) bit for bit and K4 ip_step
               (the direction from the solution and the step) at its stated
               tolerances, each at B = 1, 16 and 128 and on random systems
               with non-finite J/H entries, pinned variables and infinite
@@ -20,23 +21,34 @@ entry points, and checks the hand-written CUDA kernels on the way:
               both variants, each where lu_factor_geometry takes it: the
               cluster kernel at N=543, B = 1, 16 and 128, the unblocked one
               at N=1055 B=2; the LU solve K3 on each of those shapes, on K2's
-              factor and on cuSOLVER's; every kernel and the library calls
-              (cuSOLVER's getrf, torch.linalg.lu_solve) are also timed queued
+              factor and on cuSOLVER's; the QR path's kernels: the unscaled
+              retry assembly and K5 ruiz_scale bit for bit (a NaN row
+              included), K6 qr_factor_batched in both variants (the cluster
+              kernel at N=543, B = 1, 16 and 128, the global one at N=1055
+              B=2) by |diag R| and by the solve, K7 qr_solve_batched on K6's
+              factor and on cuSOLVER's geqrf factor by its residual and by
+              the guarded refinement sweep's result, a singular and a NaN
+              lane; every kernel and the library calls (cuSOLVER's getrf and
+              geqrf, torch.linalg.lu_solve, torch.ormqr with
+              solve_triangular) are also timed queued
               behind a device sleep, which hides the host's dispatch, beside
               an empty kernel's time (the launch floor); each kernel's bound
               (bytes over HBM rate or operations over the CUDA cores' peak)
               is computed from its shapes; the aten operations and the time
-              of one direction call
+              of one direction call with each factor
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
               9.5..10.5 m/s from tests/artifacts/bench_anchor_nk4_d3.npz,
-              iterated to convergence (at most 100 iterations); every lane
-              must latch KKT error <= 1e-5 and pass the f64 dynamics
-              residual check <= 1e-4
-  5. path     every kernel of the path launched during the slice run: K1
-              and K4 once per iteration, the retry assembly once per ladder
-              retry, every factor through the cluster variant, three solves
-              per factor; no plain piece of the Newton system or of the step
-              called; state on the card
+              iterated to convergence (at most 100 iterations), once with
+              the LU factor ([slice]) and once with the QR factor, the
+              port's default ([slice-qr]); every lane must latch KKT error
+              <= 1e-5 and pass the f64 dynamics residual check <= 1e-4, and
+              the two runs' average powers must agree lane by lane to 1e-6
+  5. path     after each slice run, every kernel of its path launched in
+              it: K1 and K4 once per iteration, the retry assembly once per
+              ladder retry, every factor through the cluster variant; LU:
+              three solves per factor and no QR kernel; QR: one K5 and one
+              K6 per attempt, two K7 solves per factor and no LU kernel; no
+              plain version of any kernel called; state on the card
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -196,15 +208,16 @@ def main():
     # same order; r1 through the same cuBLAS product), on the anchor's
     # systems at B = 1, 16 and 128 and on random systems with non-finite
     # J/H entries, pinned variables and infinite bounds
-    def hold_k1(tag, args):
+    def hold_k1(tag, args, scaled=True):
         before = kernels.LAUNCHES['newton_kkt']
-        out = kernels.newton_kkt(*args, 1e-8, 1e-8)
-        ref = kernels.newton_kkt_plain(*args, 1e-8, 1e-8)
+        out = kernels.newton_kkt(*args, 1e-8, 1e-8, scaled)
+        ref = kernels.newton_kkt_plain(*args, 1e-8, 1e-8, scaled)
         torch.cuda.synchronize()
         require(kernels.LAUNCHES['newton_kkt'] == before + 1, f'K1 {tag}: no launch')
+        require(set(out) == set(ref) and ('K' in out) != scaled, f'K1 {tag}: outputs {set(out)}')
         differ = [k for k in ref if not torch.equal(out[k], ref[k])]
         require(not differ, f'K1 {tag}: {differ} differ from the plain composition')
-        k1 = lambda: kernels.newton_kkt(*args, 1e-8, 1e-8)
+        k1 = lambda: kernels.newton_kkt(*args, 1e-8, 1e-8, scaled)
         state_, dv_ = args[0], args[1]
         ins = [dv_[k] for k in range(1, 7)] + [state_[k] for k in ('w', 's', 'y', 'lam', 'zl',
                                                                     'zu', 'mu')] + list(args[2:])
@@ -214,7 +227,8 @@ def main():
         b_, by_ = bound(nbytes(*ins, *out.values()))
         b32, _ = bound(nbytes(*ins, *out.values()) - 4 * (out['W64'].numel() + out['A64'].numel()))
         rec = dict(max_abs_err=0.0, ms=cuda_median_ms(k1), queued_ms=cuda_median_ms(k1, queued=True),
-                   plain_ms=cuda_median_ms(lambda: kernels.newton_kkt_plain(*args, 1e-8, 1e-8)),
+                   plain_ms=cuda_median_ms(
+                       lambda: kernels.newton_kkt_plain(*args, 1e-8, 1e-8, scaled)),
                    bound_ms=b_, bound_by=by_, bound_f32_images_ms=b32, library_ms=None,
                    launch_floor_ms=floor['ms'], launch_floor_queued_ms=floor['queued_ms'])
         phase('kernels', f'K1 newton_kkt {tag}: {len(ref)} outputs bit for bit; {rec["ms"]:.4f} ms, '
@@ -230,14 +244,21 @@ def main():
     spec.loader.exec_module(ktests)
     newton_inputs, step_gaps, step_solution, step_within_tolerance = (
         ktests.newton_inputs, ktests.step_gaps, ktests.step_solution, ktests.step_within_tolerance)
-    k1_at, k1_out = {}, {}
+    # ... and with scaled=False, the unscaled K(delta_w) that the QR factor
+    # equilibrates: the same kernels given no kd (no kd written, the tiles
+    # scaled by 1), bit for bit too
+    k1_at, k1_out, k1u_out = {}, {}, {}
     for Bk in (1, B, 8 * B):
         args = (lanes(state, Bk), lanes(dv, Bk), lbw, ubw, free)
         k1_out[Bk], ref_a, k1_at[f'B={Bk}'] = hold_k1(f'anchor B={Bk}', args)
+        k1u_out[Bk], _, k1_at[f'unscaled B={Bk}'] = hold_k1(f'unscaled, anchor B={Bk}', args,
+                                                             scaled=False)
         if Bk == B:
             ref16 = ref_a
     rand_args = newton_inputs(B=B, n=n, n_eq=ocp.n_eq, n_ineq=ocp.n_ineq, seed=3, device=dev)
     _, rand_ref, k1_at['random B=16'] = hold_k1('random B=16', rand_args)
+    _, _, k1_at['unscaled random B=16'] = hold_k1('unscaled, random B=16', rand_args,
+                                                  scaled=False)
     report['newton_kkt'] = dict(k1_at[f'B={B}'], at=k1_at)
 
     # the retry assembly: K(delta) of the lanes a ladder retry takes, from
@@ -259,6 +280,18 @@ def main():
     phase('kernels', f'retry assembly kkt_assemble_scaled: bit for bit at delta 1e-8..1, '
           f'{r1["ms"]:.4f} ms, queued {r1["queued_ms"]:.4f} ms, vs plain '
           f'{r1["plain_ms"]:.3f} ms; bound {b1:.4f} ms ({by1})')
+    K_k, K_r = kernels.kkt_assemble(*args1), kernels.kkt_assemble_plain(*args1)
+    torch.cuda.synchronize()
+    require(torch.equal(K_k, K_r), 'the unscaled retry assembly disagrees with its plain version')
+    k1u = lambda: kernels.kkt_assemble(*args1)
+    b1u, by1u = bound(nbytes(*args1, K_k))
+    report['kkt_assemble'] = r1u = dict(
+        max_abs_err=0.0, ms=cuda_median_ms(k1u), queued_ms=cuda_median_ms(k1u, queued=True),
+        plain_ms=cuda_median_ms(lambda: kernels.kkt_assemble_plain(*args1)),
+        bound_ms=b1u, bound_by=by1u, library_ms=None)
+    phase('kernels', f'unscaled retry assembly kkt_assemble: bit for bit at delta 1e-8..1, '
+          f'{r1u["ms"]:.4f} ms, queued {r1u["queued_ms"]:.4f} ms, vs plain '
+          f'{r1u["plain_ms"]:.3f} ms; bound {b1u:.4f} ms ({by1u})')
     Ks_p, kd_p = ref16['Ks'], ref16['kd']
 
     # K2+K3: factor and solve the anchor-derived Ks. LU ties may pick other
@@ -391,15 +424,193 @@ def main():
                                        max_active_clusters=max_clusters)
     report['lu_solve_batched'] = dict(solve_at[f'N={N} B={B}'], at=solve_at)
 
-    # the whole direction solve (K1-K3 + refinement + ladder) on the card
-    # against the plain path on the CPU, on make_system-style random saddle
-    # systems at n, m. In lane 0 variable 0 appears nowhere (zero row and
-    # column of W0, zero column of A), so K(delta) pins it only through
-    # delta: |dw_0| = |r1_0| / delta exceeds dw_cap until the ladder has
-    # raised delta, and lane 0 is retried alone on the card. ok must agree
-    # lane by lane, and the card's augmented residual (relative to the
-    # right-hand side) must be within 10x of the CPU's: both are set by the
-    # f32 factor's accuracy on these ill-conditioned random systems
+    # K5 ruiz_scale: three Ruiz sweeps and M = s K s, bit for bit against
+    # its plain version (a maximum, a square root and a division a row, two
+    # products an entry, each rounded as PyTorch rounds them), on the anchor's
+    # K(delta_w) at B = 1, 16 and 128 and with a NaN row and an inf entry
+    same_bits = ktests.same_bits   # equal entry for entry, NaN with NaN
+
+    def hold_k5(tag, K):
+        before = kernels.LAUNCHES['ruiz_scale']
+        M, s_ = kernels.ruiz_scale(K)
+        M_p, s_p = kernels.ruiz_scale_plain(K)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES['ruiz_scale'] == before + 1, f'K5 {tag}: no launch')
+        require(same_bits(M, M_p) and same_bits(s_, s_p), f'K5 {tag}: differs from its plain version')
+        k5 = lambda: kernels.ruiz_scale(K)
+        b_, by_ = bound(nbytes(K, M, s_), 8 * K.numel())
+        rec = dict(max_abs_err=0.0, ms=cuda_median_ms(k5), queued_ms=cuda_median_ms(k5, queued=True),
+                   plain_ms=cuda_median_ms(lambda: kernels.ruiz_scale_plain(K)),
+                   bound_ms=b_, bound_by=by_, library_ms=None)
+        phase('kernels', f'K5 ruiz_scale {tag}: M and s bit for bit; {rec["ms"]:.4f} ms, queued '
+              f'{rec["queued_ms"]:.4f} ms, vs plain {rec["plain_ms"]:.3f} ms; bound {b_:.4f} ms '
+              f'({by_}); max |M| {float(M.nan_to_num().abs().max()):.3f}')
+        return M, s_, rec
+
+    k5_at, ruiz_out = {}, {}
+    for Bk in (1, B, 8 * B):
+        M_k, s_k, k5_at[f'B={Bk}'] = hold_k5(f'anchor B={Bk}', k1u_out[Bk]['K'])
+        ruiz_out[Bk] = (M_k, s_k)
+    K_bad = k1u_out[B]['K'].clone()
+    K_bad[3, 5, :] = float('nan')
+    K_bad[7, 2, 9] = float('inf')
+    _, s_bad, k5_at['non-finite B=16'] = hold_k5('NaN row and inf entry B=16', K_bad)
+    require(bool(torch.isnan(s_bad[3]).any()) and bool(torch.isfinite(s_bad[[0, 1, 2]]).all()),
+            'K5: the NaN row did not reach its lane\'s s, or reached another lane')
+    report['ruiz_scale'] = dict(k5_at[f'B={B}'], at=k5_at)
+
+    # K6 + K7: Householder QR and the solve R^-1 Q^T c of the Ruiz-scaled
+    # anchor systems M, c = s b. A QR factor is unique only up to the signs of
+    # R's rows and to rounding, so K6 is held by |diag R| (1e-3 of its
+    # maximum against cuSOLVER's geqrf: the f32 backward error N eps |M| ~
+    # 3e-5, which the conditioning of M's leading blocks amplifies in R;
+    # 1.1e-4 was measured at the anchor, cond(M) ~ 1e9) and by the solve. K7 is held on the same factor, K6's and cuSOLVER's,
+    # against its plain version (ormqr + solve_triangular): the direct f32
+    # solve reaches only ~1e-5 of scaled residual at cond(M) ~ 1e9, so the
+    # gates are the residual max |c - M64 z| / max |c| within 10x of the
+    # plain version's (and of the library's on its own factor), then the
+    # direction's guarded refinement sweep through each solve: its residual
+    # within 10x and its z within 1e-2 of max |z| (one sweep leaves each
+    # solve at its own (cond eps)^2; the JAX package's and LAPACK's QR differ
+    # by 5e-4 of the step at the anchor on the CPU). The cluster variant is
+    # held at N=543, B = 1, 16, 128, the global one on a random saddle system
+    # of the n_k=8 size N=1055 at B=2, which only it takes.
+    def qr_res(M64, c64, z):
+        r = c64 - (M64 @ z.to(f64)[:, :, None])[:, :, 0]
+        return r.abs().amax(dim=1) / c64.abs().amax(dim=1)
+
+    def guarded(M64, c64, solve):
+        """The direction's solve with one guarded sweep (batch.py:348-358)
+        through solve(v32) -> f32: the direct residual, z and its residual."""
+        z = solve(c64.to(f32).contiguous()).to(f64)
+        res = c64 - (M64 @ z[:, :, None])[:, :, 0]
+        best = res.abs().amax(dim=1)
+        z1 = z + solve(res.to(f32).contiguous()).to(f64)
+        b1 = (c64 - (M64 @ z1[:, :, None])[:, :, 0]).abs().amax(dim=1)
+        z = torch.where((b1 < best)[:, None], z1, z)
+        scale = c64.abs().amax(dim=1)
+        return best / scale, z, torch.minimum(best, b1) / scale
+
+    def hold_qr(tag, M, c64, variant, n_timed=N_TIMED):
+        B_, N_ = M.shape[0], M.shape[1]
+        before = dict(kernels.LAUNCHES)
+        qr_k, tau_k = kernels.qr_factor_batched(M)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES[f'qr_factor_{variant}'] == before[f'qr_factor_{variant}'] + 1,
+                f'K6 {tag}: the {variant} variant did not run')
+        raw = kernels.qr_factor_batched_plain(M)            # cuSOLVER's geqrf, column-major
+        qr_p, tau_p = (t.contiguous() for t in raw)
+        dk = torch.diagonal(qr_k, dim1=1, dim2=2).abs()
+        dp = torch.diagonal(qr_p, dim1=1, dim2=2).abs()
+        diag_err = float((dk - dp).abs().max())
+        require(diag_err <= 1e-3 * float(dp.max()),
+                f'K6 {variant} {tag}: |diag R| off by {diag_err:.3e} of {float(dp.max()):.3e}')
+        M64 = M.to(f64)
+        lib0, z_lib, lib1 = guarded(M64, c64, lambda v: kernels.qr_solve_batched_plain(qr_p, tau_p, v))
+        worst = dict(direct=0., swept=0., z=0.)
+        solves_before = kernels.LAUNCHES['qr_solve_batched']
+        for fac, (f_, t_) in (('K6', (qr_k, tau_k)), ('geqrf', (qr_p, tau_p))):
+            k0, z_k, k1_ = guarded(M64, c64, lambda v: kernels.qr_solve_batched(f_, t_, v))
+            p0, z_p, p1_ = guarded(M64, c64, lambda v: kernels.qr_solve_batched_plain(f_, t_, v))
+            torch.cuda.synchronize()
+            for what, a, ref in (('direct', k0, p0), ('direct vs library', k0, lib0),
+                                 ('swept', k1_, p1_), ('swept vs library', k1_, lib1)):
+                require(bool(torch.isfinite(a).all())
+                        and bool((a <= 10 * torch.clamp(ref, min=1e-9)).all()),
+                        f'K7 on {fac}\'s factor {tag}: {what} residual {a.tolist()} vs {ref.tolist()}')
+            zgap = float(((z_k - z_p).abs().amax(dim=1) / z_p.abs().amax(dim=1)).max())
+            require(zgap <= 1e-2, f'K7 on {fac}\'s factor {tag}: swept z off by {zgap:.3e} of max |z|')
+            worst = dict(direct=max(worst['direct'], float(k0.max())),
+                         swept=max(worst['swept'], float(k1_.max())), z=max(worst['z'], zgap))
+        require(kernels.LAUNCHES['qr_solve_batched'] == solves_before + 4, f'K7 {tag}: launches')
+        c32 = c64.to(f32).contiguous()
+        factor = lambda: kernels.qr_factor_batched(M)
+        plain = lambda: kernels.qr_factor_batched_plain(M)       # one library call, geqrf
+        k6_bound, k6_by = bound(8 * B_ * N_ * N_ + 4 * B_ * N_, 4 / 3 * B_ * N_ ** 3)
+        k6 = dict(max_abs_err=diag_err, ms=cuda_median_ms(factor, n=n_timed),
+                  plain_ms=cuda_median_ms(plain, n=n_timed),
+                  queued_ms=cuda_median_ms(factor, n=n_timed, queued=True),
+                  plain_queued_ms=cuda_median_ms(plain, n=n_timed, queued=True),
+                  bound_ms=k6_bound, bound_by=k6_by, timed_runs=n_timed)
+        k6['library_ms'], k6['library_queued_ms'] = k6['plain_ms'], k6['plain_queued_ms']
+        # K7 and the library's two calls timed on cuSOLVER's factor, each in its own layout
+        solve = lambda: kernels.qr_solve_batched(qr_p, tau_p, c32)
+        rhs = c32[:, :, None]
+        library = lambda: torch.linalg.solve_triangular(
+            raw[0], torch.ormqr(raw[0], raw[1], rhs, left=True, transpose=True), upper=True)
+        k7_bound, k7_by = bound(4 * B_ * N_ * N_ + 12 * B_ * N_, 3 * B_ * N_ * N_)
+        k7 = dict(max_abs_err=worst['z'] * float(z_lib.abs().max()),
+                  ms=cuda_median_ms(solve), queued_ms=cuda_median_ms(solve, queued=True),
+                  plain_ms=cuda_median_ms(lambda: kernels.qr_solve_batched_plain(qr_p, tau_p, c32)),
+                  library_ms=cuda_median_ms(library),
+                  library_queued_ms=cuda_median_ms(library, queued=True),
+                  bound_ms=k7_bound, bound_by=k7_by, swept_z_gap=worst['z'],
+                  direct_residual=worst['direct'], swept_residual=worst['swept'])
+        phase('kernels', f'K6 {variant} {tag}: max ||diag R| - |diag R_geqrf|| {diag_err:.3e} (max '
+              f'{float(dp.max()):.3e}); {k6["ms"]:.3f} ms vs geqrf {k6["plain_ms"]:.3f} ms; queued '
+              f'{k6["queued_ms"]:.3f} ms vs geqrf {k6["plain_queued_ms"]:.3f} ms; bound '
+              f'{k6_bound:.4f} ms ({k6_by})')
+        phase('kernels', f'K7 {tag}: direct residual max {worst["direct"]:.3e} (library '
+              f'{float(lib0.max()):.3e}), after the guarded sweep {worst["swept"]:.3e} (library '
+              f'{float(lib1.max()):.3e}), swept z within {worst["z"]:.3e} of max |z| of the plain '
+              f'solve; {k7["ms"]:.4f} ms, queued {k7["queued_ms"]:.4f} ms; plain '
+              f'{k7["plain_ms"]:.3f} ms; ormqr + solve_triangular {k7["library_ms"]:.3f} ms, queued '
+              f'{k7["library_queued_ms"]:.3f} ms; bound {k7_bound:.4f} ms ({k7_by})')
+        return k6, k7, qr_k, tau_k
+
+    qgeom = kernels.qr_factor_geometry(N)
+    require(qgeom.variant == 'cluster', f'N={N} does not take the QR cluster variant: {qgeom}')
+    phase('kernels', f'K6 geometry at N={N}: {qgeom}; {kernels.qr_cluster_max_active(qgeom)} '
+          f'clusters run at once; K7 geometry: {kernels.qr_solve_geometry(N)}')
+    k6_at, k7_at = {}, {}
+    for Bk in (1, B, 8 * B):
+        M_k, s_k = ruiz_out[Bk]
+        c64 = k1u_out[Bk]['b'] * s_k.to(f64)
+        k6_at[f'B={Bk}'], k7_at[f'N={N} B={Bk}'], qr16, tau16 = hold_qr(
+            f'N={N} B={Bk}', M_k, c64, 'cluster')
+        if Bk == B:
+            x_clean = kernels.qr_solve_batched(qr16, tau16, c64.to(f32).contiguous())
+            M16, c16 = M_k, c64.to(f32).contiguous()
+    # a singular lane (a zero column: tau = 0 and a zero on R's diagonal) and
+    # a lane with a NaN column give a non-finite solution, as with the
+    # library, and every other lane keeps the bits of the clean run
+    M_bad = M16.clone()
+    M_bad[2, :, 100] = 0.
+    M_bad[5, :, 200] = float('nan')
+    x_bad = kernels.qr_solve_batched(*kernels.qr_factor_batched(M_bad), c16)
+    x_bad_p = kernels.qr_solve_batched_plain(*kernels.qr_factor_batched_plain(M_bad), c16)
+    torch.cuda.synchronize()
+    others = [b_ for b_ in range(B) if b_ not in (2, 5)]
+    require(not bool(torch.isfinite(x_bad[2]).all()) and not bool(torch.isfinite(x_bad[5]).all())
+            and not bool(torch.isfinite(x_bad_p[2]).all())
+            and not bool(torch.isfinite(x_bad_p[5]).all()),
+            'K6+K7: a singular or NaN lane gave a finite solution')
+    require(torch.equal(x_bad[others], x_clean[others]),
+            'K6+K7: a singular or NaN lane changed another lane')
+    phase('kernels', 'K6+K7 singular lane and NaN lane: non-finite x on both, as with geqrf; '
+          'the 14 other lanes keep their bits')
+    require(kernels.qr_factor_geometry(n8 + m8).variant == 'global',
+            'N=1055 does not take the global QR variant')
+    K8 = kernels.kkt_assemble(eq8['W32'], eq8['A32'], eq8['Dr32'], eq8['free32'],
+                              torch.full((2,), 1e-8, dtype=f64, device=dev))
+    M8, s8 = kernels.ruiz_scale(K8)
+    require(same_bits(M8, kernels.ruiz_scale_plain(K8)[0]), 'K5 at N=1055 differs')
+    k6_8, k7_at[f'N={n8 + m8} B=2'], _, _ = hold_qr(
+        f'N={n8 + m8} B=2', M8, eq8['b'] * s8.to(f64), 'global', n_timed=7)
+    report['qr_factor_global'] = dict(k6_8, N=n8 + m8, B=2)
+    report['qr_factor_cluster'] = dict(k6_at[f'B={B}'], at=k6_at)
+    report['qr_solve_batched'] = dict(k7_at[f'N={N} B={B}'], at=k7_at)
+
+    # the whole direction solve (the kernels + refinement + ladder) on the
+    # card against the plain path on the CPU, with each factor, on
+    # make_system-style random saddle systems at n, m. In lane 0 variable 0
+    # appears nowhere (zero row and column of W0, zero column of A), so
+    # K(delta) pins it only through delta: |dw_0| = |r1_0| / delta exceeds
+    # dw_cap until the ladder has raised delta, and lane 0 is retried alone
+    # on the card. ok must agree lane by lane, and the card's augmented
+    # residual (relative to the right-hand side) must be within 10x of the
+    # CPU's: both are set by the f32 factor's accuracy on these
+    # ill-conditioned random systems
     rng = np.random.default_rng(0)
     W0r, Ar, Dr, r1r, r2r = random_systems(rng, n, m, B)
     W0r[0, 0, :] = 0.
@@ -408,15 +619,6 @@ def main():
     freer = np.ones(n)
     host = [torch.as_tensor(a, dtype=f64) for a in (W0r, Ar, Dr, r1r, r2r, freer)]
     card = [t.to(dev) for t in host]
-    factors_before = kernels.LAUNCHES['lu_factor_batched']
-    out_c = batch._auglu_solve(*card[:5], card[5], n, 1e-8, 1e-8, 7, 100.)
-    retries = kernels.LAUNCHES['lu_factor_batched'] - factors_before - 1
-    out_h = batch._auglu_solve(*host[:5], host[5], n, 1e-8, 1e-8, 7, 100.)
-    ok_c, ok_h = out_c[2].cpu().numpy(), out_h[2].numpy()
-    require((ok_c == ok_h).all(), f'direction ok: card {ok_c}, cpu {ok_h}')
-    require(retries >= 1, 'the ladder did not run')
-    dw0_c, dw0_h = float(out_c[0][0, 0]), float(out_h[0][0, 0])
-    require(abs(dw0_c - dw0_h) <= 1e-6 * abs(dw0_h), f'ladder lane dw_0: card {dw0_c}, cpu {dw0_h}')
 
     def aug_res(W0, A, D, r1, r2, dw, dnu):
         rn = 1.0 / np.clip(np.abs(A).max(axis=2), 1e-10, 1e10)
@@ -427,18 +629,36 @@ def main():
         r_nu = -(r2 * rn) - (np.einsum('bij,bj->bi', A_e, dw) - (D * rn * rn + 1e-8) * dnu_e)
         scale = np.maximum(np.abs(r1).max(axis=1), np.abs(r2).max(axis=1))
         return np.maximum(np.abs(r_w).max(axis=1), np.abs(r_nu).max(axis=1)) / scale
-    ar_c = aug_res(W0r, Ar, Dr, r1r, r2r, out_c[0].cpu().numpy(), out_c[1].cpu().numpy())
-    ar_h = aug_res(W0r, Ar, Dr, r1r, r2r, out_h[0].numpy(), out_h[1].numpy())
-    require(bool(torch.isfinite(out_c[0]).all() and torch.isfinite(out_h[0]).all()),
-            'direction: non-finite dw')
-    regular = ok_c.copy()
-    regular[0] = False   # lane 0 solved a laddered K(delta)
-    require((ar_c[regular] <= 10 * np.maximum(ar_h[regular], 1e-9)).all(),
-            f'direction residuals: card {ar_c}, cpu {ar_h}')
-    phase('kernels', f'direction solve, random systems: ok {int(ok_c.sum())}/{B} on both; '
-          f'augmented residual card max {ar_c[regular].max():.3e}, cpu max '
-          f'{ar_h[regular].max():.3e}; ladder lane: {retries} retries on the card, '
-          f'dw_0 card {dw0_c:.6e}, cpu {dw0_h:.6e}')
+
+    for fac in ('lu', 'qr'):
+        before = dict(kernels.LAUNCHES)
+        out_c = batch._auglu_solve(*card[:5], card[5], n, 1e-8, 1e-8, 7, 100., factor=fac)
+        run = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        retries = run[f'{fac}_factor_batched'] - 1
+        out_h = batch._auglu_solve(*host[:5], host[5], n, 1e-8, 1e-8, 7, 100., factor=fac)
+        ok_c, ok_h = out_c[2].cpu().numpy(), out_h[2].numpy()
+        require((ok_c == ok_h).all(), f'{fac} direction ok: card {ok_c}, cpu {ok_h}')
+        require(retries >= 1, f'the {fac} ladder did not run')
+        if fac == 'qr':   # a retry re-runs the assembly, K5, K6 and K7 on its lanes alone
+            require(run['kkt_assemble'] == run['ruiz_scale'] == retries + 1
+                    and run['qr_solve_batched'] == 2 * (retries + 1)
+                    and run['lu_factor_batched'] == run['lu_solve_batched'] == 0,
+                    f'qr direction launches: {run}')
+        dw0_c, dw0_h = float(out_c[0][0, 0]), float(out_h[0][0, 0])
+        require(abs(dw0_c - dw0_h) <= 1e-6 * abs(dw0_h),
+                f'{fac} ladder lane dw_0: card {dw0_c}, cpu {dw0_h}')
+        ar_c = aug_res(W0r, Ar, Dr, r1r, r2r, out_c[0].cpu().numpy(), out_c[1].cpu().numpy())
+        ar_h = aug_res(W0r, Ar, Dr, r1r, r2r, out_h[0].numpy(), out_h[1].numpy())
+        require(bool(torch.isfinite(out_c[0]).all() and torch.isfinite(out_h[0]).all()),
+                f'{fac} direction: non-finite dw')
+        regular = ok_c.copy()
+        regular[0] = False   # lane 0 solved a laddered K(delta)
+        require((ar_c[regular] <= 10 * np.maximum(ar_h[regular], 1e-9)).all(),
+                f'{fac} direction residuals: card {ar_c}, cpu {ar_h}')
+        phase('kernels', f'{fac} direction solve, random systems: ok {int(ok_c.sum())}/{B} on '
+              f'both; augmented residual card max {ar_c[regular].max():.3e}, cpu max '
+              f'{ar_h[regular].max():.3e}; ladder lane: {retries} retries on the card, '
+              f'dw_0 card {dw0_c:.6e}, cpu {dw0_h:.6e}')
 
     # K4 ip_step: the direction from the solution and the step, against its
     # plain version at tests/test_torch_kernels.py's TOL_STEP / TOL_DS (JI dw
@@ -484,98 +704,147 @@ def main():
     k4_at['random B=16'] = hold_k4('random B=16', x_r, ok_r, rand_ref, rand_args)
     report['ip_step'] = dict(k4_at[f'B={B}'], at=k4_at)
 
-    # aten operations one direction call dispatches on the card, and its time
-    _, direction = batch.make_ip_step(ocp, kappa_mu=0.4)
-    n_ops, dir_ms = count_and_time(lambda: direction(state, dv, lbw, ubw, free), N_TIMED)
-    dir_ms = sorted(dir_ms)[N_TIMED // 2]
-    phase('kernels', f'one direction call at B={B}: {n_ops} aten ops dispatched, '
-          f'{dir_ms:.3f} ms (host clock, synchronized, median of {N_TIMED})')
+    # aten operations one direction call dispatches on the card, and its
+    # time, with each factor
+    for fac in ('lu', 'qr'):
+        _, direction = batch.make_ip_step(ocp, kappa_mu=0.4, auglu_factor=fac)
+        n_ops, dir_ms = count_and_time(lambda: direction(state, dv, lbw, ubw, free), N_TIMED)
+        phase('kernels', f'one {fac} direction call at B={B}: {n_ops} aten ops dispatched, '
+              f'{sorted(dir_ms)[N_TIMED // 2]:.3f} ms (host clock, synchronized, median of '
+              f'{N_TIMED})')
 
     # one iteration from the anchor on the card against the plain path on
-    # the CPU, 2 lanes: the iterates agree to 1e-6 of the step (the f32
+    # the CPU, 2 lanes. LU: the iterates agree to 1e-6 of the step (the f32
     # factors differ by pivot ties and rounding; two f64 refinement sweeps
-    # bring both directions to the same f64 solution within that)
+    # bring both directions to the same f64 solution within that). QR: one
+    # guarded sweep leaves each side at the accuracy of its own f32 solve,
+    # 1e-2 of the step (on the CPU the JAX package's and LAPACK's QR
+    # directions differ by 5e-4 of it)
     state_h, P64_h, lbw_h, ubw_h, free_h, _ = wind_sweep_problem(trial, anchor, 2,
                                                                  device='cpu')
     sel = torch.tensor([0, B - 1], device=dev)
-    it_c = make_refiner(ocp, lbw, ubw, free)(_take_lanes(state, sel),
-                                             _take_lanes(P64, sel))
-    it_h = make_refiner(ocp, lbw_h, ubw_h, free_h)(state_h, P64_h)
-    step = float((it_h['w'] - state_h['w']).abs().max())
-    dw_gap = float((it_c['w'].cpu() - it_h['w']).abs().max())
-    require(dw_gap <= 1e-6 * step, f'one iteration: |w diff| {dw_gap:.3e}, step {step:.3e}')
-    phase('kernels', f'one iteration card vs cpu plain: max |w diff| {dw_gap:.3e} '
-          f'(step {step:.3e})')
+    for fac, tol in (('lu', 1e-6), ('qr', 1e-2)):
+        it_c = make_refiner(ocp, lbw, ubw, free, auglu_factor=fac)(
+            _take_lanes(state, sel), _take_lanes(P64, sel))
+        it_h = make_refiner(ocp, lbw_h, ubw_h, free_h, auglu_factor=fac)(state_h, P64_h)
+        step = float((it_h['w'] - state_h['w']).abs().max())
+        dw_gap = float((it_c['w'].cpu() - it_h['w']).abs().max())
+        require(dw_gap <= tol * step,
+                f'one {fac} iteration: |w diff| {dw_gap:.3e}, step {step:.3e}')
+        phase('kernels', f'one {fac} iteration card vs cpu plain: max |w diff| {dw_gap:.3e} '
+              f'(step {step:.3e})')
 
-    # --- 4. the slice -----------------------------------------------------
-    # the plain pieces of the Newton system and of the step are counted
-    # while the slice runs: on the card none may run
-    plain_calls = {k: 0 for k in ('newton_system', 'equilibrate', 'kkt_assemble_scaled_plain',
-                                  'newton_kkt_plain', 'advance_state', 'ip_step_plain')}
-    saved = {k: getattr(kernels, k) for k in plain_calls}
+    # --- 4. the slices and 5. their paths ---------------------------------
+    # the plain version of every kernel is counted while a slice runs: on
+    # the card none may run
+    plain_names = ('newton_system', 'equilibrate', 'kkt_assemble_plain',
+                   'kkt_assemble_scaled_plain', 'newton_kkt_plain', 'lu_factor_batched_plain',
+                   'lu_solve_batched_plain', 'ruiz_scale_plain', 'qr_factor_batched_plain',
+                   'qr_solve_batched_plain', 'advance_state', 'ip_step_plain')
 
-    def counted(name):
-        def call(*args, **kwargs):
-            plain_calls[name] += 1
-            return saved[name](*args, **kwargs)
-        return call
-    for k in plain_calls:
-        setattr(kernels, k, counted(k))
-    kernels.reset_launch_counts()
-    try:
-        res = refine(ocp, state, P64, lbw, ubw, free, tol=1e-5, verify_tol=1e-4,
-                     max_iter=100, kappa_mu=0.4, time_pieces=True)
-    finally:
-        for k, fn in saved.items():
-            setattr(kernels, k, fn)
-    launches = dict(kernels.LAUNCHES)
-    it = res['n_iter']
-    conv = res['converged'].cpu().numpy()
-    latched = res['latched'].cpu().numpy()
-    eq_max = float(res['eq_res'].max())
-    powers = average_power(ocp, res['state']['w'], P64).cpu().numpy()
-    pieces = {k: 1e3 * v / it for k, v in res['times'].items()}
-    phase('slice', f'B={B} lanes, u_ref {u_refs[0]:.2f}..{u_refs[-1]:.2f} m/s: '
-          f'{it} iterations, {1e3 * res["seconds"] / it:.1f} ms/iter '
-          f'(vals {pieces["vals"]:.1f}, jac {pieces["jac"]:.1f}, '
-          f'hess {pieces["hess"]:.1f}, direction {pieces["direction"]:.1f} ms), '
-          f'latched {int(latched.sum())}/{B}, converged {int(conv.sum())}/{B}, '
-          f'max f64 eq {eq_max:.2e}, P_avg {powers.min() / 1e3:.2f}..'
-          f'{powers.max() / 1e3:.2f} kW, {conv.sum() / res["seconds"]:.3f} solves/s')
-    require(conv.all(), f'unconverged lanes: {np.where(~conv)[0]}')
-    require(np.isfinite(powers).all(), f'non-finite average power {powers}')
+    def run_slice(tag, fac):
+        """The cell with the ``fac`` factor: the launch counts set to 0 just
+        before, read just after. Returns the run's launches, iterations and
+        per-lane average powers."""
+        plain_calls = {k: 0 for k in plain_names}
+        saved = {k: getattr(kernels, k) for k in plain_calls}
 
-    # --- 5. path check ----------------------------------------------------
-    # at N=543 every factor takes the cluster variant; the unblocked one
-    # serves lanes no cluster holds and is held above at N=1055. The retry
-    # assembly runs once per delta-ladder retry, a factor beyond the one per
-    # iteration: the slice may need none; it is held above, and on the card
-    # in the direction solve's ladder lane
-    on_path = [k for k in launches if k not in ('lu_factor_unblocked', 'kkt_assemble_scaled')]
-    require(all(launches[k] > 0 for k in on_path), f'a kernel did not run in the slice: {launches}')
-    require(launches['newton_kkt'] == it and launches['ip_step'] == it,
-            f'K1 and K4 did not run once per iteration ({it}): {launches}')
-    require(launches['kkt_assemble_scaled'] == launches['lu_factor_batched'] - it,
-            f'the retry assembly did not run once per retry: {launches}')
-    require(not any(plain_calls.values()), f'plain pieces ran in the slice: {plain_calls}')
-    require(launches['lu_factor_cluster'] == launches['lu_factor_batched'],
-            f'a factor of the slice did not take the cluster variant: {launches}')
-    # every attempt solves once and refines twice on its factor
-    require(launches['lu_solve_batched'] == 3 * launches['lu_factor_batched'],
-            f'the slice did not solve three times per factor: {launches}')
-    require(all(v.is_cuda for v in res['state'].values()), 'the state left the card')
-    phase('path', f'kernel launches in the slice run: {launches}; plain pieces called: '
-          f'{plain_calls}')
+        def counted(name):
+            def call(*args, **kwargs):
+                plain_calls[name] += 1
+                return saved[name](*args, **kwargs)
+            return call
+        for k in plain_calls:
+            setattr(kernels, k, counted(k))
+        kernels.reset_launch_counts()
+        try:
+            res = refine(ocp, state, P64, lbw, ubw, free, tol=1e-5, verify_tol=1e-4,
+                         max_iter=100, kappa_mu=0.4, time_pieces=True, auglu_factor=fac)
+        finally:
+            for k, fn in saved.items():
+                setattr(kernels, k, fn)
+        launches = dict(kernels.LAUNCHES)
+        it = res['n_iter']
+        conv = res['converged'].cpu().numpy()
+        latched = res['latched'].cpu().numpy()
+        eq_max = float(res['eq_res'].max())
+        powers = average_power(ocp, res['state']['w'], P64).cpu().numpy()
+        pieces = {k: 1e3 * v / it for k, v in res['times'].items()}
+        phase(tag, f'auglu_factor={fac!r}, B={B} lanes, u_ref {u_refs[0]:.2f}..{u_refs[-1]:.2f} '
+              f'm/s: {it} iterations, {1e3 * res["seconds"] / it:.1f} ms/iter '
+              f'(vals {pieces["vals"]:.1f}, jac {pieces["jac"]:.1f}, '
+              f'hess {pieces["hess"]:.1f}, direction {pieces["direction"]:.1f} ms), '
+              f'latched {int(latched.sum())}/{B}, converged {int(conv.sum())}/{B}, '
+              f'max f64 eq {eq_max:.2e}, P_avg {powers.min() / 1e3:.2f}..'
+              f'{powers.max() / 1e3:.2f} kW, {conv.sum() / res["seconds"]:.3f} solves/s')
+        require(conv.all(), f'{fac}: unconverged lanes: {np.where(~conv)[0]}')
+        require(np.isfinite(powers).all(), f'{fac}: non-finite average power {powers}')
 
+        # the path: K1 and K4 once per iteration; a factor per iteration and
+        # one more per delta-ladder retry, each retry behind one launch of its
+        # factor's retry assembly (the slice may need none: the retry
+        # assemblies are held above, and on the card in the direction solves'
+        # ladder lane); at N=543 every factor takes its cluster variant (the
+        # unblocked LU and global QR variants serve lanes no cluster holds
+        # and are held above at N=1055)
+        lu_names = ('kkt_assemble_scaled', 'lu_factor_batched', 'lu_factor_cluster',
+                    'lu_factor_unblocked', 'lu_solve_batched')
+        qr_names = ('kkt_assemble', 'ruiz_scale', 'qr_factor_batched', 'qr_factor_cluster',
+                    'qr_factor_global', 'qr_solve_batched')
+        require(launches['newton_kkt'] == it and launches['ip_step'] == it,
+                f'{fac}: K1 and K4 did not run once per iteration ({it}): {launches}')
+        if fac == 'lu':
+            retries = launches['kkt_assemble_scaled']
+            require(launches['lu_factor_batched'] == it + retries
+                    and launches['lu_factor_cluster'] == launches['lu_factor_batched'],
+                    f'lu: not one cluster factor per iteration and retry: {launches}')
+            # every attempt solves once and refines twice on its factor
+            require(launches['lu_solve_batched'] == 3 * launches['lu_factor_batched'],
+                    f'lu: the slice did not solve three times per factor: {launches}')
+            require(not any(launches[k] for k in qr_names), f'lu: a QR kernel ran: {launches}')
+        else:
+            retries = launches['kkt_assemble']
+            require(launches['ruiz_scale'] == launches['qr_factor_batched'] == it + retries
+                    and launches['qr_factor_cluster'] == launches['qr_factor_batched'],
+                    f'qr: not one K5 and one cluster K6 per iteration and retry: {launches}')
+            # every attempt solves once and once more in its guarded sweep
+            require(launches['qr_solve_batched'] == 2 * launches['qr_factor_batched'],
+                    f'qr: the slice did not solve twice per factor: {launches}')
+            require(not any(launches[k] for k in lu_names), f'qr: an LU kernel ran: {launches}')
+        require(not any(plain_calls.values()), f'{fac}: plain versions ran: {plain_calls}')
+        require(all(v.is_cuda for v in res['state'].values()), f'{fac}: the state left the card')
+        phase('path', f'{fac}: kernel launches in the slice run: {launches}; {retries} ladder '
+              f'retries; plain versions called: {sum(plain_calls.values())}')
+        return launches, it, powers
+
+    launches_lu, it_lu, powers_lu = run_slice('slice', 'lu')
+    launches_qr, it_qr, powers_qr = run_slice('slice-qr', 'qr')
+    power_gap = float(np.abs(powers_qr / powers_lu - 1.).max())
+    phase('slice-qr', f'per-lane average power, QR against LU: max relative gap {power_gap:.3e} '
+          f'({it_qr} against {it_lu} iterations)')
+    require(power_gap <= 1e-6, f'QR and LU average powers differ: {powers_qr} vs {powers_lu}')
+
+    # each kernel's launches are those of the slice whose path holds it: the
+    # QR slice, the port's default path, for its own kernels and for K1 and
+    # K4, which both paths share; the LU slice for the LU kernels
     sources = {'newton_kkt': 'awebox_tpu/parallel/batch.py:154',
                'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
                'lu_factor_cluster': 'awebox_tpu/parallel/batch.py:414',
                'lu_factor_unblocked': 'awebox_tpu/parallel/batch.py:414',
                'lu_solve_batched': 'awebox_tpu/parallel/batch.py:416',
-               'ip_step': 'awebox_tpu/parallel/batch.py:189'}
+               'ip_step': 'awebox_tpu/parallel/batch.py:189',
+               'kkt_assemble': 'awebox_tpu/parallel/batch.py:333',
+               'ruiz_scale': 'awebox_tpu/parallel/batch.py:375',
+               'qr_factor_cluster': 'awebox_tpu/parallel/batch.py:382',
+               'qr_factor_global': 'awebox_tpu/parallel/batch.py:382',
+               'qr_solve_batched': 'awebox_tpu/parallel/batch.py:344'}
+    lu_slice_kernels = ('kkt_assemble_scaled', 'lu_factor_cluster', 'lu_factor_unblocked',
+                        'lu_solve_batched')
+    own = lambda k: launches_lu if k in lu_slice_kernels else launches_qr
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', source='awebox_tpu_torch/csrc/auglu.cu',
-             replaces=sources[k], launches=launches[k], **report[k])
+             replaces=sources[k], launches=own(k)[k], launches_lu_slice=launches_lu[k],
+             launches_qr_slice=launches_qr[k], **report[k])
         for k in sources]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -154,6 +154,46 @@ def test_wind_sweep_problem_defaults_to_the_card():
             wind_sweep_problem(torch_trial(), anchor(), 2)
 
 
+@pytest.mark.parametrize('with_err', [False, True])
+def test_init_batched_state_matches_jax(with_err):
+    """init_batched_state on two initial guesses (the model's own and a
+    seeded perturbation of it that leaves some bounds) against the JAX
+    package's, under the nominal bounds and the final-step P: every entry to
+    1e-12 (numpy on both sides but for the inequality values, whose
+    evaluation order differs), f64, err = inf only when asked for."""
+    from awebox_tpu.opti.initialization import build_initial_guess as igj
+    from awebox_tpu.parallel.batch import init_batched_state as init_j
+    from awebox_tpu_torch.parallel.batch import init_batched_state as init_t
+    from tests.test_torch_support import jax_final_P
+    tj, tt = jax_trial(), torch_trial()
+    V0 = np.asarray(igj(tj.ocp))
+    rng = np.random.default_rng(8)
+    V_batch = [V0, V0 * (1. + 0.3 * rng.standard_normal(V0.shape)) + 0.1]
+    P = jax_final_P()
+    out_j = init_j(tj.ocp, V_batch, P, tj.lb_nominal, tj.ub_nominal, mu0=1e-2,
+                   with_err=with_err)
+    out_t = init_t(tt.ocp, V_batch, P, tt.lb_nominal, tt.ub_nominal, mu0=1e-2,
+                   with_err=with_err, device='cpu')
+    assert set(out_t) == set(out_j) and ('err' in out_t) == with_err
+    for k in out_j:
+        a, b = np.asarray(out_j[k]), out_t[k].numpy()
+        assert b.dtype == np.float64 and a.shape == b.shape, k
+        assert np.allclose(b, a, rtol=1e-12, atol=1e-12), (k, np.abs(b - a).max())
+    assert out_t['w'].shape == (2, tt.ocp.vstruct.total) and out_t['mu'].shape == (2,)
+    assert np.abs(out_t['w'][0].numpy() - out_t['w'][1].numpy()).max() > 1e-2
+
+
+def test_init_batched_state_defaults_to_the_card():
+    """Like wind_sweep_problem: the state goes to the card unless the caller
+    asks for the CPU, and without a card the default raises."""
+    import inspect
+    from awebox_tpu_torch.parallel.batch import init_batched_state
+    assert inspect.signature(init_batched_state).parameters['device'].default == 'cuda'
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='no CUDA card'):
+            init_batched_state(torch_trial().ocp, [], {}, None, None)
+
+
 @pytest.mark.parametrize('collocation', [(3, 'radau'), (4, 'legendre'), (2, 'radau')])
 def test_collocation_coefficients_equal(collocation):
     from awebox_tpu.ocp.collocation import Collocation as Cj

@@ -1,6 +1,6 @@
 """The interior-point direction of the PyTorch port (parallel/batch.py and
-parallel/kernels.py) against the JAX package's ``_auglu_solve(factor='lu')``,
-``direction`` and ``_advance_state``, in f64 on the CPU, where every kernel
+parallel/kernels.py) against the JAX package's ``_auglu_solve`` (both
+factors), ``direction`` and ``_advance_state``, in f64 on the CPU, where every kernel
 wrapper runs its plain PyTorch version. The kernels themselves, which run
 only on a CUDA card, are tested in test_torch_kernels.py.
 """
@@ -11,7 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests.test_batch_auglu import make_system
+from tests.test_batch_auglu import aug_residual, make_system
 from tests.test_torch_kernels import newton_inputs, step_solution
 from tests.test_torch_support import jax_sweep, jax_trial, torch_trial
 
@@ -48,31 +48,49 @@ def stacked(ds):
             for k in ('W0', 'A', 'D', 'r1', 'r2')]
 
 
-def test_auglu_solve_matches_jax_lane_by_lane():
+# Agreement of (dw, dnu) with the JAX package, relative to max |dw| resp.
+# max |dnu|. LU: both factor the same f32 matrix with LAPACK's partial-pivot
+# LU and refine twice in f64, which brings either factorization to the f64
+# solution of K(delta); what remains is f64 summation order (measured ~1e-15)
+# and, should the two LAPACKs break a pivot tie differently, the
+# (cond * eps_f32)^3 left after refinement. QR: the one guarded sweep leaves
+# each side at (cond * eps_f32)^2 of its own factor, and the JAX package
+# forms Q where the port applies LAPACK's reflectors (measured 4e-11 to
+# 1.5e-7 on these systems).
+TOL_SOLVE = {'lu': 1e-9, 'qr': 1e-5}
+
+
+def auglu_solve_matches_jax(factor):
     """Same ok and the same (dw, dnu) as the JAX package, lane by lane, to
-    1e-9 of max |dw| resp. max |dnu|: both factor the same f32 matrix with
-    LAPACK's partial-pivot LU and refine twice in f64, which brings either
-    factorization to the f64 solution of K(delta); what remains is f64
-    summation order (measured ~1e-15) and, should the two LAPACKs break a
-    pivot tie differently, the (cond * eps_f32)^3 left after refinement."""
+    TOL_SOLVE; with QR both sides also leave the augmented residual that
+    tests/test_batch_auglu.py asks of the JAX package (2e-3 of the
+    right-hand side's scale) on every lane that solved at delta_w, and the
+    singular leading block is finite on both."""
     from awebox_tpu.parallel.batch import _auglu_solve as solve_j
     from awebox_tpu_torch.parallel.batch import _auglu_solve as solve_t
     ds = systems()
     n = ds[0]['n']
     W0, A, D, r1, r2 = stacked(ds)
     free = torch.ones(n, dtype=torch.float64)
-    dw, dnu, ok = solve_t(W0, A, D, r1, r2, free, n, 1e-8, 1e-8, N_LADDER, LADDER)
+    dw, dnu, ok = solve_t(W0, A, D, r1, r2, free, n, 1e-8, 1e-8, N_LADDER, LADDER,
+                          factor=factor)
     assert dw.dtype == dnu.dtype == torch.float64 and ok.dtype == torch.bool
     jit_j = jax.jit(lambda W0, A, D, r1, r2, free: solve_j(
-        W0, A, D, r1, r2, free, n, 1e-8, 1e-8, N_LADDER, LADDER, factor='lu')[:3])
+        W0, A, D, r1, r2, free, n, 1e-8, 1e-8, N_LADDER, LADDER, factor=factor)[:3])
+    tol = TOL_SOLVE[factor]
     for i, d in enumerate(ds):
         dw_j, dnu_j, ok_j = (np.asarray(a) for a in jit_j(
             d['W0'], d['A'], d['D'], d['r1'], d['r2'], d['free']))
         assert bool(ok_j) == bool(ok[i]), i
+        assert np.isfinite(dw[i].numpy()).all() and np.isfinite(dnu[i].numpy()).all(), i
         np.testing.assert_allclose(dw[i].numpy(), dw_j, rtol=0,
-                                   atol=1e-9 * np.abs(dw_j).max(), err_msg=str(i))
+                                   atol=tol * np.abs(dw_j).max(), err_msg=str(i))
         np.testing.assert_allclose(dnu[i].numpy(), dnu_j, rtol=0,
-                                   atol=1e-9 * np.abs(dnu_j).max(), err_msg=str(i))
+                                   atol=tol * np.abs(dnu_j).max(), err_msg=str(i))
+        if factor == 'qr' and i < 4:   # the lanes that solve at delta_w
+            scale = max(np.abs(np.asarray(d['r1'])).max(), np.abs(np.asarray(d['r2'])).max())
+            for sol in ((dw[i].numpy(), dnu[i].numpy()), (dw_j, dnu_j)):
+                assert aug_residual(d, *sol) <= 2e-3 * scale, i
     # the ladder lane really went up the ladder: its dw_2 is r1_2 / delta at
     # the first delta (x100 steps from 1e-8) that brings |dw| under dw_cap
     r12 = float(r1[-1, 2])
@@ -83,7 +101,17 @@ def test_auglu_solve_matches_jax_lane_by_lane():
     np.testing.assert_allclose(float(dw[-1, 2]), r12 / delta, rtol=1e-6)
 
 
-def test_ladder_retries_only_failing_lanes():
+def test_auglu_solve_matches_jax_lane_by_lane():
+    """auglu_solve_matches_jax with the LU factor."""
+    auglu_solve_matches_jax('lu')
+
+
+def test_auglu_solve_qr_matches_jax_lane_by_lane():
+    """auglu_solve_matches_jax with the QR factor."""
+    auglu_solve_matches_jax('qr')
+
+
+def ladder_retries_only_failing_lanes(factor):
     """A lane's result does not depend on which other lanes share its batch,
     and a lane that solves at the first attempt keeps that solution while
     another lane climbs the ladder."""
@@ -92,13 +120,54 @@ def test_ladder_retries_only_failing_lanes():
     n = ds[0]['n']
     free = torch.ones(n, dtype=torch.float64)
     args = (free, n, 1e-8, 1e-8, N_LADDER, LADDER)
-    both = _auglu_solve(*stacked([ds[0], ds[-1]]), *args)
-    alone = [_auglu_solve(*stacked([d]), *args) for d in (ds[0], ds[-1])]
+    both = _auglu_solve(*stacked([ds[0], ds[-1]]), *args, factor=factor)
+    alone = [_auglu_solve(*stacked([d]), *args, factor=factor) for d in (ds[0], ds[-1])]
     for lane in range(2):
         for k in range(2):
             np.testing.assert_allclose(both[k][lane].numpy(), alone[lane][k][0].numpy(),
                                        rtol=1e-12, atol=0)
         assert bool(both[2][lane]) and bool(alone[lane][2][0])
+
+
+def test_ladder_retries_only_failing_lanes():
+    """ladder_retries_only_failing_lanes with the LU factor."""
+    ladder_retries_only_failing_lanes('lu')
+
+
+def test_qr_ladder_retries_only_failing_lanes():
+    """ladder_retries_only_failing_lanes with the QR factor."""
+    ladder_retries_only_failing_lanes('qr')
+
+
+def test_qr_ruiz_scale_plain_is_the_jax_formula():
+    """K5's plain version against the JAX package's lines
+    (awebox_tpu/parallel/batch.py:375-381) in jax.numpy f32 on the same
+    K(delta_w) of the saddle systems: s and M to 1e-6 relative (the same f32
+    operations in the same order; XLA's and PyTorch's sqrt and division may
+    differ in the last bit, and three sweeps compound it), every row of |M|
+    within [0.25, 4] of 1 at its maximum."""
+    from awebox_tpu_torch.parallel import kernels
+    W0, A, D, r1, r2 = stacked(systems())
+    n = W0.shape[1]
+    free = torch.ones(n, dtype=torch.float64)
+    eq = kernels.equilibrate(W0, A, D, r1, r2, free, 1e-8)
+    delta = torch.full((W0.shape[0],), 1e-8, dtype=torch.float64)
+    K = kernels.kkt_assemble(eq['W32'], eq['A32'], eq['Dr32'], eq['free32'], delta)
+    M, s = kernels.ruiz_scale(K)
+    assert M.dtype == s.dtype == torch.float32
+    for lane in range(K.shape[0]):
+        Kj = jnp.asarray(K[lane].numpy())
+        sj = jnp.ones(Kj.shape[0], jnp.float32)
+        Mj = Kj
+        for _ in range(3):
+            rr = jnp.sqrt(jnp.clip(jnp.max(jnp.abs(Mj), axis=1), 1e-12, None))
+            sj = sj / rr
+            Mj = Kj * sj[:, None] * sj[None, :]
+        assert Mj.dtype == jnp.float32
+        np.testing.assert_allclose(s[lane].numpy(), np.asarray(sj), rtol=1e-6, atol=0)
+        np.testing.assert_allclose(M[lane].numpy(), np.asarray(Mj), rtol=1e-6, atol=1e-30)
+        row_max = np.abs(M[lane].numpy()).max(axis=1)
+        assert (row_max >= 0.25).all() and (row_max <= 4.).all(), lane
 
 
 def anchor_inputs():
@@ -120,26 +189,35 @@ def anchor_inputs():
 # Agreement of the new iterates, relative to max |new - old| for w and to
 # max |value| otherwise. At the anchor cond(Ks) ~ 1e9 and the two
 # packages' LAPACKs factor the f32 matrix into slightly different factors,
-# so after two f64 refinement sweeps the directions differ at ~1e-10 of
+# so after two f64 refinement sweeps the LU directions differ at ~1e-10 of
 # |dw| (measured 2e-10 for w, 1e-11 for s and y). Multipliers amplify that
 # gap: lam and zu by up to 1e2 (measured 1.5e-8, 3e-8), and the bound
 # duals zl of the active bounds, whose w sits ~1e-8 from its relaxed bound,
 # by zl/dl ~ 1e8 through dzl = mu/dl - zl - zl dw/dl (measured 7.5e-6).
-TOL_DIRECTION = {'w': 1e-8, 's': 1e-9, 'y': 1e-9, 'lam': 1e-6, 'zu': 1e-6, 'zl': 1e-4}
+# The QR direction has one guarded sweep, not two: each side stops at the
+# accuracy of its own f32 factor after one refinement (the JAX package forms
+# Q, the port applies LAPACK's reflectors), so the gaps are those of two
+# inexact solves (measured 5.4e-4 of the step for w, 1.2e-5 for s, 3.5e-5 to
+# 4.5e-5 for y, lam, zl and zu; the bounds leave 10x).
+TOL_DIRECTION = {
+    'lu': {'w': 1e-8, 's': 1e-9, 'y': 1e-9, 'lam': 1e-6, 'zu': 1e-6, 'zl': 1e-4},
+    'qr': {'w': 5e-3, 's': 1e-4, 'y': 5e-4, 'lam': 5e-4, 'zu': 5e-4, 'zl': 5e-4},
+}
 
 
-def test_direction_at_the_anchor_matches_jax():
-    """One full direction (Newton system, f32 LU with f64 refinement,
-    ladder, step) from identical inputs, lane by lane; mu and err to 1e-12,
-    the other iterates to TOL_DIRECTION of their size (w: of the step)."""
+def direction_at_the_anchor_matches_jax(factor):
+    """One full direction (Newton system, the f32 factor with f64
+    refinement, ladder, step) from identical inputs, lane by lane; mu and
+    err to 1e-12, the other iterates to TOL_DIRECTION of their size (w: of
+    the step)."""
     from awebox_tpu.parallel.batch import make_ip_step as make_j
     from awebox_tpu_torch.parallel.batch import make_ip_step as make_t
     state, derivs, lbw, ubw, free = anchor_inputs()
     _, dir_j = make_j(jax_trial().ocp, kkt='auglu', hessian='exact', split=True,
-                      kappa_mu=0.4, auglu_factor='lu')
+                      kappa_mu=0.4, auglu_factor=factor)
     out_j = jax.jit(jax.vmap(lambda st, dv: dir_j(st, dv, lbw, ubw, free)))(
         state, tuple(derivs))
-    _, dir_t = make_t(torch_trial().ocp, kappa_mu=0.4)
+    _, dir_t = make_t(torch_trial().ocp, kappa_mu=0.4, auglu_factor=factor)
     as_t = lambda a: torch.as_tensor(a)
     out_t = dir_t({k: as_t(v) for k, v in state.items()}, tuple(as_t(d) for d in derivs),
                   as_t(lbw), as_t(ubw), as_t(free))
@@ -156,8 +234,18 @@ def test_direction_at_the_anchor_matches_jax():
         else:
             np.testing.assert_allclose(b, a, rtol=1e-12, atol=0, err_msg=k)
             continue
-        assert (np.abs(b - a) <= TOL_DIRECTION[k] * scale).all(), \
+        assert (np.abs(b - a) <= TOL_DIRECTION[factor][k] * scale).all(), \
             (k, (np.abs(b - a) / scale).max())
+
+
+def test_direction_at_the_anchor_matches_jax():
+    """direction_at_the_anchor_matches_jax with the LU factor."""
+    direction_at_the_anchor_matches_jax('lu')
+
+
+def test_qr_direction_at_the_anchor_matches_jax():
+    """direction_at_the_anchor_matches_jax with the QR factor."""
+    direction_at_the_anchor_matches_jax('qr')
 
 
 def test_advance_state_matches_jax():
@@ -243,6 +331,13 @@ def test_newton_kkt_plain_is_the_unfused_composition(case):
     for k, v in expect.items():
         assert torch.equal(out[k], v), k
         assert bool(torch.isfinite(out[k]).all()), k
+    # the QR factor's system: the same pieces around the unscaled K(delta_w)
+    out_u = kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8, scaled=False)
+    expect.pop('Ks'), expect.pop('kd')
+    expect['K'] = kernels.kkt_assemble_plain(eq['W32'], eq['A32'], eq['Dr32'], eq['free32'], delta)
+    assert set(out_u) == set(expect)
+    for k, v in expect.items():
+        assert torch.equal(out_u[k], v), k
 
 
 @pytest.mark.parametrize('case', ['anchor', 'random'])

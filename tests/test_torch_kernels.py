@@ -362,6 +362,108 @@ def tiled_solve_mirror(lu, piv, kd, v, nb=32):
     return kd * y
 
 
+def larfg(alpha, x):
+    """csrc/auglu.cu's larfg on one column in f32: (beta, tau, v) with
+    beta = -sign(alpha) sqrt(alpha^2 + |x|^2), tau = (beta - alpha) / beta,
+    v = x / (alpha - beta); a zero x gives tau = 0 (H = I)."""
+    x2 = (x * x).sum()
+    if float(x2) == 0.:
+        return alpha, torch.zeros((), dtype=x.dtype), x
+    beta = -torch.copysign(torch.sqrt(alpha * alpha + x2), alpha)
+    return beta, (beta - alpha) / beta, x * (1.0 / (alpha - beta))
+
+
+def cluster_qr_mirror(A, C=8, nb=16):
+    """Plain-PyTorch mirror of csrc/auglu.cu's qr_factor_cluster_kernel on
+    one (N, N) f32 matrix, with the kernel's bookkeeping: panel g of nb
+    columns lives on owner g % C as its local panel g // C; per panel the
+    owner factors its columns one reflector at a time (each applied to the
+    panel's later columns), then every owner applies the panel's reflectors,
+    one after the other and masked to their rows (an implied 1 on the
+    diagonal, zeros above), to its trailing local panels (those from
+    lp_start on), rows p0 and below. Returns (qr, tau) like torch.geqrf."""
+    N = A.shape[0]
+    panels = -(-N // nb)
+    C = min(C, panels)
+    n_local = [(panels - r + C - 1) // C for r in range(C)]
+    local = []
+    for r in range(C):
+        X = torch.zeros(N, n_local[r] * nb, dtype=A.dtype)
+        for lp in range(n_local[r]):
+            g0 = (lp * C + r) * nb
+            w = min(nb, N - g0)
+            X[:, lp * nb:lp * nb + w] = A[:, g0:g0 + w]
+        local.append(X)
+    tau = torch.zeros(N, dtype=A.dtype)
+
+    def apply(k, gk, V, t, cols):
+        v = V[gk:, k].clone()
+        v[0] = 1.
+        cols[gk:] -= t * v[:, None] * (v @ cols[gk:])[None, :]
+
+    for p in range(panels):
+        owner, lpo, p0 = p % C, p // C, p * nb
+        w = min(nb, N - p0)
+        P = local[owner][:, lpo * nb:lpo * nb + w]
+        for k in range(w):
+            gk = p0 + k
+            beta, tau[gk], v = larfg(P[gk, k], P[gk + 1:, k])
+            P[gk, k] = beta
+            P[gk + 1:, k] = v
+            apply(k, gk, P, tau[gk], P[:, k + 1:])
+        V = P.clone()
+        for r in range(C):
+            lp_start = 0 if p < r else (p - r) // C + 1
+            c0 = lp_start * nb
+            if c0 < local[r].shape[1]:
+                for k in range(w):
+                    apply(k, p0 + k, V, tau[p0 + k], local[r][:, c0:])
+    qr = torch.empty_like(A)
+    for r in range(C):
+        for lp in range(n_local[r]):
+            g0 = (lp * C + r) * nb
+            w = min(nb, N - g0)
+            qr[:, g0:g0 + w] = local[r][:, lp * nb:lp * nb + w]
+    return qr, tau
+
+
+def panel_qr_solve_mirror(qr, tau, v, nb=32):
+    """Plain-PyTorch mirror of csrc/auglu.cu's qr_solve_kernel on one lane,
+    f32. Q^T v a panel of nb reflectors at a time: w0 = V^T y and the Gram
+    matrix G = V^T V from one pass over the panel's rows (V masked: an
+    implied 1 on the diagonal, zeros above), the nb dependent dot products
+    by the forward substitution w_c = w0_c - sum_{j<c} G_cj t_j with
+    t_c = tau_c w_c, then y -= V t. R x = y over column tiles from the last
+    (ragged) one, each diagonal tile solved column by column (times the
+    reciprocal of the diagonal) and then applied to the rows above."""
+    N = qr.shape[0]
+    T = -(-N // nb)
+    y = v.clone()
+    for p in range(T):
+        p0, p1 = p * nb, min(N, (p + 1) * nb)
+        V = torch.tril(qr[p0:, p0:p1], diagonal=-1)
+        V[torch.arange(p1 - p0), torch.arange(p1 - p0)] = 1.
+        w0, G = V.T @ y[p0:], V.T @ V
+        t = torch.zeros(p1 - p0, dtype=qr.dtype)
+        for c in range(p1 - p0):
+            t[c] = tau[p0 + c] * (w0[c] - (G[c, :c] * t[:c]).sum())
+        y[p0:] -= V @ t
+    for t in reversed(range(T)):
+        r0, r1 = t * nb, min(N, (t + 1) * nb)
+        for k in reversed(range(r0, r1)):
+            y[k] = y[k] * (1 / qr[k, k])
+            y[r0:k] -= qr[r0:k, k] * y[k]
+        for k in range(r0, r1):
+            y[:r0] -= qr[:r0, k] * y[k]
+    return y
+
+
+def qr_residual(M, v, x):
+    """max |M x - v| / max |v| in f64, per lane."""
+    r = (M.double() @ x.double()[..., None])[..., 0] - v.double()
+    return (r.abs().amax(dim=-1) / v.double().abs().amax(dim=-1)).cpu().numpy()
+
+
 def scaled_residual(A, kd, v, x):
     """max |A z - kd v| / max |kd v| with z = x / kd, in f64, per lane: the
     residual of the system the scaled solve solves."""
@@ -533,10 +635,128 @@ def test_lu_factor_geometry(N):
     assert sorted(seen) == list(range(N))
 
 
+@pytest.mark.parametrize('N', [37, 130, 543])
+def test_cluster_qr_mirror_matches_lapack(N):
+    """The QR cluster kernel's algorithm (mirrored on the CPU: panels of 16
+    dealt to 8 owners, a reflector at a time in the panel, the panel's
+    reflectors one after the other on the trailing columns) against LAPACK's
+    geqrf on the same Gaussian f32 input. Both follow larfg's sign rule, so
+    here even the entries agree: R and the reflectors to 1e-4 of max |A|,
+    tau to 1e-4, |diag R| to TOL_QR_DIAG of its maximum; and Q R, rebuilt
+    from the mirror's reflectors, reproduces A to 1e-5 of max |A| (the f32
+    backward error of Householder QR at these N). N mod 16 is 5, 2 and 15:
+    the ragged last panel."""
+    A = gaussian_lanes(1, N, seed=N)[0][0]
+    qr, tau = cluster_qr_mirror(A.clone())
+    qr_p, tau_p = torch.geqrf(A)
+    amax = float(A.abs().max())
+    assert float((qr - qr_p).abs().max()) <= 1e-4 * amax
+    assert float((tau - tau_p).abs().max()) <= 1e-4
+    dk, dp = qr.diagonal().abs(), qr_p.diagonal().abs()
+    assert float((dk - dp).abs().max()) <= TOL_QR_DIAG * float(dp.max())
+    Q = torch.linalg.householder_product(qr, tau)
+    assert float((Q @ torch.triu(qr) - A).abs().max()) <= 1e-5 * amax
+
+
+@pytest.mark.parametrize('N', [37, 130, 543, 1055])
+def test_panel_qr_solve_mirror_matches_lapack(N):
+    """The QR solve kernel's algorithm (mirrored on the CPU: 32 reflectors at
+    a time through the Gram matrix and a forward substitution, then the tiled
+    back substitution) on LAPACK's factor against ormqr + solve_triangular
+    on the same factor: within TOL_QR_X of max |x| and a residual
+    |A x - v| / |v| within 10x. N mod 32 is 5, 2, 31 and 31: the ragged last
+    panel and tile."""
+    from awebox_tpu_torch.parallel import kernels
+    A, _, v = gaussian_lanes(1, N, seed=N)
+    qr, tau = torch.geqrf(A[0])
+    x = panel_qr_solve_mirror(qr, tau, v[0])
+    x_p = kernels.qr_solve_batched_plain(qr[None], tau[None], v)[0]
+    assert float((x - x_p).abs().max()) <= TOL_QR_X * float(x_p.abs().max())
+    res, res_p = qr_residual(A[0], v[0], x), qr_residual(A[0], v[0], x_p)
+    assert np.isfinite(res) and res <= 10 * max(res_p, 1e-7), (res, res_p)
+
+
+def test_qr_mirrors_non_finite_lanes():
+    """A singular lane (a zero column: tau = 0 and a zero on R's diagonal, as
+    LAPACK leaves it) and a lane with a NaN column give a non-finite x in the
+    mirrors of K6 and K7, as in the plain factor and solve: nothing is
+    skipped, so the delta ladder sees the failure."""
+    from awebox_tpu_torch.parallel import kernels
+    N = 41
+    ones = torch.ones(N)
+    for kind in ('singular', 'nan'):
+        A = separated_pivots(N, seed=11)
+        A[:, 17] = 0. if kind == 'singular' else float('nan')
+        qr, tau = cluster_qr_mirror(A.clone())
+        qr_p, tau_p = kernels.qr_factor_batched_plain(A[None])
+        if kind == 'singular':
+            assert float(tau[17]) == 0. == float(tau_p[0, 17])
+            assert float(qr[17, 17]) == 0. == float(qr_p[0, 17, 17])
+        assert not bool(torch.isfinite(panel_qr_solve_mirror(qr, tau, ones)).all()), kind
+        assert not bool(torch.isfinite(
+            kernels.qr_solve_batched_plain(qr_p, tau_p, ones[None])).all()), kind
+
+
+@pytest.mark.parametrize('N', [37, 130, 543, 590, 640, 700, 1055])
+def test_qr_factor_geometry(N):
+    """The cluster variant at the slice's N=543 within one block's shared
+    memory, the global one at the n_k=8 system's N=1055 and wherever a
+    warp's registers no longer hold a column (N > 640) or the lane no
+    longer fits the cluster; a cluster layout covers all N columns exactly
+    once, fits each CTA's columns beside the panel copy, and keeps the
+    float4 copy of the panel's rows inside a column (ld a multiple of 4,
+    >= N)."""
+    from awebox_tpu_torch.parallel import kernels
+    g = kernels.qr_factor_geometry(N)
+    if N == 543:
+        assert g.variant == 'cluster' and g.C == 8 and g.nb == 16
+    if N in (700, 1055):
+        assert g.variant == 'global'
+    if g.variant == 'global':
+        return
+    assert N <= kernels.QR_ROW_MAX and g.ld <= kernels.QR_ROW_MAX
+    assert g.smem_bytes + kernels.LU_STATIC_SMEM <= 232_448
+    assert 1 <= g.C <= 8 and g.ld >= N and g.ld % 4 == 0
+    assert g.smem_bytes == 4 * (g.cols_per_cta + g.nb) * g.ld
+    panels = -(-N // g.nb)
+    seen = []
+    for r in range(g.C):
+        n_local = (panels - r + g.C - 1) // g.C
+        assert 1 <= n_local and n_local * g.nb <= g.cols_per_cta
+        for lp in range(n_local):
+            g0 = (lp * g.C + r) * g.nb
+            seen += list(range(g0, min(N, g0 + g.nb)))
+    assert sorted(seen) == list(range(N))
+
+
+@pytest.mark.parametrize('N', [37, 543, 1055, 1300])
+def test_qr_solve_geometry(N):
+    """K7 pads the right-hand side to whole panels of 32 and stages a row of
+    36 f32 for each of its entries (16-byte rows for the float4 reads),
+    beside every warp's partial Gram matrix (32 rows of 36) and partial
+    V^T y: 16 warps at the slice's N=543, 8 where the staged rows leave less
+    room (N=1055), within one block's shared memory; a lane too large for
+    that raises."""
+    from awebox_tpu_torch.parallel import kernels
+    if N == 1300:
+        with pytest.raises(ValueError, match='no room'):
+            kernels.qr_solve_geometry(N)
+        return
+    g = kernels.qr_solve_geometry(N)
+    assert g.tiles == -(-N // kernels.QR_SOLVE_NB)
+    assert g.warps in kernels.QR_SOLVE_WARPS and g.warps == (8 if N == 1055 else 16)
+    rows = g.tiles * 32
+    assert kernels.QR_SOLVE_LDV % 4 == 0 and kernels.QR_SOLVE_LDV >= 32
+    assert g.smem_bytes == 4 * (rows * 37 + g.warps * 32 * 37)
+    assert g.smem_bytes + kernels.QR_SOLVE_STATIC_SMEM <= 232_448
+    assert kernels.QR_SOLVE_STATIC_SMEM >= 4 * (32 * 33 + 32 + 32)
+
+
 def test_kkt_assembly_plain_is_the_jax_formula():
-    """K1's plain version computes awebox_tpu/parallel/batch.py:333-336,
-    409-413 exactly: the same f32 operations in the same order (checked bit
-    for bit against the formula in numpy f32)."""
+    """K1's plain versions compute awebox_tpu/parallel/batch.py:333-336 (the
+    unscaled K of the QR factor) and :409-413 (its Jacobi scaling for LU)
+    exactly: the same f32 operations in the same order (checked bit for bit
+    against the formula in numpy f32)."""
     from awebox_tpu_torch.parallel import kernels
     rng = np.random.default_rng(2)
     B, n, m = 3, 9, 5
@@ -549,6 +769,7 @@ def test_kkt_assembly_plain_is_the_jax_formula():
     delta = np.array([1e-8, 1e-4, 1.0])
     Ks, kd = kernels.kkt_assemble_scaled(*(torch.as_tensor(a) for a in
                                            (W, A, Dr, free, delta)))
+    Ku = kernels.kkt_assemble(*(torch.as_tensor(a) for a in (W, A, Dr, free, delta)))
     for b in range(B):
         d32 = np.float32(delta[b])
         Wd = W[b] + d32 * np.diag(free)
@@ -558,6 +779,7 @@ def test_kkt_assembly_plain_is_the_jax_formula():
                          np.float32(0.), np.float32(1e4))
         np.testing.assert_array_equal(kd[b].numpy(), kd_ref)
         np.testing.assert_array_equal(Ks[b].numpy(), K * kd_ref[:, None] * kd_ref[None, :])
+        np.testing.assert_array_equal(Ku[b].numpy(), K)
     assert abs(float(kd[0, 4]) - 1e4) <= 1.
 
 
@@ -625,11 +847,13 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
     before = dict(kernels.LAUNCHES)
     sys_ = saddle_systems()
     n = sys_[0].shape[1]
-    dw, dnu, ok = batch._auglu_solve(*sys_, n, 1e-8, 1e-8, N_LADDER, LADDER)
-    assert bool(ok.all()) and bool(torch.isfinite(dw).all())
+    for factor in batch.FACTORS:
+        dw, dnu, ok = batch._auglu_solve(*sys_, n, 1e-8, 1e-8, N_LADDER, LADDER, factor=factor)
+        assert bool(ok.all()) and bool(torch.isfinite(dw).all()), factor
     kernels.advance_state(*random_step_inputs())
     state, derivs, lbw, ubw, free = newton_inputs()
     out = kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8)
+    assert 'K' in kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8, scaled=False)
     x, ok = step_solution(*out['b'].shape)
     kernels.ip_step(x, ok, out['rn'], out['r1'], state, derivs, lbw, ubw, free, 0.99, 0.4, 1e-8)
     assert kernels.LAUNCHES == before
@@ -689,6 +913,13 @@ def test_assembly_and_step_kernels_match_plain_on_card(cuda):
         args1 = (ref['W64'].to(f32), ref['A64'].to(f32), ref['Dr32'], free.to(f32), delta)
         Ks, kd = kernels.kkt_assemble_scaled(*args1)
         Ks_p, kd_p = kernels.kkt_assemble_scaled_plain(*args1)
+        # the unscaled K of the QR factor: the same kernels with a null kd
+        out_u = kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8, scaled=False)
+        ref_u = kernels.newton_kkt_plain(state, derivs, lbw, ubw, free, 1e-8, 1e-8, scaled=False)
+        assert set(out_u) == set(ref_u) and 'kd' not in out_u
+        for k in ref_u:
+            assert torch.equal(out_u[k], ref_u[k]), (n, k, 'unscaled')
+        assert torch.equal(kernels.kkt_assemble(*args1), kernels.kkt_assemble_plain(*args1)), n
         x, ok = step_solution(3, n + n_eq + n_ineq, device=cuda)
         ds, ds_p = (torch.empty(3, n_ineq, dtype=torch.float64, device=cuda) for _ in range(2))
         step = (x, ok, ref['rn'], ref['r1'], state, derivs, lbw, ubw, free, 0.99, 0.4, 1e-8)
@@ -699,13 +930,14 @@ def test_assembly_and_step_kernels_match_plain_on_card(cuda):
         assert set(new) == set(new_p)
         gaps = step_gaps(new, new_p, state, ds, ds_p, x, ok, derivs, free)
         assert step_within_tolerance(gaps), (n, gaps)
-        for k in ('newton_kkt', 'kkt_assemble_scaled', 'ip_step'):
-            assert kernels.LAUNCHES[k] == before[k] + 1, k
+        for k, times in (('newton_kkt', 2), ('kkt_assemble_scaled', 1), ('kkt_assemble', 1),
+                         ('ip_step', 1)):
+            assert kernels.LAUNCHES[k] == before[k] + times, k
 
 
 @pytest.mark.cuda
 def test_direction_solve_on_card_matches_cpu(cuda):
-    """K1-K3 inside the whole direction solve (two f64 refinement sweeps and
+    """K1-K3 inside the whole LU direction solve (two f64 refinement sweeps and
     the delta ladder) against the plain path on the CPU: ok lane by lane,
     and dw, dnu within 1e-6 of their max (the f32 factors differ in rounding;
     refinement brings both to the f64 solution of K(delta)). The ladder lane
@@ -716,8 +948,8 @@ def test_direction_solve_on_card_matches_cpu(cuda):
     card = [t.to(cuda) for t in host]
     args = (n, 1e-8, 1e-8, N_LADDER, LADDER)
     before = kernels.LAUNCHES['lu_factor_batched']
-    out_c = batch._auglu_solve(*card, *args)
-    out_h = batch._auglu_solve(*host, *args)
+    out_c = batch._auglu_solve(*card, *args, factor='lu')
+    out_h = batch._auglu_solve(*host, *args, factor='lu')
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['lu_factor_batched'] - before >= 2   # the ladder ran
     np.testing.assert_array_equal(out_c[2].cpu().numpy(), out_h[2].numpy())
@@ -836,3 +1068,123 @@ def test_lu_solve_matches_plain_on_card(cuda):
         for b, kind in bad.items():
             assert not bool(torch.isfinite(x[b]).all()), (N, B, kind)
             assert not bool(torch.isfinite(x_p[b]).all()), (N, B, kind)
+
+
+def same_bits(a, b):
+    """Equal entry for entry, a NaN on both sides counting as equal."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+# K6 and K7 against LAPACK's geqrf / ormqr + trsm (cuSOLVER and cuBLAS on the
+# card). A QR factor is unique only up to the signs of R's rows and to
+# rounding, so K6 is held by |diag R| (1e-4 of max |diag R|: the f32 backward
+# error N eps |M| of Householder QR at N <= 1055) and by the solve: the
+# residual |M x - v| / |v| of K6 + K7 within 10x of the library's. K7 is held
+# on the same factor (K6's and the library's) against its plain version:
+# 1e-3 of max |x|, the f32 forward error of 2N substitution steps on Gaussian
+# matrices, and a residual within 10x.
+TOL_QR_DIAG = 1e-4
+TOL_QR_X = 1e-3
+
+
+def hold_qr_factor_and_solve(M, v, variant, tag=''):
+    """K6 on M (B, N, N) and K7 on K6's and the library's factors, on the
+    card, by the gates above; returns (qr, tau) of K6."""
+    from awebox_tpu_torch.parallel import kernels
+    before = dict(kernels.LAUNCHES)
+    qr, tau = kernels.qr_factor_batched(M)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[f'qr_factor_{variant}'] == before[f'qr_factor_{variant}'] + 1, tag
+    assert kernels.LAUNCHES['qr_factor_batched'] == before['qr_factor_batched'] + 1, tag
+    qr_p, tau_p = (t.contiguous() for t in kernels.qr_factor_batched_plain(M))
+    dk = torch.diagonal(qr, dim1=1, dim2=2).abs()
+    dp = torch.diagonal(qr_p, dim1=1, dim2=2).abs()
+    assert float((dk - dp).abs().max()) <= TOL_QR_DIAG * float(dp.max()), (tag, 'diag R')
+    x_lib = kernels.qr_solve_batched_plain(qr_p, tau_p, v)
+    res_lib = qr_residual(M, v, x_lib)
+    for name, (f, t) in (('K6', (qr, tau)), ('library', (qr_p, tau_p))):
+        x_k = kernels.qr_solve_batched(f, t, v)
+        x_p = kernels.qr_solve_batched_plain(f, t, v)
+        torch.cuda.synchronize()
+        err = float((x_k - x_p).abs().max())
+        assert err <= TOL_QR_X * float(x_p.abs().max()), (tag, name, err)
+        res = qr_residual(M, v, x_k)
+        assert np.isfinite(res).all() and (res <= 10 * np.maximum(res_lib, 1e-7)).all(), \
+            (tag, name, res, res_lib)
+    assert kernels.LAUNCHES['qr_solve_batched'] == before['qr_solve_batched'] + 2, tag
+    return qr, tau
+
+
+@pytest.mark.cuda
+def test_qr_kernels_match_plain_on_card(cuda):
+    """K5 (ruiz_scale) bit for bit with its plain version, NaN rows
+    included; K6 in both variants (the cluster kernel at N = 37 and 543, the
+    global one at N = 1055) and K7 by the gates of hold_qr_factor_and_solve
+    at B = 1, 3 and 16; a singular lane (a zero column: a zero on R's
+    diagonal) and a lane with a NaN column give a non-finite solution, as
+    with the library, and leave the other lanes alone. Each counter moves
+    once per call."""
+    from awebox_tpu_torch.parallel import kernels
+    for N, B in ((N, B) for N in (37, 543, 1055) for B in (1, 3, 16)):
+        if N == 1055 and B == 16:
+            continue                  # the global variant takes ~0.1 s a lane
+        A, _, v = gaussian_lanes(B, N, seed=N + B, device=cuda)
+        A = A * torch.as_tensor(10.0 ** np.random.default_rng(N).uniform(-3, 3, (B, N, 1)),
+                                dtype=torch.float32, device=cuda)   # rows over six decades
+        bad = {}
+        if B > 1:
+            A[0, :, N // 3] = 0.
+            A[B - 1, :, N // 2] = float('nan')
+            bad = {0: 'singular', B - 1: 'nan'}
+        before = kernels.LAUNCHES['ruiz_scale']
+        M, s = kernels.ruiz_scale(A)
+        M_p, s_p = kernels.ruiz_scale_plain(A)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['ruiz_scale'] == before + 1
+        assert same_bits(M, M_p) and same_bits(s, s_p), (N, B)
+        good = [b for b in range(B) if b not in bad]
+        assert bool(torch.isfinite(M[good]).all())
+        variant = kernels.qr_factor_geometry(N).variant
+        assert variant == ('global' if N == 1055 else 'cluster')
+        hold_qr_factor_and_solve(M[good].contiguous(), v[good].contiguous(), variant, (N, B))
+        if bad:
+            qr, tau = kernels.qr_factor_batched(M)
+            x = kernels.qr_solve_batched(qr, tau, v)
+            x_p = kernels.qr_solve_batched_plain(*kernels.qr_factor_batched_plain(M), v)
+            torch.cuda.synchronize()
+            for b, kind in bad.items():
+                assert not bool(torch.isfinite(x[b]).all()), (N, B, kind)
+                assert not bool(torch.isfinite(x_p[b]).all()), (N, B, kind)
+            res = qr_residual(M[good], v[good], x[good])
+            assert np.isfinite(res).all() and (res <= 1e-3).all(), (N, B, res)
+
+
+@pytest.mark.cuda
+def test_qr_direction_solve_on_card_matches_cpu(cuda):
+    """K1's unscaled assembly, K5, K6 and K7 inside the whole QR direction
+    solve (the guarded f64 refinement sweep and the delta ladder) against
+    the plain path on the CPU: ok lane by lane, and dw, dnu within 1e-4 of
+    their max: one guarded sweep leaves each side at its own f32-factor
+    accuracy (the solves differ in rounding, ~1e-6 relative on these
+    systems; the bound leaves room for cond). The ladder lane is retried on
+    the card, and no LU kernel runs."""
+    from awebox_tpu_torch.parallel import batch, kernels
+    host = saddle_systems()
+    n = host[0].shape[1]
+    card = [t.to(cuda) for t in host]
+    args = (n, 1e-8, 1e-8, N_LADDER, LADDER)
+    before = dict(kernels.LAUNCHES)
+    out_c = batch._auglu_solve(*card, *args, factor='qr')
+    out_h = batch._auglu_solve(*host, *args, factor='qr')
+    torch.cuda.synchronize()
+    factors = kernels.LAUNCHES['qr_factor_batched'] - before['qr_factor_batched']
+    assert factors >= 2                                  # the ladder ran
+    assert kernels.LAUNCHES['kkt_assemble'] - before['kkt_assemble'] == factors
+    assert kernels.LAUNCHES['ruiz_scale'] - before['ruiz_scale'] == factors
+    assert kernels.LAUNCHES['qr_solve_batched'] - before['qr_solve_batched'] == 2 * factors
+    assert kernels.LAUNCHES['lu_factor_batched'] == before['lu_factor_batched']
+    np.testing.assert_array_equal(out_c[2].cpu().numpy(), out_h[2].numpy())
+    for k in range(2):
+        ref = out_h[k].numpy()
+        np.testing.assert_allclose(out_c[k].cpu().numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max())

@@ -153,9 +153,14 @@ def test_unported_options_raise(path, value, what):
 def test_unported_solver_modes_raise():
     from awebox_tpu_torch.parallel.batch import make_ip_step
     ocp = torch_trial().ocp
-    for kwargs in ({'kkt': 'block'}, {'auglu_factor': 'qr'}, {'split': False}):
+    for kwargs in ({'kkt': 'block'}, {'auglu_mode': 'stale'}, {'auglu_mode': 'refresh'},
+                   {'split': False}):
         with pytest.raises(NotImplementedError):
             make_ip_step(ocp, **kwargs)
+    with pytest.raises(ValueError, match='auglu_factor'):
+        make_ip_step(ocp, auglu_factor='cholesky')
+    for factor in ('qr', 'lu'):
+        assert len(make_ip_step(ocp, auglu_factor=factor)) == 2
 
 
 def test_package_imports_no_jax():
