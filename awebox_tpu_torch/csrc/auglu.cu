@@ -14,8 +14,9 @@
 //   K2 lu_factor_batched     batch.py:414  partial-pivot LU of Ks (f32), two
 //                            variants chosen by N: lu_factor_cluster (a lane
 //                            per thread-block cluster, the matrix in shared
-//                            memory) and lu_factor_unblocked (a lane per
-//                            block, the matrix in global memory)
+//                            memory) and lu_factor_blocked (the lane in
+//                            global memory, a panel factor per lane and the
+//                            trailing updates spread over many CTAs)
 //   K3 lu_solve_batched      batch.py:416-418  kd * lu_solve(lu, piv, kd * v),
 //                            a tiled triangular solve, the factor streamed
 //                            through shared memory
@@ -32,8 +33,8 @@
 //                            LAPACK's geqrf layout, two variants chosen by
 //                            N: qr_factor_cluster (a lane per thread-block
 //                            cluster, the matrix in shared memory) and
-//                            qr_factor_global (a lane per block, the matrix
-//                            in global memory)
+//                            qr_factor_blocked (the lane in global memory,
+//                            as K2's blocked variant)
 //   K7 qr_solve_batched      batch.py:344-346  R^-1 Q^T v: the reflectors
 //                            applied 32 at a time, then a tiled back
 //                            substitution
@@ -467,21 +468,13 @@ kkt_tiles_kernel(Src src, float* __restrict__ Ks, int n, int m) {
 // regularization ladder retries, as with LAPACK in the JAX package.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void argmax_warp(float& best, int& bidx) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, best, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bidx, off);
-    if (ov > best || (ov == best && oi < bidx)) { best = ov; bidx = oi; }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K2, cluster variant: replaces jax.scipy.linalg.lu_factor at
 // awebox_tpu/parallel/batch.py:414 wherever a lane fits a cluster's shared
 // memory (N <= ~580, the slice's N = 543 included).
 //
-// What bounds the unblocked variant below on this card: one SM per lane (16
-// of 132 SMs at B = 16, one SM for a one-lane ladder retry) and N^3/3
+// What bounds a one-block-per-lane LU on this card: one SM per lane
+// (16 of 132 SMs at B = 16, one SM for a one-lane ladder retry) and N^3/3
 // read-modify-writes through L2 per lane. Here a lane is one thread-block
 // cluster of C <= 8 CTAs on C SMs, whose shared memories together hold the
 // whole lane matrix (8 x 215 KB at N = 543): the lane is read from HBM once
@@ -803,90 +796,247 @@ cudaLaunchConfig_t k2c_config(int B, int C, int smem, void* stream,
 }
 
 // ---------------------------------------------------------------------------
-// K2, unblocked variant: right-looking unblocked partial-pivot LU, one
-// thread block per lane, for lanes that no cluster's shared memory holds
-// (N = 1055 of the n_k = 8 system: 4.45 MB per lane). The matrix stays in
-// global memory and is served from L2. Per column: block-wide argmax of
-// |a_ik| (warp shuffles, then one shared slot per warp), row swap, column
-// scale by division, and a rank-1 update of the trailing block in which
-// consecutive threads own consecutive columns (coalesced) and the
-// multiplier a_ik is a broadcast load. Bound by the trailing update: about
-// N^3/3 read-modify-writes of a 4-byte word through L2 per lane (~0.43 GB
-// moved at N = 543), pulled by one SM.
+// K2, blocked variant: replaces jax.scipy.linalg.lu_factor at
+// awebox_tpu/parallel/batch.py:414 for lanes that no cluster's shared memory
+// holds (N = 1055 of the n_k = 8 system: 4.45 MB a lane). LAPACK getrf's
+// right-looking blocked LU on the lane in global memory, in panels of
+// KB_NB = 32 columns, three launches a panel:
+//   1. lu_panel_kernel, one CTA of 32 warps per lane: the panel's rows
+//      k0..N-1 (135 KB at N = 1055, column-major at an odd leading
+//      dimension, so a warp's row of 32 columns hits 32 banks) are factored
+//      in shared memory column by column with the pivot rule of both
+//      variants. Per column: the 32 warps' argmax slots reduced by
+//      redux.sync, warp 0 swaps the panel's rows p and k and publishes the
+//      pivot row, every thread scales and updates rows of the panel and
+//      finds its candidate of the next column (two block barriers a column).
+//      The pivots go to piv;
+//   2. lu_swap_kernel, grid (strips of KB_SCOLS columns, B): the panel's
+//      interchanges on every other column, composed first into at most
+//      2 KB_NB row moves (a thread per column issues all its loads before
+//      its stores), and on the trailing columns U12 = L11^-1 A12 (a thread
+//      per column, L11 in shared memory);
+//   3. lu_update_kernel, grid (KB_TR x KB_TC tiles of A22, B): A22 -= L21
+//      U12, each tile staging its rows of L21 and its columns of U12 in
+//      shared memory, each thread updating an 8 x 2 register tile.
+// What bounds it: 2/3 N^3 f32 operations, 0.78 GFLOP a lane at N = 1055,
+// which the whole card does in 23 us at B = 2; a one-block-per-lane kernel
+// pulls N^3/3 read-modify-writes through L2 with one SM per lane. Here the
+// trailing updates spread over the card and the critical path
+// is the chain of panel factors: N columns, each two block barriers and a
+// pass over the panel's rows in shared memory, on one SM per lane.
+// A few launches a panel, not one persistent kernel: a persistent kernel
+// needs a grid-wide barrier between the phases of a panel (three a panel),
+// which costs about what a launch on the stream does, and holds every SM for
+// the lane's whole chain; with launches the stream orders the phases and each
+// phase gets the grid it needs.
+// Numerics: IEEE f32 FMA on the CUDA cores, no tensor cores (TF32, the analog
+// of the TPU's bf16 passes, did not converge); every sum runs in a fixed
+// order and nothing is atomic, so a lane's bits do not depend on the batch.
 // ---------------------------------------------------------------------------
-constexpr int K2_THREADS = 1024;
-constexpr int K2_COLS = 128;                 // columns per pass
-constexpr int K2_ROWSTEP = K2_THREADS / K2_COLS;
+constexpr int KB_NB = 32;                     // panel width
+constexpr int KB_THREADS = 1024;              // panel kernels: a warp per panel column
+constexpr int KB_WARPS = KB_THREADS / 32;
+constexpr int KB_SCOLS = 128;                 // columns of a swap strip, a thread each
+constexpr int KB_TR = 64;                     // rows of an update tile
+constexpr int KB_TC = 64;                     // columns of an update tile
+constexpr int KB_LDL = KB_TR + 4;             // row stride of a staged L21 (V) tile
+constexpr int KB_UTHREADS = 256;              // update kernels: 32 columns x 8 row groups
+static_assert(KB_WARPS == KB_NB, "a warp per panel column, an argmax slot per warp");
+static_assert(KB_UTHREADS == 32 * 8 && KB_TR == 8 * 8 && KB_TC == 2 * 32, "8 x 2 register tiles");
 
-__global__ void __launch_bounds__(K2_THREADS)
-lu_factor_unblocked_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N) {
-  __shared__ float s_val[K2_THREADS / 32];
-  __shared__ int s_idx[K2_THREADS / 32];
-  __shared__ int s_p;
-  const int lane = blockIdx.x;
-  float* a = Ks + (size_t)lane * N * N;
-  int32_t* pv = piv + (size_t)lane * N;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, wl = tid & 31;
-
-  for (int k = 0; k < N; ++k) {
-    // --- pivot search over rows k..N-1 of column k
-    float best = -1.0f;
-    int bidx = N;
-    for (int i = k + tid; i < N; i += K2_THREADS) {
-      float v = fabsf(a[(size_t)i * N + k]);
-      if (v > best) { best = v; bidx = i; }
+// A[r0 + i][c0 + j] -= sum_k Ls[k][i] Us[k][j] for the tile's rows i < nr and
+// columns j < nc, k = 0 .. KB_NB - 1 in order (the k past a narrower last
+// panel hold zeros on both sides, so they add 0 * 0): thread (tx, ty) of
+// 32 x 8 updates rows 8 ty .. 8 ty + 7 and columns tx, tx + 32 in registers;
+// its rows of Ls are two 16-byte broadcasts, its columns of Us two
+// conflict-free loads a step. The sum is taken from 0 and subtracted once,
+// as a GEMM does: accumulated into A itself, a diagonal entry of U would
+// take one rounding per column of L (N of them) instead of one per panel.
+__device__ __forceinline__ void kb_rank_update(float* __restrict__ a, int N, int r0, int c0,
+                                               int nr, int nc, const float* __restrict__ Ls,
+                                               const float* __restrict__ Us) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  float old[8][2], acc[8][2];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = 8 * ty + p, j = tx + 32 * q;
+      old[p][q] = (i < nr && j < nc) ? a[(size_t)(r0 + i) * N + c0 + j] : 0.0f;
+      acc[p][q] = 0.0f;
     }
-    argmax_warp(best, bidx);
-    if (wl == 0) { s_val[warp] = best; s_idx[warp] = bidx; }
-    __syncthreads();
-    if (tid == 0) {
-      float bv = s_val[0];
-      int bi = s_idx[0];
-      for (int w = 1; w < K2_THREADS / 32; ++w) {
-        if (s_val[w] > bv || (s_val[w] == bv && s_idx[w] < bi)) {
-          bv = s_val[w]; bi = s_idx[w];
-        }
-      }
-      if (bi >= N) bi = k;   // column of NaNs: keep the diagonal
-      s_p = bi;
-      pv[k] = bi + 1;        // LAPACK's 1-based convention
-    }
-    __syncthreads();
-    const int p = s_p;
-
-    // --- swap rows k and p over all columns
-    if (p != k) {
-      for (int j = tid; j < N; j += K2_THREADS) {
-        float t = a[(size_t)k * N + j];
-        a[(size_t)k * N + j] = a[(size_t)p * N + j];
-        a[(size_t)p * N + j] = t;
-      }
-    }
-    __syncthreads();
-
-    // --- scale the column below the pivot
-    const float pivot = a[(size_t)k * N + k];
-    for (int i = k + 1 + tid; i < N; i += K2_THREADS) {
-      a[(size_t)i * N + k] = a[(size_t)i * N + k] / pivot;
-    }
-    __syncthreads();
-
-    // --- rank-1 update of the trailing block
-    const int ncol = N - k - 1;
-    const int jo = tid % K2_COLS;
-    const int io = tid / K2_COLS;
-    for (int jb = 0; jb < ncol; jb += K2_COLS) {
-      const int j = k + 1 + jb + jo;
-      if (j < N) {
-        const float u = a[(size_t)k * N + j];
-        for (int i = k + 1 + io; i < N; i += K2_ROWSTEP) {
-          a[(size_t)i * N + j] -= a[(size_t)i * N + k] * u;
-        }
-      }
-    }
-    __syncthreads();
   }
+#pragma unroll 8
+  for (int k = 0; k < KB_NB; ++k) {
+    const float4 l0 = *reinterpret_cast<const float4*>(Ls + k * KB_LDL + 8 * ty);
+    const float4 l1 = *reinterpret_cast<const float4*>(Ls + k * KB_LDL + 8 * ty + 4);
+    const float l[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+    const float u[2] = {Us[k * KB_TC + tx], Us[k * KB_TC + tx + 32]};
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) acc[p][q] = fmaf(l[p], u[q], acc[p][q]);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = 8 * ty + p, j = tx + 32 * q;
+      if (i < nr && j < nc) a[(size_t)(r0 + i) * N + c0 + j] = old[p][q] - acc[p][q];
+    }
+  }
+}
+
+// rows k0..N-1 of the panel's columns into P (column c, row k0 + r at
+// c * lds + r; columns past the panel's w hold zeros): a warp per row
+__device__ __forceinline__ void kb_load_panel(float* __restrict__ P, const float* __restrict__ a,
+                                              int N, int k0, int w, int lds) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  for (int r = warp; r < N - k0; r += KB_WARPS) {
+    P[wl * lds + r] = wl < w ? a[(size_t)(k0 + r) * N + k0 + wl] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void kb_store_panel(const float* __restrict__ P, float* __restrict__ a,
+                                               int N, int k0, int w, int lds) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  for (int r = warp; r < N - k0; r += KB_WARPS) {
+    if (wl < w) a[(size_t)(k0 + r) * N + k0 + wl] = P[wl * lds + r];
+  }
+}
+
+__global__ void __launch_bounds__(KB_THREADS, 1)
+lu_panel_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0, int lds) {
+  extern __shared__ float kb_dyn[];
+  float* P = kb_dyn;                          // [KB_NB][lds] the panel's rows k0..N-1
+  __shared__ unsigned s_key[KB_WARPS];
+  __shared__ int s_row[KB_WARPS];
+  __shared__ float s_prow[KB_NB];             // the pivot row of the current column
+  float* a = Ks + (size_t)blockIdx.x * N * N;
+  int32_t* pv = piv + (size_t)blockIdx.x * N;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int w = min(KB_NB, N - k0), rows = N - k0;
+  kb_load_panel(P, a, N, k0, w, lds);
+  __syncthreads();
+  // rows are local (k0 + r global); a thread visits its rows in increasing
+  // order and keeps the first of equal keys, redux keeps the lowest row
+  unsigned key = 0u;
+  int brow = N;
+  for (int r = tid; r < rows; r += KB_THREADS) {
+    if (amax_key(P[r]) > key) { key = amax_key(P[r]); brow = r; }
+  }
+  argmax_redux(key, brow);
+  if (wl == 0) { s_key[warp] = key; s_row[warp] = brow; }
+  for (int k = 0; k < w; ++k) {
+    __syncthreads();                          // the slots of column k are in
+    key = s_key[wl];
+    brow = s_row[wl];
+    argmax_redux(key, brow);
+    const int p = key ? brow : k;             // a column of NaNs keeps the diagonal
+    if (warp == 0) {                          // rows k and p swap across the panel
+      const float vp = P[wl * lds + p], vk = P[wl * lds + k];
+      s_prow[wl] = vp;
+      P[wl * lds + k] = vp;
+      P[wl * lds + p] = vk;
+      if (wl == 0) pv[k0 + k] = k0 + p + 1;   // LAPACK's 1-based convention
+    }
+    __syncthreads();                          // the pivot row is published
+    const float pivot = s_prow[k];
+    key = 0u;
+    brow = N;
+    for (int r = k + 1 + tid; r < rows; r += KB_THREADS) {
+      const float l = P[k * lds + r] / pivot;
+      P[k * lds + r] = l;
+      for (int c = k + 1; c < w; ++c) P[c * lds + r] = fmaf(-l, s_prow[c], P[c * lds + r]);
+      if (k + 1 < w && amax_key(P[(k + 1) * lds + r]) > key) {
+        key = amax_key(P[(k + 1) * lds + r]);
+        brow = r;
+      }
+    }
+    if (k + 1 < w) {                          // uniform over the block
+      argmax_redux(key, brow);
+      if (wl == 0) { s_key[warp] = key; s_row[warp] = brow; }
+    }
+  }
+  __syncthreads();
+  kb_store_panel(P, a, N, k0, w, lds);
+}
+
+// The panel's interchanges on every column outside it (columns j < k0 and
+// j >= k0 + w, a thread each), then U12 = L11^-1 A12 on the trailing ones.
+// LAPACK's w sequential swaps of rows k0 + q and p_q move at most 2 w rows:
+// destination d takes the row found by tracing d back through the swaps,
+// from the last one, so every source is loaded before any row is stored.
+__global__ void __launch_bounds__(KB_SCOLS)
+lu_swap_kernel(float* __restrict__ Ks, const int32_t* __restrict__ piv, int N, int k0) {
+  __shared__ int s_piv[KB_NB];                // the panel's pivots, 0-based
+  __shared__ int s_dst[2 * KB_NB], s_src[2 * KB_NB];
+  __shared__ float L11[KB_NB][KB_NB + 1];     // strictly lower, zeros elsewhere
+  float* a = Ks + (size_t)blockIdx.y * N * N;
+  const int tid = threadIdx.x;
+  const int w = min(KB_NB, N - k0);
+  if (tid < w) s_piv[tid] = piv[(size_t)blockIdx.y * N + k0 + tid] - 1;
+  for (int e = tid; e < KB_NB * KB_NB; e += KB_SCOLS) {
+    const int i = e / KB_NB, t = e % KB_NB;
+    L11[i][t] = (i < w && t < i) ? a[(size_t)(k0 + i) * N + k0 + t] : 0.0f;
+  }
+  __syncthreads();
+  if (tid < 2 * w) {
+    const int d = tid < w ? k0 + tid : s_piv[tid - w];
+    int r = d;
+    for (int q = w - 1; q >= 0; --q) {
+      const int pq = s_piv[q];
+      r = (r == k0 + q) ? pq : (r == pq ? k0 + q : r);
+    }
+    s_dst[tid] = d;
+    s_src[tid] = r;
+  }
+  __syncthreads();
+  const int c = blockIdx.x * KB_SCOLS + tid;
+  if (c >= N - w) return;
+  const int j = c < k0 ? c : c + w;
+  float v[2 * KB_NB];
+#pragma unroll
+  for (int d = 0; d < 2 * KB_NB; ++d) v[d] = d < 2 * w ? a[(size_t)s_src[d] * N + j] : 0.0f;
+#pragma unroll
+  for (int d = 0; d < 2 * KB_NB; ++d) {
+    if (d < 2 * w) a[(size_t)s_dst[d] * N + j] = v[d];
+  }
+  if (j < k0) return;
+  // rows k0..k0+w-1 of the column after the interchanges are v[0..w-1]
+#pragma unroll
+  for (int k = 1; k < KB_NB; ++k) {
+#pragma unroll
+    for (int t = 0; t < k; ++t) v[k] = fmaf(-L11[k][t], v[t], v[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < KB_NB; ++k) {
+    if (k < w) a[(size_t)(k0 + k) * N + j] = v[k];
+  }
+}
+
+// A22 -= L21 U12 on the trailing rows and columns k0 + w .. N-1
+__global__ void __launch_bounds__(KB_UTHREADS)
+lu_update_kernel(float* __restrict__ Ks, int N, int k0) {
+  __shared__ __align__(16) float Ls[KB_NB * KB_LDL];   // [k][i] L21 of the tile's rows
+  __shared__ __align__(16) float Us[KB_NB * KB_TC];    // [k][j] U12 of the tile's columns
+  float* a = Ks + (size_t)blockIdx.y * N * N;
+  const int tid = threadIdx.x;
+  const int w = min(KB_NB, N - k0), t0 = k0 + w;
+  const int tiles_c = (N - t0 + KB_TC - 1) / KB_TC;
+  const int r0 = t0 + (blockIdx.x / tiles_c) * KB_TR, c0 = t0 + (blockIdx.x % tiles_c) * KB_TC;
+  const int nr = min(KB_TR, N - r0), nc = min(KB_TC, N - c0);
+  for (int e = tid; e < KB_NB * KB_TR; e += KB_UTHREADS) {   // a warp reads a row
+    const int i = e / KB_NB, k = e % KB_NB;
+    Ls[k * KB_LDL + i] = (i < nr && k < w) ? a[(size_t)(r0 + i) * N + k0 + k] : 0.0f;
+  }
+  for (int e = tid; e < KB_NB * KB_TC; e += KB_UTHREADS) {
+    const int k = e / KB_TC, j = e % KB_TC;
+    Us[e] = (k < w && j < nc) ? a[(size_t)(k0 + k) * N + c0 + j] : 0.0f;
+  }
+  __syncthreads();
+  kb_rank_update(a, N, r0, c0, nr, nc, Ls, Us);
 }
 
 // ---------------------------------------------------------------------------
@@ -1814,86 +1964,212 @@ cudaLaunchConfig_t k6_config(int B, int C, int smem, void* stream, cudaLaunchAtt
 }
 
 // ---------------------------------------------------------------------------
-// K6, global variant: unblocked Householder QR, one thread block per lane,
+// K6, blocked variant: replaces jnp.linalg.qr at awebox_tpu/parallel/batch.py:382
 // for lanes that no cluster's shared memory holds (N = 1055 of the n_k = 8
-// system). The lane is copied to qr and factored there, served from L2. Per
-// column: the norm below the diagonal (a block reduction), the reflector
-// into shared memory, then w = v^T A and A -= tau v w^T over the trailing
-// columns in passes of K6G_COLS columns, consecutive threads on consecutive
-// columns (coalesced), K6G_ROWSTEP row groups reduced through shared memory.
-// Bound like K2's unblocked variant: about N^3 4-byte accesses through L2
-// per lane, pulled by one SM.
+// system). LAPACK geqrf's blocked Householder QR (geqr2 on a panel, larft,
+// larfb) on the lane in global memory: M is copied to qr and factored there,
+// in panels of KB_NB = 32 columns, three launches a panel:
+//   1. qr_panel_kernel, one CTA of 32 warps per lane: the panel's rows
+//      k0..N-1 in shared memory (K2's blocked layout), a warp per column:
+//      warp k forms reflector k (larfg on a norm by shuffles), one block
+//      barrier, and every later warp applies it to its own column (a dot by
+//      shuffles, then the update), so one barrier a column; then the
+//      panel's Gram matrix G = V^T V (a warp per column) and its T factor
+//      (larft's forward recurrence, T[0:k, k] = -tau_k T[0:k, 0:k]
+//      G[0:k, k], by warp 0), written beside the taus;
+//   2. qr_w_kernel, grid (strips of KB_NB trailing columns, B): W = V^T A22,
+//      the reflectors staged in shared memory a chunk of rows at a time and
+//      read as 16-byte broadcasts, each thread summing one column over a
+//      row group, the 8 groups' partial sums added in their order;
+//   3. qr_update_kernel, grid (KB_TR x KB_TC tiles of rows k0.. and the
+//      trailing columns, B): Y = T^T W for the tile's columns, then
+//      A22 -= V Y by K2's blocked rank update.
+// What bounds it: 4/3 N^3 f32 operations, 1.57 GFLOP a lane at N = 1055 (47
+// us on the whole card at B = 2); a one-block-per-lane kernel pulls ~N^3
+// 4-byte accesses through L2 with one SM per lane. Here,
+// as in K2's blocked variant, the updates spread over the card and the
+// critical path is the chain of panel factors, G and T, on one SM per lane;
+// launches rather than a persistent kernel for the reasons given there.
+// IEEE f32 FMA on the CUDA cores; sums in a fixed order, nothing atomic.
 // ---------------------------------------------------------------------------
-constexpr int K6G_THREADS = 1024;
-constexpr int K6G_COLS = 128;                 // columns per pass
-constexpr int K6G_ROWSTEP = K6G_THREADS / K6G_COLS;
+constexpr int KB_WROWS = 64;                  // rows of V and A22 a W pass stages at a time
 
-__global__ void __launch_bounds__(K6G_THREADS)
-qr_factor_global_kernel(const float* __restrict__ M, float* __restrict__ qr,
-                        float* __restrict__ tau, int N) {
-  extern __shared__ float k6g_v[];             // [N] the current reflector
-  __shared__ float red[K6G_ROWSTEP][K6G_COLS];
-  __shared__ float s_part[K6G_THREADS / 32];
-  const int lane = blockIdx.x;
-  const float* src = M + (size_t)lane * N * N;
-  float* a = qr + (size_t)lane * N * N;
-  float* tl = tau + (size_t)lane * N;
+__global__ void __launch_bounds__(KB_THREADS, 1)
+qr_panel_kernel(float* __restrict__ qr, float* __restrict__ tau, float* __restrict__ Tg, int N,
+                int k0, int lds) {
+  extern __shared__ float kb_dyn[];
+  float* P = kb_dyn;                          // [KB_NB][lds] the panel's rows k0..N-1
+  __shared__ float s_tau[KB_NB];
+  __shared__ float G[KB_NB][KB_NB + 1];       // G[j][k] = v_j^T v_k, j < k
+  __shared__ float T[KB_NB][KB_NB + 1];       // upper triangular, zeros elsewhere
+  float* a = qr + (size_t)blockIdx.x * N * N;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const int jo = tid % K6G_COLS, io = tid / K6G_COLS;
-  for (size_t e = tid; e < (size_t)N * N; e += K6G_THREADS) a[e] = src[e];
+  const int w = min(KB_NB, N - k0), rows = N - k0;
+  kb_load_panel(P, a, N, k0, w, lds);
+  for (int e = tid; e < KB_NB * (KB_NB + 1); e += KB_THREADS) (&T[0][0])[e] = 0.0f;
   __syncthreads();
-
-  for (int k = 0; k < N; ++k) {
-    // --- the reflector of column k
-    const float alpha = a[(size_t)k * N + k];
-    float x2 = 0.0f;
-    for (int i = k + 1 + tid; i < N; i += K6G_THREADS) {
-      const float x = a[(size_t)i * N + k];
-      k6g_v[i] = x;
-      x2 = fmaf(x, x, x2);
-    }
-    x2 = warp_sum(x2);
-    if (wl == 0) s_part[warp] = x2;
-    __syncthreads();                    // every thread has read alpha
-    x2 = 0.0f;
-#pragma unroll
-    for (int v = 0; v < K6G_THREADS / 32; ++v) x2 += s_part[v];
-    float tk, scale;
-    const float beta = larfg(alpha, x2, tk, scale);
-    for (int i = k + 1 + tid; i < N; i += K6G_THREADS) {
-      const float x = k6g_v[i] * scale;
-      k6g_v[i] = x;
-      a[(size_t)i * N + k] = x;
-    }
-    if (tid == 0) {
-      k6g_v[k] = 1.0f;
-      a[(size_t)k * N + k] = beta;
-      tl[k] = tk;
-    }
-    __syncthreads();                    // the reflector is in shared memory
-    if (tk == 0.0f) continue;           // H = I; uniform over the block
-
-    // --- A[k:, k+1:] -= tau v (v^T A[k:, k+1:])
-    for (int jb = k + 1; jb < N; jb += K6G_COLS) {
-      const int j = jb + jo;
-      float part = 0.0f;
-      if (j < N) {
-        for (int i = k + io; i < N; i += K6G_ROWSTEP) part = fmaf(k6g_v[i], a[(size_t)i * N + j], part);
+  float* col = P + warp * lds;                // this warp's column
+  for (int k = 0; k < w; ++k) {
+    if (warp == k) {
+      __syncwarp();                           // the column's last update is in
+      const float alpha = col[k];
+      float x2[2] = {0.0f, 0.0f};
+      for (int r = k + 1 + wl, t = 0; r < rows; r += 32, t ^= 1) x2[t] = fmaf(col[r], col[r], x2[t]);
+      float tk, scale;
+      const float beta = larfg(alpha, warp_sum(x2[0] + x2[1]), tk, scale);
+      for (int r = k + 1 + wl; r < rows; r += 32) col[r] *= scale;
+      if (wl == 0) {
+        col[k] = beta;
+        s_tau[k] = tk;
       }
-      red[io][jo] = part;
-      __syncthreads();
-      float wj = 0.0f;
-#pragma unroll
-      for (int g = 0; g < K6G_ROWSTEP; ++g) wj += red[g][jo];
-      const float f = tk * wj;
-      if (j < N) {
-        for (int i = k + io; i < N; i += K6G_ROWSTEP) {
-          a[(size_t)i * N + j] = fmaf(-f, k6g_v[i], a[(size_t)i * N + j]);
-        }
-      }
-      __syncthreads();                  // red is free again; the column's updates are in
+    }
+    __syncthreads();                          // reflector k is in the panel
+    const float tk = s_tau[k];
+    if (warp > k && warp < w && tk != 0.0f) { // H_k = I where tau_k = 0, as LAPACK's larf
+      const float* v = P + k * lds;           // an implied 1 at row k
+      float dot = 0.0f;
+      for (int r = k + wl; r < rows; r += 32) dot = fmaf(r == k ? 1.0f : v[r], col[r], dot);
+      const float f = tk * warp_sum(dot);
+      for (int r = k + wl; r < rows; r += 32) col[r] = fmaf(-f, r == k ? 1.0f : v[r], col[r]);
     }
   }
+  __syncthreads();
+  // G[j][k] for j < k over rows k.. (v_k is zero above row k, 1 on it)
+  if (warp < w) {
+    float g[KB_NB];
+#pragma unroll
+    for (int j = 0; j < KB_NB; ++j) g[j] = 0.0f;
+    for (int r = warp + wl; r < rows; r += 32) {
+      const float vk = r == warp ? 1.0f : col[r];
+#pragma unroll
+      for (int j = 0; j < KB_NB; ++j) {
+        if (j < warp) g[j] = fmaf(P[j * lds + r], vk, g[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KB_NB; ++j) {
+      if (j < warp) {                         // uniform over the warp
+        const float s = warp_sum(g[j]);
+        if (wl == 0) G[j][warp] = s;
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {                            // lane i computes row i of T
+    for (int k = 0; k < w; ++k) {
+      float t = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KB_NB; ++j) {       // unrolled, so the loads run ahead of the chain
+        if (j >= wl && j < k) t = fmaf(T[wl][j], G[j][k], t);
+      }
+      if (wl < k) T[wl][k] = -s_tau[k] * t;
+      if (wl == k) T[k][k] = s_tau[k];
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  float* tl = tau + (size_t)blockIdx.x * N + k0;
+  if (tid < w) tl[tid] = s_tau[tid];
+  float* Tl = Tg + (size_t)blockIdx.x * KB_NB * KB_NB;
+  for (int e = tid; e < KB_NB * KB_NB; e += KB_THREADS) Tl[e] = T[e / KB_NB][e % KB_NB];
+  kb_store_panel(P, a, N, k0, w, lds);
+}
+
+// entry (r, k0 + k) of V: the factor's below the diagonal, an implied 1 on
+// it, zeros above and past the panel's w columns
+__device__ __forceinline__ float kb_v(const float* __restrict__ a, int N, int k0, int w, int r,
+                                      int k) {
+  const int d = k0 + k;
+  return (k < w && r > d) ? a[(size_t)r * N + d] : ((k < w && r == d) ? 1.0f : 0.0f);
+}
+
+// W[k][j] = v_k^T A22[:, j] for a strip of KB_NB trailing columns j, into
+// Wg (lanes, KB_NB, N) at column j
+__global__ void __launch_bounds__(KB_UTHREADS)
+qr_w_kernel(const float* __restrict__ qr, float* __restrict__ Wg, int N, int k0) {
+  __shared__ __align__(16) float Vs[KB_WROWS][KB_NB];
+  __shared__ float part[KB_UTHREADS / 32][KB_NB][KB_NB + 1];   // the row groups' sums
+  const float* a = qr + (size_t)blockIdx.y * N * N;
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  const int w = min(KB_NB, N - k0);
+  const int c0 = k0 + w + blockIdx.x * KB_NB, nc = min(KB_NB, N - c0);
+  constexpr int GROUPS = KB_UTHREADS / 32, PER = KB_WROWS / GROUPS;
+  float acc[KB_NB];
+#pragma unroll
+  for (int k = 0; k < KB_NB; ++k) acc[k] = 0.0f;
+  for (int r0 = k0; r0 < N; r0 += KB_WROWS) {
+    __syncthreads();                          // the last chunk is consumed
+    for (int e = tid; e < KB_WROWS * KB_NB; e += KB_UTHREADS) {
+      const int i = e / KB_NB, k = e % KB_NB;
+      Vs[i][k] = r0 + i < N ? kb_v(a, N, k0, w, r0 + i, k) : 0.0f;
+    }
+    float x[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {           // this thread's rows r0 + ty + 8 i, all in flight
+      const int r = r0 + ty + GROUPS * i;
+      x[i] = (r < N && tx < nc) ? a[(size_t)r * N + c0 + tx] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const float4* vr = reinterpret_cast<const float4*>(Vs[ty + GROUPS * i]);
+#pragma unroll
+      for (int q = 0; q < KB_NB / 4; ++q) {
+        const float4 v = vr[q];
+        acc[4 * q] = fmaf(v.x, x[i], acc[4 * q]);
+        acc[4 * q + 1] = fmaf(v.y, x[i], acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(v.z, x[i], acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(v.w, x[i], acc[4 * q + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < KB_NB; ++k) part[ty][k][tx] = acc[k];
+  __syncthreads();
+  float* W = Wg + (size_t)blockIdx.y * KB_NB * N;
+  for (int e = tid; e < KB_NB * KB_NB; e += KB_UTHREADS) {
+    const int k = e / KB_NB, j = e % KB_NB;
+    float s = 0.0f;
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) s += part[g][k][j];
+    if (k < w && j < nc) W[(size_t)k * N + c0 + j] = s;
+  }
+}
+
+// A22 -= V (T^T W) on rows k0..N-1 and the trailing columns k0 + w .. N-1
+__global__ void __launch_bounds__(KB_UTHREADS)
+qr_update_kernel(float* __restrict__ qr, const float* __restrict__ Tg,
+                 const float* __restrict__ Wg, int N, int k0) {
+  __shared__ __align__(16) float Ls[KB_NB * KB_LDL];   // [k][i] V of the tile's rows
+  __shared__ __align__(16) float Us[KB_NB * KB_TC];    // [k][j] Y = T^T W of its columns
+  __shared__ float Ts[KB_NB][KB_NB + 1];
+  __shared__ float Ws[KB_NB][KB_TC];
+  float* a = qr + (size_t)blockIdx.y * N * N;
+  const float* W = Wg + (size_t)blockIdx.y * KB_NB * N;
+  const float* Tl = Tg + (size_t)blockIdx.y * KB_NB * KB_NB;
+  const int tid = threadIdx.x;
+  const int w = min(KB_NB, N - k0), t0 = k0 + w;
+  const int tiles_c = (N - t0 + KB_TC - 1) / KB_TC;
+  const int r0 = k0 + (blockIdx.x / tiles_c) * KB_TR, c0 = t0 + (blockIdx.x % tiles_c) * KB_TC;
+  const int nr = min(KB_TR, N - r0), nc = min(KB_TC, N - c0);
+  for (int e = tid; e < KB_NB * KB_TR; e += KB_UTHREADS) {   // a warp reads a row
+    const int i = e / KB_NB, k = e % KB_NB;
+    Ls[k * KB_LDL + i] = i < nr ? kb_v(a, N, k0, w, r0 + i, k) : 0.0f;
+  }
+  for (int e = tid; e < KB_NB * KB_NB; e += KB_UTHREADS) Ts[e / KB_NB][e % KB_NB] = Tl[e];
+  for (int e = tid; e < KB_NB * KB_TC; e += KB_UTHREADS) {
+    const int k = e / KB_TC, j = e % KB_TC;
+    Ws[k][j] = (k < w && j < nc) ? W[(size_t)k * N + c0 + j] : 0.0f;
+  }
+  __syncthreads();
+  for (int e = tid; e < KB_NB * KB_TC; e += KB_UTHREADS) {   // Y[k][j] = sum_{i<=k} T[i][k] W[i][j]
+    const int k = e / KB_TC, j = e % KB_TC;
+    float y = 0.0f;
+    for (int i = 0; i <= k; ++i) y = fmaf(Ts[i][k], Ws[i][j], y);
+    Us[e] = y;
+  }
+  __syncthreads();
+  kb_rank_update(a, N, r0, c0, nr, nc, Ls, Us);
 }
 
 // ---------------------------------------------------------------------------
@@ -2190,10 +2466,31 @@ int lu_factor_cluster(void* Ks, void* piv, int B, int N, int C, int cols,
   return (int)cudaGetLastError();
 }
 
-int lu_factor_unblocked(void* Ks, void* piv, int B, int N, void* stream) {
-  lu_factor_unblocked_kernel<<<B, K2_THREADS, 0, (cudaStream_t)stream>>>(
-      (float*)Ks, (int32_t*)piv, N);
-  return (int)cudaGetLastError();
+// lds, the panel's leading dimension in shared memory (odd, >= N), and smem,
+// the panel kernel's dynamic shared memory, come from
+// kernels.lu_factor_geometry; only that they cover the panel is checked.
+int lu_factor_blocked(void* Ks, void* piv, int B, int N, int lds, int smem, void* stream) {
+  if (lds < N || lds % 2 == 0 || (size_t)smem < sizeof(float) * KB_NB * (size_t)lds) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute((const void*)lu_panel_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* a = (float*)Ks;
+  int32_t* pv = (int32_t*)piv;
+  for (int k0 = 0; k0 < N; k0 += KB_NB) {
+    const int w = min(KB_NB, N - k0), nt = N - k0 - w;
+    lu_panel_kernel<<<B, KB_THREADS, smem, st>>>(a, pv, N, k0, lds);
+    if (N > w) lu_swap_kernel<<<dim3((N - w + KB_SCOLS - 1) / KB_SCOLS, B), KB_SCOLS, 0, st>>>(a, pv, N, k0);
+    if (nt > 0) {
+      const int tiles = ((nt + KB_TR - 1) / KB_TR) * ((nt + KB_TC - 1) / KB_TC);
+      lu_update_kernel<<<dim3(tiles, B), KB_UTHREADS, 0, st>>>(a, N, k0);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // sw, the ring slots per warp, and smem, the dynamic shared memory, come
@@ -2267,10 +2564,34 @@ int qr_factor_cluster(const void* M, void* qr, void* tau, int B, int N, int C, i
   return (int)cudaGetLastError();
 }
 
-int qr_factor_global(const void* M, void* qr, void* tau, int B, int N, void* stream) {
-  qr_factor_global_kernel<<<B, K6G_THREADS, sizeof(float) * (size_t)N, (cudaStream_t)stream>>>(
-      (const float*)M, (float*)qr, (float*)tau, N);
-  return (int)cudaGetLastError();
+// Tw (B, KB_NB, KB_NB) and Ww (B, KB_NB, N): f32 scratch for each panel's T
+// factor and V^T A22. lds and smem come from kernels.qr_factor_geometry, as
+// for lu_factor_blocked. M is copied to qr first and left as it is.
+int qr_factor_blocked(const void* M, void* qr, void* tau, void* Tw, void* Ww, int B, int N,
+                      int lds, int smem, void* stream) {
+  if (lds < N || lds % 2 == 0 || (size_t)smem < sizeof(float) * KB_NB * (size_t)lds) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute((const void*)qr_panel_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* a = (float*)qr;
+  err = cudaMemcpyAsync(a, M, sizeof(float) * (size_t)B * N * N, cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  for (int k0 = 0; k0 < N; k0 += KB_NB) {
+    const int w = min(KB_NB, N - k0), nt = N - k0 - w;
+    qr_panel_kernel<<<B, KB_THREADS, smem, st>>>(a, (float*)tau, (float*)Tw, N, k0, lds);
+    if (nt > 0) {
+      qr_w_kernel<<<dim3((nt + KB_NB - 1) / KB_NB, B), KB_UTHREADS, 0, st>>>(a, (float*)Ww, N, k0);
+      const int tiles = ((N - k0 + KB_TR - 1) / KB_TR) * ((nt + KB_TC - 1) / KB_TC);
+      qr_update_kernel<<<dim3(tiles, B), KB_UTHREADS, 0, st>>>(a, (const float*)Tw,
+                                                                (const float*)Ww, N, k0);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // warps, the warps per lane, and smem, the dynamic shared memory, come from

@@ -42,20 +42,45 @@ from . import kernels
 FACTORS = ('qr', 'lu')
 
 
+def resolve_kkt(ocp, kkt: str) -> str:
+    """``kkt`` as the JAX package resolves it (batch.py:94-106): 'auto' is
+    'block' wherever the zoh interval layout has no horizon-coupling rows
+    (no vortex or averaged induction, no integral outputs, u_param neither
+    'poly' nor 'ms', no xi parameters, no MPC trajectory), else 'dense'."""
+    if kkt != 'auto':
+        return kkt
+    if not hasattr(ocp, 'model'):
+        return 'dense'
+    dense_only = (
+        ocp.model.cfg.get('induction_model') in ('vortex', 'averaged')
+        or ocp.options['model']['integral_outputs']
+        or ocp.vstruct.u_param in ('poly', 'ms')
+        or getattr(ocp.vstruct, 'with_xi', False)
+        or ocp.options['user_options']['trajectory']['type'] == 'mpc')
+    return 'dense' if dense_only else 'block'
+
+
 def make_ip_step(ocp, delta_w: float = 1e-8, delta_c: float = 1e-8,
                  tau: float = 0.99, kappa_mu: float = 0.8,
                  mu_min: float = 1e-8, n_ladder: int = 7,
-                 ladder_factor: float = 100., kkt: str = 'auglu',
-                 hessian: str = 'exact', split: bool = True,
+                 ladder_factor: float = 100., kkt: str = 'auto',
+                 hessian: str = 'exact', split: bool = False,
                  auglu_factor: str = 'qr', auglu_mode=None):
     """Returns (derivs_fn, direction_fn) for a batch of lanes.
+
+    The defaults are the JAX package's (``kkt='auto'``, ``split=False``),
+    which the port does not run yet: 'auto' resolves as there (resolve_kkt),
+    and its 'block' and 'dense' modes raise, as does the fused step of
+    ``split=False``. The ported path is ``kkt='auglu', split=True``.
 
     derivs_fn(W, Y, LAM, P) -> (fval, gradf, cE, cI, JE, JI, H), every
     output with a leading lane axis, in the dtype of W.
     direction_fn(state, derivs_out, lbw, ubw, free) -> new state, where
     state holds w, s, y, lam, zl, zu (B, .), mu and err (B,), all f64."""
-    if kkt != 'auglu':
-        raise NotImplementedError(f'kkt={kkt!r} is not ported')
+    resolved = resolve_kkt(ocp, kkt)
+    if resolved != 'auglu':
+        how = f' (resolved from {kkt!r})' if resolved != kkt else ''
+        raise NotImplementedError(f'kkt={resolved!r}{how} is not ported')
     if not split:
         raise NotImplementedError('split=False (the fused step) is not ported')
     if auglu_factor not in FACTORS:

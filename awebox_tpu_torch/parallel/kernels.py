@@ -10,7 +10,7 @@ newton_kkt             the Newton system, row equilibration and      f64 -> f32
 kkt_assemble_scaled    K(delta) + Jacobi scale of the lanes a        f32
                        ladder retry assembles, :409-413
 lu_factor_batched      jax.scipy.linalg.lu_factor, :414              f32
-                       (cluster or unblocked variant, by N)
+                       (cluster or blocked variant, by N)
 lu_solve_batched       ksolve = kd * lu_solve(kd * v), :416-418      f32
 ip_step                the direction from the solution and           f64
                        _advance_state, :189-198, :449-512
@@ -19,7 +19,7 @@ kkt_assemble           the unscaled K(delta) of the QR factor,       f32
                        builds it with the Newton system)
 ruiz_scale             three Ruiz sweeps M = s K s, :375-381         f32
 qr_factor_batched      jnp.linalg.qr, :382, as packed Householder    f32
-                       reflectors (cluster or global variant, by N)
+                       reflectors (cluster or blocked variant, by N)
 qr_solve_batched       msolve = R^-1 Q^T v, :344-346                 f32
 =====================  ===========================================  ==========
 
@@ -44,15 +44,15 @@ from typing import NamedTuple
 import torch
 
 # newton_kkt counts its kernel pair once; lu_factor_batched counts every
-# factor, lu_factor_cluster and lu_factor_unblocked say which of K2's two
-# variants ran; likewise qr_factor_batched with qr_factor_cluster and
-# qr_factor_global; ruiz_scale counts its three sweeps and its scaling pass
-# once
+# factor, lu_factor_cluster and lu_factor_blocked say which of K2's two
+# variants ran (a blocked factor's launches a panel are counted once);
+# likewise qr_factor_batched with qr_factor_cluster and qr_factor_blocked;
+# ruiz_scale counts its three sweeps and its scaling pass once
 LAUNCHES = {'newton_kkt': 0, 'kkt_assemble_scaled': 0, 'lu_factor_batched': 0,
-            'lu_factor_cluster': 0, 'lu_factor_unblocked': 0,
+            'lu_factor_cluster': 0, 'lu_factor_blocked': 0,
             'lu_solve_batched': 0, 'ip_step': 0,
             'kkt_assemble': 0, 'ruiz_scale': 0, 'qr_factor_batched': 0,
-            'qr_factor_cluster': 0, 'qr_factor_global': 0, 'qr_solve_batched': 0}
+            'qr_factor_cluster': 0, 'qr_factor_blocked': 0, 'qr_solve_batched': 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -70,13 +70,13 @@ SIGNATURES = {
     'kkt_assemble_scaled': [_P] * 7 + [_I] * 3 + [_P],
     'lu_factor_cluster_occupancy': [_I, _I, _P],
     'lu_factor_cluster': [_P, _P] + [_I] * 6 + [_P],
-    'lu_factor_unblocked': [_P, _P, _I, _I, _P],
+    'lu_factor_blocked': [_P, _P] + [_I] * 4 + [_P],
     'lu_solve_batched': [_P] * 5 + [_I] * 4 + [_P],
     'ip_step': [_P] + [_I] * 4 + [_D] * 3 + [_P],
     'ruiz_scale': [_P] * 5 + [_I] * 2 + [_P],
     'qr_factor_cluster_occupancy': [_I, _I, _P],
     'qr_factor_cluster': [_P] * 3 + [_I] * 6 + [_P],
-    'qr_factor_global': [_P] * 3 + [_I] * 2 + [_P],
+    'qr_factor_blocked': [_P] * 5 + [_I] * 4 + [_P],
     'qr_solve_batched': [_P] * 4 + [_I] * 4 + [_P],
     'noop': [_I, _P],
 }
@@ -379,16 +379,25 @@ LU_CLUSTER_MAX = 8          # CTAs per cluster (the portable limit, K2C_MAX_CLUS
 LU_NB = 16                  # panel width, compiled into the cluster kernel (K2C_NB)
 SMEM_PER_BLOCK = 232_448    # shared memory one H100 block may use, bytes
 LU_STATIC_SMEM = 1_024      # room for the kernel's static shared arrays (384 B)
+BLOCKED_NB = 32             # panel width of both blocked variants (KB_NB)
+QR_PANEL_STATIC_SMEM = 9_216   # room for qr_panel_kernel's static arrays (8576 B)
+
+
+def blocked_lds(N: int) -> int:
+    """The blocked panel kernels' leading dimension in shared memory: odd and
+    >= N, so the 32 columns of one row fall in 32 banks."""
+    return N | 1
 
 
 class LUGeometry(NamedTuple):
     """How K2 lays one lane out: ``variant`` 'cluster' runs a cluster of
     ``C`` CTAs, each holding ``cols_per_cta`` whole columns (panels of
     ``nb`` dealt block-cyclically, leading dimension ``ld``) in
-    ``smem_bytes`` of dynamic shared memory; 'unblocked' runs one block on
-    the matrix in global memory (the other fields then describe that).
-    This is the one place that computes the layout: the cluster kernel
-    takes C, cols_per_cta, ld and smem_bytes as they are."""
+    ``smem_bytes`` of dynamic shared memory; 'blocked' keeps the lane in
+    global memory and factors it in panels of ``nb`` columns, one CTA a lane
+    holding a panel's rows (leading dimension ``ld``) in ``smem_bytes``
+    (C = 1, cols_per_cta = nb). This is the one place that computes the
+    layout: the kernels take it as it is."""
     variant: str
     C: int
     nb: int
@@ -399,7 +408,8 @@ class LUGeometry(NamedTuple):
 
 def lu_factor_geometry(N: int) -> LUGeometry:
     """K2's variant and layout for N x N lanes: the cluster variant when a
-    lane fits the shared memory of LU_CLUSTER_MAX CTAs, else unblocked."""
+    lane fits the shared memory of LU_CLUSTER_MAX CTAs, else the blocked one
+    while a panel's N rows fit one block's; beyond that it raises."""
     panels = -(-N // LU_NB)
     C = min(LU_CLUSTER_MAX, panels)
     cols = -(-panels // C) * LU_NB
@@ -408,9 +418,14 @@ def lu_factor_geometry(N: int) -> LUGeometry:
         ld += 4
     # f32: the CTA's columns, the current L panel and the CTA's U12 block
     smem = 4 * (cols * ld + LU_NB * ld + LU_NB * cols)
+    if smem + LU_STATIC_SMEM <= SMEM_PER_BLOCK:
+        return LUGeometry('cluster', C, LU_NB, cols, ld, smem)
+    lds = blocked_lds(N)
+    smem = 4 * BLOCKED_NB * lds
     if smem + LU_STATIC_SMEM > SMEM_PER_BLOCK:
-        return LUGeometry('unblocked', 1, 1, N, N, 0)
-    return LUGeometry('cluster', C, LU_NB, cols, ld, smem)
+        raise ValueError(f'lu_factor_batched: N={N} fits no variant of K2 (the blocked '
+                         f'panel of {BLOCKED_NB} columns needs {smem} B of shared memory)')
+    return LUGeometry('blocked', 1, BLOCKED_NB, BLOCKED_NB, lds, smem)
 
 
 _max_clusters = {}
@@ -450,7 +465,8 @@ def lu_factor_batched(Ks):
             _ptr(Ks), _ptr(piv), B, N, geom.C, geom.cols_per_cta, geom.ld,
             geom.smem_bytes, _stream()))
     else:
-        _check(name, library().lu_factor_unblocked(_ptr(Ks), _ptr(piv), B, N, _stream()))
+        _check(name, library().lu_factor_blocked(_ptr(Ks), _ptr(piv), B, N, geom.ld,
+                                                 geom.smem_bytes, _stream()))
     LAUNCHES[name] += 1
     LAUNCHES[f'lu_factor_{geom.variant}'] += 1
     return Ks, piv
@@ -700,7 +716,8 @@ class QRGeometry(NamedTuple):
     ``C`` CTAs, each holding ``cols_per_cta`` whole columns (panels of ``nb``
     dealt block-cyclically, leading dimension ``ld``) and a copy of the
     current panel's reflectors in ``smem_bytes`` of dynamic shared memory;
-    'global' runs one block on the matrix in global memory."""
+    'blocked' is K2's blocked layout (the lane in global memory, a panel's
+    rows in shared memory)."""
     variant: str
     C: int
     nb: int
@@ -712,16 +729,22 @@ class QRGeometry(NamedTuple):
 def qr_factor_geometry(N: int) -> QRGeometry:
     """K6's variant and layout for N x N lanes: the cluster variant when a
     lane fits the shared memory of LU_CLUSTER_MAX CTAs and a warp's
-    registers hold a column, else the global one."""
+    registers hold a column, else the blocked one while a panel's N rows fit
+    one block's; beyond that it raises."""
     panels = -(-N // QR_NB)
     C = min(LU_CLUSTER_MAX, panels)
     cols = -(-panels // C) * QR_NB
     ld = -(-N // 4) * 4           # float4 rows of the panel copy
     # f32: the CTA's columns and the current panel's reflectors
     smem = 4 * (cols * ld + QR_NB * ld)
-    if N > QR_ROW_MAX or smem + LU_STATIC_SMEM > SMEM_PER_BLOCK:
-        return QRGeometry('global', 1, 1, N, N, 0)
-    return QRGeometry('cluster', C, QR_NB, cols, ld, smem)
+    if N <= QR_ROW_MAX and smem + LU_STATIC_SMEM <= SMEM_PER_BLOCK:
+        return QRGeometry('cluster', C, QR_NB, cols, ld, smem)
+    lds = blocked_lds(N)
+    smem = 4 * BLOCKED_NB * lds
+    if smem + QR_PANEL_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f'qr_factor_batched: N={N} fits no variant of K6 (the blocked '
+                         f'panel of {BLOCKED_NB} columns needs {smem} B of shared memory)')
+    return QRGeometry('blocked', 1, BLOCKED_NB, BLOCKED_NB, lds, smem)
 
 
 def qr_cluster_max_active(geom: QRGeometry) -> int:
@@ -761,7 +784,11 @@ def qr_factor_batched(M):
             _ptr(M), _ptr(qr), _ptr(tau), B, N, geom.C, geom.cols_per_cta, geom.ld,
             geom.smem_bytes, _stream()))
     else:
-        _check(name, library().qr_factor_global(_ptr(M), _ptr(qr), _ptr(tau), B, N, _stream()))
+        # scratch: each panel's T factor and V^T A22
+        T = torch.empty(B, BLOCKED_NB, BLOCKED_NB, dtype=torch.float32, device=M.device)
+        W = torch.empty(B, BLOCKED_NB, N, dtype=torch.float32, device=M.device)
+        _check(name, library().qr_factor_blocked(_ptr(M), _ptr(qr), _ptr(tau), _ptr(T), _ptr(W),
+                                                 B, N, geom.ld, geom.smem_bytes, _stream()))
     LAUNCHES[name] += 1
     LAUNCHES[f'qr_factor_{geom.variant}'] += 1
     return qr, tau

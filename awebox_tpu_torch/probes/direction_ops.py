@@ -94,7 +94,8 @@ def main():
     w, y, lam = state['w'], state['y'], state['lam']
     dv = tuple(vals_fn(w, y, lam, P64)) + tuple(J.to(f32) for J in jac_fn(w, P64)) \
         + (hess_fn(w, y, lam, P64).to(f32),)
-    _, direction = make_ip_step(ocp, kappa_mu=0.4, auglu_factor=args.factor)
+    _, direction = make_ip_step(ocp, kkt='auglu', split=True, kappa_mu=0.4,
+                                auglu_factor=args.factor)
     call = lambda: direction(state, dv, lbw, ubw, free)
     n_ops, times = count_and_time(call, args.runs)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],

@@ -3,8 +3,9 @@
 
 Drives the port's main path, the batched wind-sweep refinement of the
 Ampyx AP2 3-DOF power cycle (n_k=4, d=3: n=280 variables, m=263
-constraints, a 543x543 augmented KKT system per lane), through its public
-entry points, and checks the hand-written CUDA kernels on the way:
+constraints, a 543x543 augmented KKT system per lane), and the same sweep on
+the n_k=8 grid (n=540, m=515, 1055x1055), through its public entry points,
+and checks the hand-written CUDA kernels on the way:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA
               versions; TF32 off for matmul and cuDNN
@@ -19,17 +20,18 @@ entry points, and checks the hand-written CUDA kernels on the way:
               with non-finite J/H entries, pinned variables and infinite
               bounds; the retry assembly bit for bit; the LU factor K2 in
               both variants, each where lu_factor_geometry takes it: the
-              cluster kernel at N=543, B = 1, 16 and 128, the unblocked one
-              at N=1055 B=2; the LU solve K3 on each of those shapes, on K2's
-              factor and on cuSOLVER's; the QR path's kernels: the unscaled
-              retry assembly and K5 ruiz_scale bit for bit (a NaN row
-              included), K6 qr_factor_batched in both variants (the cluster
-              kernel at N=543, B = 1, 16 and 128, the global one at N=1055
-              B=2) by |diag R| and by the solve, K7 qr_solve_batched on K6's
-              factor and on cuSOLVER's geqrf factor by its residual and by
-              the guarded refinement sweep's result, a singular and a NaN
-              lane; every kernel and the library calls (cuSOLVER's getrf and
-              geqrf, torch.linalg.lu_solve, torch.ormqr with
+              cluster kernel at N=543, B = 1, 16 and 128, the blocked one
+              at N=1055, B = 2 and 16, with a singular and a NaN lane; the
+              LU solve K3 on each of those shapes, on K2's factor and on
+              cuSOLVER's; the QR path's kernels: the unscaled retry assembly
+              and K5 ruiz_scale bit for bit (a NaN row included), K6
+              qr_factor_batched in both variants (the cluster kernel at
+              N=543, B = 1, 16 and 128, the blocked one at N=1055, B = 2 and
+              16, with a singular and a NaN lane) by |diag R| and by the
+              solve, K7 qr_solve_batched on K6's factor and on cuSOLVER's
+              geqrf factor by its residual and by the guarded refinement
+              sweep's result; every kernel and the library calls (cuSOLVER's
+              getrf and geqrf, torch.linalg.lu_solve, torch.ormqr with
               solve_triangular) are also timed queued
               behind a device sleep, which hides the host's dispatch, beside
               an empty kernel's time (the launch floor); each kernel's bound
@@ -45,10 +47,16 @@ entry points, and checks the hand-written CUDA kernels on the way:
               the two runs' average powers must agree lane by lane to 1e-6
   5. path     after each slice run, every kernel of its path launched in
               it: K1 and K4 once per iteration, the retry assembly once per
-              ladder retry, every factor through the cluster variant; LU:
+              ladder retry, every factor through the variant of its N; LU:
               three solves per factor and no QR kernel; QR: one K5 and one
               K6 per attempt, two K7 solves per factor and no LU kernel; no
               plain version of any kernel called; state on the card
+  6. n_k=8    the same sweep from tests/artifacts/bench_anchor_nk8_d3.npz
+              ([slice-nk8] with LU, [slice-nk8-qr] with QR, each followed by
+              its [path]), every factor through the blocked variants: the
+              first LU iteration against the plain path on the CPU, then
+              NK8_ITERS iterations (from this anchor the refinement does not
+              converge, in the JAX package as in the port; see main)
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -65,8 +73,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ANCHOR = os.path.join(HERE, 'tests', 'artifacts', 'bench_anchor_nk4_d3.npz')
+ANCHOR8 = os.path.join(HERE, 'tests', 'artifacts', 'bench_anchor_nk8_d3.npz')
 B = 16
 N_TIMED = 25
+NK8_ITERS = 12    # iterations of each n_k=8 slice (its lanes do not converge; see main)
 
 
 def phase(name, msg):
@@ -129,6 +139,7 @@ def main():
     import numpy as np
     import torch
 
+    t_start = time.time()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
@@ -305,8 +316,8 @@ def main():
     # cond(Ks) ~ 1e9 after the Jacobi scaling.
     # K2 has two variants, chosen by N (kernels.lu_factor_geometry): the
     # cluster kernel at the slice's N, held at B = 1, 16 and 128 (the B=16
-    # systems repeated), and the unblocked kernel, held on a random saddle
-    # system of the n_k=8 size N=1055 at B=2, which only it takes.
+    # systems repeated), and the blocked kernel, held below on random saddle
+    # systems of the n_k=8 size N=1055, which only it takes.
     # cuSOLVER's time as called moves between runs with the host's load
     # (at N >= 512 PyTorch calls its getrf once per lane), so the factors
     # and the solves are timed queued too.
@@ -409,17 +420,44 @@ def main():
         args2 = [t.repeat(rep, *([1] * (t.dim() - 1)))[:Bk].contiguous() for t in (Ks_p, kd_p, c)]
         cluster_at[f'B={Bk}'], solve_at[f'N={N} B={Bk}'] = hold_k2(f'N={N} B={Bk}', *args2,
                                                                      'cluster')
+    # K2's blocked variant takes the lanes no cluster holds: held on random
+    # saddle systems of the n_k=8 size N=1055 (n=540, m=515) at B = 2 and 16
+    # (the first two lanes are those of earlier runs), then on a singular
+    # lane (a zero column) and a NaN lane, whose solves must be non-finite
+    # while every other lane keeps the bits of the clean run
     rng = np.random.default_rng(1)
     n8, m8 = 540, 515
-    sys8 = [torch.as_tensor(a, dtype=f64, device=dev) for a in random_systems(rng, n8, m8, 2)]
+    N8 = n8 + m8
+    sys8 = [torch.as_tensor(a, dtype=f64, device=dev) for a in random_systems(rng, n8, m8, B)]
     eq8 = kernels.equilibrate(*sys8, torch.ones(n8, dtype=f64, device=dev), 1e-8)
-    Ks8, kd8 = kernels.kkt_assemble_scaled(eq8['W32'], eq8['A32'], eq8['Dr32'], eq8['free32'],
-                                           torch.full((2,), 1e-8, dtype=f64, device=dev))
-    require(kernels.lu_factor_geometry(n8 + m8).variant == 'unblocked',
-            'N=1055 does not take the unblocked variant')
-    k2_8, solve_at[f'N={n8 + m8} B=2'] = hold_k2(
-        f'N={n8 + m8} B=2', Ks8, kd8, eq8['b'].to(f32).contiguous(), 'unblocked')
-    report['lu_factor_unblocked'] = dict(k2_8, N=n8 + m8, B=2)
+    pieces8 = (eq8['W32'], eq8['A32'], eq8['Dr32'], eq8['free32'],
+               torch.full((B,), 1e-8, dtype=f64, device=dev))
+    Ks8, kd8 = kernels.kkt_assemble_scaled(*pieces8)
+    c8 = eq8['b'].to(f32).contiguous()
+    geom8 = kernels.lu_factor_geometry(N8)
+    require(geom8.variant == 'blocked', f'N={N8} does not take the blocked variant: {geom8}')
+    phase('kernels', f'K2 geometry at N={N8}: {geom8}')
+    blocked_at = {}
+    for Bk in (2, B):
+        blocked_at[f'B={Bk}'], solve_at[f'N={N8} B={Bk}'] = hold_k2(
+            f'N={N8} B={Bk}', Ks8[:Bk].contiguous(), kd8[:Bk].contiguous(), c8[:Bk].contiguous(),
+            'blocked')
+    x_clean = kernels.lu_solve_batched(*kernels.lu_factor_batched(Ks8.clone()), kd8, c8)
+    Ks_bad = Ks8.clone()
+    Ks_bad[2, :, 100] = 0.
+    Ks_bad[5, :, 700] = float('nan')
+    x_bad = kernels.lu_solve_batched(*kernels.lu_factor_batched(Ks_bad.clone()), kd8, c8)
+    lu_bp, piv_bp, _ = torch.linalg.lu_factor_ex(Ks_bad)
+    x_bad_p = kernels.lu_solve_batched_plain(lu_bp, piv_bp, kd8, c8)
+    torch.cuda.synchronize()
+    others = [b_ for b_ in range(B) if b_ not in (2, 5)]
+    require(not any(bool(torch.isfinite(x[b_]).all()) for x in (x_bad, x_bad_p) for b_ in (2, 5)),
+            'K2 blocked: a singular or NaN lane gave a finite solution')
+    require(torch.equal(x_bad[others], x_clean[others]),
+            'K2 blocked: a singular or NaN lane changed another lane')
+    phase('kernels', f'K2 blocked + K3, N={N8} B={B}, a singular lane and a NaN lane: non-finite '
+          f'x on both, as with getrf; the {len(others)} other lanes keep their bits')
+    report['lu_factor_blocked'] = dict(blocked_at[f'B={B}'], at=blocked_at, N=N8)
     report['lu_factor_cluster'] = dict(cluster_at[f'B={B}'], at=cluster_at,
                                        max_active_clusters=max_clusters)
     report['lu_solve_batched'] = dict(solve_at[f'N={N} B={B}'], at=solve_at)
@@ -473,8 +511,10 @@ def main():
     # within 10x and its z within 1e-2 of max |z| (one sweep leaves each
     # solve at its own (cond eps)^2; the JAX package's and LAPACK's QR differ
     # by 5e-4 of the step at the anchor on the CPU). The cluster variant is
-    # held at N=543, B = 1, 16, 128, the global one on a random saddle system
-    # of the n_k=8 size N=1055 at B=2, which only it takes.
+    # held at N=543, B = 1, 16, 128, the blocked one below on random saddle
+    # systems of the n_k=8 size N=1055, which only it takes (at the n_k=8
+    # anchor itself even LAPACK's f32 and f64 geqrf differ by 2.8e-3 in
+    # |diag R|).
     def qr_res(M64, c64, z):
         r = c64 - (M64 @ z.to(f64)[:, :, None])[:, :, 0]
         return r.abs().amax(dim=1) / c64.abs().amax(dim=1)
@@ -589,15 +629,33 @@ def main():
             'K6+K7: a singular or NaN lane changed another lane')
     phase('kernels', 'K6+K7 singular lane and NaN lane: non-finite x on both, as with geqrf; '
           'the 14 other lanes keep their bits')
-    require(kernels.qr_factor_geometry(n8 + m8).variant == 'global',
-            'N=1055 does not take the global QR variant')
-    K8 = kernels.kkt_assemble(eq8['W32'], eq8['A32'], eq8['Dr32'], eq8['free32'],
-                              torch.full((2,), 1e-8, dtype=f64, device=dev))
+    # K6's blocked variant on the Ruiz-scaled random systems of N=1055 at
+    # B = 2 and 16, then a singular and a NaN lane
+    qgeom8 = kernels.qr_factor_geometry(N8)
+    require(qgeom8.variant == 'blocked', f'N={N8} does not take the blocked QR variant: {qgeom8}')
+    K8 = kernels.kkt_assemble(*pieces8)
     M8, s8 = kernels.ruiz_scale(K8)
     require(same_bits(M8, kernels.ruiz_scale_plain(K8)[0]), 'K5 at N=1055 differs')
-    k6_8, k7_at[f'N={n8 + m8} B=2'], _, _ = hold_qr(
-        f'N={n8 + m8} B=2', M8, eq8['b'] * s8.to(f64), 'global', n_timed=7)
-    report['qr_factor_global'] = dict(k6_8, N=n8 + m8, B=2)
+    c64_8 = eq8['b'] * s8.to(f64)
+    k6b_at = {}
+    for Bk in (2, B):
+        k6b_at[f'B={Bk}'], k7_at[f'N={N8} B={Bk}'], qr8, tau8 = hold_qr(
+            f'N={N8} B={Bk}', M8[:Bk].contiguous(), c64_8[:Bk].contiguous(), 'blocked')
+    c8q = c64_8.to(f32).contiguous()
+    x_clean = kernels.qr_solve_batched(qr8, tau8, c8q)
+    M_bad = M8.clone()
+    M_bad[2, :, 100] = 0.
+    M_bad[5, :, 700] = float('nan')
+    x_bad = kernels.qr_solve_batched(*kernels.qr_factor_batched(M_bad), c8q)
+    x_bad_p = kernels.qr_solve_batched_plain(*kernels.qr_factor_batched_plain(M_bad), c8q)
+    torch.cuda.synchronize()
+    require(not any(bool(torch.isfinite(x[b_]).all()) for x in (x_bad, x_bad_p) for b_ in (2, 5)),
+            'K6 blocked + K7: a singular or NaN lane gave a finite solution')
+    require(torch.equal(x_bad[others], x_clean[others]),
+            'K6 blocked + K7: a singular or NaN lane changed another lane')
+    phase('kernels', f'K6 blocked + K7, N={N8} B={B}, a singular lane and a NaN lane: non-finite '
+          f'x on both, as with geqrf; the {len(others)} other lanes keep their bits')
+    report['qr_factor_blocked'] = dict(k6b_at[f'B={B}'], at=k6b_at, N=N8)
     report['qr_factor_cluster'] = dict(k6_at[f'B={B}'], at=k6_at)
     report['qr_solve_batched'] = dict(k7_at[f'N={N} B={B}'], at=k7_at)
 
@@ -682,7 +740,8 @@ def main():
         st, dv_ = args[0], args[1]
         ins = [x, ok, sys_['rn'], sys_['r1'], dv_[2], dv_[3], dv_[5]] + list(st.values()) \
             + list(args[2:])
-        b_, by_ = bound(nbytes(*ins, *o_k.values()), 2 * x.shape[0] * n_ineq * free.numel(), 34e12)
+        b_, by_ = bound(nbytes(*ins, *o_k.values()), 2 * x.shape[0] * n_ineq * args[4].numel(),
+                        34e12)
         rec = dict(max_abs_err=err, ms=cuda_median_ms(k4), queued_ms=cuda_median_ms(k4, queued=True),
                    plain_ms=cuda_median_ms(lambda: kernels.ip_step_plain(*step)),
                    bound_ms=b_, bound_by=by_, library_ms=None, gaps=gaps,
@@ -707,7 +766,8 @@ def main():
     # aten operations one direction call dispatches on the card, and its
     # time, with each factor
     for fac in ('lu', 'qr'):
-        _, direction = batch.make_ip_step(ocp, kappa_mu=0.4, auglu_factor=fac)
+        _, direction = batch.make_ip_step(ocp, kkt='auglu', split=True, kappa_mu=0.4,
+                                          auglu_factor=fac)
         n_ops, dir_ms = count_and_time(lambda: direction(state, dv, lbw, ubw, free), N_TIMED)
         phase('kernels', f'one {fac} direction call at B={B}: {n_ops} aten ops dispatched, '
               f'{sorted(dir_ms)[N_TIMED // 2]:.3f} ms (host clock, synchronized, median of '
@@ -742,10 +802,13 @@ def main():
                    'lu_solve_batched_plain', 'ruiz_scale_plain', 'qr_factor_batched_plain',
                    'qr_solve_batched_plain', 'advance_state', 'ip_step_plain')
 
-    def run_slice(tag, fac):
-        """The cell with the ``fac`` factor: the launch counts set to 0 just
-        before, read just after. Returns the run's launches, iterations and
-        per-lane average powers."""
+    def run_slice(tag, fac, cell, variant, max_iter=100, converge=True):
+        """The cell ``cell`` (ocp, state, P64, lbw, ubw, free, u_refs) with
+        the ``fac`` factor, every factor through its ``variant``: the launch
+        counts set to 0 just before, read just after. With ``converge`` every
+        lane must converge within max_iter. Returns the run's launches,
+        iterations and per-lane average powers."""
+        ocp_, state_, P64_, lbw_, ubw_, free_, u_refs_ = cell
         plain_calls = {k: 0 for k in plain_names}
         saved = {k: getattr(kernels, k) for k in plain_calls}
 
@@ -758,8 +821,8 @@ def main():
             setattr(kernels, k, counted(k))
         kernels.reset_launch_counts()
         try:
-            res = refine(ocp, state, P64, lbw, ubw, free, tol=1e-5, verify_tol=1e-4,
-                         max_iter=100, kappa_mu=0.4, time_pieces=True, auglu_factor=fac)
+            res = refine(ocp_, state_, P64_, lbw_, ubw_, free_, tol=1e-5, verify_tol=1e-4,
+                         max_iter=max_iter, kappa_mu=0.4, time_pieces=True, auglu_factor=fac)
         finally:
             for k, fn in saved.items():
                 setattr(kernels, k, fn)
@@ -767,37 +830,43 @@ def main():
         it = res['n_iter']
         conv = res['converged'].cpu().numpy()
         latched = res['latched'].cpu().numpy()
-        eq_max = float(res['eq_res'].max())
-        powers = average_power(ocp, res['state']['w'], P64).cpu().numpy()
+        eq_res = res['eq_res'].cpu().numpy()
+        err = res['state']['err'].cpu().numpy()
+        powers = average_power(ocp_, res['state']['w'], P64_).cpu().numpy()
         pieces = {k: 1e3 * v / it for k, v in res['times'].items()}
-        phase(tag, f'auglu_factor={fac!r}, B={B} lanes, u_ref {u_refs[0]:.2f}..{u_refs[-1]:.2f} '
-              f'm/s: {it} iterations, {1e3 * res["seconds"] / it:.1f} ms/iter '
-              f'(vals {pieces["vals"]:.1f}, jac {pieces["jac"]:.1f}, '
-              f'hess {pieces["hess"]:.1f}, direction {pieces["direction"]:.1f} ms), '
-              f'latched {int(latched.sum())}/{B}, converged {int(conv.sum())}/{B}, '
-              f'max f64 eq {eq_max:.2e}, P_avg {powers.min() / 1e3:.2f}..'
-              f'{powers.max() / 1e3:.2f} kW, {conv.sum() / res["seconds"]:.3f} solves/s')
-        require(conv.all(), f'{fac}: unconverged lanes: {np.where(~conv)[0]}')
-        require(np.isfinite(powers).all(), f'{fac}: non-finite average power {powers}')
+        phase(tag, f'auglu_factor={fac!r}, n={ocp_.vstruct.total}, m={ocp_.n_eq + ocp_.n_ineq}, '
+              f'B={B} lanes, u_ref {u_refs_[0]:.2f}..{u_refs_[-1]:.2f} m/s: {it} iterations, '
+              f'{1e3 * res["seconds"] / it:.1f} ms/iter (vals {pieces["vals"]:.1f}, jac '
+              f'{pieces["jac"]:.1f}, hess {pieces["hess"]:.1f}, direction '
+              f'{pieces["direction"]:.1f} ms), latched {int(latched.sum())}/{B}, converged '
+              f'{int(conv.sum())}/{B}, KKT error {err.min():.2e}..{err.max():.2e}, max f64 eq '
+              f'{eq_res.max():.2e}, P_avg {powers.min() / 1e3:.2f}..{powers.max() / 1e3:.2f} kW, '
+              f'{conv.sum() / res["seconds"]:.3f} solves/s')
+        if converge:
+            require(conv.all(), f'{fac}: unconverged lanes: {np.where(~conv)[0]}')
+            require(np.isfinite(powers).all(), f'{fac}: non-finite average power {powers}')
+        require(all(bool(torch.isfinite(v).all()) for v in res['state'].values()),
+                f'{tag}: non-finite iterates')
 
         # the path: K1 and K4 once per iteration; a factor per iteration and
         # one more per delta-ladder retry, each retry behind one launch of its
         # factor's retry assembly (the slice may need none: the retry
         # assemblies are held above, and on the card in the direction solves'
-        # ladder lane); at N=543 every factor takes its cluster variant (the
-        # unblocked LU and global QR variants serve lanes no cluster holds
-        # and are held above at N=1055)
+        # ladder lane); every factor through ``variant`` (cluster at N=543,
+        # blocked at N=1055), none through the other
+        other = {'cluster': 'blocked', 'blocked': 'cluster'}[variant]
         lu_names = ('kkt_assemble_scaled', 'lu_factor_batched', 'lu_factor_cluster',
-                    'lu_factor_unblocked', 'lu_solve_batched')
+                    'lu_factor_blocked', 'lu_solve_batched')
         qr_names = ('kkt_assemble', 'ruiz_scale', 'qr_factor_batched', 'qr_factor_cluster',
-                    'qr_factor_global', 'qr_solve_batched')
+                    'qr_factor_blocked', 'qr_solve_batched')
         require(launches['newton_kkt'] == it and launches['ip_step'] == it,
                 f'{fac}: K1 and K4 did not run once per iteration ({it}): {launches}')
         if fac == 'lu':
             retries = launches['kkt_assemble_scaled']
             require(launches['lu_factor_batched'] == it + retries
-                    and launches['lu_factor_cluster'] == launches['lu_factor_batched'],
-                    f'lu: not one cluster factor per iteration and retry: {launches}')
+                    and launches[f'lu_factor_{variant}'] == launches['lu_factor_batched']
+                    and launches[f'lu_factor_{other}'] == 0,
+                    f'lu: not one {variant} factor per iteration and retry: {launches}')
             # every attempt solves once and refines twice on its factor
             require(launches['lu_solve_batched'] == 3 * launches['lu_factor_batched'],
                     f'lu: the slice did not solve three times per factor: {launches}')
@@ -805,46 +874,108 @@ def main():
         else:
             retries = launches['kkt_assemble']
             require(launches['ruiz_scale'] == launches['qr_factor_batched'] == it + retries
-                    and launches['qr_factor_cluster'] == launches['qr_factor_batched'],
-                    f'qr: not one K5 and one cluster K6 per iteration and retry: {launches}')
+                    and launches[f'qr_factor_{variant}'] == launches['qr_factor_batched']
+                    and launches[f'qr_factor_{other}'] == 0,
+                    f'qr: not one K5 and one {variant} K6 per iteration and retry: {launches}')
             # every attempt solves once and once more in its guarded sweep
             require(launches['qr_solve_batched'] == 2 * launches['qr_factor_batched'],
                     f'qr: the slice did not solve twice per factor: {launches}')
             require(not any(launches[k] for k in lu_names), f'qr: an LU kernel ran: {launches}')
         require(not any(plain_calls.values()), f'{fac}: plain versions ran: {plain_calls}')
         require(all(v.is_cuda for v in res['state'].values()), f'{fac}: the state left the card')
-        phase('path', f'{fac}: kernel launches in the slice run: {launches}; {retries} ladder '
-              f'retries; plain versions called: {sum(plain_calls.values())}')
+        phase('path', f'{tag}: kernel launches in the slice run: {launches}; {retries} ladder '
+              f'retries; every factor through the {variant} variant; plain versions called: '
+              f'{sum(plain_calls.values())}')
         return launches, it, powers
 
-    launches_lu, it_lu, powers_lu = run_slice('slice', 'lu')
-    launches_qr, it_qr, powers_qr = run_slice('slice-qr', 'qr')
+    cell4 = (ocp, state, P64, lbw, ubw, free, u_refs)
+    launches_lu, it_lu, powers_lu = run_slice('slice', 'lu', cell4, 'cluster')
+    launches_qr, it_qr, powers_qr = run_slice('slice-qr', 'qr', cell4, 'cluster')
     power_gap = float(np.abs(powers_qr / powers_lu - 1.).max())
     phase('slice-qr', f'per-lane average power, QR against LU: max relative gap {power_gap:.3e} '
           f'({it_qr} against {it_lu} iterations)')
     require(power_gap <= 1e-6, f'QR and LU average powers differ: {powers_qr} vs {powers_lu}')
 
+    # --- 6. the n_k=8 slices ----------------------------------------------
+    # bench_options(n_k=8) from tests/artifacts/bench_anchor_nk8_d3.npz:
+    # n=540, m=515, N=1055, which only the blocked factors take. The anchor
+    # is no start from which the batched refinement converges, in the JAX
+    # package (CPU, LU: no lane of 9.5..10.5 m/s, nor the anchor's own 10 m/s,
+    # latches within 100 iterations; tests/test_torch_nk8.py) as in the port,
+    # so these slices run NK8_ITERS iterations and gate what the reference
+    # fixes: the first LU iteration on the card against the plain path on the
+    # CPU (2 lanes; 1e-3 of the step: at this anchor an f32 and an f64 LU
+    # factor give directions 2.7e-5 of the step apart on the CPU), finite
+    # iterates, and the path. The QR recipe's first iterate depends on the
+    # rounding of its one guarded sweep here (LAPACK's f32 and f64 QR give
+    # iterates 13 steps apart on the CPU), so its gap is printed, not gated.
+    trial8 = Trial(bench_options(n_k=8), 'chip_smoke_nk8').build()
+    ocp8 = trial8.ocp
+    anchor8 = dict(np.load(ANCHOR8))
+    cell8 = (ocp8,) + wind_sweep_problem(trial8, anchor8, B, device=dev)
+    require(ocp8.vstruct.total + ocp8.n_eq + ocp8.n_ineq == N8, 'n_k=8 is not N=1055')
+    # K1 and K4 within their compiled limits (n=540 <= NEWTON_ROW_MAX, n and
+    # m <= STEP_ITEMS) on the n_k=8 anchor's systems: K1 bit for bit in both
+    # modes, K4 at its stated tolerances on the LU direction's solution
+    state8, P64_8, lbw8, ubw8, free8 = cell8[1:6]
+    w8, y8, lam8 = state8['w'], state8['y'], state8['lam']
+    vals8, jac8, hess8 = make_structured_derivs(ocp8)
+    dv8 = tuple(vals8(w8, y8, lam8, P64_8)) + tuple(J.to(f32) for J in jac8(w8, P64_8)) \
+        + (hess8(w8, y8, lam8, P64_8).to(f32),)
+    args8 = (state8, dv8, lbw8, ubw8, free8)
+    sys8_k, _, k1_at[f'n_k=8 B={B}'] = hold_k1(f'n_k=8 anchor B={B}', args8)
+    _, _, k1_at[f'unscaled n_k=8 B={B}'] = hold_k1(f'unscaled, n_k=8 anchor B={B}', args8,
+                                                    scaled=False)
+    x8, ok8 = batch._ladder_solve(sys8_k, free8, ocp8.vstruct.total, 1e-8, 7, 100.)
+    k4_at[f'n_k=8 B={B}'] = hold_k4(f'n_k=8 anchor B={B}', x8, ok8, sys8_k,
+                                   ({k: state8[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu',
+                                                            'mu')},) + args8[1:])
+    cell8_h = wind_sweep_problem(trial8, anchor8, 2, device='cpu')
+    for fac in ('lu', 'qr'):
+        it_c = make_refiner(ocp8, *cell8[3:6], auglu_factor=fac)(
+            _take_lanes(cell8[1], sel), _take_lanes(cell8[2], sel))
+        it_h = make_refiner(ocp8, *cell8_h[2:5], auglu_factor=fac)(cell8_h[0], cell8_h[1])
+        step = float((it_h['w'] - cell8_h[0]['w']).abs().max())
+        dw_gap = float((it_c['w'].cpu() - it_h['w']).abs().max())
+        require(bool(torch.isfinite(it_c['w']).all()), f'n_k=8: one {fac} iteration: non-finite w')
+        if fac == 'lu':
+            require(dw_gap <= 1e-3 * step,
+                    f'n_k=8: one lu iteration: |w diff| {dw_gap:.3e}, step {step:.3e}')
+        phase('slice-nk8', f'one {fac} iteration at n_k=8 card vs cpu plain: max |w diff| '
+              f'{dw_gap:.3e} (step {step:.3e}{"; not gated" if fac == "qr" else ""})')
+    launches_lu8, _, powers_lu8 = run_slice('slice-nk8', 'lu', cell8, 'blocked', NK8_ITERS,
+                                            converge=False)
+    launches_qr8, _, powers_qr8 = run_slice('slice-nk8-qr', 'qr', cell8, 'blocked', NK8_ITERS,
+                                            converge=False)
+    phase('slice-nk8-qr', f'per-lane average power after {NK8_ITERS} iterations, QR against LU: '
+          f'max relative gap {float(np.abs(powers_qr8 / powers_lu8 - 1.).max()):.3e} (the '
+          f'lanes have not converged: not gated)')
+
     # each kernel's launches are those of the slice whose path holds it: the
     # QR slice, the port's default path, for its own kernels and for K1 and
-    # K4, which both paths share; the LU slice for the LU kernels
+    # K4, which both paths share; the LU slice for the LU kernels; the n_k=8
+    # slices for the blocked variants
     sources = {'newton_kkt': 'awebox_tpu/parallel/batch.py:154',
                'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
                'lu_factor_cluster': 'awebox_tpu/parallel/batch.py:414',
-               'lu_factor_unblocked': 'awebox_tpu/parallel/batch.py:414',
+               'lu_factor_blocked': 'awebox_tpu/parallel/batch.py:414',
                'lu_solve_batched': 'awebox_tpu/parallel/batch.py:416',
                'ip_step': 'awebox_tpu/parallel/batch.py:189',
                'kkt_assemble': 'awebox_tpu/parallel/batch.py:333',
                'ruiz_scale': 'awebox_tpu/parallel/batch.py:375',
                'qr_factor_cluster': 'awebox_tpu/parallel/batch.py:382',
-               'qr_factor_global': 'awebox_tpu/parallel/batch.py:382',
+               'qr_factor_blocked': 'awebox_tpu/parallel/batch.py:382',
                'qr_solve_batched': 'awebox_tpu/parallel/batch.py:344'}
-    lu_slice_kernels = ('kkt_assemble_scaled', 'lu_factor_cluster', 'lu_factor_unblocked',
-                        'lu_solve_batched')
-    own = lambda k: launches_lu if k in lu_slice_kernels else launches_qr
+    own = {'kkt_assemble_scaled': launches_lu, 'lu_factor_cluster': launches_lu,
+           'lu_solve_batched': launches_lu, 'lu_factor_blocked': launches_lu8,
+           'qr_factor_blocked': launches_qr8}
+    phase('done', f'chip_smoke.py ran {time.time() - t_start:.1f} s')
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', source='awebox_tpu_torch/csrc/auglu.cu',
-             replaces=sources[k], launches=own(k)[k], launches_lu_slice=launches_lu[k],
-             launches_qr_slice=launches_qr[k], **report[k])
+             replaces=sources[k], launches=own.get(k, launches_qr)[k],
+             launches_lu_slice=launches_lu[k], launches_qr_slice=launches_qr[k],
+             launches_nk8_lu_slice=launches_lu8[k], launches_nk8_qr_slice=launches_qr8[k],
+             **report[k])
         for k in sources]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

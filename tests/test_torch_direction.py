@@ -217,7 +217,8 @@ def direction_at_the_anchor_matches_jax(factor):
                       kappa_mu=0.4, auglu_factor=factor)
     out_j = jax.jit(jax.vmap(lambda st, dv: dir_j(st, dv, lbw, ubw, free)))(
         state, tuple(derivs))
-    _, dir_t = make_t(torch_trial().ocp, kappa_mu=0.4, auglu_factor=factor)
+    _, dir_t = make_t(torch_trial().ocp, kkt='auglu', split=True, kappa_mu=0.4,
+                      auglu_factor=factor)
     as_t = lambda a: torch.as_tensor(a)
     out_t = dir_t({k: as_t(v) for k, v in state.items()}, tuple(as_t(d) for d in derivs),
                   as_t(lbw), as_t(ubw), as_t(free))

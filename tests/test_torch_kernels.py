@@ -458,6 +458,90 @@ def panel_qr_solve_mirror(qr, tau, v, nb=32):
     return y
 
 
+def panel_row_moves(piv, k0, w):
+    """csrc/auglu.cu's lu_swap_kernel bookkeeping: the w interchanges of rows
+    k0 + q and p_q (piv 1-based) as row moves, destination d taking the row
+    found by tracing d back through the swaps from the last one. Returns
+    (dst, src), 2 w entries each (a destination may repeat, with one
+    source)."""
+    p = [int(piv[k0 + q]) - 1 for q in range(w)]
+    dst = [k0 + q for q in range(w)] + p
+    src = []
+    for d in dst:
+        r = d
+        for q in reversed(range(w)):
+            r = p[q] if r == k0 + q else (k0 + q if r == p[q] else r)
+        src.append(r)
+    return torch.tensor(dst), torch.tensor(src)
+
+
+def blocked_lu_mirror(A, nb=32):
+    """Plain-PyTorch mirror of csrc/auglu.cu's blocked LU (lu_panel_kernel,
+    lu_swap_kernel, lu_update_kernel) on one (N, N) f32 matrix, with the
+    kernels' bookkeeping: per panel of nb columns the rows k0.. are factored
+    column by column (first largest |a|, a NaN never chosen, a column of
+    NaNs keeps the diagonal, whole panel rows swapped, no clamp of a zero
+    pivot); the panel's interchanges reach every other column as
+    panel_row_moves; U12 = L11^-1 A12; A22 -= L21 U12. Returns (lu, piv)
+    like lu_factor_ex."""
+    A = A.clone()
+    N = A.shape[0]
+    piv = torch.empty(N, dtype=torch.int32)
+    for k0 in range(0, N, nb):
+        w = min(nb, N - k0)
+        P = A[k0:, k0:k0 + w]
+        for k in range(w):
+            a = P[k:, k].abs()
+            a = torch.where(torch.isnan(a), torch.tensor(-1., dtype=a.dtype), a)
+            p = k + int(torch.argmax(a)) if float(a.max()) >= 0 else k
+            if p != k:
+                P[[k, p], :] = P[[p, k], :]
+            piv[k0 + k] = k0 + p + 1
+            P[k + 1:, k] = P[k + 1:, k] / P[k, k]
+            P[k + 1:, k + 1:] -= P[k + 1:, k:k + 1] * P[k:k + 1, k + 1:]
+        others = torch.cat([torch.arange(k0), torch.arange(k0 + w, N)])
+        dst, src = panel_row_moves(piv, k0, w)
+        A[dst[:, None], others[None, :]] = A[src[:, None], others[None, :]].clone()
+        if k0 + w < N:
+            A[k0:k0 + w, k0 + w:] = torch.linalg.solve_triangular(
+                A[k0:k0 + w, k0:k0 + w], A[k0:k0 + w, k0 + w:], upper=False, unitriangular=True)
+            A[k0 + w:, k0 + w:] -= A[k0 + w:, k0:k0 + w] @ A[k0:k0 + w, k0 + w:]
+    return A, piv
+
+
+def blocked_qr_mirror(A, nb=32):
+    """Plain-PyTorch mirror of csrc/auglu.cu's blocked QR (qr_panel_kernel,
+    qr_w_kernel, qr_update_kernel) on one (N, N) f32 matrix: per panel of nb
+    columns, rows k0.., a reflector at a time (larfg; each applied to the
+    panel's later columns where its tau is not 0), the Gram matrix
+    G = V^T V, T by larft's forward recurrence T[:k, k] = -tau_k T[:k, :k]
+    G[:k, k], then W = V^T A22, Y = T^T W and A22 -= V Y on rows k0.. of
+    the trailing columns. Returns (qr, tau) like torch.geqrf."""
+    A = A.clone()
+    N = A.shape[0]
+    tau = torch.zeros(N, dtype=A.dtype)
+    for k0 in range(0, N, nb):
+        w = min(nb, N - k0)
+        P = A[k0:, k0:k0 + w]
+        for k in range(w):
+            beta, t, v = larfg(P[k, k], P[k + 1:, k])
+            P[k, k], P[k + 1:, k], tau[k0 + k] = beta, v, t
+            if float(t) != 0. and k + 1 < w:
+                vv = torch.cat([torch.ones(1, dtype=A.dtype), v])
+                P[k:, k + 1:] -= t * vv[:, None] * (vv @ P[k:, k + 1:])[None, :]
+        if k0 + w < N:
+            V = torch.tril(P, diagonal=-1)
+            V[torch.arange(w), torch.arange(w)] = 1.
+            G = V.T @ V
+            T = torch.zeros(w, w, dtype=A.dtype)
+            for k in range(w):
+                T[k, k] = tau[k0 + k]
+                T[:k, k] = -tau[k0 + k] * (T[:k, :k] @ G[:k, k])
+            Y = T.T @ (V.T @ A[k0:, k0 + w:])
+            A[k0:, k0 + w:] -= V @ Y
+    return A, tau
+
+
 def qr_residual(M, v, x):
     """max |M x - v| / max |v| in f64, per lane."""
     r = (M.double() @ x.double()[..., None])[..., 0] - v.double()
@@ -604,20 +688,29 @@ def test_cluster_lu_mirror_tie_nan_and_singular():
     assert not bool(torch.isfinite(torch.linalg.lu_solve(lu_ref, piv_ref, b)).all())
 
 
-@pytest.mark.parametrize('N', [37, 130, 543, 577, 600, 1055])
+@pytest.mark.parametrize('N', [37, 130, 543, 577, 590, 600, 640, 700, 1055, 1300, 2000])
 def test_lu_factor_geometry(N):
     """The cluster variant at the slice's N=543 within one block's shared
-    memory, the unblocked one at the n_k=8 system's N=1055; a cluster
-    layout stays within a block's shared memory, covers all N columns
-    exactly once and fits each CTA's columns, and the kernel's compiled
-    limits hold (C <= 8, N <= 1024 panel rows in registers)."""
+    memory, the blocked one at the n_k=8 system's N=1055 and wherever a
+    lane no longer fits a cluster, a lane whose panel no block holds raises
+    by name; a cluster layout stays within a block's shared memory, covers
+    all N columns exactly once and fits each CTA's columns, and the kernel's
+    compiled limits hold (C <= 8, N <= 1024 panel rows in registers); a
+    blocked panel of 32 columns holds N rows at an odd leading dimension."""
     from awebox_tpu_torch.parallel import kernels
+    if N == 2000:
+        with pytest.raises(ValueError, match='lu_factor_batched: N=2000 fits no variant'):
+            kernels.lu_factor_geometry(N)
+        return
     g = kernels.lu_factor_geometry(N)
     if N == 543:
         assert g.variant == 'cluster' and g.C == 8 and g.nb == 16
-    if N == 1055:
-        assert g.variant == 'unblocked'
-    if g.variant == 'unblocked':
+    if N >= 590:
+        assert g.variant == 'blocked'
+    if g.variant == 'blocked':
+        assert (g.C, g.nb, g.cols_per_cta) == (1, 32, 32) == (1, kernels.BLOCKED_NB, kernels.BLOCKED_NB)
+        assert g.ld >= N and g.ld % 2 == 1 and g.smem_bytes == 4 * 32 * g.ld
+        assert g.smem_bytes + kernels.LU_STATIC_SMEM <= 232_448
         return
     assert g.smem_bytes + kernels.LU_STATIC_SMEM <= 232_448
     assert 1 <= g.C <= 8 and N <= 1024
@@ -697,22 +790,32 @@ def test_qr_mirrors_non_finite_lanes():
             kernels.qr_solve_batched_plain(qr_p, tau_p, ones[None])).all()), kind
 
 
-@pytest.mark.parametrize('N', [37, 130, 543, 590, 640, 700, 1055])
+@pytest.mark.parametrize('N', [37, 130, 543, 590, 640, 700, 1055, 1300, 2000])
 def test_qr_factor_geometry(N):
     """The cluster variant at the slice's N=543 within one block's shared
-    memory, the global one at the n_k=8 system's N=1055 and wherever a
+    memory, the blocked one at the n_k=8 system's N=1055 and wherever a
     warp's registers no longer hold a column (N > 640) or the lane no
-    longer fits the cluster; a cluster layout covers all N columns exactly
-    once, fits each CTA's columns beside the panel copy, and keeps the
-    float4 copy of the panel's rows inside a column (ld a multiple of 4,
-    >= N)."""
+    longer fits the cluster, a lane whose panel no block holds raises by
+    name; a cluster layout covers all N columns exactly once, fits each
+    CTA's columns beside the panel copy, and keeps the float4 copy of the
+    panel's rows inside a column (ld a multiple of 4, >= N); a blocked
+    panel of 32 columns holds N rows at an odd leading dimension beside the
+    kernel's static G and T."""
     from awebox_tpu_torch.parallel import kernels
+    if N == 2000:
+        with pytest.raises(ValueError, match='qr_factor_batched: N=2000 fits no variant'):
+            kernels.qr_factor_geometry(N)
+        return
     g = kernels.qr_factor_geometry(N)
     if N == 543:
         assert g.variant == 'cluster' and g.C == 8 and g.nb == 16
-    if N in (700, 1055):
-        assert g.variant == 'global'
-    if g.variant == 'global':
+    if N in (640, 700, 1055, 1300):
+        assert g.variant == 'blocked'
+    if g.variant == 'blocked':
+        assert (g.C, g.nb, g.cols_per_cta) == (1, 32, 32)
+        assert g.ld >= N and g.ld % 2 == 1 and g.smem_bytes == 4 * 32 * g.ld
+        assert g.smem_bytes + kernels.QR_PANEL_STATIC_SMEM <= 232_448
+        assert kernels.QR_PANEL_STATIC_SMEM >= 4 * (32 + 2 * 32 * 33)
         return
     assert N <= kernels.QR_ROW_MAX and g.ld <= kernels.QR_ROW_MAX
     assert g.smem_bytes + kernels.LU_STATIC_SMEM <= 232_448
@@ -727,6 +830,137 @@ def test_qr_factor_geometry(N):
             g0 = (lp * g.C + r) * g.nb
             seen += list(range(g0, min(N, g0 + g.nb)))
     assert sorted(seen) == list(range(N))
+
+
+@pytest.mark.parametrize('N', [130, 600, 1055])
+def test_blocked_lu_mirror_matches_lapack(N):
+    """The blocked LU kernels' algorithm (mirrored on the CPU: panels of 32,
+    the interchanges as composed row moves, U12 and the rank-32 update)
+    against LAPACK getrf on Gaussian f32 matrices: identical pivots, and
+    P L U reproducing A within 10x of LAPACK's own factor (f32 backward
+    error of partial pivoting, ~1e-5 of max |A| at N=1055). N mod 32 is 2,
+    24 and 31: the ragged last panel."""
+    for seed in (N, N + 1):
+        A = gaussian_lanes(1, N, seed=seed)[0][0]
+        lu, piv = blocked_lu_mirror(A)
+        lu_ref, piv_ref, _ = torch.linalg.lu_factor_ex(A)
+        assert torch.equal(piv, piv_ref), (N, seed)
+
+        def dev(lu_, piv_):
+            P, L, U = torch.lu_unpack(lu_, piv_)
+            return float((P @ L @ U - A).abs().max())
+        assert dev(lu, piv) <= 10 * max(dev(lu_ref, piv_ref), 1e-7 * float(A.abs().max()))
+
+
+def nk8_anchor_systems():
+    """K(delta_w) of the port's first iteration at the n_k=8 anchor
+    (tests/artifacts/bench_anchor_nk8_d3.npz: n=540, m=515, N=1055), two
+    lanes at 9.5 and 10.5 m/s, on the CPU: (Ks, kd) Jacobi-scaled for the
+    LU factor and the unscaled K for the QR factor, f32."""
+    import os
+    from awebox_tpu_torch.api.trial import Trial
+    from awebox_tpu_torch.configs import bench_options
+    from awebox_tpu_torch.ocp.structured import make_structured_derivs
+    from awebox_tpu_torch.parallel import kernels
+    from awebox_tpu_torch.parallel.refine import wind_sweep_problem
+    trial = Trial(bench_options(n_k=8), 'nk8').build()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'artifacts',
+                        'bench_anchor_nk8_d3.npz')
+    state, P64, lbw, ubw, free, _ = wind_sweep_problem(trial, dict(np.load(path)), 2,
+                                                       device='cpu')
+    vals_fn, jac_fn, hess_fn = make_structured_derivs(trial.ocp)
+    w, y, lam = state['w'], state['y'], state['lam']
+    dv = tuple(vals_fn(w, y, lam, P64)) + tuple(J.to(torch.float32) for J in jac_fn(w, P64)) \
+        + (hess_fn(w, y, lam, P64).to(torch.float32),)
+    scaled = kernels.newton_kkt_plain(state, dv, lbw, ubw, free, 1e-8, 1e-8, True)
+    unscaled = kernels.newton_kkt_plain(state, dv, lbw, ubw, free, 1e-8, 1e-8, False)
+    return scaled['Ks'], scaled['kd'], unscaled['K']
+
+
+def test_blocked_lu_mirror_pivots_on_the_nk8_anchor_system():
+    """On the n_k=8 anchor's Jacobi-scaled K (N=1055, cond ~1e9 after the
+    scaling) the blocked LU's pivots are LAPACK's in both lanes, and P L U
+    reproduces Ks within 10x of LAPACK's factor."""
+    Ks, _, K = nk8_anchor_systems()
+    assert Ks.shape == (2, 1055, 1055) and K.shape == Ks.shape
+    for b in range(2):
+        lu, piv = blocked_lu_mirror(Ks[b])
+        lu_ref, piv_ref, _ = torch.linalg.lu_factor_ex(Ks[b])
+        assert torch.equal(piv, piv_ref), b
+        P, L, U = torch.lu_unpack(lu, piv)
+        Pr, Lr, Ur = torch.lu_unpack(lu_ref, piv_ref)
+        assert float((P @ L @ U - Ks[b]).abs().max()) \
+            <= 10 * float((Pr @ Lr @ Ur - Ks[b]).abs().max())
+
+
+@pytest.mark.parametrize('N', [130, 600, 1055])
+def test_blocked_qr_mirror_matches_lapack(N):
+    """The blocked QR kernels' algorithm (mirrored on the CPU: the panel a
+    reflector at a time, G = V^T V, larft's T, A22 -= V T^T V^T A22) against
+    LAPACK's geqrf on the same Gaussian f32 input: R and the reflectors to
+    1e-4 of max |A|, tau to 1e-4, |diag R| to TOL_QR_DIAG of its maximum, and
+    Q R reproducing A within 10x of geqrf's own factor. N mod 32 is 2, 24
+    and 31: the ragged last panel."""
+    A = gaussian_lanes(1, N, seed=N)[0][0]
+    qr, tau = blocked_qr_mirror(A)
+    qr_p, tau_p = torch.geqrf(A)
+    amax = float(A.abs().max())
+    assert float((qr - qr_p).abs().max()) <= 1e-4 * amax
+    assert float((tau - tau_p).abs().max()) <= 1e-4
+    dk, dp = qr.diagonal().abs(), qr_p.diagonal().abs()
+    assert float((dk - dp).abs().max()) <= TOL_QR_DIAG * float(dp.max())
+
+    def dev(f, t):
+        return float((torch.linalg.householder_product(f, t) @ torch.triu(f) - A).abs().max())
+    assert dev(qr, tau) <= 10 * max(dev(qr_p, tau_p), 1e-7 * amax)
+
+
+def test_panel_row_moves_are_sequential_interchanges():
+    """The blocked LU's composed row moves equal LAPACK's interchanges of a
+    panel applied one by one: swaps that chain, land on one row, stay in the
+    panel or reach rows far below it."""
+    rng = np.random.default_rng(8)
+    for N, k0 in ((40, 0), (100, 32), (100, 96), (1055, 1024)):
+        for trial in range(20):
+            w = min(32, N - k0)
+            span = [1, 3, 40, N][trial % 4]
+            piv = torch.zeros(N, dtype=torch.int32)
+            for q in range(w):
+                piv[k0 + q] = k0 + q + 1 + int(rng.integers(0, min(span, N - k0 - q)))
+            ref = torch.arange(N)
+            for q in range(w):
+                p = int(piv[k0 + q]) - 1
+                ref[[k0 + q, p]] = ref[[p, k0 + q]]
+            dst, src = panel_row_moves(piv, k0, w)
+            moved = torch.arange(N)
+            moved[dst] = torch.arange(N)[src]
+            assert torch.equal(moved, ref), (N, k0, trial)
+
+
+def test_blocked_mirrors_non_finite_lanes():
+    """A singular lane (a zero column) and a lane with a NaN column give a
+    non-finite x through the blocked mirrors, as through LAPACK: nothing is
+    skipped, so the delta ladder sees the failure. The zero column leaves
+    tau = 0 and a zero on R's diagonal, as geqrf does, and a column of NaNs
+    keeps LU's diagonal as pivot from that column on."""
+    from awebox_tpu_torch.parallel import kernels
+    N = 100
+    ones = torch.ones(N)
+    for kind in ('singular', 'nan'):
+        A = separated_pivots(N, seed=12)
+        A[:, 70] = 0. if kind == 'singular' else float('nan')
+        lu, piv = blocked_lu_mirror(A)
+        assert not bool(torch.isfinite(torch.linalg.lu_solve(lu, piv, ones[:, None])).all()), kind
+        if kind == 'nan':
+            ref = torch.linalg.lu_factor_ex(separated_pivots(N, seed=12))[1]
+            assert torch.equal(piv[:70], ref[:70])
+            assert torch.equal(piv[70:], torch.arange(71, N + 1, dtype=torch.int32))
+        qr, tau = blocked_qr_mirror(A)
+        qr_p, tau_p = kernels.qr_factor_batched_plain(A[None])
+        if kind == 'singular':
+            assert float(tau[70]) == 0. == float(tau_p[0, 70])
+            assert float(qr[70, 70]) == 0. == float(qr_p[0, 70, 70])
+        assert not bool(torch.isfinite(panel_qr_solve_mirror(qr, tau, ones)).all()), kind
 
 
 @pytest.mark.parametrize('N', [37, 543, 1055, 1300])
@@ -990,16 +1224,20 @@ def plu_and_residual_gates(A, lu, piv, variant):
 
 @pytest.mark.cuda
 def test_lu_factor_cluster_matches_plain_on_card(cuda):
-    """The cluster variant of K2 against cuSOLVER and the CPU mirror of its
-    algorithm, at N = 37 and 543 and B = 1, 3 and 16: pivots equal to cuSOLVER's on matrices
-    with well-separated pivots, the P L U and scaled-residual gates, a
-    singular lane (a zero column) with a non-finite factor and solve, and a
-    lane with a NaN column whose pivots are the mirror's (the diagonal from
-    that column on). The counter of the cluster variant moves once per
-    factor. Then the unblocked variant at N=1055, B=2, which no cluster
-    holds."""
+    """Both variants of K2 against cuSOLVER and the CPU mirrors of their
+    algorithms: the cluster variant at N = 37 and 543, the blocked one at
+    N = 600 and 1055 (lanes no cluster holds), each at B = 1, 3 and 16:
+    pivots equal to cuSOLVER's on matrices with well-separated pivots, the
+    P L U and scaled-residual gates, a singular lane (a zero column) with a
+    non-finite solve (and, from the cluster variant, non-finite factors),
+    and a lane with a NaN column whose pivots are the mirror's (the diagonal
+    from that column on). The counter of the variant moves once per factor.
+    Then the blocked variant on Gaussian lanes at N=1055, B=2."""
     from awebox_tpu_torch.parallel import kernels
-    for N, B in ((N, B) for N in (37, 543) for B in (1, 3, 16)):
+    for N, B in ((N, B) for N in (37, 543, 600, 1055) for B in (1, 3, 16)):
+        variant = kernels.lu_factor_geometry(N).variant
+        assert variant == ('cluster' if N <= 543 else 'blocked')
+        mirror = cluster_lu_mirror if variant == 'cluster' else blocked_lu_mirror
         A = torch.stack([separated_pivots(N, seed=100 * B + b) for b in range(B)])
         bad = {}
         if B > 1:
@@ -1011,28 +1249,29 @@ def test_lu_factor_cluster_matches_plain_on_card(cuda):
         before = dict(kernels.LAUNCHES)
         lu, piv = kernels.lu_factor_batched(Ac.clone())
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES['lu_factor_cluster'] == before['lu_factor_cluster'] + 1
+        assert kernels.LAUNCHES[f'lu_factor_{variant}'] == before[f'lu_factor_{variant}'] + 1
         assert kernels.LAUNCHES['lu_factor_batched'] == before['lu_factor_batched'] + 1
         good = [b for b in range(B) if b not in bad]
         piv_p = kernels.lu_factor_batched_plain(Ac[good])[1]
-        assert torch.equal(piv[good], piv_p.contiguous())
+        assert torch.equal(piv[good], piv_p.contiguous()), (N, B)
         plu_and_residual_gates(Ac[good].contiguous(), lu[good].contiguous(),
-                               piv[good].contiguous(), 'cluster')
+                               piv[good].contiguous(), variant)
         for b, kind in bad.items():
             x = kernels.lu_solve_batched(lu[b:b + 1], piv[b:b + 1], torch.ones(1, N, device=cuda),
                                          torch.ones(1, N, device=cuda))
             assert not bool(torch.isfinite(x).all()), kind
-            if kind == 'singular':
+            if kind == 'singular' and variant == 'cluster':
                 assert not bool(torch.isfinite(lu[b]).all())
-            else:
-                assert torch.equal(piv[b].cpu(), cluster_lu_mirror(A[b])[1])
+            elif kind == 'nan':
+                assert torch.equal(piv[b].cpu(), mirror(A[b])[1]), (N, B)
     A = torch.as_tensor(np.random.default_rng(9).standard_normal((2, 1055, 1055)),
                         dtype=torch.float32, device=cuda)
     before = dict(kernels.LAUNCHES)
     lu, piv = kernels.lu_factor_batched(A.clone())
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES['lu_factor_unblocked'] == before['lu_factor_unblocked'] + 1
-    plu_and_residual_gates(A, lu, piv, 'unblocked')
+    assert kernels.LAUNCHES['lu_factor_blocked'] == before['lu_factor_blocked'] + 1
+    assert torch.equal(piv, kernels.lu_factor_batched_plain(A)[1].contiguous())
+    plu_and_residual_gates(A, lu, piv, 'blocked')
 
 
 @pytest.mark.cuda
@@ -1119,15 +1358,13 @@ def hold_qr_factor_and_solve(M, v, variant, tag=''):
 def test_qr_kernels_match_plain_on_card(cuda):
     """K5 (ruiz_scale) bit for bit with its plain version, NaN rows
     included; K6 in both variants (the cluster kernel at N = 37 and 543, the
-    global one at N = 1055) and K7 by the gates of hold_qr_factor_and_solve
+    blocked one at N = 1055) and K7 by the gates of hold_qr_factor_and_solve
     at B = 1, 3 and 16; a singular lane (a zero column: a zero on R's
     diagonal) and a lane with a NaN column give a non-finite solution, as
     with the library, and leave the other lanes alone. Each counter moves
     once per call."""
     from awebox_tpu_torch.parallel import kernels
     for N, B in ((N, B) for N in (37, 543, 1055) for B in (1, 3, 16)):
-        if N == 1055 and B == 16:
-            continue                  # the global variant takes ~0.1 s a lane
         A, _, v = gaussian_lanes(B, N, seed=N + B, device=cuda)
         A = A * torch.as_tensor(10.0 ** np.random.default_rng(N).uniform(-3, 3, (B, N, 1)),
                                 dtype=torch.float32, device=cuda)   # rows over six decades
@@ -1145,7 +1382,7 @@ def test_qr_kernels_match_plain_on_card(cuda):
         good = [b for b in range(B) if b not in bad]
         assert bool(torch.isfinite(M[good]).all())
         variant = kernels.qr_factor_geometry(N).variant
-        assert variant == ('global' if N == 1055 else 'cluster')
+        assert variant == ('blocked' if N == 1055 else 'cluster')
         hold_qr_factor_and_solve(M[good].contiguous(), v[good].contiguous(), variant, (N, B))
         if bad:
             qr, tau = kernels.qr_factor_batched(M)

@@ -24,28 +24,31 @@ ANCHOR = os.path.join(HERE, 'artifacts', 'bench_anchor_nk4_d3.npz')
 STATE_KEYS = ('w', 's', 'y', 'lam', 'zl', 'zu')
 
 
-def jax_bench_options():
+def jax_bench_options(n_k=4):
     sys.path.insert(0, os.path.join(ROOT, 'benchmarks'))
     from make_bench_anchor import bench_options
-    return bench_options()
+    return bench_options(n_k=n_k)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_trial():
+def jax_trial(n_k=4):
     from awebox_tpu.api.trial import Trial
-    return Trial(jax_bench_options(), 'parity').build()
+    return Trial(jax_bench_options(n_k), 'parity').build()
 
 
 @functools.lru_cache(maxsize=None)
-def torch_trial():
+def torch_trial(n_k=4):
     from awebox_tpu_torch.api.trial import Trial
     from awebox_tpu_torch.configs import bench_options
-    return Trial(bench_options(), 'parity').build()
+    return Trial(bench_options(n_k=n_k), 'parity').build()
 
 
 @functools.lru_cache(maxsize=None)
-def anchor():
-    return {k: np.asarray(v) for k, v in np.load(ANCHOR).items()}
+def anchor(n_k=4):
+    """The committed solved state of the bench configuration at n_k (4: the
+    main path's; 8: tests/artifacts/bench_anchor_nk8_d3.npz)."""
+    path = os.path.join(HERE, 'artifacts', f'bench_anchor_nk{n_k}_d3.npz')
+    return {k: np.asarray(v) for k, v in np.load(path).items()}
 
 
 def to_numpy_tree(tree):
@@ -69,14 +72,14 @@ def lanes(tree, B):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_sweep(B):
+def jax_sweep(B, n_k=4):
     """bench.py's scenario set-up on the JAX side: (state, P64, lbw, ubw,
     free), numpy. Mirrors awebox_tpu_torch.parallel.refine.wind_sweep_problem."""
     import copy
     from awebox_tpu.opti.homotopy import build_p_fix, final_bounds, final_cost_values
     from awebox_tpu.opti.initialization import build_initial_guess, build_reference
     from awebox_tpu.opti.ipsolver import InteriorPointSolver
-    trial = jax_trial()
+    trial = jax_trial(n_k)
     ocp = trial.ocp
     V0 = build_initial_guess(ocp)
     base_P = build_p_fix(ocp, build_reference(ocp, V0))
@@ -95,7 +98,7 @@ def jax_sweep(B):
                        'ref': np.asarray(base_P['ref']),
                        'weights': np.asarray(base_P['weights']), 'theta0': th})
     P64 = jax.tree_util.tree_map(lambda *xs: np.stack(xs), *p_list)
-    a = anchor()
+    a = anchor(n_k)
     state = {k: np.stack([a[k]] * B) for k in STATE_KEYS}
     state['mu'] = np.full(B, 1e-5)
     state['err'] = np.full(B, np.inf)
@@ -150,17 +153,60 @@ def test_unported_options_raise(path, value, what):
         Trial(options, 'refused').build()
 
 
+PORTED = dict(kkt='auglu', split=True)   # the path the port runs
+
+
 def test_unported_solver_modes_raise():
     from awebox_tpu_torch.parallel.batch import make_ip_step
     ocp = torch_trial().ocp
-    for kwargs in ({'kkt': 'block'}, {'auglu_mode': 'stale'}, {'auglu_mode': 'refresh'},
-                   {'split': False}):
+    for kwargs in ({'kkt': 'block'}, dict(PORTED, auglu_mode='stale'),
+                   dict(PORTED, auglu_mode='refresh'), {'kkt': 'auglu', 'split': False}):
         with pytest.raises(NotImplementedError):
             make_ip_step(ocp, **kwargs)
     with pytest.raises(ValueError, match='auglu_factor'):
-        make_ip_step(ocp, auglu_factor='cholesky')
+        make_ip_step(ocp, auglu_factor='cholesky', **PORTED)
     for factor in ('qr', 'lu'):
-        assert len(make_ip_step(ocp, auglu_factor=factor)) == 2
+        assert len(make_ip_step(ocp, auglu_factor=factor, **PORTED)) == 2
+
+
+@pytest.mark.parametrize('name', ['kkt', 'split', 'auglu_factor', 'auglu_mode', 'hessian',
+                                  'delta_w', 'delta_c', 'tau', 'kappa_mu', 'mu_min',
+                                  'n_ladder', 'ladder_factor'])
+def test_make_ip_step_has_the_reference_defaults(name):
+    """A caller who takes each package's defaults asks both for the same
+    algorithm: every parameter the two make_ip_step share has one default."""
+    import inspect
+    from awebox_tpu.parallel.batch import make_ip_step as make_j
+    from awebox_tpu_torch.parallel.batch import make_ip_step as make_t
+    default = lambda fn: inspect.signature(fn).parameters[name].default
+    assert default(make_t) == default(make_j)
+
+
+@pytest.mark.parametrize('kwargs, what', [
+    ({}, r"kkt='block' \(resolved from 'auto'\) is not ported"),
+    ({'split': True}, r"kkt='block' \(resolved from 'auto'\) is not ported"),
+    ({'kkt': 'block', 'split': True}, r"kkt='block' is not ported"),
+    ({'kkt': 'dense', 'split': True}, r"kkt='dense' is not ported"),
+    ({'kkt': 'auglu'}, r'split=False \(the fused step\) is not ported'),
+])
+def test_default_modes_raise_by_name(kwargs, what):
+    """With the reference's defaults the bench configuration resolves 'auto'
+    to 'block', which the port refuses by name, as it refuses 'dense' and
+    the fused step of split=False."""
+    from awebox_tpu_torch.parallel.batch import make_ip_step
+    with pytest.raises(NotImplementedError, match=what):
+        make_ip_step(torch_trial().ocp, **kwargs)
+
+
+def test_auto_resolves_as_in_the_reference(monkeypatch):
+    """'auto' picks the JAX package's mode for the bench configuration:
+    its make_ip_step, given the defaults, builds the block step."""
+    from awebox_tpu.parallel import batch as batch_j
+    from awebox_tpu_torch.parallel.batch import resolve_kkt
+    monkeypatch.setattr(batch_j, '_make_block_ip_step', lambda *a, **k: 'block')
+    assert batch_j.make_ip_step(jax_trial().ocp) == 'block'
+    assert resolve_kkt(torch_trial().ocp, 'auto') == 'block'
+    assert resolve_kkt(torch_trial().ocp, 'auglu') == 'auglu'
 
 
 def test_package_imports_no_jax():
