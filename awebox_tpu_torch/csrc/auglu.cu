@@ -1710,71 +1710,104 @@ __device__ __forceinline__ float warp_sum(float x) {
 //
 // What bounds it: operations (4/3 N^3 f32 per lane), but like the LU factor
 // it is held by its dependent chain: N reflectors, each a norm over a column
-// and then a product with every trailing column. The layout is K2's: a lane
-// is one cluster of C <= 8 CTAs whose shared memories hold it (whole
-// columns, column-major, panels of NB = 16 dealt block-cyclically), read
-// from HBM once and written once. Unlike LU there is no row swap, and a
-// reflector acts on a trailing column by one dot product and one update of
-// that column alone, so a warp that owns a column needs no block barrier:
-//   1. the owner factors its panel with a warp per column, each column in
-//      the warp's registers (K6_ROWS entries a lane): warp k forms
-//      reflector k (norm by shuffles), writes it to the panel, and after
-//      one block barrier the warps of the later columns apply it to theirs;
-//   2. cluster barrier; every CTA copies the panel's rows p0.. and its taus
-//      from the owner's shared memory (DSMEM);
-//   3. every warp takes K6_NC trailing columns of its CTA into registers
-//      and applies the panel's 16 reflectors to them in turn (each read
-//      once for the K6_NC columns; their dots reduce side by side by
-//      shuffles), with no barrier in between.
-// IEEE f32 FMA on the CUDA cores, as K2. What still bounds it (H100, N = 543,
-// phase cuts of awebox_tpu_torch/probes/qr_phases.py): the owner's panel,
-// two dependent shuffle reductions a column while seven CTAs wait, and the
-// trailing update's instruction count (a shared-memory load and two FMAs an
-// entry), not its arithmetic.
+// before the next can form. The layout is K2's: a lane is one cluster of
+// C <= 8 CTAs whose shared memories hold it (whole columns, column-major,
+// panels of NB = 16 dealt block-cyclically), read from HBM once and written
+// once. Per panel p (the owner o(p) = p % C):
+//   1. panel factor, on o(p): a warp per column, the column in the warp's
+//      registers (K6_ROWS entries a lane); warp k forms reflector k (norm by
+//      shuffles, larfg), writes it to the panel and, after one block barrier,
+//      the warps of the later columns apply it to theirs. Then the panel's
+//      Gram matrix G = V^T V (warp k: v_k from its registers against the
+//      stored v_j, j < k) and its 16 x 16 upper-triangular T by larft's
+//      forward recurrence (T[k][k] = tau_k, T[0:k, k] = -tau_k T[0:k, 0:k]
+//      G[0:k, k]; lane i of warp 0 keeps row i in registers) are published
+//      in s_T, the taus on its diagonal;
+//   2. every CTA with trailing columns copies the panel's reflectors from
+//      o(p)'s shared memory (DSMEM), masked (an explicit 1 on the diagonal,
+//      zeros above it and past the panel's w columns), as rows of 16 in Vs,
+//      and T into s_Tl;
+//   3. compact-WY trailing update (k6_wy): a warp takes one column into
+//      registers; W = V^T a is one pass over the rows with 16 accumulators,
+//      whose 16 sums reduce side by side (a reduce-scatter of 16
+//      shuffles leaves W[i] on lanes 2i, 2i+1), then Y = T^T W (lane 2k
+//      forms Y[k] from the 16 W[i] by shuffles) and a -= V Y in a second
+//      pass. No dependent reduction per reflector. Vs holds rows of 16, so a
+//      lane reads its row's 16 reflector entries as 4 float4 at offsets
+//      fixed at compile time (4 address registers where 16 columns would
+//      need 16), swizzled so that a warp's rows hit every bank group.
+// Look-ahead, on a split cluster barrier (barrier.cluster.arrive.release /
+// wait.acquire), one phase per panel: phase p + 1 completes when every CTA
+// has copied panel p and o(p + 1) has published panel p + 1. A CTA waits for
+// phase p, copies panel p and arrives; o(p + 1) first applies panel p to its
+// 16 columns of panel p + 1 (in registers, which its panel factor then
+// takes), factors panel p + 1, forms and publishes its T, and only then
+// arrives. The other trailing columns of every CTA are updated after the
+// arrive, so they run in the shadow of the next panel's factor: the chain per
+// panel is one copy, one 16-column update and one panel factor.
+// Hazards. Every CTA arrives once and waits once a panel, in order; the last
+// wait and a cluster.sync() precede the store, so no CTA leaves while another
+// may read its shared memory. Readers take V from the owner's columns, which
+// no one writes after their panel, and T from the owner's s_T before they
+// arrive; an owner rewrites s_T (taus, G, then T) only for its next panel,
+// p + C, after waiting for phase p + C - 1 >= p + 1, which every reader of
+// panel p has arrived at. So s_T needs no second buffer (C >= 2 wherever
+// there are two panels). Vs and s_Tl are the CTA's own, rewritten after a
+// block barrier.
+// Registers: __launch_bounds__(512, 1) allows 128 a thread. A warp updates
+// one column at a time (K6_ROWS = 20 entries and its 16 sums): ptxas -v reads
+// 128 registers and 24 bytes of spill stores for one column and for two side
+// by side alike (16 with the update cut out), and 1.3 KB for three; one runs
+// 0.6% faster than two (the update is hidden behind the chain).
+// IEEE f32 FMA on the CUDA cores; sums in a fixed order, nothing atomic.
+// What bounds it (H100, N = 543, phase cuts of
+// awebox_tpu_torch/probes/qr_phases.py; PERF.md): the chain of panel factors,
+// ~0.95 us a column (a norm and a dot, each a 5-level shuffle reduction,
+// larfg and a block barrier), half of the 1.02 ms at B = 1; the other half is
+// the copy, the 16-column update, G, T and the cluster phases between panels.
+// A barrier per column beats per-column flags (release/acquire, no block
+// barrier), which ran 4% slower. The H100 runs 15 clusters of 8 (or of 7) at
+// once, so B = 16 takes two waves.
 // ---------------------------------------------------------------------------
 constexpr int K6_THREADS = 512;
 constexpr int K6_WARPS = K6_THREADS / 32;
 constexpr int K6_NB = 16;
 constexpr int K6_ROWS = 20;           // column entries a lane holds: N <= 640
-constexpr int K6_NC = 3;              // trailing columns a warp updates side by side
 constexpr int K6_ROWSTEP = K6_THREADS / K6_NB;
 static_assert(K6_WARPS == K6_NB, "a warp per panel column");
+
+__device__ __forceinline__ void k6_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void k6_cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 // A warp holds a column as a[t] = row wl + 32 t, t = T0 .. K6_ROWS - 1: T0 is
 // compiled in (the panels' first row p0 rounded down to 128 rows, see
 // k6_panels), so every loop over t unrolls without a branch; rows outside
 // p0..N-1 hold zeros and meet zeros of v.
 //
-// Reflector k (global column and row gk) applied to the NC columns a warp
-// holds: a_q -= tau v (v^T a_q), v read once from the panel column V
-// (implied 1 at gk, zeros above). The NC dot products reduce side by side,
-// so their shuffles overlap.
-template <int NC, int T0>
-__device__ __forceinline__ void k6_apply(float (&a)[NC][K6_ROWS], const float* __restrict__ V,
+// Reflector k (global column and row gk) applied to the column a warp holds:
+// a -= tau v (v^T a), v read once from the panel column V (implied 1 at gk,
+// zeros above). The panel factor's step.
+template <int T0>
+__device__ __forceinline__ void k6_apply(float (&a)[K6_ROWS], const float* __restrict__ V,
                                          float tau, int gk, int N, int wl) {
   float v[K6_ROWS];
-  float dot[NC][2];
-#pragma unroll
-  for (int q = 0; q < NC; ++q) dot[q][0] = dot[q][1] = 0.0f;
+  float dot[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int t = T0; t < K6_ROWS; ++t) {
     const int r = wl + 32 * t;
     v[t] = (r > gk && r < N) ? V[r] : (r == gk ? 1.0f : 0.0f);
-#pragma unroll
-    for (int q = 0; q < NC; ++q) dot[q][t & 1] = fmaf(v[t], a[q][t], dot[q][t & 1]);
+    dot[t & 1] = fmaf(v[t], a[t], dot[t & 1]);
   }
+  dot[0] += dot[1];
+  for (int off = 16; off > 0; off >>= 1) dot[0] += __shfl_xor_sync(FULL_MASK, dot[0], off);
+  const float f = tau * dot[0];
 #pragma unroll
-  for (int q = 0; q < NC; ++q) dot[q][0] += dot[q][1];
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int q = 0; q < NC; ++q) dot[q][0] += __shfl_xor_sync(FULL_MASK, dot[q][0], off);
-  }
-#pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    const float f = tau * dot[q][0];
-#pragma unroll
-    for (int t = T0; t < K6_ROWS; ++t) a[q][t] = fmaf(-f, v[t], a[q][t]);
-  }
+  for (int t = T0; t < K6_ROWS; ++t) a[t] = fmaf(-f, v[t], a[t]);
 }
 
 // a warp's column, rows p0..N-1 (padded rows of the column hold zeros)
@@ -1798,36 +1831,123 @@ __device__ __forceinline__ void k6_store(const float (&a)[K6_ROWS], float* __res
   }
 }
 
-// The panel's w reflectors (V: [w][ld], taus tl) applied, one after the
-// other, to the NC trailing columns col0, col0 + stride, .. of a warp (those
-// below ncols), which stay in registers in between.
-template <int NC, int T0>
-__device__ __forceinline__ void k6_trailing(float* __restrict__ As, int ld, int col0, int stride,
-                                            int ncols, const float* __restrict__ V,
-                                            const float* tl, int w, int p0, int N, int wl) {
-  float a[NC][K6_ROWS];
+// One step of k6_reduce_scatter: a lane keeps H of its 2H sums (the upper
+// half where bit 2H of its lane is set) and adds its partner's halves.
+template <int H>
+__device__ __forceinline__ void k6_halve(float (&x)[K6_NB], int wl) {
+  const bool hi = (wl & (2 * H)) != 0;
 #pragma unroll
-  for (int q = 0; q < NC; ++q) {   // a column past ncols reads a valid one and is not stored
-    k6_load<T0>(a[q], As + (size_t)min(col0 + q * stride, ncols - 1) * ld, p0, N, wl);
-  }
-  for (int k = 0; k < w; ++k) k6_apply<NC, T0>(a, V + (size_t)k * ld, tl[k], p0 + k, N, wl);
-#pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    if (col0 + q * stride < ncols) k6_store<T0>(a[q], As + (size_t)(col0 + q * stride) * ld, p0, N, wl);
+  for (int i = 0; i < H; ++i) {
+    const float send = hi ? x[i] : x[i + H];
+    const float keep = hi ? x[i + H] : x[i];
+    x[i] = keep + __shfl_xor_sync(FULL_MASK, send, 2 * H);
   }
 }
 
-// Householder QR of the owner's panel: columns P + k*ld (k < w), global rows
-// p0..N-1, a warp per column. Taus go to s_tau (read by the cluster) and tl.
+// 16 partial sums a lane -> their warp sums, lane l keeping sum (l >> 1):
+// each step hands half of what a lane holds to its partner (16 shuffles in
+// all where a butterfly over each sum would take 80); the order is fixed.
+__device__ __forceinline__ float k6_reduce_scatter(float (&x)[K6_NB], int wl) {
+  k6_halve<8>(x, wl);
+  k6_halve<4>(x, wl);
+  k6_halve<2>(x, wl);
+  k6_halve<1>(x, wl);
+  return x[0] + __shfl_xor_sync(FULL_MASK, x[0], 1);
+}
+
+// Vs holds row r of the panel's masked reflectors as 4 float4, chunk q at
+// position q ^ ((r >> 1) & 3): lanes at 8 consecutive rows then read a chunk
+// from 8 different bank groups. Row r = wl + 32 t keeps (r >> 1) & 3 of wl.
+__device__ __forceinline__ int k6_vs_chunk(int r, int q) { return q ^ ((r >> 1) & 3); }
+
+// The panel's reflectors (Vs, masked, rows of 16) and T (Tl, row-major)
+// applied to the column a warp holds, as one block reflector:
+// a -= V (T^T (V^T a)).
 template <int T0>
-__device__ __forceinline__ void qr_panel(float* __restrict__ P, int ld, int p0, int w, int N,
-                                         float* s_tau, float* __restrict__ tl) {
+__device__ __forceinline__ void k6_wy(float (&a)[K6_ROWS], const float* __restrict__ Vs,
+                                      const float* __restrict__ Tl, int N, int wl) {
+  float x[K6_NB];
+#pragma unroll
+  for (int k = 0; k < K6_NB; ++k) x[k] = 0.0f;
+  const float4* V4 = reinterpret_cast<const float4*>(Vs);
+  const int sw = (wl >> 1) & 3;
+  // W = V^T a: 16 sums a column in one pass over the rows
+#pragma unroll
+  for (int t = T0; t < K6_ROWS; ++t) {
+    const int r = wl + 32 * t;
+    if (r < N) {
+#pragma unroll
+      for (int c = 0; c < K6_NB / 4; ++c) {
+        const float4 v = V4[4 * r + (c ^ sw)];
+        x[4 * c] = fmaf(v.x, a[t], x[4 * c]);
+        x[4 * c + 1] = fmaf(v.y, a[t], x[4 * c + 1]);
+        x[4 * c + 2] = fmaf(v.z, a[t], x[4 * c + 2]);
+        x[4 * c + 3] = fmaf(v.w, a[t], x[4 * c + 3]);
+      }
+    }
+  }
+  // lanes 2i, 2i + 1 hold W[i]; lane l forms Y[l >> 1] = sum_{i <= l >> 1} T[i][l >> 1] W[i]
+  const float wi = k6_reduce_scatter(x, wl);
+  float y = 0.0f;
+  const int kk = wl >> 1;
+#pragma unroll
+  for (int i = 0; i < K6_NB; ++i) {
+    const float tik = Tl[i * K6_NB + kk];      // zero below the diagonal
+    y = fmaf(tik, __shfl_sync(FULL_MASK, wi, 2 * i), y);
+  }
+#pragma unroll
+  for (int k = 0; k < K6_NB; ++k) x[k] = __shfl_sync(FULL_MASK, y, 2 * k);
+  // a -= V Y
+#pragma unroll
+  for (int t = T0; t < K6_ROWS; ++t) {
+    const int r = wl + 32 * t;
+    if (r < N) {
+#pragma unroll
+      for (int c = 0; c < K6_NB / 4; ++c) {
+        const float4 v = V4[4 * r + (c ^ sw)];
+        a[t] = fmaf(-x[4 * c], v.x, a[t]);
+        a[t] = fmaf(-x[4 * c + 1], v.y, a[t]);
+        a[t] = fmaf(-x[4 * c + 2], v.z, a[t]);
+        a[t] = fmaf(-x[4 * c + 3], v.w, a[t]);
+      }
+    }
+  }
+}
+
+// The current panel applied to ncols local columns A, A + ld, .. (rows
+// p0..N-1): warp u takes columns u, u + 16, .., each read into registers
+// once and written back once.
+template <int T0>
+__device__ __forceinline__ void k6_update(float* __restrict__ A, int ld, int ncols,
+                                          const float* __restrict__ Vs,
+                                          const float* __restrict__ Tl, int p0, int N) {
   const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  float a1[1][K6_ROWS];
-  float (&a)[K6_ROWS] = a1[0];
-  k6_load<T0>(a, P + (size_t)min(warp, w - 1) * ld, p0, N, wl);   // warps past w idle
+  for (int c = warp; c < ncols; c += K6_WARPS) {
+    float a[K6_ROWS];
+    k6_load<T0>(a, A + (size_t)c * ld, p0, N, wl);
+    k6_wy<T0>(a, Vs, Tl, N, wl);
+    k6_store<T0>(a, A + (size_t)c * ld, p0, N, wl);
+  }
+}
+
+// Householder QR of a panel: local columns P + k * ld (k < w), global columns
+// and diagonal rows g0 + k, a warp per column held in registers from row lo
+// (<= g0) on. With Vs, each column first takes the previous panel's block
+// reflector (Vs, Tl) in registers: the look-ahead. Then G and T into Tp
+// (published; the taus on its diagonal, also written to tl).
+template <int T0>
+__device__ __forceinline__ void k6_factor(float* __restrict__ P, int ld, int lo, int g0, int w,
+                                          int N, const float* __restrict__ Vs,
+                                          const float* __restrict__ Tl, float* __restrict__ Tp,
+                                          float* __restrict__ tl) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  float a[K6_ROWS];
+  if (warp < w) {                       // warps past w idle
+    k6_load<T0>(a, P + (size_t)warp * ld, lo, N, wl);
+    if (Vs != nullptr) k6_wy<T0>(a, Vs, Tl, N, wl);
+  }
   for (int k = 0; k < w; ++k) {
-    const int gk = p0 + k;
+    const int gk = g0 + k;
     if (warp == k) {
       float mine = 0.0f, x2[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -1845,62 +1965,120 @@ __device__ __forceinline__ void qr_panel(float* __restrict__ P, int ld, int p0, 
         const int r = wl + 32 * t;
         a[t] = r == gk ? beta : (r > gk ? a[t] * scale : a[t]);
       }
-      k6_store<T0>(a, P + (size_t)k * ld, p0, N, wl);
-      if (wl == 0) { s_tau[k] = tau; tl[gk] = tau; }
+      k6_store<T0>(a, P + (size_t)k * ld, lo, N, wl);
+      if (wl == 0) {
+        Tp[k * K6_NB + k] = tau;
+        tl[gk] = tau;
+      }
     }
     __syncthreads();                    // reflector k is in the panel
-    if (warp > k && warp < w) k6_apply<1, T0>(a1, P + (size_t)k * ld, s_tau[k], gk, N, wl);
+    if (warp > k && warp < w) k6_apply<T0>(a, P + (size_t)k * ld, Tp[k * K6_NB + k], gk, N, wl);
   }
+  // G[j][k] = v_j^T v_k (j < k) over rows gk.. (v_k: an implied 1 at gk, from
+  // this warp's registers; v_j: the stored panel), into Tp's upper triangle
+  if (warp < w) {
+    const int gk = g0 + warp;
+    float g[K6_NB];
+#pragma unroll
+    for (int t = T0; t < K6_ROWS; ++t) {   // a becomes v_k
+      const int r = wl + 32 * t;
+      a[t] = r > gk ? a[t] : (r == gk ? 1.0f : 0.0f);
+    }
+#pragma unroll
+    for (int j = 0; j < K6_NB; ++j) {
+      g[j] = 0.0f;
+      if (j < warp) {                   // uniform: warp k reads k stored columns
+#pragma unroll
+        for (int t = T0; t < K6_ROWS; ++t) {
+          const int r = wl + 32 * t;
+          if (r < N) g[j] = fmaf(P[(size_t)j * ld + r], a[t], g[j]);
+        }
+      }
+    }
+    const float gj = k6_reduce_scatter(g, wl);   // G[wl >> 1][warp]
+    if ((wl & 1) == 0 && (wl >> 1) < warp) Tp[(wl >> 1) * K6_NB + warp] = gj;
+  }
+  __syncthreads();
+  if (warp == 0 && wl < K6_NB) {        // lane i: row i of T, from G and the taus in Tp
+    const int i = wl;
+    float tr[K6_NB];
+#pragma unroll
+    for (int k = 0; k < K6_NB; ++k) {
+      float s[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < k; ++j) {
+        if (j >= i) s[j & 1] = fmaf(tr[j], Tp[j * K6_NB + k], s[j & 1]);
+      }
+      const float tk = Tp[k * K6_NB + k];
+      tr[k] = k >= w ? 0.0f : (i < k ? -tk * (s[0] + s[1]) : (i == k ? tk : 0.0f));
+    }
+    __syncwarp(0xffffu);                // every lane has read G before T replaces it
+#pragma unroll
+    for (int k = 0; k < K6_NB; ++k) Tp[i * K6_NB + k] = tr[k];
+  }
+  __syncthreads();
 }
 
 // What a CTA of the cluster kernel knows of its lane
 struct K6Lane {
   float* As;        // [cols][ld] this CTA's columns
-  float* Vs;        // [NB][ld] the current panel's reflectors
-  float* s_tau;     // [NB] taus of the panel this CTA factored last
-  float* s_tl;      // [NB] taus of the current panel, local copy
+  float* Vs;        // [ld][NB] the current panel's masked reflectors, rows of 16
+  float* Tp;        // [NB][NB] T of the panel this CTA factored last (published)
+  float* Tl;        // [NB][NB] T of the current panel, local copy
   float* tl;        // (N,) the lane's taus
-  int N, ld, C, rank, ncl;
+  int N, ld, C, rank, ncl, n_panels;
 };
 
-// Panels p_begin .. p_end - 1, whose first rows lie in 32 T0 .. 32 T0 + 127
+// Panels p_begin .. p_end - 1, whose first rows lie in 32 T0 .. 32 T0 + 127.
+// On entry the CTA has arrived at the phase of panel p_begin.
 template <int T0>
 __device__ __forceinline__ void k6_panels(cg::cluster_group& cluster, const K6Lane& L,
                                           int p_begin, int p_end) {
-  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int tid = threadIdx.x;
   const int N = L.N, ld = L.ld, C = L.C, rank = L.rank;
-  const int Nr = (N + 3) & ~3;        // rows the float4 copy covers (<= ld)
   for (int p = p_begin; p < p_end; ++p) {
     const int owner = p % C;
     const int lpo = p / C;               // the panel's local index on its owner
     const int p0 = p * K6_NB;
     const int w = min(K6_NB, N - p0);
-    if (rank == owner) qr_panel<T0>(L.As + (size_t)lpo * K6_NB * ld, ld, p0, w, N, L.s_tau, L.tl);
-    cluster.sync();
-
     // trailing columns: the local panels after panel p
     const int lp_start = (p < rank) ? 0 : (p - rank) / C + 1;
     const int c0 = lp_start * K6_NB;
     const int ntc = L.ncl - c0;
+    // this CTA owns panel p + 1: then it is local panel lp_start
+    const bool next = p + 1 < L.n_panels && rank == (p + 1) % C;
+    k6_cluster_wait();                  // panel p is published
     if (ntc > 0) {                      // uniform over the CTA
-      // taus and rows p0..Nr-1 of the panel from the owner's shared memory,
-      // a warp per column
+      // rows 32 T0..N-1 of the panel, a thread per row, masked; and T
       const float* rP = cluster.map_shared_rank(L.As, owner) + (size_t)lpo * K6_NB * ld;
-      const float* rtau = cluster.map_shared_rank(L.s_tau, owner);
-      if (tid < w) L.s_tl[tid] = rtau[tid];
-      if (warp < w) {
-        const float4* s4 = reinterpret_cast<const float4*>(rP + (size_t)warp * ld);
-        float4* d4 = reinterpret_cast<float4*>(L.Vs + (size_t)warp * ld);
-        for (int q = (p0 >> 2) + wl; q < (Nr >> 2); q += 32) d4[q] = s4[q];
+      const float* rT = cluster.map_shared_rank(L.Tp, owner);
+      for (int r = 32 * T0 + tid; r < N; r += K6_THREADS) {
+        float v[K6_NB];
+#pragma unroll
+        for (int k = 0; k < K6_NB; ++k) {
+          const int gk = p0 + k;
+          v[k] = (k < w && r > gk) ? rP[(size_t)k * ld + r] : ((k < w && r == gk) ? 1.0f : 0.0f);
+        }
+        float4* d4 = reinterpret_cast<float4*>(L.Vs) + 4 * r;
+#pragma unroll
+        for (int c = 0; c < K6_NB / 4; ++c) {
+          d4[k6_vs_chunk(r, c)] = make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+        }
       }
+      if (tid < K6_NB * K6_NB) L.Tl[tid] = rT[tid];
       __syncthreads();
-      // warp u takes the trailing columns u, u + 16, ..: K6_NC at a time
-      for (int c = warp; c < ntc; c += K6_WARPS * K6_NC) {
-        k6_trailing<K6_NC, T0>(L.As + (size_t)c0 * ld, ld, c, K6_WARPS, ntc, L.Vs, L.s_tl, w,
-                               p0, N, wl);
-      }
     }
-    __syncthreads();                    // this CTA's columns are updated before its next panel
+    int done = 0;                       // local trailing columns updated before the arrive
+    if (next) {
+      const int w1 = min(K6_NB, N - p0 - K6_NB);
+      k6_factor<T0>(L.As + (size_t)c0 * ld, ld, p0, p0 + K6_NB, w1, N, L.Vs, L.Tl, L.Tp, L.tl);
+      done = K6_NB;
+    }
+    k6_cluster_arrive();                // panel p is copied, panel p + 1 published if ours
+    if (ntc > done) {
+      k6_update<T0>(L.As + (size_t)(c0 + done) * ld, ld, ntc - done, L.Vs, L.Tl, p0, N);
+    }
+    __syncthreads();                    // Vs and Tl are free for the next panel
   }
 }
 
@@ -1908,8 +2086,8 @@ __global__ void __launch_bounds__(K6_THREADS, 1)
 qr_factor_cluster_kernel(const float* __restrict__ M, float* __restrict__ qr,
                          float* __restrict__ tau, int N, int ld, int cols) {
   extern __shared__ float4 k6_dyn[];
-  __shared__ float s_tau[K6_NB];
-  __shared__ float s_tl[K6_NB];
+  __shared__ float s_T[K6_NB * K6_NB];
+  __shared__ float s_Tl[K6_NB * K6_NB];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.dim_blocks().x;
   const int rank = (int)cluster.block_rank();
@@ -1922,8 +2100,8 @@ qr_factor_cluster_kernel(const float* __restrict__ M, float* __restrict__ qr,
   const int n_local = (n_panels - rank + C - 1) / C;
   const int lc = tid % K6_NB, li = tid / K6_NB;   // the load's column and first row
   // the last local panel is padded with zero columns
-  const K6Lane L = {As, As + (size_t)cols * ld, s_tau, s_tl, tau + (size_t)lane * N,
-                    N, ld, C, rank, n_local * K6_NB};
+  const K6Lane L = {As, As + (size_t)cols * ld, s_T, s_Tl, tau + (size_t)lane * N,
+                    N, ld, C, rank, n_local * K6_NB, n_panels};
 
   // load: column lp*NB + lc holds global column j; rows N..ld-1 are zero
   for (int lp = 0; lp < n_local; ++lp) {
@@ -1940,12 +2118,16 @@ qr_factor_cluster_kernel(const float* __restrict__ M, float* __restrict__ qr,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
+  // panel 0 (rank 0's local panel 0) before the first phase
+  if (rank == 0) k6_factor<0>(As, ld, 0, 0, min(K6_NB, N), N, nullptr, nullptr, s_T, L.tl);
+  k6_cluster_arrive();
   // eight panels of 16 columns start within the same 128 rows: T0 = 0, 4, ..
   k6_panels<0>(cluster, L, 0, min(8, n_panels));
   k6_panels<4>(cluster, L, 8, min(16, n_panels));
   k6_panels<8>(cluster, L, 16, min(24, n_panels));
   k6_panels<12>(cluster, L, 24, min(32, n_panels));
   k6_panels<16>(cluster, L, 32, n_panels);
+  k6_cluster_wait();
   cluster.sync();   // no CTA leaves while another may still read its shared memory
 
   for (int lp = 0; lp < n_local; ++lp) {

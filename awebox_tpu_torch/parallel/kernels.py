@@ -39,7 +39,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -709,6 +709,7 @@ def qr_factor_batched_plain(M):
 
 QR_NB = 16                  # panel width of the cluster kernel (K6_NB): a warp per column
 QR_ROW_MAX = 640            # rows a warp holds in registers (32 * K6_ROWS)
+QR_CLUSTER_STATIC_SMEM = 2_560   # room for the cluster kernel's static arrays (2048 B)
 
 
 class QRGeometry(NamedTuple):
@@ -726,19 +727,33 @@ class QRGeometry(NamedTuple):
     smem_bytes: int
 
 
-def qr_factor_geometry(N: int) -> QRGeometry:
-    """K6's variant and layout for N x N lanes: the cluster variant when a
-    lane fits the shared memory of LU_CLUSTER_MAX CTAs and a warp's
-    registers hold a column, else the blocked one while a panel's N rows fit
-    one block's; beyond that it raises."""
+def qr_cluster_layout(N: int, C: int) -> Optional[QRGeometry]:
+    """K6's cluster layout for N x N lanes on clusters of C CTAs (fewer where
+    the lane has fewer panels), or None where a warp's registers do not hold
+    a column or a CTA's columns, the panel copy and the static arrays do not
+    fit one block's shared memory."""
+    if N > QR_ROW_MAX:
+        return None
     panels = -(-N // QR_NB)
-    C = min(LU_CLUSTER_MAX, panels)
+    C = min(C, panels)
     cols = -(-panels // C) * QR_NB
     ld = -(-N // 4) * 4           # float4 rows of the panel copy
     # f32: the CTA's columns and the current panel's reflectors
     smem = 4 * (cols * ld + QR_NB * ld)
-    if N <= QR_ROW_MAX and smem + LU_STATIC_SMEM <= SMEM_PER_BLOCK:
-        return QRGeometry('cluster', C, QR_NB, cols, ld, smem)
+    if smem + QR_CLUSTER_STATIC_SMEM > SMEM_PER_BLOCK:
+        return None
+    return QRGeometry('cluster', C, QR_NB, cols, ld, smem)
+
+
+def qr_factor_geometry(N: int) -> QRGeometry:
+    """K6's variant and layout for N x N lanes: the cluster variant on
+    LU_CLUSTER_MAX CTAs where the lane fits them (at N=543 a cluster of 7
+    needs the same shared memory a CTA, and the H100 runs 15 clusters at
+    once of either size: PERF.md), else the blocked one while a panel's N
+    rows fit one block's shared memory; beyond that it raises."""
+    geom = qr_cluster_layout(N, LU_CLUSTER_MAX)
+    if geom is not None:
+        return geom
     lds = blocked_lds(N)
     smem = 4 * BLOCKED_NB * lds
     if smem + QR_PANEL_STATIC_SMEM > SMEM_PER_BLOCK:

@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Where K6 and K7 (awebox_tpu_torch/csrc/auglu.cu: qr_factor_cluster_kernel,
-qr_solve_kernel) spend their time on the card: phase-cut copies of the source
-are compiled side by side (one nvcc each, all at once) and timed queued
-behind a device sleep on Gaussian lanes at N=543, B = 1 and 16. A cut removes
-one phase; its results are wrong, its time says what the phase costs. Each
-cut names the source text it replaces and fails loudly when the kernel has
-changed under it.
+"""Where K6's cluster variant and K7 (awebox_tpu_torch/csrc/auglu.cu:
+qr_factor_cluster_kernel, qr_solve_kernel) spend their time on the card:
+phase-cut copies of the source are compiled side by side (one nvcc each, all
+at once) and timed queued behind a device sleep on Gaussian lanes at N=543,
+B = 1, 16 and 128. A cut removes one phase; its results are wrong, its time
+says what the phase costs. Each cut names the source text it replaces and
+fails loudly when the kernel has changed under it. With --parent, the
+cluster factor of the tree at --parent (a parent commit unpacked with
+``git archive`` into a directory that .gitignore lists) is timed in the same
+call, in turns with this tree's (parent, this, this, parent):
 
-    python3 awebox_tpu_torch/probes/qr_phases.py
+    mkdir -p _archive/parent
+    git archive <parent> awebox_tpu_torch tests/artifacts | tar -x -C _archive/parent
+    python3 awebox_tpu_torch/probes/qr_phases.py --parent _archive/parent
 
-Prints the card, then one line per shape and variant. Needs a CUDA card and
-nvcc; takes about a minute.
+Prints the card, the registers of the kernels (nvcc -Xptxas -v), the
+clusters of K6's geometry that run at once for each cluster size that fits
+N=543, whether this tree's factor holds geqrf's |diag R| and solve residual,
+then one line per shape and variant. Needs a CUDA card and nvcc; takes
+about two minutes.
 """
+import argparse
 import ctypes
+import importlib.util
 import os
+import re
 import subprocess
 import sys
 
@@ -23,23 +34,40 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
 from awebox_tpu_torch.parallel import kernels  # noqa: E402
 
+K6_W_PASS = [
+    ('        x[4 * c] = fmaf(v.x, a[t], x[4 * c]);', ''),
+    ('        x[4 * c + 1] = fmaf(v.y, a[t], x[4 * c + 1]);', ''),
+    ('        x[4 * c + 2] = fmaf(v.z, a[t], x[4 * c + 2]);', ''),
+    ('        x[4 * c + 3] = fmaf(v.w, a[t], x[4 * c + 3]);', '')]
+K6_UPDATE = [
+    ('        a[t] = fmaf(-x[4 * c], v.x, a[t]);', ''),
+    ('        a[t] = fmaf(-x[4 * c + 1], v.y, a[t]);', ''),
+    ('        a[t] = fmaf(-x[4 * c + 2], v.z, a[t]);', ''),
+    ('        a[t] = fmaf(-x[4 * c + 3], v.w, a[t]);', '')]
 # variant -> [(text in csrc/auglu.cu, replacement)]; every text must occur once
 CUTS = {
     'whole': [],
-    'K6: no trailing update': [
-        ('  for (int k = 0; k < w; ++k) k6_apply<NC, T0>(a, V + (size_t)k * ld, tl[k], p0 + k, N, wl);',
-         '')],
-    'K6: no panel factor': [('    if (rank == owner) qr_panel<T0>(', '    if (N < 0) qr_panel<T0>(')],
+    'K6: no panel factor': [
+        ('  for (int k = 0; k < w; ++k) {\n    const int gk = g0 + k;\n    if (warp == k) {',
+         '  for (int k = 0; k < 0; ++k) {\n    const int gk = g0 + k;\n    if (warp == k) {')],
+    'K6: no G and T': [
+        ('  if (warp < w) {\n    const int gk = g0 + warp;\n    float g[K6_NB];',
+         '  if (w < 0) {\n    const int gk = g0 + warp;\n    float g[K6_NB];'),
+        ('  if (warp == 0 && wl < K6_NB) {        // lane i: row i of T',
+         '  if (w < 0) {        // lane i: row i of T')],
+    'K6: no W pass': K6_W_PASS,
+    'K6: no update': K6_UPDATE,
     'K6: no panel copy': [
-        ('        for (int q = (p0 >> 2) + wl; q < (Nr >> 2); q += 32) d4[q] = s4[q];', '')],
-    'K6: load, barriers and store only': [
-        ('  for (int k = 0; k < w; ++k) k6_apply<NC, T0>(a, V + (size_t)k * ld, tl[k], p0 + k, N, wl);',
-         ''),
-        ('    if (rank == owner) qr_panel<T0>(', '    if (N < 0) qr_panel<T0>('),
-        ('        for (int q = (p0 >> 2) + wl; q < (Nr >> 2); q += 32) d4[q] = s4[q];', '')],
-    'K6: panel without the reflector\'s norm': [
-        ('      const float beta = larfg(alpha, warp_sum(x2[0] + x2[1]), tau, scale);',
-         '      const float beta = larfg(alpha, x2[0] + x2[1], tau, scale);')],
+        ('          d4[k6_vs_chunk(r, c)] = make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], '
+         'v[4 * c + 3]);', '')],
+    # the owner of panel p + 1 updates all its trailing columns, then factors
+    'K6: look-ahead off': [
+        ('      k6_factor<T0>(L.As + (size_t)c0 * ld, ld, p0, p0 + K6_NB, w1, N, L.Vs, L.Tl, L.Tp, '
+         'L.tl);\n      done = K6_NB;',
+         '      k6_update<T0>(L.As + (size_t)c0 * ld, ld, ntc, L.Vs, L.Tl, p0, N);\n'
+         '      __syncthreads();\n'
+         '      k6_factor<T0>(L.As + (size_t)c0 * ld, ld, p0 + K6_NB, p0 + K6_NB, w1, N, nullptr, '
+         'nullptr, L.Tp, L.tl);\n      done = ntc;')],
     'K7: no Gram matrix': [
         ('        g[4 * q] = fmaf(va, ua.x, g[4 * q]);', ''),
         ('        g[4 * q + 1] = fmaf(va, ua.y, g[4 * q + 1]);', ''),
@@ -54,11 +82,13 @@ CUTS = {
         ('  for (int p = 0; p < T; ++p) {\n    const int p0 = p * K7_NB, col = p0 + wl;',
          '  for (int p = 0; p < 0; ++p) {\n    const int p0 = p * K7_NB, col = p0 + wl;')],
 }
-SHAPES = [(543, 1), (543, 16)]
+N_PROBE = 543
+BATCHES = (1, 16, 128)
 
 
 def build_all():
-    """Writes and compiles every variant at once; returns {variant: library}."""
+    """Writes and compiles every variant at once; returns ({variant: library},
+    ptxas's lines for the kernel each variant cuts: K7's or K6's)."""
     with open(kernels.SOURCE) as fh:
         source = fh.read()
     procs = {}
@@ -75,20 +105,42 @@ def build_all():
         cu, so = os.path.join(out, 'auglu.cu'), os.path.join(out, 'libauglu.so')
         with open(cu, 'w') as fh:
             fh.write(src)
-        procs[name] = (so, subprocess.Popen([kernels._nvcc()] + kernels.NVCC_FLAGS + ['-o', so, cu],
-                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                            text=True))
-    libs = {}
+        procs[name] = (so, subprocess.Popen(
+            [kernels._nvcc()] + kernels.NVCC_FLAGS + ['-Xptxas', '-v', '-o', so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, ptxas = {}, []
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f'{name}: nvcc failed\n{log}')
+        ptxas += [f'{name}: {line}' for line in k6_k7_ptxas(log, name.startswith('K7'))]
         lib = ctypes.CDLL(so)
-        for entry in ('qr_factor_cluster', 'qr_solve_batched'):
+        for entry in ('qr_factor_cluster', 'qr_factor_cluster_occupancy', 'qr_solve_batched'):
             getattr(lib, entry).argtypes = kernels.SIGNATURES[entry]
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
-    return libs
+    return libs, ptxas
+
+
+def k6_k7_ptxas(log, k7):
+    """ptxas's register, stack and spill lines of qr_solve_kernel (k7) or
+    qr_factor_cluster_kernel."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            keep = ('qr_solve_kernel' if k7 else 'qr_factor_cluster_kernel') in line
+        elif keep and re.search(r'registers|stack frame', line):
+            out.append(line.replace('ptxas info    :', '').strip())
+    return out
+
+
+def load_parent(root):
+    """The kernels module of the tree at root, under a name of its own."""
+    path = os.path.join(os.path.abspath(root), 'awebox_tpu_torch', 'parallel', 'kernels.py')
+    spec = importlib.util.spec_from_file_location('parent_kernels', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def queued_ms(call, n=15):
@@ -105,23 +157,69 @@ def queued_ms(call, n=15):
     return sorted(times)[n // 2]
 
 
+def hold(M, v):
+    """This tree's cluster factor against geqrf: max ||diag R| - |diag R_geqrf||
+    over max |diag R_geqrf|, and the K7 solve's residual over the library's."""
+    qr, tau = kernels.qr_factor_batched(M)
+    qr_p, tau_p = (t.contiguous() for t in kernels.qr_factor_batched_plain(M))
+    dk = torch.diagonal(qr, dim1=1, dim2=2).abs()
+    dp = torch.diagonal(qr_p, dim1=1, dim2=2).abs()
+    M64 = M.double()
+
+    def res(x):
+        r = (M64 @ x.double()[:, :, None])[:, :, 0] - v.double()
+        return float((r.abs().amax(dim=1) / v.double().abs().amax(dim=1)).max())
+    x = kernels.qr_solve_batched(qr, tau, v)
+    x_lib = kernels.qr_solve_batched_plain(qr_p, tau_p, v)
+    return (float((dk - dp).abs().max()) / float(dp.max()), res(x), res(x_lib),
+            bool(torch.isfinite(qr).all()))
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--parent', default=None)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print('qr_phases: no CUDA device', file=sys.stderr)
         return 2
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    libs = build_all()
+    libs, ptxas = build_all()
+    for line in ptxas:
+        print(f'ptxas: {line}', flush=True)
+    parent = load_parent(args.parent) if args.parent else None
+    if parent is not None:
+        parent.library()
+    N = N_PROBE
+    fg, sg = kernels.qr_factor_geometry(N), kernels.qr_solve_geometry(N)
+    for C in range(2, kernels.LU_CLUSTER_MAX + 1):
+        geom = kernels.qr_cluster_layout(N, C)
+        if geom is None:
+            continue
+        count = ctypes.c_int(0)
+        err = libs['whole'].qr_factor_cluster_occupancy(C, geom.smem_bytes, ctypes.byref(count))
+        print(f'N={N} C={C}: {geom.cols_per_cta} columns and {geom.smem_bytes} B a CTA; '
+              f'{count.value} clusters run at once (error {err})', flush=True)
+    print(f'N={N}: the geometry takes C={fg.C}: {fg}', flush=True)
     g = torch.Generator(device='cpu').manual_seed(0)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    for N, B in SHAPES:
+    for B in BATCHES:
         M = torch.randn(B, N, N, generator=g).cuda()
         v = torch.randn(B, N, generator=g).cuda()
+        diag, res, res_lib, finite = hold(M, v)
+        print(f'N={N:5d} B={B:4d} K6 cluster vs geqrf: |diag R| off by {diag:.3e} of its max, '
+              f'solve residual {res:.3e} (library {res_lib:.3e}), finite {finite}', flush=True)
         qr, tau = kernels.qr_factor_batched(M)
         out, tau_o, x = torch.empty_like(M), torch.empty_like(tau), torch.empty_like(v)
-        fg, sg = kernels.qr_factor_geometry(N), kernels.qr_solve_geometry(N)
         kernels.qr_cluster_max_active(fg)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        row = lambda name, ms: print(f'N={N:5d} B={B:4d} {name:40s} {ms:.4f} ms', flush=True)
+        if parent is not None:
+            this = lambda: kernels.qr_factor_batched(M)
+            before = lambda: parent.qr_factor_batched(M)
+            for name, call in (('K6: parent', before), ('K6: this tree', this),
+                               ('K6: this tree', this), ('K6: parent', before)):
+                row(name, queued_ms(call))
         for name, lib in libs.items():
             def factor():
                 err = lib.qr_factor_cluster(ptr(M), ptr(out), ptr(tau_o), B, N, fg.C,
@@ -134,11 +232,13 @@ def main():
                                            sg.smem_bytes, stream)
                 if err:
                     raise RuntimeError(f'{name}: CUDA error {err}')
-            call, what = (solve, 'K7') if name.startswith('K7') else (factor, 'K6')
+            call = solve if name.startswith('K7') else factor
             if name == 'whole':
-                print(f'N={N:5d} B={B:4d} {"K7: whole":40s} {queued_ms(solve):.4f} ms', flush=True)
+                row('K7: whole', queued_ms(solve))
                 name = 'K6: whole'
-            print(f'N={N:5d} B={B:4d} {name:40s} {queued_ms(call):.4f} ms', flush=True)
+            row(name, queued_ms(call))
+    if parent is not None:
+        print(f'parent launches: {parent.LAUNCHES}', flush=True)
     return 0
 
 

@@ -600,8 +600,10 @@ def main():
 
     qgeom = kernels.qr_factor_geometry(N)
     require(qgeom.variant == 'cluster', f'N={N} does not take the QR cluster variant: {qgeom}')
-    phase('kernels', f'K6 geometry at N={N}: {qgeom}; {kernels.qr_cluster_max_active(qgeom)} '
-          f'clusters run at once; K7 geometry: {kernels.qr_solve_geometry(N)}')
+    at_once = {C: kernels.qr_cluster_max_active(kernels.qr_cluster_layout(N, C)) for C in (7, 8)}
+    phase('kernels', f'K6 geometry at N={N}: {qgeom}; clusters that run at once: '
+          f'{at_once[7]} of 7 CTAs, {at_once[8]} of 8; C={qgeom.C} taken; K7 geometry: '
+          f'{kernels.qr_solve_geometry(N)}')
     k6_at, k7_at = {}, {}
     for Bk in (1, B, 8 * B):
         M_k, s_k = ruiz_out[Bk]

@@ -373,18 +373,55 @@ def larfg(alpha, x):
     return beta, (beta - alpha) / beta, x * (1.0 / (alpha - beta))
 
 
-def cluster_qr_mirror(A, C=8, nb=16):
+def panel_t(V, tau):
+    """larft's forward recurrence on a panel's masked reflectors V (rows, w)
+    and taus: T[k, k] = tau_k, T[:k, k] = -tau_k T[:k, :k] G[:k, k] with
+    G = V^T V, so that H_0 .. H_{w-1} = I - V T V^T."""
+    w = V.shape[1]
+    G = V.T @ V
+    T = torch.zeros(w, w, dtype=V.dtype)
+    for k in range(w):
+        T[k, k] = tau[k]
+        T[:k, k] = -tau[k] * (T[:k, :k] @ G[:k, k])
+    return T
+
+
+def qr_panel_mirror(P, g0, w):
+    """csrc/auglu.cu's panel factor on the local columns P (N, >= w) of a
+    panel whose first global column and diagonal row is g0: a reflector at a
+    time (larfg), each applied to the panel's later columns. Returns the
+    taus, the masked reflectors V (N, nb: an explicit 1 on the diagonal,
+    zeros above it and past w) and T (nb, nb, zeros past w)."""
+    N, nb = P.shape[0], P.shape[1]
+    tau = torch.zeros(nb, dtype=P.dtype)
+    for k in range(w):
+        gk = g0 + k
+        beta, tau[k], v = larfg(P[gk, k], P[gk + 1:, k])
+        P[gk, k] = beta
+        P[gk + 1:, k] = v
+        vv = torch.cat([torch.ones(1, dtype=P.dtype), v])
+        P[gk:, k + 1:w] -= tau[k] * vv[:, None] * (vv @ P[gk:, k + 1:w])[None, :]
+    V = torch.zeros(N, nb, dtype=P.dtype)
+    for k in range(w):
+        V[g0 + k, k] = 1.
+        V[g0 + k + 1:, k] = P[g0 + k + 1:, k]
+    return tau, V, panel_t(V, tau)
+
+
+def cluster_qr_mirror(A, C=None, nb=16):
     """Plain-PyTorch mirror of csrc/auglu.cu's qr_factor_cluster_kernel on
-    one (N, N) f32 matrix, with the kernel's bookkeeping: panel g of nb
-    columns lives on owner g % C as its local panel g // C; per panel the
-    owner factors its columns one reflector at a time (each applied to the
-    panel's later columns), then every owner applies the panel's reflectors,
-    one after the other and masked to their rows (an implied 1 on the
-    diagonal, zeros above), to its trailing local panels (those from
-    lp_start on), rows p0 and below. Returns (qr, tau) like torch.geqrf."""
+    one (N, N) f32 matrix, with the kernel's bookkeeping and order: panel g
+    of nb columns lives on owner g % C (C: kernels.qr_factor_geometry's by
+    default) as its local panel g // C. The owner of panel p + 1 first
+    applies panel p to that panel alone, factors it (qr_panel_mirror: G and
+    larft's T) and publishes it; then every owner applies panel p to its
+    other trailing local panels (those from lp_start on, rows p0 and below)
+    as one block reflector: W = V^T A, Y = T^T W, A -= V Y. Returns (qr,
+    tau) like torch.geqrf."""
+    from awebox_tpu_torch.parallel import kernels
     N = A.shape[0]
     panels = -(-N // nb)
-    C = min(C, panels)
+    C = min(kernels.qr_factor_geometry(N).C if C is None else C, panels)
     n_local = [(panels - r + C - 1) // C for r in range(C)]
     local = []
     for r in range(C):
@@ -396,28 +433,31 @@ def cluster_qr_mirror(A, C=8, nb=16):
         local.append(X)
     tau = torch.zeros(N, dtype=A.dtype)
 
-    def apply(k, gk, V, t, cols):
-        v = V[gk:, k].clone()
-        v[0] = 1.
-        cols[gk:] -= t * v[:, None] * (v @ cols[gk:])[None, :]
+    def factor(p):
+        lp, g0 = p // C, p * nb
+        w = min(nb, N - g0)
+        t, V, T = qr_panel_mirror(local[p % C][:, lp * nb:(lp + 1) * nb], g0, w)
+        tau[g0:g0 + w] = t[:w]
+        return V, T
 
+    def block_reflector(cols, V, T, p0):
+        Y = T.T @ (V[p0:].T @ cols[p0:])
+        cols[p0:] -= V[p0:] @ Y
+
+    published = factor(0)
     for p in range(panels):
-        owner, lpo, p0 = p % C, p // C, p * nb
-        w = min(nb, N - p0)
-        P = local[owner][:, lpo * nb:lpo * nb + w]
-        for k in range(w):
-            gk = p0 + k
-            beta, tau[gk], v = larfg(P[gk, k], P[gk + 1:, k])
-            P[gk, k] = beta
-            P[gk + 1:, k] = v
-            apply(k, gk, P, tau[gk], P[:, k + 1:])
-        V = P.clone()
+        V, T = published
+        p0 = p * nb
         for r in range(C):
             lp_start = 0 if p < r else (p - r) // C + 1
             c0 = lp_start * nb
-            if c0 < local[r].shape[1]:
-                for k in range(w):
-                    apply(k, p0 + k, V, tau[p0 + k], local[r][:, c0:])
+            done = 0
+            if p + 1 < panels and r == (p + 1) % C:     # the look-ahead
+                block_reflector(local[r][:, c0:c0 + nb], V, T, p0)
+                published = factor(p + 1)
+                done = nb
+            if c0 + done < local[r].shape[1]:
+                block_reflector(local[r][:, c0 + done:], V, T, p0)
     qr = torch.empty_like(A)
     for r in range(C):
         for lp in range(n_local[r]):
@@ -728,19 +768,23 @@ def test_lu_factor_geometry(N):
     assert sorted(seen) == list(range(N))
 
 
-@pytest.mark.parametrize('N', [37, 130, 543])
-def test_cluster_qr_mirror_matches_lapack(N):
+@pytest.mark.parametrize('N, C', [(37, 8), (121, 7), (121, 8), (130, 7), (130, 8), (543, 7),
+                                  (543, 8)])
+def test_cluster_qr_mirror_matches_lapack(N, C):
     """The QR cluster kernel's algorithm (mirrored on the CPU: panels of 16
-    dealt to 8 owners, a reflector at a time in the panel, the panel's
-    reflectors one after the other on the trailing columns) against LAPACK's
-    geqrf on the same Gaussian f32 input. Both follow larfg's sign rule, so
-    here even the entries agree: R and the reflectors to 1e-4 of max |A|,
-    tau to 1e-4, |diag R| to TOL_QR_DIAG of its maximum; and Q R, rebuilt
-    from the mirror's reflectors, reproduces A to 1e-5 of max |A| (the f32
-    backward error of Householder QR at these N). N mod 16 is 5, 2 and 15:
-    the ragged last panel."""
+    dealt to C owners, a reflector at a time in the panel, then the panel's
+    G and T and its block reflector on the trailing columns, the next
+    panel's columns first) against LAPACK's geqrf on the same Gaussian f32
+    input. Both follow larfg's sign rule, so here even the entries agree: R
+    and the reflectors to 1e-4 of max |A|, tau to 1e-4, |diag R| to
+    TOL_QR_DIAG of its maximum; and Q R, rebuilt from the mirror's
+    reflectors, reproduces A to 1e-5 of max |A| (the f32 backward error of
+    Householder QR at these N). N mod 16 is 5, 9, 2 and 15: the ragged last
+    panel. Each case deals the panels its own way: N = 37 has 3 panels, one a
+    CTA for any C >= 3; N = 121 has 8, one a CTA at C = 8, the ragged last
+    back on the first CTA at C = 7."""
     A = gaussian_lanes(1, N, seed=N)[0][0]
-    qr, tau = cluster_qr_mirror(A.clone())
+    qr, tau = cluster_qr_mirror(A.clone(), C=C)
     qr_p, tau_p = torch.geqrf(A)
     amax = float(A.abs().max())
     assert float((qr - qr_p).abs().max()) <= 1e-4 * amax
@@ -749,6 +793,32 @@ def test_cluster_qr_mirror_matches_lapack(N):
     assert float((dk - dp).abs().max()) <= TOL_QR_DIAG * float(dp.max())
     Q = torch.linalg.householder_product(qr, tau)
     assert float((Q @ torch.triu(qr) - A).abs().max()) <= 1e-5 * amax
+
+
+@pytest.mark.parametrize('w, zero_col', [(5, None), (16, None), (5, 2), (16, 9)])
+def test_cluster_qr_panel_t_matches_householder_product(w, zero_col):
+    """The panel's T as the cluster kernel forms it (qr_panel_mirror: G = V^T
+    V and larft's forward recurrence) makes the block reflector of the
+    panel's reflectors: I - V T V^T equals torch.linalg.householder_product
+    of the same reflectors and taus to 1e-6, for a ragged panel (w = 5) and
+    a whole one, with and without a zero column (tau = 0: H = I, a zero
+    column of T)."""
+    rows, nb, g0 = 45, 16, 3
+    P = torch.as_tensor(np.random.default_rng(w).standard_normal((rows, nb)), dtype=torch.float32)
+    P[:, w:] = 0.
+    if zero_col is not None:
+        P[:, zero_col] = 0.
+    tau, V, T = qr_panel_mirror(P, g0, w)
+    if zero_col is not None:
+        assert float(tau[zero_col]) == 0. and not bool(T[:, zero_col].any())
+    assert not bool(T[w:].any()) and not bool(T[:, w:].any())
+    assert bool((torch.tril(T, diagonal=-1) == 0).all())
+    m = rows - g0                           # reflector k's unit entry at row g0 + k
+    H = torch.zeros(m, m)
+    H[:, :w] = V[g0:, :w]
+    Q = torch.linalg.householder_product(H, tau[:w])
+    assert not bool(V[:g0].any())
+    assert float((torch.eye(m) - V[g0:] @ T @ V[g0:].T - Q).abs().max()) <= 1e-6
 
 
 @pytest.mark.parametrize('N', [37, 130, 543, 1055])
@@ -797,8 +867,10 @@ def test_qr_factor_geometry(N):
     warp's registers no longer hold a column (N > 640) or the lane no
     longer fits the cluster, a lane whose panel no block holds raises by
     name; a cluster layout covers all N columns exactly once, fits each
-    CTA's columns beside the panel copy, and keeps the float4 copy of the
-    panel's rows inside a column (ld a multiple of 4, >= N); a blocked
+    CTA's columns beside the panel copy and the kernel's static T and its
+    copy (a cluster of 7 would need the same room at N=543), and keeps the
+    float4 copy of the panel's rows inside a column (ld a multiple of 4,
+    >= N); a blocked
     panel of 32 columns holds N rows at an odd leading dimension beside the
     kernel's static G and T."""
     from awebox_tpu_torch.parallel import kernels
@@ -809,6 +881,7 @@ def test_qr_factor_geometry(N):
     g = kernels.qr_factor_geometry(N)
     if N == 543:
         assert g.variant == 'cluster' and g.C == 8 and g.nb == 16
+        assert kernels.qr_cluster_layout(N, 7) == g._replace(C=7)   # same room a CTA
     if N in (640, 700, 1055, 1300):
         assert g.variant == 'blocked'
     if g.variant == 'blocked':
@@ -818,7 +891,8 @@ def test_qr_factor_geometry(N):
         assert kernels.QR_PANEL_STATIC_SMEM >= 4 * (32 + 2 * 32 * 33)
         return
     assert N <= kernels.QR_ROW_MAX and g.ld <= kernels.QR_ROW_MAX
-    assert g.smem_bytes + kernels.LU_STATIC_SMEM <= 232_448
+    assert g.smem_bytes + kernels.QR_CLUSTER_STATIC_SMEM <= 232_448
+    assert kernels.QR_CLUSTER_STATIC_SMEM >= 4 * 2 * 16 * 16      # s_T and s_Tl
     assert 1 <= g.C <= 8 and g.ld >= N and g.ld % 4 == 0
     assert g.smem_bytes == 4 * (g.cols_per_cta + g.nb) * g.ld
     panels = -(-N // g.nb)
