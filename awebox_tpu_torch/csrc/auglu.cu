@@ -2364,33 +2364,53 @@ qr_update_kernel(float* __restrict__ qr, const float* __restrict__ Tg,
 // (1.18 MB a lane at N = 543, 0.35 us of HBM time), but Q^T v is N
 // reflectors one after the other, each a dot product over a strided column
 // of the row-major factor, and R^-1 is N dependent rows. The design walks
-// both in ceil(N/32) steps, and reads every entry of the factor once, in
-// coalesced 128-byte row segments staged through shared memory:
-//   - Q^T v, 32 reflectors (a panel) at a time. The warps stream the panel's
-//     rows (a lane per reflector), stage them, and accumulate both
-//     w0 = V^T y and the panel's Gram matrix G = V^T V, a row's 32 entries
-//     read back as eight 16-byte broadcasts (by shuffles the Gram matrix
-//     alone took the SM's whole shuffle rate: 32 a row). The 32 dependent
-//     dot products v_c^T (H_{c-1} .. H_0 y) then follow without touching
-//     the factor: w_c = w0_c - sum_{j<c} G_cj t_j, t_c = tau_c w_c, a forward
-//     substitution of 32 shuffle-and-FMA steps in warp 0. Then y -= V t, a
-//     thread per staged row.
-//   - R x = y over column tiles from the last: warp 0 solves the 32 x 32
-//     diagonal tile in registers (the diagonal by its reciprocal, as K3; the
-//     next tile's entries loaded right after) while the other warps stage
-//     the rows above; then a thread per row updates them.
-// Sums run in a fixed order, so a lane's bits do not depend on its batch.
-// Nothing is skipped for a zero or non-finite entry, so a singular or NaN
-// factor reaches x and the delta ladder retries.
+// both in ceil(N/32) steps and reads every entry of the factor once:
+//   - Q^T v, 32 reflectors (a panel) at a time. Warp w owns rows w,
+//     w + WARPS, .. of every 32-row tile (a lane per reflector) and
+//     accumulates over them, in order, both w0 = V^T y and the panel's Gram
+//     matrix G = V^T V, a row's 32 entries read back as eight 16-byte
+//     broadcasts (by shuffles the Gram matrix alone took the SM's whole
+//     shuffle rate; an 8 x 4 block of G a lane, three 16-byte loads a row,
+//     ran slower). The warps' partials are summed in warp order; the 32 dependent dot
+//     products v_c^T (H_{c-1} .. H_0 y) then follow without touching the
+//     factor: w_c = w0_c - sum_{j<c} G_cj t_j, t_c = tau_c w_c, a forward
+//     substitution of 32 shuffle-and-FMA steps in warp 0. Then each warp
+//     updates its own rows, y -= V t, a lane per row, and goes on to the
+//     next panel without a barrier: the rows of y it reads there are its own.
+//   - R x = y over column tiles from the last, one block barrier a step:
+//     warp 0 applies the previous column tile to the rows of the next
+//     diagonal tile (a look-ahead, as K3) and solves that tile in registers
+//     (the diagonal by its reciprocal, as K3), while warps 1.. apply the
+//     same column tile to the rows above, a 32-row tile a warp and a lane a
+//     row. Every row's dot product over a column tile runs in k7_dot32's
+//     order, and a row takes the column tiles from the last, so every sum is
+//     that of a whole-block update.
+//   - No load of the factor sits on that chain. In Q^T v each warp streams
+//     its rows of every tile of every panel, in the order it uses them
+//     (K7Walk), GR tiles at a time, through a slot of shared memory that is
+//     refilled as soon as its rows are copied out, so each copy runs GR
+//     tiles ahead, across the reduction, substitution and barriers between
+//     panels. Rows are 4N bytes apart, so a TMA tensor map
+//     (16-byte strides) does not apply: as in K3, a row segment is copied
+//     as the K3_CHUNKS aligned 16-byte blocks that cover it, by
+//     cp.async.cg, and read from its own offset. (One 1-D bulk copy a row,
+//     by the TMA engine, was tried and ran slower: awebox_tpu_torch/probes/
+//     qr_phases.py.) tau is read a panel ahead. In R x = y each warp
+//     streams its whole tiles through a ring of K7_BACK_SLOTS slots in K3's
+//     layout (k3_load, k3_row), laid over the buffers of Q^T v.
+// In Q^T v a row leaves its slot realigned and masked (V's unit diagonal,
+// zeros past N) into the warp's rows of sV, whence the Gram pass and the
+// update read it as float4. R's diagonal is kept there too, and its
+// reciprocals are taken between the two passes, off the chain of the
+// diagonal solves. Sums run in a fixed order (a warp's rows in order, then
+// the warps in order) whatever GR and the batch, so a lane's bits depend
+// only on WARPS. Nothing is skipped for a zero or non-finite entry, so a
+// singular or NaN factor reaches x and the delta ladder retries.
 // ---------------------------------------------------------------------------
 constexpr int K7_NB = 32;                  // reflectors per panel, tile width: a warp
 constexpr int K7_LDV = 36;                 // floats per staged row: 16-byte rows whose float4
                                            // reads by 8 consecutive rows hit 8 bank groups
-
-// entry (r, col) of V: the factor's below the diagonal, an implied 1 on it
-__device__ __forceinline__ float k7_v(const float* __restrict__ a, int N, int r, int col) {
-  return (col < N && r > col) ? a[(size_t)r * N + col] : (r == col ? 1.0f : 0.0f);
-}
+constexpr int K7_SROW = 4 * K3_CHUNKS;     // floats per row of a staging slot: its aligned blocks
 
 // sum_k row[k] z[k] over a staged row and 32 values z, both 16-byte aligned
 __device__ __forceinline__ float k7_dot32(const float* row, const float* z) {
@@ -2408,70 +2428,274 @@ __device__ __forceinline__ float k7_dot32(const float* row, const float* z) {
   return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
-// the diagonal tile t, a row per lane; rows and columns past N: the identity
-__device__ __forceinline__ void k7_diag(float (&d)[K7_NB], const float* __restrict__ a, int N,
-                                        int t, int wl) {
-  const int r0 = t * K7_NB, row = r0 + wl;
-#pragma unroll
-  for (int k = 0; k < K7_NB; ++k) {
-    d[k] = (row < N && r0 + k < N) ? a[(size_t)row * N + r0 + k] : (k == wl ? 1.0f : 0.0f);
+// The tiles of Q^T v a warp uses, in order, in groups of at most GR
+// consecutive row tiles of one panel: panel s takes row tiles s..T-1 of
+// column tile s. Past the last: s == T.
+template <int GR>
+struct K7Walk {
+  int s, i;
+  // the group's first row tile ti, its column tile tj and its n tiles
+  __device__ __forceinline__ void group(int T, int& ti, int& tj, int& n) const {
+    ti = i;
+    tj = s;
+    n = min(GR, T - i);
   }
+  __device__ __forceinline__ void advance(int T) {
+    i += GR;
+    if (i >= T) i = ++s;
+  }
+};
+
+// A warp's staging slot for its rows of the groups K7Walk lists: row j of
+// the group's tile h lands at (h RPW + j) K7_SROW, the copy one cp.async
+// group. The slot is taken (the copy waited for), copied out and given
+// back, and giving it back issues the next group's copy into it: GR tiles
+// ahead of their use, across the Gram pass of the group just copied out
+// and, at a panel's end, its reduction, substitution and barriers. (A ring
+// of two or four slots of half or a quarter the tiles ran slower: the
+// wait, the copies' issue and the walk cost as much per slot whatever its
+// size.) Every row of the warp starts sh floats into its first block: rows
+// 32 apart, and tiles 32 columns apart, are a multiple of 16 bytes apart,
+// and WARPS is a multiple of 4. So what a lane copies and reads is fixed
+// once: start() computes it. Blocks that hold no entry of a tile (rows past
+// N, columns past the tile's last) are zero-filled.
+template <int WARPS, int GR>
+struct K7Ring {
+  static constexpr int RPW = K7_NB / WARPS;          // the warp's rows of a tile
+  static constexpr int ROWS = GR * RPW;              // rows of the slot
+  static constexpr int BLOCKS = ROWS * K3_CHUNKS;    // its 16-byte blocks
+  static constexpr int PER_LANE = (BLOCKS + 31) / 32;
+  static constexpr int SLOT = ROWS * K7_SROW;        // its floats
+  float* slot;
+  const float* a;
+  int N, T;
+  K7Walk<GR> ahead;             // the group the next copy fetches
+  // the lane's blocks: offsets from the group's first entry and into the
+  // slot; the tile of the group that holds it (GR: none); bit 0: it holds
+  // an entry of a tile of column tile T - 1, bit 1: of any other, bit 2:
+  // its row is one of the last row tile's N - 32 (T - 1)
+  int src[PER_LANE], dst[PER_LANE], tile[PER_LANE], in[PER_LANE];
+
+  __device__ __forceinline__ void issue() {
+    if (ahead.s < T) {
+      int ti, tj, n;
+      ahead.group(T, ti, tj, n);
+      const float* g0 = a + (size_t)(ti * N + tj) * K7_NB;
+      const int need = tj == T - 1 ? 1 : 2;
+#pragma unroll
+      for (int q = 0; q < PER_LANE; ++q) {
+        if (tile[q] < n) {
+          const int need_q = need | (ti + tile[q] == T - 1 ? 4 : 0);
+          cp_async16_zfill(slot + dst[q], g0 + src[q], (in[q] & need_q) == need_q);
+        }
+      }
+      ahead.advance(T);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  __device__ __forceinline__ void start(int warp, int wl, int sh) {
+    const int last = N - (T - 1) * K7_NB;            // rows and columns of the last tiles
+#pragma unroll
+    for (int q = 0; q < PER_LANE; ++q) {
+      const int b = 32 * q + wl, rr = b / K3_CHUNKS, c4 = 4 * (b - rr * K3_CHUNKS);
+      const int row = warp + WARPS * (rr % RPW);     // in its tile
+      src[q] = ((rr / RPW) * K7_NB + row) * N + c4 - sh;
+      dst[q] = rr * K7_SROW + c4;
+      tile[q] = b < BLOCKS ? rr / RPW : GR;
+      in[q] = (c4 < sh + last ? 1 : 0) | (c4 < sh + K7_NB ? 2 : 0) | (row < last ? 4 : 0);
+    }
+    ahead = {0, 0};
+    issue();
+  }
+
+  // the next group, landed: row j of its tile h from (h RPW + j) K7_SROW + sh on
+  __device__ __forceinline__ const float* take() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+    return slot;
+  }
+
+  // after the lanes' last read of the slot; the __syncwarp also publishes
+  // to the warp what they stored since take()
+  __device__ __forceinline__ void give_back() {
+    __syncwarp();
+    issue();
+  }
+};
+
+constexpr int K7_BACK_SLOTS = 2;          // ring slots a warp streams whole tiles through in R x = y
+
+// sum_k row[k] z[k] as k7_dot32, the same FMAs in the same order, over a row
+// at any 4-byte offset (read one float at a time) and 16-byte aligned z
+__device__ __forceinline__ float k7_dot32_any(const float* row, const float* z) {
+  const float4* z4 = reinterpret_cast<const float4*>(z);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int q = 0; q < K7_NB / 4; ++q) {
+    const float4 zz = z4[q];
+    acc[0] = fmaf(row[4 * q], zz.x, acc[0]);
+    acc[1] = fmaf(row[4 * q + 1], zz.y, acc[1]);
+    acc[2] = fmaf(row[4 * q + 2], zz.z, acc[2]);
+    acc[3] = fmaf(row[4 * q + 3], zz.w, acc[3]);
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
+// A warp's ring of K7_BACK_SLOTS whole tiles (row tile i, column tile c)
+// for R x = y, in K3's slot layout (k3_load, k3_row). Warp 0 takes the
+// diagonal tiles from the last, each but the last after the tile (c - 1, c)
+// above it: (T-1, T-1), (T-2, T-1), (T-2, T-2), .., (0, 1), (0, 0). Warp
+// w >= 1 takes, for each column tile c from T-1 down to 2, the tiles i =
+// w - 1, w - 1 + (WARPS - 1), .. < c - 1. c < 0: no tile left. A slot is
+// taken and given back before the next is taken; giving it back issues the
+// copy K7_BACK_SLOTS tiles ahead into it.
 template <int WARPS>
+struct K7BackRing {
+  float* first;
+  float* next;
+  const float* a;
+  int N, warp, c, i;
+  K3Blocks blocks;
+
+  __device__ __forceinline__ void settle() {      // warp >= 1
+    while (c >= 2 && i >= c - 1) {
+      --c;
+      i = warp - 1;
+    }
+    if (c < 2) c = -1;
+  }
+
+  __device__ __forceinline__ void issue(float* slot) {
+    if (c >= 0) {
+      k3_load(slot, blocks, a, N, i, c);
+      if (warp > 0) {
+        i += WARPS - 1;
+        settle();
+      } else if (i == c) {
+        --i;
+        if (i < 0) c = -1;
+      } else {
+        c = i;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  __device__ __forceinline__ void start(int T, int wl) {
+    blocks.init(N, wl);
+    c = T - 1;
+    i = warp == 0 ? T - 1 : warp - 1;
+    if (warp > 0) settle();
+    next = first;
+#pragma unroll
+    for (int k = 0; k < K7_BACK_SLOTS; ++k) issue(first + k * K3_TILE);
+  }
+
+  __device__ __forceinline__ float* take() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(K7_BACK_SLOTS - 1) : "memory");
+    __syncwarp();
+    float* slot = next;
+    next = slot == first + (K7_BACK_SLOTS - 1) * K3_TILE ? first : slot + K3_TILE;
+    return slot;
+  }
+
+  __device__ __forceinline__ void give_back(float* slot) {
+    __syncwarp();
+    issue(slot);
+  }
+};
+
+template <int WARPS, int GR>
 __global__ void __launch_bounds__(WARPS * 32, 1)
 qr_solve_kernel(const float* __restrict__ qr, const float* __restrict__ tau,
                 const float* __restrict__ v, float* __restrict__ x, int N) {
-  constexpr int THREADS = WARPS * 32;
+  constexpr int THREADS = WARPS * 32, RPW = K7_NB / WARPS;
   extern __shared__ float4 k7_dyn[];
   __shared__ float G_f[K7_NB][K7_NB + 1];               // the panel's Gram matrix
   __shared__ float w_s[K7_NB];
   __shared__ __align__(16) float t_s[K7_NB];
-  const int T = (N + K7_NB - 1) / K7_NB, Np = T * K7_NB;
-  float* y = reinterpret_cast<float*>(k7_dyn);          // [Np]
-  float* sV = y + Np;                                   // [Np][LDV] staged rows
-  float* Gp = sV + (size_t)Np * K7_LDV;                 // [WARPS][NB][LDV] partial Gram matrices
-  float* wp = Gp + WARPS * K7_NB * K7_LDV;              // [WARPS][NB] partial V^T y
+  const int T = (N + K7_NB - 1) / K7_NB, Np = T * K7_NB, last = N - (T - 1) * K7_NB;
   const int lane = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  // y [Np] and R's diagonal [Np]; then for Q^T v the partial Gram matrices
+  // [WARPS][NB][LDV], the partial V^T y [WARPS][NB], the warps' staged rows
+  // [Np][LDV] and their slots [WARPS][SLOT], and for R x = y, in the same
+  // room, the warps' tile rings [WARPS][K7_BACK_SLOTS][K3_TILE]
+  float* y = reinterpret_cast<float*>(k7_dyn);
+  float* dinv_s = y + Np;                               // [Np] R's diagonal, then its reciprocals
+  float* Gp = dinv_s + Np;
+  float* wp = Gp + WARPS * K7_NB * K7_LDV;
+  // the warp's staged rows, [Np / WARPS][LDV]: its i-th row of a panel,
+  // row p0 + warp + WARPS i
+  float* sV = wp + WARPS * K7_NB + (size_t)warp * (Np / WARPS) * K7_LDV;
   const float* a = qr + (size_t)lane * N * N;
+  const int sh = k3_shift(a + (size_t)warp * N), rd = sh + wl;
+  K7Ring<WARPS, GR> ring;
+  ring.slot = wp + WARPS * K7_NB + (size_t)Np * K7_LDV + (size_t)warp * ring.SLOT;
+  ring.a = a;
+  ring.N = N;
+  ring.T = T;
+  ring.start(warp, wl, sh);
   for (int i = tid; i < Np; i += THREADS) y[i] = i < N ? v[(size_t)lane * N + i] : 0.0f;
   __syncthreads();
 
   // y <- Q^T y = H_{N-1} .. H_0 y, a panel of 32 reflectors at a time
   for (int p = 0; p < T; ++p) {
     const int p0 = p * K7_NB, col = p0 + wl;
-    float g[K7_NB];
+    const bool col_in = col < N;
+    const float tc = (warp == 0 && col_in) ? tau[(size_t)lane * N + col] : 0.0f;
+    float g[K7_NB];                     // row col of G, the warp's share
 #pragma unroll
     for (int j = 0; j < K7_NB; ++j) g[j] = 0.0f;
     float w0 = 0.0f;
-    // two rows a pass: both loads in flight before the first is used
-    for (int r = p0 + warp; r < N; r += 2 * WARPS) {
-      const int r2 = r + WARPS;
-      const float va = k7_v(a, N, r, col);
-      const float vb = r2 < N ? k7_v(a, N, r2, col) : 0.0f;
-      float* ra = sV + (size_t)(r - p0) * K7_LDV;
-      float* rb = sV + (size_t)(r2 - p0) * K7_LDV;
-      ra[wl] = va;
-      if (r2 < N) rb[wl] = vb;
-      __syncwarp();
-      w0 = fmaf(va, y[r], w0);
-      if (r2 < N) w0 = fmaf(vb, y[r2], w0);
+    float* sw = sV;                     // the warp's rows of the group's tiles
+    for (int ti = p; ti < T; ti += GR, sw += GR * RPW * K7_LDV) {
+      const int n = min(GR, T - ti);
+      const float* slot = ring.take();
+      // the lane's entry of each row, V's: every load issued before the first
+      // store (a store between them would wait for each load in turn)
+      float vr[GR][RPW];
 #pragma unroll
-      for (int q = 0; q < K7_NB / 4; ++q) {
-        const float4 ua = reinterpret_cast<const float4*>(ra)[q];
-        g[4 * q] = fmaf(va, ua.x, g[4 * q]);
-        g[4 * q + 1] = fmaf(va, ua.y, g[4 * q + 1]);
-        g[4 * q + 2] = fmaf(va, ua.z, g[4 * q + 2]);
-        g[4 * q + 3] = fmaf(va, ua.w, g[4 * q + 3]);
+      for (int h = 0; h < GR; ++h) {
+#pragma unroll
+        for (int j = 0; j < RPW; ++j) {
+          vr[h][j] = col_in ? slot[(h * RPW + j) * K7_SROW + rd] : 0.0f;
+        }
       }
-      if (r2 < N) {                     // uniform over the warp
+      if (ti == p) {    // the diagonal tile: V's unit diagonal, zeros above; R's diagonal kept
 #pragma unroll
-        for (int q = 0; q < K7_NB / 4; ++q) {
-          const float4 ub = reinterpret_cast<const float4*>(rb)[q];
-          g[4 * q] = fmaf(vb, ub.x, g[4 * q]);
-          g[4 * q + 1] = fmaf(vb, ub.y, g[4 * q + 1]);
-          g[4 * q + 2] = fmaf(vb, ub.z, g[4 * q + 2]);
-          g[4 * q + 3] = fmaf(vb, ub.w, g[4 * q + 3]);
+        for (int j = 0; j < RPW; ++j) {
+          const int r = p0 + warp + WARPS * j;
+          if (r == col) dinv_s[r] = vr[0][j];
+          vr[0][j] = r > col ? vr[0][j] : (r == col ? 1.0f : 0.0f);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < GR; ++h) {
+        if (h < n) {
+#pragma unroll
+          for (int j = 0; j < RPW; ++j) sw[(h * RPW + j) * K7_LDV + wl] = vr[h][j];
+        }
+      }
+      ring.give_back();
+#pragma unroll
+      for (int h = 0; h < GR; ++h) {
+#pragma unroll
+        for (int j = 0; j < RPW; ++j) {
+          // the row is below N: uniform over the warp
+          if (h < n && (ti + h < T - 1 || warp + WARPS * j < last)) {
+            const float va = vr[h][j];
+            const float4* u4 = reinterpret_cast<const float4*>(sw + (h * RPW + j) * K7_LDV);
+            w0 = fmaf(va, y[(ti + h) * K7_NB + warp + WARPS * j], w0);
+#pragma unroll
+            for (int q = 0; q < K7_NB / 4; ++q) {
+              const float4 u = u4[q];
+              g[4 * q] = fmaf(va, u.x, g[4 * q]);
+              g[4 * q + 1] = fmaf(va, u.y, g[4 * q + 1]);
+              g[4 * q + 2] = fmaf(va, u.z, g[4 * q + 2]);
+              g[4 * q + 3] = fmaf(va, u.w, g[4 * q + 3]);
+            }
+          }
         }
       }
     }
@@ -2482,26 +2706,33 @@ qr_solve_kernel(const float* __restrict__ qr, const float* __restrict__ tau,
     }
     wp[warp * K7_NB + wl] = w0;
     __syncthreads();
-    // the warps' partials summed in their order, an entry a thread
-    for (int e = tid; e < K7_NB * K7_NB; e += THREADS) {
-      const int c = e >> 5, j = e & 31;
-      float sum = 0.0f;
+    // the warps' partials summed in their order, entries tid, tid + THREADS, ..
+    // (every sum before the first store, which would wait for them in turn)
+    float sum[K7_NB * K7_NB / THREADS];
 #pragma unroll
-      for (int u = 0; u < WARPS; ++u) sum += Gp[(size_t)(u * K7_NB + c) * K7_LDV + j];
-      G_f[c][j] = sum;
+    for (int k = 0; k < K7_NB * K7_NB / THREADS; ++k) {
+      const int e = tid + k * THREADS;
+      sum[k] = 0.0f;
+#pragma unroll
+      for (int u = 0; u < WARPS; ++u) {
+        sum[k] += Gp[(size_t)(u * K7_NB + (e >> 5)) * K7_LDV + (e & 31)];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K7_NB * K7_NB / THREADS; ++k) {
+      G_f[(tid + k * THREADS) >> 5][(tid + k * THREADS) & 31] = sum[k];
     }
     if (tid < K7_NB) {
-      float sum = 0.0f;
+      float ws = 0.0f;
 #pragma unroll
-      for (int u = 0; u < WARPS; ++u) sum += wp[u * K7_NB + tid];
-      w_s[tid] = sum;
+      for (int u = 0; u < WARPS; ++u) ws += wp[u * K7_NB + tid];
+      w_s[tid] = ws;
     }
     __syncthreads();
     if (warp == 0) {
 #pragma unroll
       for (int j = 0; j < K7_NB; ++j) g[j] = G_f[wl][j];
       float wc = w_s[wl];
-      const float tc = col < N ? tau[(size_t)lane * N + col] : 0.0f;
       // w_c = w0_c - sum_{j<c} G_cj t_j: lane j's t is final at step j
 #pragma unroll
       for (int j = 0; j < K7_NB - 1; ++j) {
@@ -2511,20 +2742,50 @@ qr_solve_kernel(const float* __restrict__ qr, const float* __restrict__ tau,
       t_s[wl] = tc * wc;
     }
     __syncthreads();
-    for (int r = p0 + tid; r < N; r += THREADS) {   // y -= V t, a thread per staged row
-      y[r] -= k7_dot32(sV + (size_t)(r - p0) * K7_LDV, t_s);
+    // y -= V t on the warp's rows, a lane per row
+    for (int i = wl; p0 + warp + WARPS * i < N; i += 32) {
+      y[p0 + warp + WARPS * i] -= k7_dot32(sV + (size_t)i * K7_LDV, t_s);
     }
-    __syncthreads();
+    __syncwarp();
   }
 
-  // R x = y, column tiles from the last (ragged) one
-  float d[K7_NB];
-  if (warp == 0) k7_diag(d, a, N, T - 1, wl);
+  // R x = y, column tiles from the last (ragged) one, one barrier a step:
+  // in step t warp 0 applies column tile t + 1 to the rows of tile t (its
+  // look-ahead) and solves diagonal tile t, while warps 1.. apply column
+  // tile t + 1 to the rows above, a tile a warp and a lane a row. The tiles
+  // stream through rings that overlay the buffers of Q^T v, so they start
+  // once every warp is done with those.
+  // the reciprocals of R's diagonal, here and not on the chain of the
+  // diagonal solves (each of R's diagonal entries was kept by the lane
+  // that staged it, before a barrier of its panel)
+  for (int i = tid; i < Np; i += THREADS) dinv_s[i] = i < N ? 1.0f / dinv_s[i] : 1.0f;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");   // the Q^T slots' last (empty) groups
+  __syncthreads();
+  K7BackRing<WARPS> back;
+  back.first = Gp + (size_t)warp * K7_BACK_SLOTS * K3_TILE;
+  back.a = a;
+  back.N = N;
+  back.warp = warp;
+  back.start(T, wl);
   for (int t = T - 1; t >= 0; --t) {
     const int r0 = t * K7_NB;
     if (warp == 0) {
+      if (t + 1 < T) {
+        float* slot = back.take();
+        y[r0 + wl] -= k7_dot32_any(k3_row(slot, a, N, t, t + 1, wl), y + r0 + K7_NB);
+        back.give_back(slot);
+      }
+      // the tile's rows and columns past N: the identity's (dinv: 1)
+      float* slot = back.take();
+      const float* row = k3_row(slot, a, N, t, t, wl);
+      float d[K7_NB];
+#pragma unroll
+      for (int k = 0; k < K7_NB; ++k) {
+        d[k] = (r0 + wl < N && r0 + k < N) ? row[k] : (k == wl ? 1.0f : 0.0f);
+      }
+      const float dinv = dinv_s[r0 + wl];
+      back.give_back(slot);
       float yj = y[r0 + wl];
-      const float dinv = 1.0f / d[wl];
 #pragma unroll
       for (int k = K7_NB - 1; k >= 0; --k) {
         if (wl == k) yj *= dinv;
@@ -2534,34 +2795,37 @@ qr_solve_kernel(const float* __restrict__ qr, const float* __restrict__ tau,
         }
       }
       y[r0 + wl] = yj;
-      if (t > 0) k7_diag(d, a, N, t - 1, wl);   // in flight during the update below
-    } else {
-      // the rows above, columns r0..r0+31, staged by the other warps
-      for (int r = warp - 1; r < r0; r += WARPS - 1) {
-        sV[(size_t)r * K7_LDV + wl] = r0 + wl < N ? a[(size_t)r * N + r0 + wl] : 0.0f;
+    } else if (t + 1 < T) {
+      for (int i = warp - 1; i < t; i += WARPS - 1) {   // zeros past N
+        float* slot = back.take();
+        y[i * K7_NB + wl] -= k7_dot32_any(k3_row(slot, a, N, i, t + 1, wl), y + r0 + K7_NB);
+        back.give_back(slot);
       }
     }
-    __syncthreads();
-    for (int r = tid; r < r0; r += THREADS) y[r] -= k7_dot32(sV + (size_t)r * K7_LDV, y + r0);
     __syncthreads();
   }
   for (int i = tid; i < N; i += THREADS) x[(size_t)lane * N + i] = y[i];
 }
 
-// dynamic shared memory of qr_solve_kernel<warps> at N
-constexpr size_t k7_smem(int warps, int N) {
-  return sizeof(float) * ((size_t)((N + K7_NB - 1) / K7_NB * K7_NB) * (1 + K7_LDV)
-                          + (size_t)warps * K7_NB * (K7_LDV + 1));
+constexpr size_t k7_max(size_t x, size_t y) { return x > y ? x : y; }
+
+// dynamic shared memory of qr_solve_kernel<warps, group> at N
+constexpr size_t k7_smem(int warps, int group, int N) {
+  return sizeof(float) * (2 * (size_t)((N + K7_NB - 1) / K7_NB * K7_NB)
+                          + k7_max((size_t)warps * K7_NB * (K7_LDV + 1)
+                                       + (size_t)((N + K7_NB - 1) / K7_NB * K7_NB) * K7_LDV
+                                       + (size_t)group * K7_NB * K7_SROW,
+                                   (size_t)warps * K7_BACK_SLOTS * K3_TILE));
 }
 
-template <int WARPS>
+template <int WARPS, int GR>
 int k7_launch(const void* qr, const void* tau, const void* v, void* x, int B, int N, int smem,
               void* stream) {
-  if ((size_t)smem < k7_smem(WARPS, N)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute((const void*)qr_solve_kernel<WARPS>,
+  if ((size_t)smem < k7_smem(WARPS, GR, N)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute((const void*)qr_solve_kernel<WARPS, GR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  qr_solve_kernel<WARPS><<<B, WARPS * 32, smem, (cudaStream_t)stream>>>(
+  qr_solve_kernel<WARPS, GR><<<B, WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const float*)qr, (const float*)tau, (const float*)v, (float*)x, N);
   return (int)cudaGetLastError();
 }
@@ -2776,13 +3040,16 @@ int qr_factor_blocked(const void* M, void* qr, void* tau, void* Tw, void* Ww, in
   return (int)cudaSuccess;
 }
 
-// warps, the warps per lane, and smem, the dynamic shared memory, come from
-// kernels.qr_solve_geometry; only that smem covers warps at N is checked.
+// warps, the warps per lane, group, the tiles of a warp's staging slot, and
+// smem, the dynamic shared memory, come from kernels.qr_solve_geometry (the
+// pairs of kernels.QR_SOLVE_LAYOUTS); only that smem covers them at N is
+// checked.
 int qr_solve_batched(const void* qr, const void* tau, const void* v, void* x, int B, int N,
-                     int warps, int smem, void* stream) {
-  switch (warps) {
-    case 16: return k7_launch<16>(qr, tau, v, x, B, N, smem, stream);
-    case 8: return k7_launch<8>(qr, tau, v, x, B, N, smem, stream);
+                     int warps, int group, int smem, void* stream) {
+  switch (warps * 100 + group) {
+    case 1608: return k7_launch<16, 8>(qr, tau, v, x, B, N, smem, stream);
+    case 804: return k7_launch<8, 4>(qr, tau, v, x, B, N, smem, stream);
+    case 801: return k7_launch<8, 1>(qr, tau, v, x, B, N, smem, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -77,7 +77,7 @@ SIGNATURES = {
     'qr_factor_cluster_occupancy': [_I, _I, _P],
     'qr_factor_cluster': [_P] * 3 + [_I] * 6 + [_P],
     'qr_factor_blocked': [_P] * 5 + [_I] * 4 + [_P],
-    'qr_solve_batched': [_P] * 4 + [_I] * 4 + [_P],
+    'qr_solve_batched': [_P] * 4 + [_I] * 5 + [_P],
     'noop': [_I, _P],
 }
 
@@ -820,31 +820,51 @@ def qr_solve_batched_plain(qr, tau, v):
 
 QR_SOLVE_NB = 32            # reflectors per panel and tile width of the solve (K7_NB): a warp
 QR_SOLVE_LDV = 36           # f32 per staged row of a panel or tile (K7_LDV)
-QR_SOLVE_WARPS = (16, 8)    # warps per lane the kernel is compiled for, most first
+QR_SOLVE_SROW = 36          # f32 per row of a staging slot: 9 aligned 16-byte blocks (K7_SROW)
+# (warps per lane, tiles of a warp's staging slot) the kernel is compiled
+# for, in the order of preference: the slice's N=543 takes the first, the
+# n_k=8 sweep's N=1055 the second, the largest lanes the last; the warps fix
+# the order of the sums, and so x's bits
+QR_SOLVE_LAYOUTS = ((16, 8), (8, 4), (8, 1))
 QR_SOLVE_STATIC_SMEM = 5_120   # room for the kernel's static arrays (4480 B)
 
 
 class QRSolveGeometry(NamedTuple):
     """How K7 lays one lane out: ``tiles`` panels of ``QR_SOLVE_NB``
     reflectors, then as many tile steps of the back substitution, by
-    ``warps`` warps; ``smem_bytes`` of dynamic shared memory hold the
-    right-hand side padded to whole tiles, a staged row of ``QR_SOLVE_LDV``
-    f32 for each of its entries, and every warp's partial Gram matrix and
-    partial V^T y."""
+    ``warps`` warps. In Q^T v each warp streams its rows of the factor
+    through a slot of ``group`` tiles; ``smem_bytes`` of dynamic shared
+    memory hold the right-hand side padded to whole tiles and R's
+    diagonal, then every warp's partial Gram matrix and partial V^T y, a
+    staged row of ``QR_SOLVE_LDV`` f32 for each entry of the right-hand
+    side and the slots (``group`` tiles of 32 rows of ``QR_SOLVE_SROW``
+    f32); in R x = y the same room holds every warp's ring of
+    ``QR_SOLVE_BACK_SLOTS`` whole tiles."""
     tiles: int
     warps: int
+    group: int
     smem_bytes: int
 
 
+QR_SOLVE_BACK_SLOTS = 2     # whole tiles (SOLVE_TILE f32, K3's layout) a warp's ring holds
+                            # in R x = y (K7_BACK_SLOTS)
+
+
+def qr_solve_smem(N: int, warps: int, group: int) -> int:
+    """Dynamic shared memory of K7 at N (k7_smem in csrc/auglu.cu)."""
+    rows = -(-N // QR_SOLVE_NB) * QR_SOLVE_NB
+    qt = (warps * QR_SOLVE_NB * (QR_SOLVE_LDV + 1) + rows * QR_SOLVE_LDV
+          + group * QR_SOLVE_NB * QR_SOLVE_SROW)
+    return 4 * (2 * rows + max(qt, warps * QR_SOLVE_BACK_SLOTS * SOLVE_TILE))
+
+
 def qr_solve_geometry(N: int) -> QRSolveGeometry:
-    """K7's layout for N x N lanes: the most warps whose partial sums fit one
-    block's shared memory beside the staged rows."""
-    tiles = -(-N // QR_SOLVE_NB)
-    rows = tiles * QR_SOLVE_NB
-    for warps in QR_SOLVE_WARPS:
-        smem = 4 * (rows * (1 + QR_SOLVE_LDV) + warps * QR_SOLVE_NB * (QR_SOLVE_LDV + 1))
+    """K7's layout for N x N lanes: the first of ``QR_SOLVE_LAYOUTS`` that
+    fits one block's shared memory."""
+    for layout in QR_SOLVE_LAYOUTS:
+        smem = qr_solve_smem(N, *layout)
         if smem + QR_SOLVE_STATIC_SMEM <= SMEM_PER_BLOCK:
-            return QRSolveGeometry(tiles, warps, smem)
+            return QRSolveGeometry(-(-N // QR_SOLVE_NB), *layout, smem)
     raise ValueError(f'qr_solve_batched: N={N} leaves no room for the staged rows')
 
 
@@ -861,7 +881,7 @@ def qr_solve_batched(qr, tau, v):
     geom = qr_solve_geometry(N)
     x = torch.empty(B, N, dtype=f32, device=qr.device)
     _check(name, library().qr_solve_batched(_ptr(qr), _ptr(tau), _ptr(v), _ptr(x), B, N,
-                                            geom.warps, geom.smem_bytes, _stream()))
+                                            geom.warps, geom.group, geom.smem_bytes, _stream()))
     LAUNCHES[name] += 1
     return x
 

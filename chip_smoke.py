@@ -585,7 +585,8 @@ def main():
                   library_ms=cuda_median_ms(library),
                   library_queued_ms=cuda_median_ms(library, queued=True),
                   bound_ms=k7_bound, bound_by=k7_by, swept_z_gap=worst['z'],
-                  direct_residual=worst['direct'], swept_residual=worst['swept'])
+                  direct_residual=worst['direct'], swept_residual=worst['swept'],
+                  geometry=kernels.qr_solve_geometry(N_)._asdict())
         phase('kernels', f'K6 {variant} {tag}: max ||diag R| - |diag R_geqrf|| {diag_err:.3e} (max '
               f'{float(dp.max()):.3e}); {k6["ms"]:.3f} ms vs geqrf {k6["plain_ms"]:.3f} ms; queued '
               f'{k6["queued_ms"]:.3f} ms vs geqrf {k6["plain_queued_ms"]:.3f} ms; bound '

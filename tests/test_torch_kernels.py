@@ -1037,27 +1037,196 @@ def test_blocked_mirrors_non_finite_lanes():
         assert not bool(torch.isfinite(panel_qr_solve_mirror(qr, tau, ones)).all()), kind
 
 
-@pytest.mark.parametrize('N', [37, 543, 1055, 1300])
+@pytest.mark.parametrize('N', [37, 543, 800, 1055, 1216, 1300])
 def test_qr_solve_geometry(N):
-    """K7 pads the right-hand side to whole panels of 32 and stages a row of
-    36 f32 for each of its entries (16-byte rows for the float4 reads),
-    beside every warp's partial Gram matrix (32 rows of 36) and partial
-    V^T y: 16 warps at the slice's N=543, 8 where the staged rows leave less
-    room (N=1055), within one block's shared memory; a lane too large for
-    that raises."""
+    """K7 pads the right-hand side and R's diagonal to whole panels of 32;
+    for Q^T v it stages a row of 36 f32 for each of its entries (16-byte
+    rows for the float4 reads) beside every warp's partial Gram matrix (32
+    rows of 36) and partial V^T y and the warps' staging slots (a group of
+    tiles' 32 rows of 9 aligned 16-byte blocks); for R x = y the same room
+    holds every warp's ring of two whole tiles in K3's layout. All within
+    one block's shared memory: 16 warps and a slot of 8 tiles at the
+    slice's N=543, 8 warps and a slot of 4 at N=800 and at N=1055, a slot
+    of one tile at the largest N; a lane too large for that raises."""
     from awebox_tpu_torch.parallel import kernels
     if N == 1300:
         with pytest.raises(ValueError, match='no room'):
             kernels.qr_solve_geometry(N)
         return
     g = kernels.qr_solve_geometry(N)
+    layout = (g.warps, g.group)
     assert g.tiles == -(-N // kernels.QR_SOLVE_NB)
-    assert g.warps in kernels.QR_SOLVE_WARPS and g.warps == (8 if N == 1055 else 16)
+    assert layout in kernels.QR_SOLVE_LAYOUTS
+    assert layout == {37: (16, 8), 543: (16, 8), 800: (8, 4), 1055: (8, 4), 1216: (8, 1)}[N]
     rows = g.tiles * 32
     assert kernels.QR_SOLVE_LDV % 4 == 0 and kernels.QR_SOLVE_LDV >= 32
-    assert g.smem_bytes == 4 * (rows * 37 + g.warps * 32 * 37)
+    assert kernels.QR_SOLVE_SROW == 4 * (32 // 4 + 1)
+    # K3's slot: row 31 starts 31 * 36 + 12 floats in, and takes up to 36 more
+    assert kernels.SOLVE_TILE >= 31 * 36 + 12 + 36 and kernels.SOLVE_TILE % 4 == 0
+    qt = g.warps * 32 * 37 + rows * 36 + g.group * 32 * 36
+    assert kernels.QR_SOLVE_BACK_SLOTS == 2
+    assert g.smem_bytes == 4 * (2 * rows + max(qt, g.warps * 2 * kernels.SOLVE_TILE))
     assert g.smem_bytes + kernels.QR_SOLVE_STATIC_SMEM <= 232_448
     assert kernels.QR_SOLVE_STATIC_SMEM >= 4 * (32 * 33 + 32 + 32)
+    # the first layout that fits: none earlier in the list does
+    for earlier in kernels.QR_SOLVE_LAYOUTS[:kernels.QR_SOLVE_LAYOUTS.index(layout)]:
+        assert kernels.qr_solve_smem(N, *earlier) + kernels.QR_SOLVE_STATIC_SMEM > 232_448
+
+
+def test_qr_solve_layouts_match_the_compiled_kernels():
+    """Every (warps, tiles a slot) of kernels.QR_SOLVE_LAYOUTS has its case
+    in csrc/auglu.cu's qr_solve_batched, which launches that instance, and
+    no other instance is compiled; each warp count divides a tile's 32 rows
+    and is a multiple of 4 (so all of a warp's rows share one shift)."""
+    from awebox_tpu_torch.parallel import kernels
+    with open(kernels.SOURCE) as fh:
+        src = fh.read()
+    entry = src[src.index('int qr_solve_batched('):]
+    entry = entry[:entry.index('\n}\n')]
+    cases = re.findall(r'case (\d+): return k7_launch<(\d+), (\d+)>', entry)
+    assert [(int(w), int(g)) for _, w, g in cases] == list(kernels.QR_SOLVE_LAYOUTS)
+    assert all(int(c) == 100 * int(w) + int(g) for c, w, g in cases)
+    assert all(32 % w == 0 and w % 4 == 0 and g >= 1 for w, g in kernels.QR_SOLVE_LAYOUTS)
+
+
+def k7_walk(T, group):
+    """csrc/auglu.cu's K7Walk (group and advance), transcribed: the groups
+    (first row tile, column tile, tiles) whose rows a K7 warp streams
+    through its ring in Q^T v, in order."""
+    s, i, out = 0, 0, []
+    while s < T:
+        out.append((i, s, min(group, T - i)))
+        i += group
+        if i >= T:
+            s += 1
+            i = s
+    return out
+
+
+def k7_back_walk(T, warps, warp):
+    """csrc/auglu.cu's K7BackRing walk (start, settle and issue),
+    transcribed: the (row tile, column tile) pairs a warp streams in
+    R x = y, in order."""
+    c, i, out = T - 1, (T - 1 if warp == 0 else warp - 1), []
+
+    def settle():
+        nonlocal c, i
+        while c >= 2 and i >= c - 1:
+            c, i = c - 1, warp - 1
+        if c < 2:
+            c = -1
+    if warp > 0:
+        settle()
+    while c >= 0:
+        out.append((i, c))
+        if warp > 0:
+            i += warps - 1
+            settle()
+        elif i == c:
+            i -= 1
+            if i < 0:
+                c = -1
+        else:
+            c = i
+    return out
+
+
+def test_qr_solve_ring_walks_are_the_kernels_order():
+    """The rings issue their copies in the order the kernel takes the
+    slots, so each take finds the tiles it expects: in Q^T v each panel's
+    row tiles in groups of each compiled size; in R x = y, step by step
+    from the last, warp 0's tile (t, t + 1) above diagonal tile t (its
+    look-ahead, from the second step on) and then diagonal tile t, and
+    every other warp w's tiles (i, t + 1) for i = w - 1 and every
+    (warps - 1)-th after it, below t. Every tile of the factor is in
+    exactly one group or take: each panel's tiles in Q^T v, each tile on or
+    above the diagonal in R x = y. For tile counts from 1 (N <= 32) to 40
+    (past the largest N)."""
+    from awebox_tpu_torch.parallel import kernels
+    for group in sorted({g for _, g in kernels.QR_SOLVE_LAYOUTS}):
+        for T in range(1, 41):
+            walk = k7_walk(T, group)
+            assert walk == [(ti, p, min(group, T - ti)) for p in range(T)
+                            for ti in range(p, T, group)], (group, T)
+            tiles = [(ti + h, tj) for ti, tj, n in walk for h in range(n)]
+            assert sorted(tiles) == sorted((ti, p) for p in range(T) for ti in range(p, T))
+    for warps in sorted({w for w, _ in kernels.QR_SOLVE_LAYOUTS}):
+        for T in range(1, 41):
+            walks = [k7_back_walk(T, warps, w) for w in range(warps)]
+            assert walks[0] == [tile for t in reversed(range(T))
+                                for tile in ([(t, t + 1)] if t + 1 < T else []) + [(t, t)]]
+            for w in range(1, warps):
+                assert walks[w] == [(i, t + 1) for t in reversed(range(T - 1))
+                                    for i in range(w - 1, t, warps - 1)], (warps, T, w)
+            taken = sorted(tile for walk in walks for tile in walk)
+            assert taken == sorted((i, t) for t in range(T) for i in range(t + 1))
+
+
+@pytest.mark.parametrize('N,warps,G', [(37, 16, 8), (130, 8, 1), (543, 16, 8), (1055, 8, 4)])
+def test_qr_solve_staging_mirror(N, warps, G):
+    """K7's staging in Q^T v, transcribed (K7Ring::start and issue, and the
+    realign) on a lane whose matrix starts 0..3 floats past a 16-byte
+    boundary: all of a warp's rows start at one shift into their 16-byte
+    blocks; each warp copies the aligned blocks that cover its rows of a
+    group's tiles, reading exactly the blocks that hold an entry of a tile,
+    all inside the lane's matrix; and what it reads back at that shift,
+    masked, is V: the factor below the diagonal, a unit diagonal, zeros
+    above it and past N. The warps' rows of a tile are its 32 rows, once
+    each. Slots of 8, 4 and 1 tiles."""
+    T, rpw, last = -(-N // 32), 32 // warps, N - 32 * (-(-N // 32) - 1)
+    rng = np.random.default_rng(N)
+    a = rng.standard_normal((N, N)).astype(np.float32)
+    lanes = np.arange(32)
+    for off in range(4):
+        buf = np.full(off + N * N + 8, np.nan, dtype=np.float32)
+        buf[off:off + N * N] = a.ravel()
+        for w in range(warps):
+            sh = (off + w * N) % 4
+            assert {(off + r * N + 32 * tj) % 4 for r in range(w, N, warps)
+                    for tj in range(T)} == {sh}
+            blocks = []                     # start(): block b = 32 q + lane of a slot
+            for b in range(G * rpw * 9):
+                rr, c4 = b // 9, 4 * (b % 9)
+                row = w + warps * (rr % rpw)
+                flags = (1 if c4 < sh + last else 0) | (2 if c4 < sh + 32 else 0) \
+                    | (4 if row < last else 0)
+                blocks.append(((rr // rpw * 32 + row) * N + c4 - sh, rr * 36 + c4, rr // rpw,
+                               flags, row, c4))
+            for ti, tj, n in k7_walk(T, G):
+                g0 = off + (ti * N + tj) * 32
+                cols = min(32, N - 32 * tj)
+                slot = np.full(G * rpw * 36, np.inf, dtype=np.float32)
+                for src, dst, g, flags, row, c4 in blocks:
+                    if g >= n:
+                        continue
+                    need = (1 if tj == T - 1 else 2) | (4 if ti + g == T - 1 else 0)
+                    copy = (flags & need) == need
+                    assert copy == (32 * (ti + g) + row < N and c4 < sh + cols)
+                    start = g0 + src
+                    if copy:
+                        # within the aligned blocks that hold the lane's matrix
+                        assert start % 4 == 0 and start >= off // 4 * 4
+                        assert start + 4 <= (off + N * N - 1) // 4 * 4 + 4
+                        slot[dst:dst + 4] = buf[start:start + 4]
+                    else:
+                        slot[dst:dst + 4] = 0.
+                col = 32 * tj + lanes
+                colc = np.minimum(col, N - 1)
+                for g in range(n):
+                    for j in range(rpw):
+                        r = 32 * (ti + g) + w + warps * j
+                        if r >= N:
+                            continue
+                        e = slot[(g * rpw + j) * 36 + sh + lanes]
+                        v_row = np.where(col < N, e, 0.)
+                        if g == 0 and ti == tj:
+                            v_row = np.where(r > col, v_row, np.where(r == col, 1., 0.))
+                        ref = np.where((col < N) & (r > col), a[r, colc],
+                                       np.where(r == col, 1., 0.))
+                        assert np.array_equal(v_row, ref)
+        for ti in range(T):
+            assert sorted(32 * ti + w + warps * j for w in range(warps)
+                          for j in range(rpw)) == list(range(32 * ti, 32 * ti + 32))
 
 
 def test_kkt_assembly_plain_is_the_jax_formula():
