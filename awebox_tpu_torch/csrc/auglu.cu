@@ -28,7 +28,10 @@
 //                            K(delta) itself (no Jacobi scale, no kd) for
 //                            the QR factor: newton_tiles with scaled = 0,
 //                            kkt_assemble_scaled with a null kd
-//   K5 ruiz_scale            batch.py:375-381  three Ruiz sweeps, M = s K s
+//   K5 ruiz_scale            batch.py:375-381  three Ruiz sweeps, M = s K s, in one
+//                            launch: a thread-block cluster per lane, the
+//                            sweeps exchanging s through distributed
+//                            shared memory
 //   K6 qr_factor_batched     batch.py:382  Householder QR of M (f32) in
 //                            LAPACK's geqrf layout, two variants chosen by
 //                            N: qr_factor_cluster (a lane per thread-block
@@ -1617,59 +1620,376 @@ ip_step_kernel(StepPtrs p, int n, int n_eq, int n_ineq, double tau, double kappa
 //   rr_i = sqrt(clip(max_j |M_ij|, 1e-12)),  s_i <- s_i / rr_i,
 //   M_ij <- (K_ij s_i) s_j,
 // all f32, and equal to kernels.ruiz_scale_plain bit for bit: the maximum is
-// exact, the two products of an entry are rounded one after the other, the
-// square root and the division are IEEE. A NaN in a row passes through the
-// maximum and the clip into that row's s, as jnp.max and jnp.clip pass it.
+// exact in any order, the two products of an entry are rounded one after the
+// other, the square root and the division are IEEE. A NaN in a row passes
+// through the maximum (max.NaN) and the clip into that row's s, as jnp.max
+// and jnp.clip pass it; a warp owns a whole row, so it reaches no other
+// lane's s.
 //
 // What bounds it: bytes. The function reads K once and writes M once (37.7 MB
 // at N = 543, B = 16: 11 us at 3.35 TB/s), but every sweep needs all of the
-// lane's s of the sweep before, so a lane cannot be scaled in one pass. The
-// design keeps the passes parallel instead of the lane resident: each sweep
-// is one launch over all rows of all lanes, a warp per row (coalesced row
-// reads, the lane's s from L1), writing only N floats a lane; K (18.9 MB at
-// B = 16) stays in the 50 MB L2 between the four passes, so HBM sees about
-// the bound's bytes. At B = 128 (151 MB) the passes stream from HBM: four
-// reads and one write, 2.5x the bound's bytes.
+// lane's s of the sweep before. One launch does the whole function:
+//   - a thread-block cluster of C CTAs per lane, the clusters persistent
+//     over lanes (cluster c takes lanes c, c + clusters, ..); CTA rank r owns
+//     the R contiguous rows r R .. r R + R - 1 of its lane;
+//   - the CTA's first `res` rows are one contiguous run of K, copied into
+//     its shared memory once by bulk copies (the TMA, completing on an
+//     mbarrier) of the aligned 16-byte blocks that cover it: rows are 4N
+//     bytes apart, so at odd N the run starts anywhere in a 16-byte block,
+//     and the copy keeps that shift;
+//   - where shared memory holds fewer (N = 1055: 53 of a CTA's 66 rows,
+//     4.45 MB a lane), the instance for N <= 32 K5_REG_COLS holds up to
+//     K5_REG_ROWS more rows a warp in registers (at one CTA an SM a thread
+//     has 168), loaded once while the bulk copy runs; rows beyond both
+//     (N > 1056 only) are re-read from global memory each sweep, and the
+//     wrapper caps the clusters in flight so that those rows stay in the L2;
+//   - a warp sweeps up to K5_GROUP of its rows together, so that one load
+//     of s_j serves them all, and a butterfly of six shuffles reduces their
+//     maxima;
+//   - after each sweep a CTA leaves its rows' s in its shared memory, one
+//     buffer of two by the sweep's parity, then one cluster barrier, and
+//     every CTA gathers the lane's whole s from the C ranks through
+//     distributed shared memory;
+//   - after the third sweep each warp stores its rows of M as it computes
+//     them.
+// Where every row is on chip, HBM and the L2 see K once and M once.
+// What still bounds it (H100, queued; awebox_tpu_torch/probes/ruiz_phases.py
+// cuts): at N = 543 B = 16, 0.031 ms against the 0.011 bound, of which the
+// cluster launch ~6 us and the three exchanges ~3.5 us; a cluster cannot
+// overlap its lane's load, sweeps and stores, which at B = 128 the 21
+// clusters that run at once do for each other (0.17 ms against 0.09). A
+// lane has C SMs' bandwidth only: at N = 1055, where 7 clusters fit the
+// card, the previous four-launch kernel (every SM on every lane) stays
+// faster below B ~ 12 (B = 2: 0.023 against 0.039 ms).
 // ---------------------------------------------------------------------------
-constexpr int K5_THREADS = 256;
+constexpr int K5_THREADS = 384;
 constexpr int K5_WARPS = K5_THREADS / 32;
+constexpr int K5_SWEEPS = 3;
+constexpr int K5_MAX_CLUSTER = 16;    // a non-portable cluster size
+constexpr int K5_GROUP = 4;           // rows a warp sweeps together
+constexpr int K5_REG_ROWS = 2;        // rows a warp may hold in registers ...
+constexpr int K5_REG_COLS = 33;       // ... of N <= 32 K5_REG_COLS columns
+constexpr unsigned K5_CHUNK = 16384;  // bytes a bulk copy moves at most
+constexpr int K5_UNROLL = 2;          // column steps a row loop unrolls (56 registers) ...
+constexpr int K5_UNROLL_REG = 4;      // ... and in the instance with rows in registers
 
+// max with jnp.max's NaN rule: a NaN in either operand gives a NaN
 __device__ __forceinline__ float nmaxf(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
-// one sweep: s_out from s_in (null: s = 1, the first sweep, where M = K)
-__global__ void __launch_bounds__(K5_THREADS)
-ruiz_sweep_kernel(const float* __restrict__ K, const float* __restrict__ s_in,
-                  float* __restrict__ s_out, int N) {
-  const int lane = blockIdx.y, warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  const int i = blockIdx.x * K5_WARPS + warp;   // a warp per row
-  if (i >= N) return;
-  const float* __restrict__ row = K + ((size_t)lane * N + i) * N;
-  const float* __restrict__ s = s_in ? s_in + (size_t)lane * N : nullptr;
-  const float si = s ? s[i] : 1.0f;
-  float mx = 0.0f;
-  for (int j = wl; j < N; j += 32) {
-    const float sj = s ? s[j] : 1.0f;
-    mx = nmaxf(mx, fabsf(__fmul_rn(__fmul_rn(row[j], si), sj)));
-  }
-  for (int off = 16; off > 0; off >>= 1) mx = nmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, off));
-  if (wl == 0) {
-    s_out[(size_t)lane * N + i] = __fdiv_rn(si, __fsqrt_rn(clamp_lo(mx, 1e-12f)));
+__host__ __device__ constexpr int k5_pad4(int x) { return (x + 3) & ~3; }
+
+// Dynamic shared memory, in floats: the lane's s (N), this CTA's s in two
+// buffers (2 R), the resident rows with room for the 16-byte blocks that
+// cover them (res N + 8). kernels.ruiz_smem computes the same.
+__host__ __device__ constexpr size_t k5_smem(int N, int R, int res) {
+  return sizeof(float) * ((size_t)k5_pad4(N) + 2 * (size_t)k5_pad4(R) + (size_t)res * N + 8);
+}
+
+// whether a layout takes the instance with rows in registers
+__host__ __device__ constexpr bool k5_registers(int N, int R, int res) {
+  return res < R && N <= 32 * K5_REG_COLS;
+}
+
+__device__ __forceinline__ unsigned k5_saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, in bulk copies that complete on mbar (one thread)
+__device__ __forceinline__ void k5_bulk_load(float* dst, const float* src, unsigned bytes,
+                                             uint64_t* mbar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(k5_saddr(mbar)), "r"(bytes) : "memory");
+  for (unsigned o = 0; o < bytes; o += K5_CHUNK) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(k5_saddr(dst) + o), "l"(reinterpret_cast<const char*>(src) + o),
+          "r"(min(K5_CHUNK, bytes - o)), "r"(k5_saddr(mbar)) : "memory");
   }
 }
 
-// M = (K s_i) s_j with the last sweep's s
-__global__ void __launch_bounds__(K5_THREADS)
-ruiz_apply_kernel(const float* __restrict__ K, const float* __restrict__ s_all,
-                  float* __restrict__ M, int N) {
-  const int lane = blockIdx.y, warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  const int i = blockIdx.x * K5_WARPS + warp;
-  if (i >= N) return;
-  const size_t o = ((size_t)lane * N + i) * N;
-  const float* __restrict__ s = s_all + (size_t)lane * N;
-  const float si = s[i];
-  for (int j = wl; j < N; j += 32) M[o + j] = __fmul_rn(__fmul_rn(K[o + j], si), s[j]);
+__device__ __forceinline__ void k5_wait(uint64_t* mbar, unsigned phase) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(k5_saddr(mbar)), "r"(phase) : "memory");
+  }
+}
+
+// the rows a warp takes together from row r on (every K5_WARPS-th below end)
+__device__ __forceinline__ int k5_group_rows(int r, int end, int most) {
+  return max(0, min(most, (end - r + K5_WARPS - 1) / K5_WARPS));
+}
+
+// A warp's K5_GROUP row maxima, each lane holding a partial of every row,
+// reduced by a butterfly; lane 8 q then leaves row q's s, s_i / sqrt(clip(
+// max, 1e-12)), in own[r + q K5_WARPS] (q < nq).
+__device__ __forceinline__ void k5_finish(const float (&mx)[K5_GROUP],
+                                          const float (&si)[K5_GROUP], int nq, float* own,
+                                          int r, int wl) {
+  const bool hi = wl & 16, odd = wl & 8;
+  float a0 = hi ? mx[2] : mx[0], a1 = hi ? mx[3] : mx[1];
+  a0 = nmaxf(a0, __shfl_xor_sync(FULL_MASK, hi ? mx[0] : mx[2], 16));
+  a1 = nmaxf(a1, __shfl_xor_sync(FULL_MASK, hi ? mx[1] : mx[3], 16));
+  float m = odd ? a1 : a0;                    // row 2 hi + odd
+  m = nmaxf(m, __shfl_xor_sync(FULL_MASK, odd ? a0 : a1, 8));
+  for (int off = 4; off > 0; off >>= 1) m = nmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
+  const int q = wl >> 3;
+  const float sq = q == 0 ? si[0] : q == 1 ? si[1] : q == 2 ? si[2] : si[3];
+  if ((wl & 7) == 0 && q < nq) {
+    own[r + q * K5_WARPS] = __fdiv_rn(sq, __fsqrt_rn(clamp_lo(m, 1e-12f)));
+  }
+}
+
+// the s_i of a warp's nq rows from r on (1 in the first sweep)
+template <bool FIRST>
+__device__ __forceinline__ void k5_row_s(float (&si)[K5_GROUP], int nq, int i,
+                                         const float* __restrict__ s_all) {
+#pragma unroll
+  for (int q = 0; q < K5_GROUP; ++q) si[q] = (FIRST || q >= nq) ? 1.0f : s_all[i + q * K5_WARPS];
+}
+
+// One sweep over rows [first, end) of the CTA (its row r at rows + r N):
+// each warp's groups of rows r, r + K5_WARPS, ..; in the first sweep s = 1,
+// so the products are the entries
+template <bool FIRST, int U>
+__device__ __forceinline__ void k5_sweep(const float* __restrict__ rows, int first, int end,
+                                         int r0, const float* __restrict__ s_all, float* own,
+                                         int N, int warp, int wl) {
+  const size_t stride = (size_t)K5_WARPS * N;
+  for (int r = first + warp; r < end; r += K5_WARPS * K5_GROUP) {
+    const int nq = k5_group_rows(r, end, K5_GROUP);
+    const float* row = rows + (size_t)r * N;
+    float si[K5_GROUP], mx[K5_GROUP] = {0.0f, 0.0f, 0.0f, 0.0f};
+    k5_row_s<FIRST>(si, nq, r0 + r, s_all);
+#pragma unroll U
+    for (int j = wl; j < N; j += 32) {
+      const float sj = FIRST ? 1.0f : s_all[j];
+#pragma unroll
+      for (int q = 0; q < K5_GROUP; ++q) {
+        if (q < nq) {
+          const float v = row[q * stride + j];
+          mx[q] = nmaxf(mx[q], fabsf(FIRST ? v : __fmul_rn(__fmul_rn(v, si[q]), sj)));
+        }
+      }
+    }
+    k5_finish(mx, si, nq, own, r, wl);
+  }
+}
+
+// M's rows [first, end) of the CTA from rows (row r at rows + r N) to out
+// (row r at out + r N), each warp storing its rows as it computes them
+// (4-byte stores: 16-byte stores of the aligned blocks, and staging M in
+// shared memory for bulk stores, both ran slower)
+template <int U>
+__device__ __forceinline__ void k5_write(const float* __restrict__ rows, float* __restrict__ out,
+                                         int first, int end, int r0,
+                                         const float* __restrict__ s_all, int N, int warp,
+                                         int wl) {
+  const size_t stride = (size_t)K5_WARPS * N;
+  for (int r = first + warp; r < end; r += K5_WARPS * K5_GROUP) {
+    const int nq = k5_group_rows(r, end, K5_GROUP);
+    float si[K5_GROUP];
+    k5_row_s<false>(si, nq, r0 + r, s_all);
+#pragma unroll U
+    for (int j = wl; j < N; j += 32) {
+      const float sj = s_all[j];
+#pragma unroll
+      for (int q = 0; q < K5_GROUP; ++q) {
+        if (q < nq) {
+          out[(size_t)r * N + q * stride + j] =
+              __fmul_rn(__fmul_rn(rows[(size_t)r * N + q * stride + j], si[q]), sj);
+        }
+      }
+    }
+  }
+}
+
+// the same over a warp's nq <= RR rows held in registers, kreg[q][k] the
+// entry of row r + q K5_WARPS in column wl + 32 k
+template <bool FIRST, int RR, int JR>
+__device__ __forceinline__ void k5_reg_sweep(const float (&kreg)[RR][JR], int nq, int r, int r0,
+                                             const float* __restrict__ s_all, float* own,
+                                             int N, int wl) {
+  float si[K5_GROUP], mx[K5_GROUP] = {0.0f, 0.0f, 0.0f, 0.0f};
+  k5_row_s<FIRST>(si, nq, r0 + r, s_all);
+#pragma unroll
+  for (int k = 0; k < JR; ++k) {
+    const int j = wl + 32 * k;
+    if (j < N) {
+      const float sj = FIRST ? 1.0f : s_all[j];
+#pragma unroll
+      for (int q = 0; q < RR; ++q) {
+        if (q < nq) {
+          const float v = kreg[q][k];
+          mx[q] = nmaxf(mx[q], fabsf(FIRST ? v : __fmul_rn(__fmul_rn(v, si[q]), sj)));
+        }
+      }
+    }
+  }
+  k5_finish(mx, si, nq, own, r, wl);
+}
+
+template <int RR, int JR>
+__device__ __forceinline__ void k5_reg_write(const float (&kreg)[RR][JR], int nq, int r, int r0,
+                                             const float* __restrict__ s_all,
+                                             float* __restrict__ out, int N, int wl) {
+  float si[K5_GROUP];
+  k5_row_s<false>(si, nq, r0 + r, s_all);
+#pragma unroll
+  for (int k = 0; k < JR; ++k) {
+    const int j = wl + 32 * k;
+    if (j < N) {
+      const float sj = s_all[j];
+#pragma unroll
+      for (int q = 0; q < RR; ++q) {
+        if (q < nq) {
+          out[(size_t)(r + q * K5_WARPS) * N + j] = __fmul_rn(__fmul_rn(kreg[q][k], si[q]), sj);
+        }
+      }
+    }
+  }
+}
+
+// After a sweep: every CTA's s of its rows is in its buffer `own`; one
+// cluster barrier, then this CTA gathers the lane's whole s into s_all
+// (rank q holds rows q R ..). The buffer a sweep writes is not the one the
+// sweep before wrote, so no rank overwrites what another may still gather.
+__device__ __forceinline__ void k5_exchange(cg::cluster_group& cluster, float* s_all,
+                                            float* own, int N, int R) {
+  cluster.sync();
+  for (int i = threadIdx.x; i < N; i += K5_THREADS) {
+    const int q = i / R;
+    s_all[i] = cluster.map_shared_rank(own, q)[i - q * R];
+  }
+  __syncthreads();
+}
+
+// RR: rows a warp holds in registers (0: none), of N <= 32 JR columns
+template <int RR, int JR, int MINB>
+__global__ void __launch_bounds__(K5_THREADS, MINB)
+ruiz_cluster_kernel(const float* __restrict__ K, float* __restrict__ M, float* __restrict__ s,
+                    int B, int N, int R, int res) {
+  extern __shared__ float4 k5_dyn[];
+  __shared__ uint64_t k5_mbar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x;
+  const int rank = (int)cluster.block_rank();
+  const int clusters = (int)gridDim.x / C;
+  const int R4 = k5_pad4(R);
+  float* s_all = reinterpret_cast<float*>(k5_dyn);
+  float* s_own = s_all + k5_pad4(N);              // [2][R4]
+  float* rows = s_own + 2 * R4;                   // 16-byte aligned
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int r0 = rank * R;
+  const int nrows = max(0, min(R, N - r0));
+  const int nres = min(res, nrows);
+  const int cnt = nres * N;                       // entries in shared memory
+  const int rend = min(nrows, nres + K5_WARPS * RR);   // rows nres .. rend - 1 in registers
+  const int rreg = nres + warp;                   // this warp's first one
+  const int nreg = k5_group_rows(rreg, rend, RR);
+  constexpr int U = RR ? K5_UNROLL_REG : K5_UNROLL;
+  float kreg[RR > 0 ? RR : 1][JR];
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(k5_saddr(&k5_mbar)), "r"(1)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  unsigned phase = 0;
+  int par = 0;
+
+  for (int lane = (int)blockIdx.x / C; lane < B; lane += clusters) {
+    const float* __restrict__ Kr = K + ((size_t)lane * N + r0) * N;   // the CTA's rows
+    float* __restrict__ Mr = M + ((size_t)lane * N + r0) * N;
+    const int shift = k3_shift(Kr);
+    const float* res_rows = rows + shift;
+    if (cnt > 0 && tid == 0) {
+      // the previous lane's reads of rows are done (the barrier ending it)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      k5_bulk_load(rows, Kr - shift, 16u * (unsigned)((shift + cnt + 3) >> 2), &k5_mbar);
+    }
+#pragma unroll
+    for (int q = 0; q < RR; ++q) {
+#pragma unroll
+      for (int k = 0; k < JR; ++k) {
+        const int j = wl + 32 * k;
+        kreg[q][k] = (q < nreg && j < N) ? Kr[(size_t)(rreg + q * K5_WARPS) * N + j] : 0.0f;
+      }
+    }
+    if (cnt > 0) {
+      k5_wait(&k5_mbar, phase);
+      phase ^= 1;
+    }
+
+    for (int sweep = 0; sweep < K5_SWEEPS; ++sweep, par ^= 1) {
+      float* own = s_own + par * R4;
+      if (sweep == 0) {
+        k5_sweep<true, U>(res_rows, 0, nres, r0, s_all, own, N, warp, wl);
+        if (nreg > 0) k5_reg_sweep<true>(kreg, nreg, rreg, r0, s_all, own, N, wl);
+        k5_sweep<true, U>(Kr, rend, nrows, r0, s_all, own, N, warp, wl);
+      } else {
+        k5_sweep<false, U>(res_rows, 0, nres, r0, s_all, own, N, warp, wl);
+        if (nreg > 0) k5_reg_sweep<false>(kreg, nreg, rreg, r0, s_all, own, N, wl);
+        k5_sweep<false, U>(Kr, rend, nrows, r0, s_all, own, N, warp, wl);
+      }
+      k5_exchange(cluster, s_all, own, N, R);
+    }
+
+    k5_write<U>(res_rows, Mr, 0, nres, r0, s_all, N, warp, wl);
+    if (nreg > 0) k5_reg_write(kreg, nreg, rreg, r0, s_all, Mr, N, wl);
+    k5_write<U>(Kr, Mr, rend, nrows, r0, s_all, N, warp, wl);
+    for (int r = tid; r < nrows; r += K5_THREADS) s[(size_t)lane * N + r0 + r] = s_all[r0 + r];
+    __syncthreads();   // rows and s_all are free for the next lane
+  }
+  cluster.sync();   // no CTA leaves while another may still gather from its shared memory
+}
+
+// the attributes a launch needs: its dynamic shared memory and, for C > 8,
+// a non-portable cluster size
+template <int RR, int JR, int MINB>
+cudaError_t k5_attributes(int smem) {
+  const void* fn = (const void*)ruiz_cluster_kernel<RR, JR, MINB>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// clusters of C CTAs of K5_THREADS
+cudaLaunchConfig_t k5_config(int clusters, int C, int smem, void* stream,
+                             cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = k2c_config(clusters, C, smem, stream, attr);
+  cfg.blockDim = dim3(K5_THREADS);
+  return cfg;
+}
+
+template <int RR, int JR, int MINB>
+int k5_occupancy(int C, int smem, int* max_clusters) {
+  cudaError_t err = k5_attributes<RR, JR, MINB>(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k5_config(1, C, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      max_clusters, (const void*)ruiz_cluster_kernel<RR, JR, MINB>, &cfg);
+}
+
+template <int RR, int JR, int MINB>
+int k5_launch(const void* K, void* M, void* s, int B, int N, int C, int R, int res,
+              int clusters, int smem, void* stream) {
+  cudaError_t err = k5_attributes<RR, JR, MINB>(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k5_config(clusters, C, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, ruiz_cluster_kernel<RR, JR, MINB>, (const float*)K, (float*)M,
+                           (float*)s, B, N, R, res);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -2965,18 +3285,29 @@ int ip_step(const void* const* ptrs, int B, int n, int n_eq, int n_ineq, double 
   return (int)cudaGetLastError();
 }
 
-// s_a, s_b: (B, N) scratch for the first two sweeps' s
-int ruiz_scale(const void* K, void* M, void* s, void* s_a, void* s_b, int B, int N,
-               void* stream) {
-  const dim3 grid((N + K5_WARPS - 1) / K5_WARPS, B);
-  const cudaStream_t st = (cudaStream_t)stream;
-  ruiz_sweep_kernel<<<grid, K5_THREADS, 0, st>>>((const float*)K, nullptr, (float*)s_a, N);
-  ruiz_sweep_kernel<<<grid, K5_THREADS, 0, st>>>((const float*)K, (const float*)s_a,
-                                                 (float*)s_b, N);
-  ruiz_sweep_kernel<<<grid, K5_THREADS, 0, st>>>((const float*)K, (const float*)s_b,
-                                                 (float*)s, N);
-  ruiz_apply_kernel<<<grid, K5_THREADS, 0, st>>>((const float*)K, (const float*)s, (float*)M, N);
-  return (int)cudaGetLastError();
+// How many clusters of C CTAs with smem bytes of dynamic shared memory each
+// the card runs at once, in the instance that the layout (N, R, res) takes;
+// written to *max_clusters (int).
+int ruiz_cluster_occupancy(int N, int R, int res, int C, int smem, void* max_clusters) {
+  return k5_registers(N, R, res)
+             ? k5_occupancy<K5_REG_ROWS, K5_REG_COLS, 1>(C, smem, (int*)max_clusters)
+             : k5_occupancy<0, 1, 3>(C, smem, (int*)max_clusters);
+}
+
+// The layout (C CTAs a lane, R rows a CTA of which the first res are held in
+// shared memory, `clusters` clusters in flight, smem bytes of dynamic shared
+// memory) comes from kernels.ruiz_geometry; only the limits compiled into
+// the kernel are checked here.
+int ruiz_scale(const void* K, void* M, void* s, int B, int N, int C, int R, int res,
+               int clusters, int smem, void* stream) {
+  if (C < 1 || C > K5_MAX_CLUSTER || R < 1 || (long long)C * R < N || res < 0 || res > R
+      || clusters < 1 || (size_t)smem < k5_smem(N, R, res)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return k5_registers(N, R, res)
+             ? k5_launch<K5_REG_ROWS, K5_REG_COLS, 1>(K, M, s, B, N, C, R, res, clusters, smem,
+                                                      stream)
+             : k5_launch<0, 1, 3>(K, M, s, B, N, C, R, res, clusters, smem, stream);
 }
 
 // as lu_factor_cluster_occupancy, for the QR cluster kernel

@@ -18,6 +18,7 @@ kkt_assemble           the unscaled K(delta) of the QR factor,       f32
                        :333-336 (newton_kkt with scaled=False
                        builds it with the Newton system)
 ruiz_scale             three Ruiz sweeps M = s K s, :375-381         f32
+                       (one launch, a thread-block cluster a lane)
 qr_factor_batched      jnp.linalg.qr, :382, as packed Householder    f32
                        reflectors (cluster or blocked variant, by N)
 qr_solve_batched       msolve = R^-1 Q^T v, :344-346                 f32
@@ -46,8 +47,7 @@ import torch
 # newton_kkt counts its kernel pair once; lu_factor_batched counts every
 # factor, lu_factor_cluster and lu_factor_blocked say which of K2's two
 # variants ran (a blocked factor's launches a panel are counted once);
-# likewise qr_factor_batched with qr_factor_cluster and qr_factor_blocked;
-# ruiz_scale counts its three sweeps and its scaling pass once
+# likewise qr_factor_batched with qr_factor_cluster and qr_factor_blocked
 LAUNCHES = {'newton_kkt': 0, 'kkt_assemble_scaled': 0, 'lu_factor_batched': 0,
             'lu_factor_cluster': 0, 'lu_factor_blocked': 0,
             'lu_solve_batched': 0, 'ip_step': 0,
@@ -73,7 +73,8 @@ SIGNATURES = {
     'lu_factor_blocked': [_P, _P] + [_I] * 4 + [_P],
     'lu_solve_batched': [_P] * 5 + [_I] * 4 + [_P],
     'ip_step': [_P] + [_I] * 4 + [_D] * 3 + [_P],
-    'ruiz_scale': [_P] * 5 + [_I] * 2 + [_P],
+    'ruiz_cluster_occupancy': [_I] * 5 + [_P],
+    'ruiz_scale': [_P] * 3 + [_I] * 7 + [_P],
     'qr_factor_cluster_occupancy': [_I, _I, _P],
     'qr_factor_cluster': [_P] * 3 + [_I] * 6 + [_P],
     'qr_factor_blocked': [_P] * 5 + [_I] * 4 + [_P],
@@ -660,7 +661,7 @@ def ip_step(x, ok, rn, r1, state, derivs_out, lbw, ubw, free, tau, kappa_mu, mu_
 
 # --- K5 ----------------------------------------------------------------------
 
-RUIZ_SWEEPS = 3             # as batch.py:377; csrc/auglu.cu's ruiz_scale launches as many
+RUIZ_SWEEPS = 3             # as batch.py:377 (K5_SWEEPS)
 
 
 def ruiz_scale_plain(K):
@@ -677,11 +678,100 @@ def ruiz_scale_plain(K):
     return M, s
 
 
+RUIZ_WARPS = 12             # warps a CTA, a warp per row (K5_THREADS / 32)
+RUIZ_CLUSTER_MAX = 16       # CTAs a lane (K5_MAX_CLUSTER, a non-portable cluster size)
+RUIZ_L2_BYTES = 40 << 20    # streamed rows the clusters in flight may keep in the 50 MB L2
+RUIZ_STATIC_SMEM = 16       # room for the kernel's static shared memory (its mbarrier, 8 B)
+RUIZ_REG_ROWS = 2           # rows a warp may hold in registers (K5_REG_ROWS) ...
+RUIZ_REG_COLS = 33          # ... of N <= 32 RUIZ_REG_COLS columns (K5_REG_COLS)
+
+
+class RuizGeometry(NamedTuple):
+    """How K5 lays one lane out: a cluster of ``C`` CTAs, each owning
+    ``rows`` contiguous rows (the last CTA what is left); the first
+    ``resident_rows`` are copied into ``smem_bytes`` of dynamic shared
+    memory beside the lane's s, the next ``register_rows`` (for N <= 1056)
+    are held in registers. 'resident' holds every row on chip; 'streamed'
+    re-reads the others from global memory each sweep, with at most
+    ``lanes_in_flight`` clusters at once so that those rows stay in the L2
+    (0: no cap)."""
+    mode: str
+    C: int
+    rows: int
+    resident_rows: int
+    register_rows: int
+    smem_bytes: int
+    lanes_in_flight: int
+
+
+def ruiz_smem(N: int, rows: int, resident: int) -> int:
+    """K5's dynamic shared memory (k5_smem in csrc/auglu.cu): the lane's s,
+    the CTA's s in two buffers, the resident rows and the 16-byte blocks
+    that cover them."""
+    pad4 = lambda x: -(-x // 4) * 4
+    return 4 * (pad4(N) + 2 * pad4(rows) + resident * N + 8)
+
+
+def ruiz_layout(N: int, C: int, smem_cap: int = SMEM_PER_BLOCK) -> RuizGeometry:
+    """K5's layout for N x N lanes on clusters of up to C CTAs (fewer where
+    ceil(N / rows) is fewer), holding as many of a CTA's rows as smem_cap
+    bytes of shared memory take and, where that is not all of them and
+    N <= 32 RUIZ_REG_COLS (the kernel's k5_registers), up to RUIZ_REG_ROWS
+    more a warp in registers; raises where not even the lane's s fits."""
+    rows = -(-N // C)
+    C = -(-N // rows)
+    fixed = ruiz_smem(N, rows, 0)
+    room = smem_cap - RUIZ_STATIC_SMEM
+    if fixed > room:
+        raise ValueError(f'ruiz_scale: N={N} fits no layout of K5 (the lane\'s s alone needs '
+                         f'{fixed} B of shared memory, more than {room})')
+    resident = min(rows, (room - fixed) // (4 * N))
+    registers = 0
+    if resident < rows and N <= 32 * RUIZ_REG_COLS:
+        registers = min(rows - resident, RUIZ_WARPS * RUIZ_REG_ROWS)
+    on_chip = resident + registers
+    smem = ruiz_smem(N, rows, resident)
+    if on_chip == rows:
+        return RuizGeometry('resident', C, rows, resident, registers, smem, 0)
+    streamed = 4 * N * (N - sum(min(on_chip, N - q * rows) for q in range(C)))
+    return RuizGeometry('streamed', C, rows, resident, registers, smem,
+                        max(1, RUIZ_L2_BYTES // streamed))
+
+
+def ruiz_geometry(N: int) -> RuizGeometry:
+    """K5's layout for N x N lanes: clusters of RUIZ_CLUSTER_MAX CTAs (fewer
+    where the lane has fewer than RUIZ_WARPS rows a CTA); at the slice's
+    N=543 every row in shared memory (34 rows, 76 KB a CTA: three CTAs an
+    SM), at N=1055 53 of 66 rows there and 13 in registers."""
+    return ruiz_layout(N, min(RUIZ_CLUSTER_MAX, -(-N // RUIZ_WARPS)))
+
+
+def ruiz_cluster_max_active(N: int, geom: RuizGeometry) -> int:
+    """Clusters of this geometry the card runs at once (asked once per
+    geometry); raises if it cannot run one."""
+    key = ('ruiz', geom.register_rows > 0, geom.C, geom.smem_bytes)
+    if key not in _max_clusters:
+        count = ctypes.c_int(0)
+        _check('ruiz_cluster_occupancy', library().ruiz_cluster_occupancy(
+            N, geom.rows, geom.resident_rows, geom.C, geom.smem_bytes, ctypes.byref(count)))
+        if count.value < 1:
+            raise RuntimeError(f'ruiz_scale: a cluster of {geom.C} CTAs with '
+                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
+        _max_clusters[key] = count.value
+    return _max_clusters[key]
+
+
+def ruiz_clusters(B: int, N: int, geom: RuizGeometry) -> int:
+    """The clusters one call launches: one a lane, at most as many as run at
+    once and, in streamed mode, as the L2 cap allows."""
+    return min(B, ruiz_cluster_max_active(N, geom), geom.lanes_in_flight or B)
+
+
 def ruiz_scale(K):
     """(B,N,N) f32 -> (M (B,N,N), s (B,N)) f32, equal to ruiz_scale_plain bit
     for bit (a maximum, one square root and one division a row, two
-    products an entry, each rounded as PyTorch rounds them): three sweep
-    launches, a warp per row, then one pass that writes M."""
+    products an entry, each rounded as PyTorch rounds them), in one launch
+    laid out by ruiz_geometry(N)."""
     if not K.is_cuda:
         return ruiz_scale_plain(K)
     name = 'ruiz_scale'
@@ -689,11 +779,12 @@ def ruiz_scale(K):
     B, N, N2 = K.shape
     if N != N2:
         raise ValueError(f'{name}: square matrices expected')
+    geom = ruiz_geometry(N)
     M = torch.empty_like(K)
     s = torch.empty(B, N, dtype=torch.float32, device=K.device)
-    s_a, s_b = torch.empty_like(s), torch.empty_like(s)
-    _check(name, library().ruiz_scale(_ptr(K), _ptr(M), _ptr(s), _ptr(s_a), _ptr(s_b), B, N,
-                                      _stream()))
+    _check(name, library().ruiz_scale(
+        _ptr(K), _ptr(M), _ptr(s), B, N, geom.C, geom.rows, geom.resident_rows,
+        ruiz_clusters(B, N, geom), geom.smem_bytes, _stream()))
     LAUNCHES[name] += 1
     return M, s
 

@@ -18,13 +18,16 @@ and checks the hand-written CUDA kernels on the way:
               (the direction from the solution and the step) at its stated
               tolerances, each at B = 1, 16 and 128 and on random systems
               with non-finite J/H entries, pinned variables and infinite
-              bounds; the retry assembly bit for bit; the LU factor K2 in
+              bounds; the retry assemblies bit for bit at N=543 and
+              N=1055 (B=16); the LU factor K2 in
               both variants, each where lu_factor_geometry takes it: the
               cluster kernel at N=543, B = 1, 16 and 128, the blocked one
               at N=1055, B = 2 and 16, with a singular and a NaN lane; the
               LU solve K3 on each of those shapes, on K2's factor and on
-              cuSOLVER's; the QR path's kernels: the unscaled retry assembly
-              and K5 ruiz_scale bit for bit (a NaN row included), K6
+              cuSOLVER's; the QR path's kernels: K5 ruiz_scale bit for bit
+              in its one launch (a cluster per lane; its mode and cluster
+              size printed) at N=543, B = 1, 16 and 128 (a NaN row and an
+              inf entry included) and N=1055, B = 2 and 16, K6
               qr_factor_batched in both variants (the cluster kernel at
               N=543, B = 1, 16 and 128, the blocked one at N=1055, B = 2 and
               16, with a singular and a NaN lane) by |diag R| and by the
@@ -50,7 +53,8 @@ and checks the hand-written CUDA kernels on the way:
               ladder retry, every factor through the variant of its N; LU:
               three solves per factor and no QR kernel; QR: one K5 and one
               K6 per attempt, two K7 solves per factor and no LU kernel; no
-              plain version of any kernel called; state on the card
+              plain version of any kernel called; state on the card; the
+              lanes of each K5 call
   6. n_k=8    the same sweep from tests/artifacts/bench_anchor_nk8_d3.npz
               ([slice-nk8] with LU, [slice-nk8-qr] with QR, each followed by
               its [path]), every factor through the blocked variants: the
@@ -272,37 +276,31 @@ def main():
                                                   scaled=False)
     report['newton_kkt'] = dict(k1_at[f'B={B}'], at=k1_at)
 
-    # the retry assembly: K(delta) of the lanes a ladder retry takes, from
-    # the f32 W0 and A'; bit for bit, at three deltas
+    # the retry assemblies: K(delta) of the lanes a ladder retry takes, from
+    # the f32 W0 and A', Jacobi-scaled (LU) and unscaled (QR); bit for bit,
+    # here at three deltas, at N=1055 below
+    def hold_assembly(name, tag, args):
+        fn, plain = getattr(kernels, name), getattr(kernels, name + '_plain')
+        out_k, out_p = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        out_k, out_p = (o if isinstance(o, tuple) else (o,) for o in (out_k, out_p))
+        require(all(torch.equal(a, b_) for a, b_ in zip(out_k, out_p)),
+                f'{name} {tag}: disagrees with its plain version')
+        b_, by_ = bound(nbytes(*args, *out_k))
+        rec = dict(max_abs_err=0.0, ms=cuda_median_ms(lambda: fn(*args)),
+                   queued_ms=cuda_median_ms(lambda: fn(*args), queued=True),
+                   plain_ms=cuda_median_ms(lambda: plain(*args)), bound_ms=b_, bound_by=by_,
+                   library_ms=None)
+        phase('kernels', f'retry assembly {name} {tag}: bit for bit, {rec["ms"]:.4f} ms, queued '
+              f'{rec["queued_ms"]:.4f} ms, vs plain {rec["plain_ms"]:.3f} ms; bound {b_:.4f} ms '
+              f'({by_})')
+        return rec
+
     f32w = lambda t: t.to(f32).contiguous()
     args1 = (f32w(ref16['W64']), f32w(ref16['A64']), ref16['Dr32'],
              free.to(f32).contiguous(), 10.0 ** torch.linspace(-8, 0, B, dtype=f64, device=dev))
-    Ks_k, kd_k = kernels.kkt_assemble_scaled(*args1)
-    Ks_r, kd_r = kernels.kkt_assemble_scaled_plain(*args1)
-    torch.cuda.synchronize()
-    require(torch.equal(Ks_k, Ks_r) and torch.equal(kd_k, kd_r),
-            'the retry assembly disagrees with its plain version')
-    k1r = lambda: kernels.kkt_assemble_scaled(*args1)
-    b1, by1 = bound(nbytes(*args1, Ks_k, kd_k))
-    report['kkt_assemble_scaled'] = r1 = dict(
-        max_abs_err=0.0, ms=cuda_median_ms(k1r), queued_ms=cuda_median_ms(k1r, queued=True),
-        plain_ms=cuda_median_ms(lambda: kernels.kkt_assemble_scaled_plain(*args1)),
-        bound_ms=b1, bound_by=by1, library_ms=None)
-    phase('kernels', f'retry assembly kkt_assemble_scaled: bit for bit at delta 1e-8..1, '
-          f'{r1["ms"]:.4f} ms, queued {r1["queued_ms"]:.4f} ms, vs plain '
-          f'{r1["plain_ms"]:.3f} ms; bound {b1:.4f} ms ({by1})')
-    K_k, K_r = kernels.kkt_assemble(*args1), kernels.kkt_assemble_plain(*args1)
-    torch.cuda.synchronize()
-    require(torch.equal(K_k, K_r), 'the unscaled retry assembly disagrees with its plain version')
-    k1u = lambda: kernels.kkt_assemble(*args1)
-    b1u, by1u = bound(nbytes(*args1, K_k))
-    report['kkt_assemble'] = r1u = dict(
-        max_abs_err=0.0, ms=cuda_median_ms(k1u), queued_ms=cuda_median_ms(k1u, queued=True),
-        plain_ms=cuda_median_ms(lambda: kernels.kkt_assemble_plain(*args1)),
-        bound_ms=b1u, bound_by=by1u, library_ms=None)
-    phase('kernels', f'unscaled retry assembly kkt_assemble: bit for bit at delta 1e-8..1, '
-          f'{r1u["ms"]:.4f} ms, queued {r1u["queued_ms"]:.4f} ms, vs plain '
-          f'{r1u["plain_ms"]:.3f} ms; bound {b1u:.4f} ms ({by1u})')
+    assembly_at = {name: {f'N={N} B={B}': hold_assembly(name, f'N={N} B={B}, delta 1e-8..1', args1)}
+                   for name in ('kkt_assemble_scaled', 'kkt_assemble')}
     Ks_p, kd_p = ref16['Ks'], ref16['kd']
 
     # K2+K3: factor and solve the anchor-derived Ks. LU ties may pick other
@@ -477,12 +475,19 @@ def main():
         require(same_bits(M, M_p) and same_bits(s_, s_p), f'K5 {tag}: differs from its plain version')
         k5 = lambda: kernels.ruiz_scale(K)
         b_, by_ = bound(nbytes(K, M, s_), 8 * K.numel())
+        geom = kernels.ruiz_geometry(K.shape[1])
+        clusters = kernels.ruiz_clusters(K.shape[0], K.shape[1], geom)
         rec = dict(max_abs_err=0.0, ms=cuda_median_ms(k5), queued_ms=cuda_median_ms(k5, queued=True),
                    plain_ms=cuda_median_ms(lambda: kernels.ruiz_scale_plain(K)),
-                   bound_ms=b_, bound_by=by_, library_ms=None)
+                   bound_ms=b_, bound_by=by_, library_ms=None, geometry=geom._asdict(),
+                   clusters=clusters,
+                   clusters_at_once=kernels.ruiz_cluster_max_active(K.shape[1], geom))
         phase('kernels', f'K5 ruiz_scale {tag}: M and s bit for bit; {rec["ms"]:.4f} ms, queued '
               f'{rec["queued_ms"]:.4f} ms, vs plain {rec["plain_ms"]:.3f} ms; bound {b_:.4f} ms '
-              f'({by_}); max |M| {float(M.nan_to_num().abs().max()):.3f}')
+              f'({by_}); {geom.mode}, C={geom.C}, {geom.resident_rows} rows a CTA in shared '
+              f'memory and {geom.register_rows} in registers of {geom.rows}, {clusters} clusters '
+              f'launched ({rec["clusters_at_once"]} run at once); max |M| '
+              f'{float(M.nan_to_num().abs().max()):.3f}')
         return M, s_, rec
 
     k5_at, ruiz_out = {}, {}
@@ -495,7 +500,6 @@ def main():
     _, s_bad, k5_at['non-finite B=16'] = hold_k5('NaN row and inf entry B=16', K_bad)
     require(bool(torch.isnan(s_bad[3]).any()) and bool(torch.isfinite(s_bad[[0, 1, 2]]).all()),
             'K5: the NaN row did not reach its lane\'s s, or reached another lane')
-    report['ruiz_scale'] = dict(k5_at[f'B={B}'], at=k5_at)
 
     # K6 + K7: Householder QR and the solve R^-1 Q^T c of the Ruiz-scaled
     # anchor systems M, c = s b. A QR factor is unique only up to the signs of
@@ -637,8 +641,12 @@ def main():
     qgeom8 = kernels.qr_factor_geometry(N8)
     require(qgeom8.variant == 'blocked', f'N={N8} does not take the blocked QR variant: {qgeom8}')
     K8 = kernels.kkt_assemble(*pieces8)
-    M8, s8 = kernels.ruiz_scale(K8)
-    require(same_bits(M8, kernels.ruiz_scale_plain(K8)[0]), 'K5 at N=1055 differs')
+    for Bk in (2, B):
+        M8, s8, k5_at[f'N={N8} B={Bk}'] = hold_k5(f'N={N8} B={Bk}', K8[:Bk].contiguous())
+    report['ruiz_scale'] = dict(k5_at[f'B={B}'], at=k5_at)
+    for name in assembly_at:
+        assembly_at[name][f'N={N8} B={B}'] = hold_assembly(name, f'N={N8} B={B}', pieces8)
+        report[name] = dict(assembly_at[name][f'N={N} B={B}'], at=assembly_at[name])
     c64_8 = eq8['b'] * s8.to(f64)
     k6b_at = {}
     for Bk in (2, B):
@@ -822,6 +830,12 @@ def main():
             return call
         for k in plain_calls:
             setattr(kernels, k, counted(k))
+        k5_lanes, ruiz = [], kernels.ruiz_scale
+
+        def ruiz_recorded(K):   # the lanes of each K5 call (the wrapper counts its launch)
+            k5_lanes.append(K.shape[0])
+            return ruiz(K)
+        kernels.ruiz_scale = ruiz_recorded
         kernels.reset_launch_counts()
         try:
             res = refine(ocp_, state_, P64_, lbw_, ubw_, free_, tol=1e-5, verify_tol=1e-4,
@@ -829,6 +843,7 @@ def main():
         finally:
             for k, fn in saved.items():
                 setattr(kernels, k, fn)
+            kernels.ruiz_scale = ruiz
         launches = dict(kernels.LAUNCHES)
         it = res['n_iter']
         conv = res['converged'].cpu().numpy()
@@ -886,11 +901,15 @@ def main():
             require(not any(launches[k] for k in lu_names), f'qr: an LU kernel ran: {launches}')
         require(not any(plain_calls.values()), f'{fac}: plain versions ran: {plain_calls}')
         require(all(v.is_cuda for v in res['state'].values()), f'{fac}: the state left the card')
+        k5_hist = {b_: k5_lanes.count(b_) for b_ in sorted(set(k5_lanes))}
+        if fac == 'qr':
+            k5_lanes_at[tag] = k5_hist
         phase('path', f'{tag}: kernel launches in the slice run: {launches}; {retries} ladder '
               f'retries; every factor through the {variant} variant; plain versions called: '
-              f'{sum(plain_calls.values())}')
+              f'{sum(plain_calls.values())}; K5 calls by lanes: {k5_hist}')
         return launches, it, powers
 
+    k5_lanes_at = report['ruiz_scale']['lanes_per_call'] = {}
     cell4 = (ocp, state, P64, lbw, ubw, free, u_refs)
     launches_lu, it_lu, powers_lu = run_slice('slice', 'lu', cell4, 'cluster')
     launches_qr, it_qr, powers_qr = run_slice('slice-qr', 'qr', cell4, 'cluster')

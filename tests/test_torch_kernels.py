@@ -1229,6 +1229,162 @@ def test_qr_solve_staging_mirror(N, warps, G):
                           for j in range(rpw)) == list(range(32 * ti, 32 * ti + 32))
 
 
+# --- K5: the cluster schedule ------------------------------------------------
+
+def ruiz_cluster_mirror(K, geom, clusters, offset=0):
+    """csrc/auglu.cu's ruiz_cluster_kernel, transcribed: K (B, N, N) f32 lies
+    in a flat memory ``offset`` floats past a 16-byte boundary; cluster c
+    takes lanes c, c + clusters, ..; CTA q owns rows q R .., copies the
+    first resident rows as the 16-byte blocks that cover them (keeping the
+    shift), holds the next ones in registers (warp w rows nres + w + 12 k,
+    k < RUIZ_REG_ROWS, where the layout has register rows) and reads
+    the others from the memory; each sweep leaves a CTA's s in buffer
+    ``par`` of its own two, and every CTA gathers the lane's s from the
+    owners' buffers; each row of M and s follow. Returns M, s and how often
+    each lane was taken."""
+    from awebox_tpu_torch.parallel import kernels
+    B, N, _ = K.shape
+    C, R, res = geom.C, geom.rows, geom.resident_rows
+    W = kernels.RUIZ_WARPS
+    RR = kernels.RUIZ_REG_ROWS if geom.register_rows else 0
+    mem = torch.full((offset + B * N * N + 8,), float('nan'))
+    mem[offset:offset + B * N * N] = K.reshape(-1)
+    M = torch.full_like(K, float('nan'))
+    s = torch.full((B, N), float('nan'))
+    taken = [0] * B
+    i = torch.arange(N)
+    owner = i // R
+    for c in range(clusters):
+        s_own = torch.full((C, 2, R), float('nan'))   # the C CTAs' two buffers
+        par = 0
+        for lane in range(c, B, clusters):
+            taken[lane] += 1
+            ctas = []
+            for q in range(C):
+                r0 = q * R
+                nrows = max(0, min(R, N - r0))
+                nres = min(res, nrows)
+                rend = min(nrows, nres + W * RR)
+                kr = offset + (lane * N + r0) * N         # the CTA's first entry
+                shift = kr & 3
+                blocks = (shift + nres * N + 3) >> 2
+                assert (kr - shift) % 4 == 0 and 4 * blocks <= nres * N + 8
+                smem = torch.full((nres * N + 8,), float('nan'))
+                smem[:4 * blocks] = mem[kr - shift:kr - shift + 4 * blocks]
+                src = {}
+                for r in range(nres):
+                    src[r] = smem[shift + r * N:shift + (r + 1) * N]
+                for w in range(W):                         # the register rows, RR a warp
+                    for k in range(RR):
+                        r = nres + w + W * k
+                        if r < rend:
+                            assert r not in src
+                            src[r] = mem[kr + r * N:kr + (r + 1) * N].clone()
+                for r in range(rend, nrows):
+                    assert r not in src
+                    src[r] = mem[kr + r * N:kr + (r + 1) * N]
+                assert sorted(src) == list(range(nrows))
+                ctas.append((r0, nrows, nres, kr, shift, smem, src))
+            s_all = [None] * C
+            for sweep in range(3):
+                for q, (r0, nrows, _, _, _, _, src) in enumerate(ctas):
+                    for r in range(nrows):
+                        si = s_all[q][r0 + r] if sweep else torch.tensor(1.)
+                        v = src[r] if sweep == 0 else (src[r] * si) * s_all[q]
+                        s_own[q, par, r] = si / torch.sqrt(torch.clamp(v.abs().amax(), min=1e-12))
+                gathered = s_own[owner, par, i - owner * R]
+                s_all = [gathered.clone() for _ in range(C)]
+                par ^= 1
+            for q, (r0, nrows, _, _, _, _, src) in enumerate(ctas):
+                for r in range(nrows):
+                    M[lane, r0 + r] = (src[r] * s_all[q][r0 + r]) * s_all[q]
+                    s[lane, r0 + r] = s_all[q][r0 + r]
+    return M, s, taken
+
+
+@pytest.mark.parametrize('N', [37, 130, 543, 737, 1055, 1300, 2000])
+def test_ruiz_geometry(N):
+    """K5's layout: clusters of at most 16 CTAs (12 warps each, a warp per
+    row) whose rows cover the lane with a row for every CTA; the lane's s,
+    the CTA's two buffers of its s and its resident rows (with the 16-byte
+    blocks that cover them) within one block's shared memory. Every row is
+    resident up to N=737 (at the slice's N=543: 34 rows, few enough bytes for
+    three CTAs an SM); beyond, as many rows as fit, and a cap on the clusters
+    in flight keeps the other rows of the lanes in flight within the L2. A
+    lane whose s alone does not fit raises by name."""
+    from awebox_tpu_torch.parallel import kernels
+    g = kernels.ruiz_geometry(N)
+    assert kernels.RUIZ_WARPS == 12
+    assert g == kernels.ruiz_layout(N, min(kernels.RUIZ_CLUSTER_MAX, -(-N // 12)))
+    assert 1 <= g.C <= kernels.RUIZ_CLUSTER_MAX
+    assert g.rows * (g.C - 1) < N <= g.rows * g.C
+    assert g.smem_bytes == kernels.ruiz_smem(N, g.rows, g.resident_rows)
+    assert g.smem_bytes == 4 * (-(-N // 4) * 4 + 2 * (-(-g.rows // 4) * 4) + g.resident_rows * N + 8)
+    room = kernels.SMEM_PER_BLOCK - kernels.RUIZ_STATIC_SMEM
+    assert g.smem_bytes <= room
+    if N <= 737:
+        assert g.mode == 'resident' and g.resident_rows == g.rows and g.register_rows == 0
+        assert g.lanes_in_flight == 0
+    else:
+        assert 0 < g.resident_rows < g.rows
+        assert kernels.ruiz_smem(N, g.rows, g.resident_rows + 1) > room
+    if N == 1055:   # the rest in registers: 13 rows, at most two a warp
+        assert g.mode == 'resident' and (g.resident_rows, g.register_rows) == (53, 13)
+        assert g.register_rows <= 12 * kernels.RUIZ_REG_ROWS and N <= 32 * kernels.RUIZ_REG_COLS
+        assert g.lanes_in_flight == 0
+    if N > 1056:    # the rest re-read from the L2: a cap on the lanes in flight
+        assert g.mode == 'streamed' and g.register_rows == 0
+        streamed = 4 * N * (N - g.C * g.resident_rows)
+        assert g.lanes_in_flight >= 1
+        assert g.lanes_in_flight * streamed <= kernels.RUIZ_L2_BYTES or g.lanes_in_flight == 1
+    if N == 543:
+        assert (g.C, g.rows) == (16, 34)
+        # three CTAs on an SM's 228 KB, each with 1 KB reserved
+        assert 3 * (g.smem_bytes + kernels.RUIZ_STATIC_SMEM + 1024) <= 233_472
+    with pytest.raises(ValueError, match='ruiz_scale: N=60000 fits no layout'):
+        kernels.ruiz_geometry(60_000)
+
+
+@pytest.mark.parametrize('N', [37, 543, 1055])
+def test_ruiz_cluster_mirror_matches_plain(N):
+    """The cluster schedule of K5 (rows split over the C ranks, resident and
+    streamed rows, s gathered from the owners' double buffers, persistent
+    clusters walking the lanes) gives ruiz_scale_plain's M and s bit for
+    bit: on Gaussian lanes with rows over six decades, on a lane with a NaN
+    row, an inf entry and a zero row, which leaves the other lanes' bits as
+    they were; in the geometry's layout, at two clusters for B lanes (the
+    parity of the buffers runs on from lane to lane) and with K 1 and 3
+    floats past a 16-byte boundary; at N=37 also with rows in registers and
+    with rows re-read from memory."""
+    from awebox_tpu_torch.parallel import kernels
+    B = 3 if N > 600 else 5
+    rng = np.random.default_rng(N)
+    K = torch.as_tensor(rng.standard_normal((B, N, N)) * 10.0 ** rng.uniform(-3, 3, (B, N, 1)),
+                        dtype=torch.float32)
+    M_p, s_p = kernels.ruiz_scale_plain(K)
+    K_bad = K.clone()
+    K_bad[1, N // 2, :] = float('nan')
+    K_bad[1, 3, N - 2] = float('inf')
+    K_bad[1, N - 1, :] = 0.
+    Mb_p, sb_p = kernels.ruiz_scale_plain(K_bad)
+    assert torch.isnan(sb_p[1]).any()
+    geom = kernels.ruiz_geometry(N)
+    layouts = [(geom, 2, 1), (geom, B, 3)]
+    if N == 37:     # rows in registers; and rows re-read, as beyond N = 1056
+        cap = kernels.ruiz_smem(N, 10, 4) + kernels.RUIZ_STATIC_SMEM
+        layouts.append((kernels.ruiz_layout(N, 4, cap), 2, 2))
+        assert layouts[-1][0][3:5] == (4, 6)
+        layouts.append((layouts[-1][0]._replace(register_rows=0), 2, 2))
+    for geom, clusters, offset in layouts:
+        M, s, taken = ruiz_cluster_mirror(K, geom, clusters, offset)
+        assert taken == [1] * B
+        assert same_bits(M, M_p) and same_bits(s, s_p), (geom, clusters, offset)
+        Mb, sb, _ = ruiz_cluster_mirror(K_bad, geom, clusters, offset)
+        assert same_bits(Mb, Mb_p) and same_bits(sb, sb_p), (geom, clusters, offset)
+        others = [0] + list(range(2, B))
+        assert torch.equal(Mb[others], M[others]) and torch.equal(sb[others], s[others])
+
+
 def test_kkt_assembly_plain_is_the_jax_formula():
     """K1's plain versions compute awebox_tpu/parallel/batch.py:333-336 (the
     unscaled K of the QR factor) and :409-413 (its Jacobi scaling for LU)
@@ -1340,7 +1496,9 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
 def test_ctypes_signatures_match_the_cuda_entry_points():
     """The argument types bound in kernels.SIGNATURES are those of the
     extern "C" functions of csrc/auglu.cu (a mismatch would only show as a
-    wrong launch on the card)."""
+    wrong launch on the card); K5's one launch takes K, M and s, B, N and
+    the layout (C, rows, resident rows, clusters, shared memory), then the
+    stream, and its occupancy query the layout and a pointer to the count."""
     from awebox_tpu_torch.parallel import kernels
     with open(kernels.SOURCE) as fh:
         src = fh.read()
@@ -1354,6 +1512,9 @@ def test_ctypes_signatures_match_the_cuda_entry_points():
             types.append(kinds['void*' if '*' in words else words[0]])
         found[name] = types
     assert found == kernels.SIGNATURES
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert found['ruiz_scale'] == [P] * 3 + [I] * 7 + [P]
+    assert found['ruiz_cluster_occupancy'] == [I] * 5 + [P]
 
 
 # --- on the card ------------------------------------------------------------
@@ -1599,14 +1760,38 @@ def hold_qr_factor_and_solve(M, v, variant, tag=''):
 
 @pytest.mark.cuda
 def test_qr_kernels_match_plain_on_card(cuda):
-    """K5 (ruiz_scale) bit for bit with its plain version, NaN rows
-    included; K6 in both variants (the cluster kernel at N = 37 and 543, the
-    blocked one at N = 1055) and K7 by the gates of hold_qr_factor_and_solve
-    at B = 1, 3 and 16; a singular lane (a zero column: a zero on R's
-    diagonal) and a lane with a NaN column give a non-finite solution, as
-    with the library, and leave the other lanes alone. Each counter moves
-    once per call."""
+    """K5 (ruiz_scale) bit for bit with its plain version in its one launch:
+    at N = 543 for B = 1, 3, 16 and 128 and at N = 1055 for B = 2 and 16,
+    on lanes with rows over six decades and, where B > 1, with a NaN row, an
+    inf entry and a zero row in one lane, which must not change another
+    lane's bits; then K5 again, K6 in both variants (the cluster kernel at
+    N = 37 and 543, the blocked one at N = 1055) and K7 by the gates of
+    hold_qr_factor_and_solve at B = 1, 3 and 16; a singular lane (a zero
+    column: a zero on R's diagonal) and a lane with a NaN column give a
+    non-finite solution, as with the library, and leave the other lanes
+    alone. Each counter moves once per call."""
     from awebox_tpu_torch.parallel import kernels
+    for N, B in ((543, 1), (543, 3), (543, 16), (543, 128), (1055, 2), (1055, 16)):
+        rng = np.random.default_rng(N + B)
+        K = torch.as_tensor(rng.standard_normal((B, N, N)) * 10.0 ** rng.uniform(-3, 3, (B, N, 1)),
+                            dtype=torch.float32, device=cuda)
+        before = kernels.LAUNCHES['ruiz_scale']
+        M, s = kernels.ruiz_scale(K)
+        M_p, s_p = kernels.ruiz_scale_plain(K)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['ruiz_scale'] == before + 1
+        assert same_bits(M, M_p) and same_bits(s, s_p), (N, B)
+        if B > 1:
+            K[1, N // 2, :] = float('nan')
+            K[1, 3, N - 2] = float('inf')
+            K[1, N - 1, :] = 0.
+            Mb, sb = kernels.ruiz_scale(K)
+            Mb_p, sb_p = kernels.ruiz_scale_plain(K)
+            torch.cuda.synchronize()
+            assert same_bits(Mb, Mb_p) and same_bits(sb, sb_p), (N, B, 'non-finite')
+            assert bool(torch.isnan(sb[1]).any())
+            others = [0] + list(range(2, B))
+            assert torch.equal(Mb[others], M[others]) and torch.equal(sb[others], s[others])
     for N, B in ((N, B) for N in (37, 543, 1055) for B in (1, 3, 16)):
         A, _, v = gaussian_lanes(B, N, seed=N + B, device=cuda)
         A = A * torch.as_tensor(10.0 ** np.random.default_rng(N).uniform(-3, 3, (B, N, 1)),
