@@ -42,11 +42,25 @@
 //                            applied 32 at a time, then a tiled back
 //                            substitution
 //
+// and, f64, those of the block and condensed KKT modes (make_ip_step with
+// kkt='block' or 'dense'):
+//
+//   K4 advance_state         batch.py:449-512  the step half of ip_step, from
+//                            a direction the caller computed
+//   K8 block_factor          ocp/blockkkt.py:539-588  the two-level Cholesky
+//                            of the per-interval frames and the reduced
+//                            bordered system, a CTA per lane
+//   K9 block_solve           ocp/blockkkt.py:646-679  the structured solve
+//                            through K8's factor
+//   K10 chol_factor_batched  batch.py:215-231  Cholesky of the condensed M
+//   K11 chol_solve_batched   batch.py:234-236  the two triangular solves
+//
 // Layout follows the JAX package: lanes first, row-major. Every entry point
 // is a plain C function that returns a CUDA error code; a launch goes to the
-// caller's stream and returns cudaGetLastError(). newton_rows, newton_tiles
-// and ip_step take their many tensors as one host array of pointers, in the
-// order of their structs below (kernels.NEWTON_FIELDS, STEP_FIELDS). Build (no PyTorch headers):
+// caller's stream and returns cudaGetLastError(). newton_rows, newton_tiles,
+// ip_step and advance_state take their many tensors as one host array of
+// pointers, in the order of their structs below (kernels.NEWTON_FIELDS,
+// STEP_FIELDS, ADVANCE_FIELDS). Build (no PyTorch headers):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libauglu.so auglu.cu
 //
@@ -1455,6 +1469,86 @@ __device__ __forceinline__ double ftb_ratio(double val, double dval, double tau)
   return (dval < 0.0) ? div_rn(__dmul_rn(-tau, val), dval) : INFINITY;
 }
 
+// The step rule of _advance_state (awebox_tpu/parallel/batch.py:449-512),
+// shared by ip_step_kernel and advance_state_kernel: a variable's ratios into
+// the step's minima ra (primal) and rz (dual), a variable's update, a row's
+// updates and the barrier update, each in the plain version's order.
+__device__ __forceinline__ void var_ratios(double dl, double du, double dw, double zl, double zu,
+                                           double dzl, double dzu, double tau, double& ra,
+                                           double& rz) {
+  ra = nmin(ra, ftb_ratio(dl, dw, tau));
+  ra = nmin(ra, ftb_ratio(du, -dw, tau));
+  rz = nmin(rz, ftb_ratio(nmax(zl, 1e-300), dzl, tau));
+  rz = nmin(rz, ftb_ratio(nmax(zu, 1e-300), dzu, tau));
+}
+
+// the lam ratio of an inequality row
+__device__ __forceinline__ double lam_ratio(double lam, double dlam, double tau) {
+  return ftb_ratio(nmax(lam, 1e-12), dlam, tau);
+}
+
+// the minima ra, rz and (with K = 4) the maxima err_d, err_p over the lane's
+// CTA: warp shuffles, one barrier; minima and maxima are exact in any order
+template <int K>
+__device__ __forceinline__ void lane_reduce(double (&v)[K], double (*red)[K4_WARPS]) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const double o = __shfl_xor_sync(FULL_MASK, v[k], off);
+      v[k] = k < 2 ? nmin(v[k], o) : nmax(v[k], o);
+    }
+  }
+  if (wl == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k][warp] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < K4_WARPS; ++w) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = k < 2 ? nmin(v[k], red[k][w]) : nmax(v[k], red[k][w]);
+  }
+}
+
+// w + alpha dw, and the bound duals stepped by alpha_z and held in the
+// kappa_sigma corridor around mu / (w - lb) and mu / (ub - w)
+__device__ __forceinline__ void update_var(double w, double dw, double zl, double dzl, double zu,
+                                           double dzu, double lb, double ub, double alpha,
+                                           double alpha_z, double mu, double* w_o, double* zl_o,
+                                           double* zu_o) {
+  const double ks = 1e10;   // kappa_sigma corridor
+  const double wn = __dadd_rn(w, __dmul_rn(alpha, dw));
+  *w_o = wn;
+  const bool fl = isfinite(lb), fu = isfinite(ub);
+  double zln = fl ? __dadd_rn(zl, __dmul_rn(alpha_z, dzl)) : 0.0;
+  double zun = fu ? __dadd_rn(zu, __dmul_rn(alpha_z, dzu)) : 0.0;
+  const double dl = nmax(__dsub_rn(wn, lb), 1e-20);
+  const double du = nmax(__dsub_rn(ub, wn), 1e-20);
+  zln = nmin(nmax(zln, div_rn(mu, __dmul_rn(ks, dl))), div_rn(__dmul_rn(ks, mu), dl));
+  zun = nmin(nmax(zun, div_rn(mu, __dmul_rn(ks, du))), div_rn(__dmul_rn(ks, mu), du));
+  *zl_o = fl ? zln : 0.0;
+  *zu_o = fu ? zun : 0.0;
+}
+
+__device__ __forceinline__ double update_y(double y, double dy, double alpha) {
+  return nmin(nmax(__dadd_rn(y, __dmul_rn(alpha, dy)), -1e10), 1e10);
+}
+
+__device__ __forceinline__ double update_lam(double lam, double dlam, double alpha_z) {
+  return nmin(nmax(__dadd_rn(lam, __dmul_rn(alpha_z, dlam)), 1e-16), 1e10);
+}
+
+__device__ __forceinline__ double update_s(double s, double ds, double alpha) {
+  return nmax(__dadd_rn(s, __dmul_rn(alpha, ds)), 1e-16);
+}
+
+// the barrier update; a lane whose solve failed keeps its mu
+__device__ __forceinline__ double update_mu(double mu, double err_d, bool ok, double kappa_mu,
+                                            double mu_min) {
+  return ok ? nmax(nmin(__dmul_rn(kappa_mu, mu), __dmul_rn(0.1, err_d)), mu_min) : mu;
+}
+
 __global__ void __launch_bounds__(K4_THREADS)
 ip_step_kernel(StepPtrs p, int n, int n_eq, int n_ineq, double tau, double kappa_mu,
                double mu_min) {
@@ -1505,10 +1599,7 @@ ip_step_kernel(StepPtrs p, int n, int n_eq, int n_ineq, double tau, double kappa
       const double dzl = __dsub_rn(__dsub_rn(div_rn(mu, dl), zl), div_rn(__dmul_rn(zl, dw), dl));
       const double dzu = __dadd_rn(__dsub_rn(div_rn(mu, du), zu), div_rn(__dmul_rn(zu, dw), du));
       dwv[t] = dw; dzlv[t] = dzl; dzuv[t] = dzu;
-      ra = nmin(ra, ftb_ratio(dl, dw, tau));
-      ra = nmin(ra, ftb_ratio(du, -dw, tau));
-      rz = nmin(rz, ftb_ratio(nmax(zl, 1e-300), dzl, tau));
-      rz = nmin(rz, ftb_ratio(nmax(zu, 1e-300), dzu, tau));
+      var_ratios(dl, du, dw, zl, zu, dzl, dzu, tau, ra, rz);
       err_d = nmax(err_d, fabs(r1v[t]));
     }
   }
@@ -1524,7 +1615,7 @@ ip_step_kernel(StepPtrs p, int n, int n_eq, int n_ineq, double tau, double kappa
       if (k < n_eq) {
         err_p = nmax(err_p, fabs(fin64(cv[t])));
       } else {
-        rz = nmin(rz, ftb_ratio(nmax(lamv[t], 1e-12), d, tau));
+        rz = nmin(rz, lam_ratio(lamv[t], d, tau));
         err_p = nmax(err_p, fabs(__dadd_rn(fin64(cv[t]), sv[t])));
       }
     }
@@ -1550,67 +1641,35 @@ ip_step_kernel(StepPtrs p, int n, int n_eq, int n_ineq, double tau, double kappa
     }
   }
 
-  // alpha, alpha_z, err_d, err_p over the lane: warp shuffles, one barrier
-  for (int off = 16; off > 0; off >>= 1) {
-    ra = nmin(ra, __shfl_xor_sync(FULL_MASK, ra, off));
-    rz = nmin(rz, __shfl_xor_sync(FULL_MASK, rz, off));
-    err_d = nmax(err_d, __shfl_xor_sync(FULL_MASK, err_d, off));
-    err_p = nmax(err_p, __shfl_xor_sync(FULL_MASK, err_p, off));
-  }
-  if (wl == 0) {
-    red[0][warp] = ra;
-    red[1][warp] = rz;
-    red[2][warp] = err_d;
-    red[3][warp] = err_p;
-  }
-  __syncthreads();   // the warps' partials and ds are in shared memory
-#pragma unroll
-  for (int v = 0; v < K4_WARPS; ++v) {
-    ra = nmin(ra, red[0][v]);
-    rz = nmin(rz, red[1][v]);
-    err_d = nmax(err_d, red[2][v]);
-    err_p = nmax(err_p, red[3][v]);
-  }
-  const double alpha = nmin(ra, 1.0), alpha_z = nmin(rz, 1.0);
+  // alpha, alpha_z, err_d, err_p over the lane; after its barrier ds is in
+  // shared memory
+  double v[4] = {ra, rz, err_d, err_p};
+  lane_reduce(v, red);
+  const double alpha = nmin(v[0], 1.0), alpha_z = nmin(v[1], 1.0);
 
   // the updates
-  const double ks = 1e10;   // kappa_sigma corridor
 #pragma unroll
   for (int t = 0; t < K4_ITEMS; ++t) {
     const int i = tid + t * K4_THREADS;
     if (i < n) {
-      const double wn = __dadd_rn(wv[t], __dmul_rn(alpha, dwv[t]));
-      p.w_o[on + i] = wn;
-      const double lb = lbv[t], ub = ubv[t];
-      const bool fl = isfinite(lb), fu = isfinite(ub);
-      double zln = fl ? __dadd_rn(zlv[t], __dmul_rn(alpha_z, dzlv[t])) : 0.0;
-      double zun = fu ? __dadd_rn(zuv[t], __dmul_rn(alpha_z, dzuv[t])) : 0.0;
-      const double dl = nmax(__dsub_rn(wn, lb), 1e-20);
-      const double du = nmax(__dsub_rn(ub, wn), 1e-20);
-      zln = nmin(nmax(zln, div_rn(mu, __dmul_rn(ks, dl))), div_rn(__dmul_rn(ks, mu), dl));
-      zun = nmin(nmax(zun, div_rn(mu, __dmul_rn(ks, du))), div_rn(__dmul_rn(ks, mu), du));
-      p.zl_o[on + i] = fl ? zln : 0.0;
-      p.zu_o[on + i] = fu ? zun : 0.0;
+      update_var(wv[t], dwv[t], zlv[t], dzlv[t], zuv[t], dzuv[t], lbv[t], ubv[t], alpha, alpha_z,
+                 mu, p.w_o + on + i, p.zl_o + on + i, p.zu_o + on + i);
     }
   }
 #pragma unroll
   for (int t = 0; t < K4_ITEMS; ++t) {
     const int k = tid + t * K4_THREADS;
     if (k < n_eq) {
-      const double yn = __dadd_rn(yv[t], __dmul_rn(alpha, dnuv[t]));
-      p.y_o[oe + k] = nmin(nmax(yn, -1e10), 1e10);
+      p.y_o[oe + k] = update_y(yv[t], dnuv[t], alpha);
     } else if (k < m) {
       const int q = k - n_eq;
-      const double ln = __dadd_rn(lamv[t], __dmul_rn(alpha_z, dnuv[t]));
-      p.lam_o[oi + q] = nmin(nmax(ln, 1e-16), 1e10);
-      const double sn = __dadd_rn(sv[t], __dmul_rn(alpha, ds_s[q]));
-      p.s_o[oi + q] = nmax(sn, 1e-16);
+      p.lam_o[oi + q] = update_lam(lamv[t], dnuv[t], alpha_z);
+      p.s_o[oi + q] = update_s(sv[t], ds_s[q], alpha);
     }
   }
   if (tid == 0) {
-    const double mu_new = nmax(nmin(__dmul_rn(kappa_mu, mu), __dmul_rn(0.1, err_d)), mu_min);
-    p.mu_o[lane] = ok ? mu_new : mu;
-    p.err_o[lane] = nmax(err_d, err_p);
+    p.mu_o[lane] = update_mu(mu, v[2], ok, kappa_mu, mu_min);
+    p.err_o[lane] = nmax(v[2], v[3]);
   }
 }
 
@@ -3150,6 +3209,518 @@ int k7_launch(const void* qr, const void* tau, const void* v, void* x, int B, in
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K4 advance_state: the step half of ip_step's kernel, from a direction that
+// the caller computed (the block and the condensed KKT modes), replacing
+// awebox_tpu/parallel/batch.py:449-512 (_advance_state) there. It computes
+// what kernels.advance_state_plain computes, bit for bit: every operation
+// elementwise in f64 in the plain version's order, minima exact in any
+// order, through the step rule's helpers that ip_step_kernel calls too. One
+// CTA of 16 warps per lane strides over the lane's variables and rows twice:
+// the fraction-to-boundary ratios (one block reduction), then the updates. What bounds it: the launch and two passes over ~45 KB a lane
+// (at n=280), all from the L2.
+// ---------------------------------------------------------------------------
+
+// Pointers of one advance_state call, in the order of kernels.ADVANCE_FIELDS.
+struct AdvancePtrs {
+  const double* dw;        // (B, n)
+  const double* dy;        // (B, n_eq)
+  const double* dlam;      // (B, n_ineq)
+  const double* ds;        // (B, n_ineq)
+  const double* dzl;       // (B, n)
+  const double* dzu;       // (B, n)
+  const uint8_t* ok;       // (B,) bool
+  const double* err_d;     // (B,)
+  const double* err_kkt;   // (B,)
+  const double* w;         // (B, n)
+  const double* s;         // (B, n_ineq)
+  const double* y;         // (B, n_eq)
+  const double* lam;       // (B, n_ineq)
+  const double* zl;        // (B, n)
+  const double* zu;        // (B, n)
+  const double* mu;        // (B,)
+  const double* lbw;       // (n,)
+  const double* ubw;       // (n,)
+  double* w_o;             // the new state, shaped as its inputs
+  double* s_o;
+  double* y_o;
+  double* lam_o;
+  double* zl_o;
+  double* zu_o;
+  double* mu_o;
+  double* err_o;
+};
+static_assert(sizeof(AdvancePtrs) == 26 * sizeof(void*), "AdvancePtrs is an array of pointers");
+
+__global__ void __launch_bounds__(K4_THREADS)
+advance_state_kernel(AdvancePtrs p, int n, int n_eq, int n_ineq, double tau, double kappa_mu,
+                     double mu_min) {
+  __shared__ double red[2][K4_WARPS];
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  const size_t on = (size_t)lane * n, oe = (size_t)lane * n_eq, oi = (size_t)lane * n_ineq;
+  const double mu = p.mu[lane];
+  double v[2] = {1.0, 1.0};   // ra, rz: ftb starts its min at 1
+  for (int i = tid; i < n; i += K4_THREADS) {
+    const double w = p.w[on + i];
+    var_ratios(nmax(__dsub_rn(w, p.lbw[i]), 1e-20), nmax(__dsub_rn(p.ubw[i], w), 1e-20),
+               p.dw[on + i], p.zl[on + i], p.zu[on + i], p.dzl[on + i], p.dzu[on + i], tau, v[0],
+               v[1]);
+  }
+  for (int q = tid; q < n_ineq; q += K4_THREADS) {
+    v[0] = nmin(v[0], ftb_ratio(p.s[oi + q], p.ds[oi + q], tau));
+    v[1] = nmin(v[1], lam_ratio(p.lam[oi + q], p.dlam[oi + q], tau));
+  }
+  lane_reduce(v, red);
+  const double alpha = nmin(v[0], 1.0), alpha_z = nmin(v[1], 1.0);
+
+  for (int i = tid; i < n; i += K4_THREADS) {
+    update_var(p.w[on + i], p.dw[on + i], p.zl[on + i], p.dzl[on + i], p.zu[on + i],
+               p.dzu[on + i], p.lbw[i], p.ubw[i], alpha, alpha_z, mu, p.w_o + on + i,
+               p.zl_o + on + i, p.zu_o + on + i);
+  }
+  for (int k = tid; k < n_eq; k += K4_THREADS) {
+    p.y_o[oe + k] = update_y(p.y[oe + k], p.dy[oe + k], alpha);
+  }
+  for (int q = tid; q < n_ineq; q += K4_THREADS) {
+    p.lam_o[oi + q] = update_lam(p.lam[oi + q], p.dlam[oi + q], alpha_z);
+    p.s_o[oi + q] = update_s(p.s[oi + q], p.ds[oi + q], alpha);
+  }
+  if (tid == 0) {
+    p.mu_o[lane] = update_mu(mu, p.err_d[lane], p.ok[lane] != 0, kappa_mu, mu_min);
+    p.err_o[lane] = p.err_kkt[lane];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Triangular solves of one lane by one CTA, f64, shared by K9 and K11: the
+// vector in shared memory, the factor L (lower, row-major, leading
+// dimension ld) read from global memory once a substitution, in tiles of 32
+// rows. A tile's rows first take the solved part of the vector (a warp a
+// row, coalesced reads of the row, a shuffle sum), then warp 0 solves the
+// 32 x 32 diagonal tile, a lane a row. L^T x = b walks the tiles backwards:
+// the warps stream the solved rows below the tile (row j's 32 entries of
+// the tile's columns, coalesced), their partial sums meet in `red`, and
+// warp 0 solves the transposed diagonal tile reading its rows. Two block
+// barriers a tile; the sums are in a fixed order.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
+  return v;
+}
+
+// L x = b in place in xs[0..m)
+__device__ void tri_lower_solve(const double* L, int ld, int m, double* xs) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31, W = blockDim.x >> 5;
+  for (int t0 = 0; t0 < m; t0 += 32) {
+    const int h = min(32, m - t0);
+    if (t0 > 0) {
+      for (int i = warp; i < h; i += W) {
+        const double* Lr = L + (size_t)(t0 + i) * ld;
+        double acc = 0.0;
+        for (int j = wl; j < t0; j += 32) acc = fma(Lr[j], xs[j], acc);
+        acc = warp_sum(acc);
+        if (wl == 0) xs[t0 + i] -= acc;
+      }
+      __syncthreads();
+    }
+    if (warp == 0) {
+      double b = (wl < h) ? xs[t0 + wl] : 0.0;
+      for (int j = 0; j < h; ++j) {
+        if (wl == j) b = b / L[(size_t)(t0 + j) * ld + t0 + j];
+        const double xj = __shfl_sync(FULL_MASK, b, j);
+        if (wl > j && wl < h) b = fma(-L[(size_t)(t0 + wl) * ld + t0 + j], xj, b);
+      }
+      if (wl < h) xs[t0 + wl] = b;
+    }
+    __syncthreads();
+  }
+}
+
+// L^T x = b in place in xs[0..m); red holds 32 doubles a warp
+__device__ void tri_upper_t_solve(const double* L, int ld, int m, double* xs, double* red) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31, W = blockDim.x >> 5;
+  for (int t0 = ((m - 1) / 32) * 32; t0 >= 0; t0 -= 32) {
+    const int h = min(32, m - t0), t1 = t0 + h;
+    double s = 0.0;
+    if (t1 < m) {
+      double acc = 0.0;
+      for (int j = t1 + warp; j < m; j += W) {
+        if (wl < h) acc = fma(L[(size_t)j * ld + t0 + wl], xs[j], acc);
+      }
+      red[warp * 32 + wl] = acc;
+      __syncthreads();
+      if (warp == 0) {
+        for (int v = 0; v < W; ++v) s += red[v * 32 + wl];
+      }
+    }
+    if (warp == 0) {
+      double b = (wl < h) ? xs[t0 + wl] - s : 0.0;
+      for (int j = h - 1; j >= 0; --j) {
+        if (wl == j) b = b / L[(size_t)(t0 + j) * ld + t0 + j];
+        const double xj = __shfl_sync(FULL_MASK, b, j);
+        if (wl < j) b = fma(-L[(size_t)(t0 + j) * ld + t0 + wl], xj, b);
+      }
+      if (wl < h) xs[t0 + wl] = b;
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8 block_factor: the two-level factor of the block-structured KKT system,
+// replacing awebox_tpu/ocp/blockkkt.py:539-588 (per lane: the interval
+// interiors' Cholesky, the coupling solve Xc = Li^-1 M_ic, the Schur
+// products S = M_cc - Xc^T Xc, the reduced bordered system R assembled from
+// them, and its Cholesky), f64, as kernels.block_factor_plain.
+//
+// What bounds it: the chain of pivots, not bytes or operations. A lane
+// reads n_k frames (n_k = 4: 295 KB) and writes ~140 KB; its work is ~1.4
+// MFLOP, but every pivot depends on the one before. The XLA version is six
+// batched library calls and a dozen gathers, each a launch of tiny
+// matrices. Here one CTA per lane walks its n_k frames: a frame is copied
+// into shared memory (96 x 96 f64, 72 KB at n_k = 4), damped on its owned
+// diagonal, and its interior pivots are eliminated right-looking over the
+// whole frame, so that after the ni interior pivots the interior block
+// holds Li, the coupling rows of the interior columns hold Xc^T and the
+// coupling block holds S (the Schur complement, the same algebra as the
+// reference's Cholesky, triangular solve and product). S is added into R,
+// which stays in shared memory (64 x 64 at n_k = 4, 108 x 108 at n_k = 8),
+// at the positions of the frame's coupling variables (x_k -> chain k - 1,
+// x_{k+1} -> chain k, border -> border; frame 0's x_0 slot is empty); then
+// R is factored in place. A pivot is two block barriers: the column scaled
+// into a shared copy (no bank conflicts in the update), then the rank-one
+// update of the remaining rows and columns (the full square, so both
+// triangles stay equal). On failure (a pivot <= 0 or not finite, or a
+// non-finite entry of Li or L_R) ok = 0 and L_R is NaN, so K9 gives NaN.
+// ---------------------------------------------------------------------------
+constexpr int KB8_THREADS = 256;
+
+// frame position of coupling column a: [x_k | x_{k+1}] then the border
+__device__ __forceinline__ int kb8_cidx(int a, int nx, int og) {
+  return a < 2 * nx ? a : og + (a - 2 * nx);
+}
+
+// position in R of frame k's coupling column a, or -1 (frame 0's x_0 slot)
+__device__ __forceinline__ int kb8_rmap(int k, int a, int n_k, int nx) {
+  if (a < nx) return k == 0 ? -1 : (k - 1) * nx + a;
+  if (a < 2 * nx) return k * nx + (a - nx);
+  return n_k * nx + (a - 2 * nx);
+}
+
+__global__ void __launch_bounds__(KB8_THREADS, 1)
+block_factor_kernel(const double* __restrict__ Frame, const double* __restrict__ delta,
+                    const double* __restrict__ own_free, double* __restrict__ Li,
+                    double* __restrict__ Xc, double* __restrict__ L_R, uint8_t* __restrict__ ok,
+                    int n_k, int nx, int ni, int nb) {
+  extern __shared__ double kb8_smem[];
+  const int nloc = 2 * nx + ni + nb, nr = n_k * nx + nb, c = 2 * nx + nb;
+  const int oi = 2 * nx, og = 2 * nx + ni;
+  double* F = kb8_smem;                 // [nloc][nloc]
+  double* R = F + nloc * nloc;          // [nr][nr]
+  double* col = R + nr * nr;            // the scaled pivot column, max(nloc, nr)
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  const double dl = delta[lane];
+  for (int i = tid; i < nr * nr; i += KB8_THREADS) R[i] = 0.0;
+  bool failed = false;
+
+  for (int k = 0; k < n_k && !failed; ++k) {
+    const double* Fk = Frame + ((size_t)lane * n_k + k) * nloc * nloc;
+    __syncthreads();   // the previous frame's last reads of F are done
+    for (int i = tid; i < nloc * nloc; i += KB8_THREADS) {
+      double v = Fk[i];
+      const int r = i / nloc;
+      if (i == r * (nloc + 1)) v = __dadd_rn(v, __dmul_rn(dl, own_free[k * nloc + r]));
+      F[i] = v;
+    }
+    __syncthreads();
+    for (int p = oi; p < og; ++p) {
+      const double d2 = F[p * nloc + p];
+      if (!(d2 > 0.0) || !isfinite(d2)) {   // every thread reads the same pivot
+        failed = true;
+        break;
+      }
+      const double dp = sqrt(d2);
+      const int rin = og - 1 - p, r = rin + c;   // remaining: interior after p, coupling
+      for (int t = tid; t < r; t += KB8_THREADS) {
+        const int q = t < rin ? p + 1 + t : kb8_cidx(t - rin, nx, og);
+        const double l = F[q * nloc + p] / dp;
+        F[q * nloc + p] = l;
+        col[t] = l;
+      }
+      __syncthreads();
+      if (tid == 0) F[p * nloc + p] = dp;
+      for (int t = tid; t < r * r; t += KB8_THREADS) {
+        const int a = t / r, b = t - a * r;
+        const int qa = a < rin ? p + 1 + a : kb8_cidx(a - rin, nx, og);
+        const int qb = b < rin ? p + 1 + b : kb8_cidx(b - rin, nx, og);
+        F[qa * nloc + qb] = fma(-col[a], col[b], F[qa * nloc + qb]);
+      }
+      __syncthreads();
+    }
+    if (failed) break;
+    // Li (zeros above the diagonal), Xc, and S into R
+    bool bad = false;
+    double* Lk = Li + ((size_t)lane * n_k + k) * ni * ni;
+    for (int t = tid; t < ni * ni; t += KB8_THREADS) {
+      const int i = t / ni, j = t - i * ni;
+      const double v = j <= i ? F[(oi + i) * nloc + oi + j] : 0.0;
+      bad |= !isfinite(v);
+      Lk[t] = v;
+    }
+    double* Xk = Xc + ((size_t)lane * n_k + k) * ni * c;
+    for (int t = tid; t < ni * c; t += KB8_THREADS) {
+      const int i = t / c, a = t - i * c;
+      Xk[t] = F[kb8_cidx(a, nx, og) * nloc + oi + i];
+    }
+    for (int t = tid; t < c * c; t += KB8_THREADS) {
+      const int a = t / c, b = t - a * c;
+      const int ra = kb8_rmap(k, a, n_k, nx), rb = kb8_rmap(k, b, n_k, nx);
+      if (ra >= 0 && rb >= 0) {
+        R[ra * nr + rb] += F[kb8_cidx(a, nx, og) * nloc + kb8_cidx(b, nx, og)];
+      }
+    }
+    failed = __syncthreads_or(bad) != 0;
+  }
+
+  if (!failed) {
+    for (int p = 0; p < nr; ++p) {
+      const double d2 = R[p * nr + p];
+      if (!(d2 > 0.0) || !isfinite(d2)) {
+        failed = true;
+        break;
+      }
+      const double dp = sqrt(d2);
+      const int r = nr - 1 - p;
+      for (int t = tid; t < r; t += KB8_THREADS) {
+        const int q = p + 1 + t;
+        const double l = R[q * nr + p] / dp;
+        R[q * nr + p] = l;
+        col[t] = l;
+      }
+      __syncthreads();
+      if (tid == 0) R[p * nr + p] = dp;
+      for (int t = tid; t < r * r; t += KB8_THREADS) {
+        const int a = t / r, b = t - a * r;
+        R[(p + 1 + a) * nr + p + 1 + b] = fma(-col[a], col[b], R[(p + 1 + a) * nr + p + 1 + b]);
+      }
+      __syncthreads();
+    }
+  }
+  double* LR = L_R + (size_t)lane * nr * nr;
+  bool bad = false;
+  if (!failed) {
+    for (int t = tid; t < nr * nr; t += KB8_THREADS) {
+      const int i = t / nr, j = t - i * nr;
+      const double v = j <= i ? R[t] : 0.0;
+      bad |= !isfinite(v);
+      LR[t] = v;
+    }
+  }
+  failed = __syncthreads_or(failed || bad) != 0;
+  if (failed) {
+    for (int t = tid; t < nr * nr; t += KB8_THREADS) LR[t] = __longlong_as_double(0x7ff8000000000000ll);
+  }
+  if (tid == 0) ok[lane] = failed ? 0 : 1;
+}
+
+// ---------------------------------------------------------------------------
+// K9 block_solve: M^-1 v through K8's factor, replacing
+// awebox_tpu/ocp/blockkkt.py:646-679, f64, as kernels.block_solve_plain.
+// What bounds it: the substitution chains (2 n_k interior solves of ni rows
+// and the reduced pair of nr rows) and the factor's ~140 KB a lane read once
+// each. One CTA per lane: the lane's right-hand side is gathered into shared
+// memory by block (interiors, chain, border), the interiors are solved one
+// after the other (tri_lower_solve), a thread per coupling column forms
+// Xc_k^T t_k, the reduced right-hand side takes those in a fixed order, the
+// reduced pair is solved, a warp per interior row subtracts Xc_k x_c, and the
+// transposed interior solves and the scatter finish.
+// ---------------------------------------------------------------------------
+constexpr int KB9_THREADS = 256;
+
+__global__ void __launch_bounds__(KB9_THREADS)
+block_solve_kernel(const double* __restrict__ Li, const double* __restrict__ Xc,
+                   const double* __restrict__ L_R, const double* __restrict__ rhs,
+                   const long long* __restrict__ chain_V, const long long* __restrict__ intr_V,
+                   const long long* __restrict__ border_V, double* __restrict__ x, int n_k,
+                   int nx, int ni, int nb, int n) {
+  extern __shared__ double kb9_smem[];
+  __shared__ double red[KB9_THREADS];
+  const int nr = n_k * nx + nb, c = 2 * nx + nb, nc = n_k * nx;
+  double* t = kb9_smem;            // [n_k][ni]
+  double* rr = t + n_k * ni;       // [nr]
+  double* upd = rr + nr;           // [n_k][c]
+  const int lane = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int W = KB9_THREADS / 32;
+  const double* v = rhs + (size_t)lane * n;
+  const double* Lb = Li + (size_t)lane * n_k * ni * ni;
+  const double* Xb = Xc + (size_t)lane * n_k * ni * c;
+  for (int i = tid; i < n_k * ni; i += KB9_THREADS) t[i] = v[intr_V[i]];
+  for (int i = tid; i < nc; i += KB9_THREADS) rr[i] = v[chain_V[i]];
+  for (int i = tid; i < nb; i += KB9_THREADS) rr[nc + i] = v[border_V[i]];
+  __syncthreads();
+  for (int k = 0; k < n_k; ++k) tri_lower_solve(Lb + (size_t)k * ni * ni, ni, ni, t + k * ni);
+  // Xc_k^T t_k, a thread per (interval, coupling column)
+  for (int q = tid; q < n_k * c; q += KB9_THREADS) {
+    const int k = q / c, a = q - k * c;
+    const double* X = Xb + (size_t)k * ni * c + a;
+    double acc = 0.0;
+    for (int i = 0; i < ni; ++i) acc = fma(X[(size_t)i * c], t[k * ni + i], acc);
+    upd[q] = acc;
+  }
+  __syncthreads();
+  // chain j takes frame j's x_{k+1} slot and frame j+1's x_k slot; the
+  // border takes every frame's border slots, in frame order
+  for (int q = tid; q < nr; q += KB9_THREADS) {
+    double val = rr[q];
+    if (q < nc) {
+      const int j = q / nx, a = q - j * nx;
+      val -= upd[j * c + nx + a];
+      if (j + 1 < n_k) val -= upd[(j + 1) * c + a];
+    } else {
+      double s = 0.0;
+      for (int k = 0; k < n_k; ++k) s += upd[k * c + 2 * nx + (q - nc)];
+      val -= s;
+    }
+    rr[q] = val;
+  }
+  __syncthreads();
+  const double* LRl = L_R + (size_t)lane * nr * nr;
+  tri_lower_solve(LRl, nr, nr, rr);
+  tri_upper_t_solve(LRl, nr, nr, rr, red);
+  // interior back substitution: t_k - Xc_k [x_k; x_{k+1}; border], a warp a row
+  for (int row = warp; row < n_k * ni; row += W) {
+    const int k = row / ni, i = row - k * ni;
+    const double* X = Xb + ((size_t)k * ni + i) * c;
+    double acc = 0.0;
+    for (int a = wl; a < c; a += 32) {
+      double xa;
+      if (a < nx) xa = k == 0 ? rr[nc + a] : rr[(k - 1) * nx + a];
+      else if (a < 2 * nx) xa = rr[k * nx + a - nx];
+      else xa = rr[nc + a - 2 * nx];
+      acc = fma(X[a], xa, acc);
+    }
+    acc = warp_sum(acc);
+    if (wl == 0) t[row] -= acc;
+  }
+  __syncthreads();
+  for (int k = 0; k < n_k; ++k) tri_upper_t_solve(Lb + (size_t)k * ni * ni, ni, ni, t + k * ni, red);
+  double* xo = x + (size_t)lane * n;
+  for (int i = tid; i < n_k * ni; i += KB9_THREADS) xo[intr_V[i]] = t[i];
+  for (int i = tid; i < nc; i += KB9_THREADS) xo[chain_V[i]] = rr[i];
+  for (int i = tid; i < nb; i += KB9_THREADS) xo[border_V[i]] = rr[nc + i];
+}
+
+// ---------------------------------------------------------------------------
+// K10 chol_factor_batched: the Cholesky factor of the condensed M of each
+// lane, replacing jnp.linalg.cholesky at awebox_tpu/parallel/batch.py:215-231,
+// f64, lower with zeros above, as kernels.chol_factor_batched_plain.
+// What bounds it: the chain of pivots and one SM's shared-memory rate. A lane
+// (n = 280: 627 KB; 540: 2.3 MB) fits no CTA's shared memory, so a CTA per
+// lane factors it right-looking in panels of K10_NB columns in its own output:
+// it copies M's lower triangle there, then for each panel loads the panel's
+// rows into shared memory (odd leading dimension, so a warp's column reads
+// spread over the banks), factors it column by column (two block barriers a
+// column), writes it back and subtracts the panel's product from the
+// trailing lower triangle (each entry's 32 products summed from zero, then
+// subtracted once), which stays in the L2. A pivot <= 0 or not finite, or a
+// non-finite entry of L, fails the lane: ok = 0 and L is NaN.
+// ---------------------------------------------------------------------------
+constexpr int K10_NB = 32;
+constexpr int K10_LD = K10_NB + 1;
+constexpr int K10_THREADS = 256;
+
+__global__ void __launch_bounds__(K10_THREADS, 1)
+chol_factor_kernel(const double* __restrict__ M, double* __restrict__ L, uint8_t* __restrict__ ok,
+                   int n) {
+  extern __shared__ double P[];   // [n][K10_LD]: the panel's rows j0.. in rows 0..
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  const double* A = M + (size_t)lane * n * n;
+  double* Lw = L + (size_t)lane * n * n;
+  for (int t = tid; t < n * n; t += K10_THREADS) {
+    const int i = t / n, j = t - i * n;
+    Lw[t] = j <= i ? A[t] : 0.0;
+  }
+  __syncthreads();
+  bool failed = false;
+  for (int j0 = 0; j0 < n && !failed; j0 += K10_NB) {
+    const int w = min(K10_NB, n - j0), rows = n - j0;
+    for (int t = tid; t < rows * K10_NB; t += K10_THREADS) {
+      const int r = t / K10_NB, cc = t - r * K10_NB;
+      P[r * K10_LD + cc] = cc < w ? Lw[(size_t)(j0 + r) * n + j0 + cc] : 0.0;
+    }
+    __syncthreads();
+    for (int cc = 0; cc < w; ++cc) {
+      const double d2 = P[cc * K10_LD + cc];
+      if (!(d2 > 0.0) || !isfinite(d2)) {   // every thread reads the same pivot
+        failed = true;
+        break;
+      }
+      const double dp = sqrt(d2);
+      for (int r = cc + 1 + tid; r < rows; r += K10_THREADS) P[r * K10_LD + cc] /= dp;
+      __syncthreads();
+      if (tid == 0) P[cc * K10_LD + cc] = dp;
+      const int nc = w - cc - 1;   // panel columns right of cc
+      for (int t = tid; t < (rows - cc - 1) * nc; t += K10_THREADS) {
+        const int r = cc + 1 + t / nc, c2 = cc + 1 + t % nc;
+        if (r >= c2) P[r * K10_LD + c2] = fma(-P[r * K10_LD + cc], P[c2 * K10_LD + cc],
+                                              P[r * K10_LD + c2]);
+      }
+      __syncthreads();
+    }
+    if (failed) break;
+    for (int t = tid; t < rows * w; t += K10_THREADS) {
+      const int r = t / w, cc = t - r * w;
+      if (r >= cc) Lw[(size_t)(j0 + r) * n + j0 + cc] = P[r * K10_LD + cc];
+    }
+    const int m2 = rows - w;
+    for (int t = tid; t < m2 * m2; t += K10_THREADS) {
+      const int i = t / m2, j = t - i * m2;
+      if (j > i) continue;
+      const double* pi = P + (w + i) * K10_LD;
+      const double* pj = P + (w + j) * K10_LD;
+      double acc = 0.0;
+#pragma unroll 8
+      for (int cc = 0; cc < K10_NB; ++cc) acc = fma(pi[cc], pj[cc], acc);
+      double* e = Lw + (size_t)(j0 + w + i) * n + j0 + w + j;
+      *e = *e - acc;
+    }
+    __syncthreads();
+  }
+  bool bad = false;
+  if (!failed) {
+    for (int t = tid; t < n * n; t += K10_THREADS) bad |= !isfinite(Lw[t]);
+  }
+  failed = __syncthreads_or(failed || bad) != 0;
+  if (failed) {
+    for (int t = tid; t < n * n; t += K10_THREADS) Lw[t] = __longlong_as_double(0x7ff8000000000000ll);
+  }
+  if (tid == 0) ok[lane] = failed ? 0 : 1;
+}
+
+// ---------------------------------------------------------------------------
+// K11 chol_solve_batched: x = L^-T L^-1 b through K10's factor, replacing
+// msolve at awebox_tpu/parallel/batch.py:234-236 (two solve_triangular), f64,
+// as kernels.chol_solve_batched_plain. What bounds it: the substitution
+// chains (n rows each way) and L read twice (n = 280: 2 x 314 KB a lane).
+// One CTA per lane: the vector in shared memory, tri_lower_solve then
+// tri_upper_t_solve.
+// ---------------------------------------------------------------------------
+constexpr int K11_THREADS = 256;
+
+__global__ void __launch_bounds__(K11_THREADS)
+chol_solve_kernel(const double* __restrict__ L, const double* __restrict__ b,
+                  double* __restrict__ x, int n) {
+  extern __shared__ double xs[];
+  __shared__ double red[K11_THREADS];
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  const double* Ll = L + (size_t)lane * n * n;
+  for (int i = tid; i < n; i += K11_THREADS) xs[i] = b[(size_t)lane * n + i];
+  __syncthreads();
+  tri_lower_solve(Ll, n, n, xs);
+  tri_upper_t_solve(Ll, n, n, xs, red);
+  for (int i = tid; i < n; i += K11_THREADS) x[(size_t)lane * n + i] = xs[i];
+}
+
 // The launch floor: an empty kernel, timed by chip_smoke.py beside K1-K7.
 __global__ void noop_kernel() {}
 
@@ -3383,6 +3954,66 @@ int qr_solve_batched(const void* qr, const void* tau, const void* v, void* x, in
     case 801: return k7_launch<8, 1>(qr, tau, v, x, B, N, smem, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// kernels.ADVANCE_FIELDS pointers, in order, as a host array
+int advance_state(const void* const* ptrs, int B, int n, int n_eq, int n_ineq, double tau,
+                  double kappa_mu, double mu_min, void* stream) {
+  AdvancePtrs p;
+  memcpy(&p, ptrs, sizeof p);
+  advance_state_kernel<<<B, K4_THREADS, 0, (cudaStream_t)stream>>>(p, n, n_eq, n_ineq, tau,
+                                                                   kappa_mu, mu_min);
+  return (int)cudaGetLastError();
+}
+
+int chol_factor_batched(const void* M, void* L, void* ok, int B, int n, void* stream) {
+  const size_t smem = sizeof(double) * (size_t)n * K10_LD;
+  cudaError_t err = cudaFuncSetAttribute((const void*)chol_factor_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  chol_factor_kernel<<<B, K10_THREADS, smem, (cudaStream_t)stream>>>(
+      (const double*)M, (double*)L, (uint8_t*)ok, n);
+  return (int)cudaGetLastError();
+}
+
+int chol_solve_batched(const void* L, const void* b, void* x, int B, int n, void* stream) {
+  const size_t smem = sizeof(double) * (size_t)n;
+  cudaError_t err = cudaFuncSetAttribute((const void*)chol_solve_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  chol_solve_kernel<<<B, K11_THREADS, smem, (cudaStream_t)stream>>>(
+      (const double*)L, (const double*)b, (double*)x, n);
+  return (int)cudaGetLastError();
+}
+
+// smem: kernels.block_factor_smem, the frame, R and the pivot column in f64
+int block_factor(const void* Frame, const void* delta, const void* own_free, void* Li, void* Xc,
+                 void* L_R, void* ok, int B, int n_k, int nx, int ni, int nb, int smem,
+                 void* stream) {
+  const int nloc = 2 * nx + ni + nb, nr = n_k * nx + nb;
+  if (smem < 8 * (nloc * nloc + nr * nr + (nloc > nr ? nloc : nr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute((const void*)block_factor_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  block_factor_kernel<<<B, KB8_THREADS, smem, (cudaStream_t)stream>>>(
+      (const double*)Frame, (const double*)delta, (const double*)own_free, (double*)Li,
+      (double*)Xc, (double*)L_R, (uint8_t*)ok, n_k, nx, ni, nb);
+  return (int)cudaGetLastError();
+}
+
+int block_solve(const void* Li, const void* Xc, const void* L_R, const void* rhs,
+                const void* chain_V, const void* intr_V, const void* border_V, void* x, int B,
+                int n_k, int nx, int ni, int nb, int n, int smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute((const void*)block_solve_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  block_solve_kernel<<<B, KB9_THREADS, smem, (cudaStream_t)stream>>>(
+      (const double*)Li, (const double*)Xc, (const double*)L_R, (const double*)rhs,
+      (const long long*)chain_V, (const long long*)intr_V, (const long long*)border_V,
+      (double*)x, n_k, nx, ni, nb, n);
+  return (int)cudaGetLastError();
 }
 
 int noop(int blocks, void* stream) {

@@ -22,6 +22,15 @@ ruiz_scale             three Ruiz sweeps M = s K s, :375-381         f32
 qr_factor_batched      jnp.linalg.qr, :382, as packed Householder    f32
                        reflectors (cluster or blocked variant, by N)
 qr_solve_batched       msolve = R^-1 Q^T v, :344-346                 f32
+advance_state          _advance_state, :449-512, from a direction    f64
+                       (the step half of ip_step's kernel)
+chol_factor_batched    jnp.linalg.cholesky of the condensed M,       f64
+                       :215-231
+chol_solve_batched     msolve = two solve_triangular, :234-236       f64
+block_factor           the two-level factor of ocp/blockkkt.py,      f64
+                       :539-588 (interior Cholesky, coupling solve,
+                       Schur sums, Cholesky of the reduced system)
+block_solve            block_solve of ocp/blockkkt.py, :646-679      f64
 =====================  ===========================================  ==========
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
@@ -52,7 +61,9 @@ LAUNCHES = {'newton_kkt': 0, 'kkt_assemble_scaled': 0, 'lu_factor_batched': 0,
             'lu_factor_cluster': 0, 'lu_factor_blocked': 0,
             'lu_solve_batched': 0, 'ip_step': 0,
             'kkt_assemble': 0, 'ruiz_scale': 0, 'qr_factor_batched': 0,
-            'qr_factor_cluster': 0, 'qr_factor_blocked': 0, 'qr_solve_batched': 0}
+            'qr_factor_cluster': 0, 'qr_factor_blocked': 0, 'qr_solve_batched': 0,
+            'advance_state': 0, 'chol_factor_batched': 0, 'chol_solve_batched': 0,
+            'block_factor': 0, 'block_solve': 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -79,6 +90,11 @@ SIGNATURES = {
     'qr_factor_cluster': [_P] * 3 + [_I] * 6 + [_P],
     'qr_factor_blocked': [_P] * 5 + [_I] * 4 + [_P],
     'qr_solve_batched': [_P] * 4 + [_I] * 5 + [_P],
+    'advance_state': [_P] + [_I] * 4 + [_D] * 3 + [_P],
+    'chol_factor_batched': [_P] * 3 + [_I] * 2 + [_P],
+    'chol_solve_batched': [_P] * 3 + [_I] * 2 + [_P],
+    'block_factor': [_P] * 7 + [_I] * 6 + [_P],
+    'block_solve': [_P] * 8 + [_I] * 7 + [_P],
     'noop': [_I, _P],
 }
 
@@ -530,11 +546,12 @@ def lu_solve_batched(lu, piv, kd, v):
 STATE_KEYS = ('w', 's', 'y', 'lam', 'zl', 'zu')
 
 
-def advance_state(state, direction, ok, err_d, err_kkt, lbw, ubw,
-                  tau, kappa_mu, mu_min):
+def advance_state_plain(state, direction, ok, err_d, err_kkt, lbw, ubw,
+                        tau, kappa_mu, mu_min):
     """Fraction-to-boundary step + dual safeguards + adaptive mu, batched
     over lanes (batch.py:449-512); ``err`` of the result is ``err_kkt``.
-    Plain PyTorch: on the card it runs inside ip_step's kernel."""
+    Without inequality rows (s, ds, lam, dlam of width 0) the s and lam
+    ratios drop out, as in the JAX package."""
     w, s, y, lam = state['w'], state['s'], state['y'], state['lam']
     zl, zu, mu = state['zl'], state['zu'], state['mu']
     dw, dy, dlam, ds, dzl, dzu = direction
@@ -546,7 +563,7 @@ def advance_state(state, direction, ok, err_d, err_kkt, lbw, ubw,
         neg = dval < 0
         ratios = torch.where(neg, -tau * val / torch.where(neg, dval, -1.),
                              torch.inf)
-        one = torch.ones_like(ratios[:, :1])
+        one = ratios.new_ones(ratios.shape[0], 1)
         return torch.clamp(torch.cat([one, ratios], dim=1).amin(dim=1), max=1.0)
 
     alpha = torch.minimum(ftb(dl, dw), ftb(du, -dw))
@@ -607,8 +624,8 @@ def ip_step_plain(x, ok, rn, r1, state, derivs_out, lbw, ubw, free, tau, kappa_m
                           torch.abs(cI + s).amax(dim=1))
     if ds_out is not None:
         ds_out.copy_(ds)
-    return advance_state(state, (dw, dy, dlam, ds, dzl, dzu), ok, err_d,
-                         torch.maximum(err_d, err_p), lbw, ubw, tau, kappa_mu, mu_min)
+    return advance_state_plain(state, (dw, dy, dlam, ds, dzl, dzu), ok, err_d,
+                               torch.maximum(err_d, err_p), lbw, ubw, tau, kappa_mu, mu_min)
 
 
 # the pointers ip_step takes, in the order of csrc/auglu.cu's struct StepPtrs
@@ -655,6 +672,47 @@ def ip_step(x, ok, rn, r1, state, derivs_out, lbw, ubw, free, tau, kappa_mu, mu_
     t.update({f'{k}_o': v for k, v in out.items()})
     _check(name, library().ip_step(_pointers(t, STEP_FIELDS), B, n, n_eq, n_ineq, float(tau),
                                    float(kappa_mu), float(mu_min), _stream()))
+    LAUNCHES[name] += 1
+    return out
+
+
+# the pointers advance_state takes, in the order of csrc/auglu.cu's struct
+# AdvancePtrs: the direction and the lane scalars, the state, the bounds,
+# then the new state
+ADVANCE_FIELDS = ('dw', 'dy', 'dlam', 'ds', 'dzl', 'dzu', 'ok', 'err_d', 'err_kkt',
+                  'w', 's', 'y', 'lam', 'zl', 'zu', 'mu', 'lbw', 'ubw',
+                  'w_o', 's_o', 'y_o', 'lam_o', 'zl_o', 'zu_o', 'mu_o', 'err_o')
+
+
+def advance_state(state, direction, ok, err_d, err_kkt, lbw, ubw, tau, kappa_mu, mu_min):
+    """The step of a given direction (dw, dy, dlam, ds, dzl, dzu), each (B, .)
+    f64, with ok (B,) bool and err_d, err_kkt (B,) f64: the new state dict
+    (with err = err_kkt), equal to advance_state_plain bit for bit (the same
+    f64 operations in the same order; minima are exact). On the card one
+    launch of K4's step half, a CTA per lane; the block and the condensed
+    directions step through it. Takes lanes without equality or inequality
+    rows."""
+    if not state['w'].is_cuda:
+        return advance_state_plain(state, direction, ok, err_d, err_kkt, lbw, ubw, tau,
+                                   kappa_mu, mu_min)
+    name = 'advance_state'
+    f64 = torch.float64
+    t = dict(zip(('dw', 'dy', 'dlam', 'ds', 'dzl', 'dzu'), direction), ok=ok, err_d=err_d,
+             err_kkt=err_kkt, lbw=lbw, ubw=ubw, **{k: state[k] for k in STATE_KEYS + ('mu',)})
+    _require(name, *[(v, torch.bool if k == 'ok' else f64) for k, v in t.items()])
+    B, n = state['w'].shape
+    n_eq, n_ineq = state['y'].shape[1], state['s'].shape[1]
+    shapes = dict(dw=(B, n), dy=(B, n_eq), dlam=(B, n_ineq), ds=(B, n_ineq), dzl=(B, n),
+                  dzu=(B, n), ok=(B,), err_d=(B,), err_kkt=(B,), w=(B, n), s=(B, n_ineq),
+                  y=(B, n_eq), lam=(B, n_ineq), zl=(B, n), zu=(B, n), mu=(B,), lbw=(n,),
+                  ubw=(n,))
+    if any(tuple(v.shape) != shapes[k] for k, v in t.items()):
+        raise ValueError(f'{name}: inconsistent shapes')
+    out = {k: torch.empty_like(state[k]) for k in STATE_KEYS + ('mu',)}
+    out['err'] = torch.empty_like(state['mu'])
+    t.update({f'{k}_o': v for k, v in out.items()})
+    _check(name, library().advance_state(_pointers(t, ADVANCE_FIELDS), B, n, n_eq, n_ineq,
+                                         float(tau), float(kappa_mu), float(mu_min), _stream()))
     LAUNCHES[name] += 1
     return out
 
@@ -973,6 +1031,247 @@ def qr_solve_batched(qr, tau, v):
     x = torch.empty(B, N, dtype=f32, device=qr.device)
     _check(name, library().qr_solve_batched(_ptr(qr), _ptr(tau), _ptr(v), _ptr(x), B, N,
                                             geom.warps, geom.group, geom.smem_bytes, _stream()))
+    LAUNCHES[name] += 1
+    return x
+
+
+# --- K8, K9: the block-structured factor and solve (ocp/blockkkt.py) ----------
+
+class BlockLayout(NamedTuple):
+    """The frame layout of ocp/blockkkt.py: n_k intervals, each frame
+    [x_k (nx) | x_{k+1} (nx) | interior (ni) | border (nb)] of nloc
+    variables; the coupling [x_k | x_{k+1} | border] has c = 2 nx + nb, the
+    reduced system over [x_1 .. x_{n_k} | border] nr = n_k nx + nb."""
+    n_k: int
+    nx: int
+    ni: int
+    nb: int
+    nloc: int
+
+    @property
+    def c(self):
+        return 2 * self.nx + self.nb
+
+    @property
+    def nr(self):
+        return self.n_k * self.nx + self.nb
+
+
+def _cholesky_or_nan(M):
+    """Lower Cholesky factor as jnp.linalg.cholesky gives it: NaN wherever
+    LAPACK's potrf fails (a pivot <= 0 or NaN)."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+def block_factor_plain(Frame, delta, own_free, lay: BlockLayout):
+    """The two-level factor of ocp/blockkkt.py (awebox_tpu/ocp/blockkkt.py:539-588)
+    of the frames Frame (B, n_k, nloc, nloc) damped by delta (B,) on the
+    diagonal entries own_free (n_k, nloc): Li (B, n_k, ni, ni), the interior
+    Cholesky factors; Xc = Li^-1 [M_ib | M_ibn | M_ig] (B, n_k, ni, c); L_R
+    (B, nr, nr), the Cholesky factor of the reduced system R, whose blocks
+    are the sums of the frames' Schur complements S = M_cc - Xc^T Xc; and
+    ok (B,), that Li and L_R are finite. A failed factor is NaN, as
+    jnp.linalg.cholesky's; on a lane that fails, L_R is NaN throughout."""
+    B = Frame.shape[0]
+    n_k, nx, ni, nb = lay.n_k, lay.nx, lay.ni, lay.nb
+    c2, oi, og = 2 * nx, 2 * nx, 2 * nx + ni
+    Fr = Frame.clone()
+    Fr.diagonal(dim1=-2, dim2=-1).add_(delta[:, None, None] * own_free)
+    Mii = Fr[:, :, oi:og, oi:og]
+    Mi = Fr[:, :, oi:og]
+    Mic = torch.cat([Mi[..., :c2], Mi[..., og:]], dim=-1)
+    Fcr = torch.cat([Fr[:, :, :c2], Fr[:, :, og:]], dim=2)
+    Fcc = torch.cat([Fcr[..., :c2], Fcr[..., og:]], dim=-1)
+    Li = _cholesky_or_nan(Mii)
+    Xc = torch.linalg.solve_triangular(Li, Mic, upper=False)
+    S = Fcc - Xc.transpose(-1, -2) @ Xc
+    bb, bnbn, bbn = S[..., :nx, :nx], S[..., nx:c2, nx:c2], S[..., :nx, nx:c2]
+    bg, bng = S[..., :nx, c2:], S[..., nx:c2, c2:]
+    gg = S[..., c2:, c2:].sum(dim=1)
+    # the reduced bordered chain over [x_1 .. x_{n_k} | border]: T_diag[j]
+    # couples x_{j+1} with itself, T_off[j] x_{j+1} with x_{j+2}
+    T_diag = bnbn + torch.cat([bb[:, 1:], torch.zeros_like(bb[:, :1])], dim=1)
+    Fb = bng + torch.cat([bg[:, 1:], torch.zeros_like(bg[:, :1])], dim=1)
+    Rc = Frame.new_zeros(B, n_k, nx, n_k, nx)
+    ks = torch.arange(n_k)
+    Rc[:, ks, :, ks, :] = T_diag.transpose(0, 1)
+    if n_k > 1:
+        Rc[:, ks[:-1], :, ks[1:], :] = bbn[:, 1:].transpose(0, 1)
+        Rc[:, ks[1:], :, ks[:-1], :] = bbn[:, 1:].transpose(-1, -2).transpose(0, 1)
+    Rc = Rc.reshape(B, n_k * nx, n_k * nx)
+    Fb_r = Fb.reshape(B, n_k * nx, nb)
+    R = torch.cat([torch.cat([Rc, Fb_r], dim=2),
+                   torch.cat([Fb_r.transpose(1, 2), gg], dim=2)], dim=1)
+    L_R = _cholesky_or_nan(R)
+    ok = torch.isfinite(Li).flatten(1).all(dim=1) & torch.isfinite(L_R).flatten(1).all(dim=1)
+    L_R = torch.where(ok[:, None, None], L_R, torch.nan)
+    return Li, Xc, L_R, ok
+
+
+BLOCK_STATIC_SMEM = 1_024   # room for K8's static shared arrays (none today)
+
+
+def block_factor_smem(lay: BlockLayout) -> int:
+    """K8's dynamic shared memory in bytes: one frame, the reduced system and
+    the pivot column, f64 (the need block_factor_kernel's entry computes);
+    raises by name where one block's shared memory does not hold them
+    (n_k = 4: 108 KB, n_k = 8: 166 KB; n_k >= 11 raises at nx = 11)."""
+    smem = 8 * (lay.nloc * lay.nloc + lay.nr * lay.nr + max(lay.nloc, lay.nr))
+    if smem + BLOCK_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f'block_factor: a frame of {lay.nloc} and a reduced system of '
+                         f'{lay.nr} need {smem} B of shared memory, more than one block has')
+    return smem
+
+
+def block_factor(Frame, delta, own_free, lay: BlockLayout):
+    """(B, n_k, nloc, nloc) f64, (B,) f64, (n_k, nloc) f64 -> (Li, Xc, L_R,
+    ok) as block_factor_plain; on a lane that fails (a pivot <= 0 or
+    non-finite, or a non-finite entry of Li or L_R) ok is False and L_R is
+    NaN, Li and Xc unspecified. On the card one launch, a CTA per lane that
+    walks the lane's n_k frames in shared memory and sums their Schur
+    complements into R there; raises where a frame and R do not fit."""
+    if not Frame.is_cuda:
+        return block_factor_plain(Frame, delta, own_free, lay)
+    name = 'block_factor'
+    f64 = torch.float64
+    _require(name, (Frame, f64), (delta, f64), (own_free, f64))
+    B = Frame.shape[0]
+    n_k, nx, ni, nb, nloc = lay
+    if Frame.shape != (B, n_k, nloc, nloc) or delta.shape != (B,) \
+            or own_free.shape != (n_k, nloc) or nloc != 2 * nx + ni + nb:
+        raise ValueError(f'{name}: inconsistent shapes')
+    smem = block_factor_smem(lay)
+    new = lambda *shape: torch.empty(shape, dtype=f64, device=Frame.device)
+    Li, Xc, L_R = new(B, n_k, ni, ni), new(B, n_k, ni, lay.c), new(B, lay.nr, lay.nr)
+    ok = torch.empty(B, dtype=torch.bool, device=Frame.device)
+    _check(name, library().block_factor(_ptr(Frame), _ptr(delta), _ptr(own_free), _ptr(Li),
+                                        _ptr(Xc), _ptr(L_R), _ptr(ok), B, n_k, nx, ni, nb,
+                                        smem, _stream()))
+    LAUNCHES[name] += 1
+    return Li, Xc, L_R, ok
+
+
+def block_solve_plain(Li, Xc, L_R, rhs, index_maps, lay: BlockLayout):
+    """M^-1 rhs through block_factor's factor (awebox_tpu/ocp/blockkkt.py:646-679),
+    rhs (B, n): the interior forward solves, the chain and border updates,
+    the reduced solve, the interior back substitution. index_maps =
+    (chain_V (n_k, nx), intr_V (n_k, ni), border_V (nb,)), the variables of
+    each block, a partition of the n."""
+    chain_V, intr_V, border_V = index_maps
+    B, n = rhs.shape
+    n_k, nx = lay.n_k, lay.nx
+    c2 = 2 * nx
+    st = torch.linalg.solve_triangular
+    r_chain, r_intr, r_bord = rhs[:, chain_V], rhs[:, intr_V], rhs[:, border_V]
+    t = st(Li, r_intr[..., None], upper=False)[..., 0]
+    Xb, Xbn, Xg = Xc[..., :nx], Xc[..., nx:c2], Xc[..., c2:]
+    tT = t[..., None, :]
+    upd, upd_b = (tT @ Xbn)[..., 0, :], (tT @ Xb)[..., 0, :]
+    r_chain = r_chain - upd - torch.cat([upd_b[:, 1:], torch.zeros_like(upd_b[:, :1])], dim=1)
+    r_bord = r_bord - (tT @ Xg)[..., 0, :].sum(dim=1)
+    rhs_red = torch.cat([r_chain.reshape(B, -1), r_bord], dim=1)
+    u = st(L_R, rhs_red[..., None], upper=False)
+    xr = st(L_R.transpose(-1, -2), u, upper=True)[..., 0]
+    x_chain, x_g = xr[:, :n_k * nx].reshape(B, n_k, nx), xr[:, n_k * nx:]
+    xb_full = torch.cat([x_g[:, None, :nx], x_chain[:, :-1]], dim=1)
+    rhs_i = t - (Xb @ xb_full[..., None])[..., 0] - (Xbn @ x_chain[..., None])[..., 0] \
+        - (Xg @ x_g[:, None, :, None])[..., 0]
+    x_intr = st(Li.transpose(-1, -2), rhs_i[..., None], upper=True)[..., 0]
+    out = rhs.new_zeros(B, n)
+    out[:, chain_V.reshape(-1)] = x_chain.reshape(B, -1)
+    out[:, intr_V.reshape(-1)] = x_intr.reshape(B, -1)
+    out[:, border_V] = x_g
+    return out
+
+
+def block_solve(Li, Xc, L_R, rhs, index_maps, lay: BlockLayout):
+    """(B, n) f64 right-hand sides -> (B, n) f64, as block_solve_plain; the
+    index maps are int64 tensors. On the card one launch, a CTA per lane:
+    the lane's vector (its interiors, then the reduced system's right-hand
+    side) and the coupling products in shared memory, the factors read from
+    global memory."""
+    if not rhs.is_cuda:
+        return block_solve_plain(Li, Xc, L_R, rhs, index_maps, lay)
+    name = 'block_solve'
+    f64 = torch.float64
+    chain_V, intr_V, border_V = index_maps
+    _require(name, (Li, f64), (Xc, f64), (L_R, f64), (rhs, f64), (chain_V, torch.int64),
+             (intr_V, torch.int64), (border_V, torch.int64))
+    B, n = rhs.shape
+    n_k, nx, ni, nb, nloc = lay
+    if Li.shape != (B, n_k, ni, ni) or Xc.shape != (B, n_k, ni, lay.c) \
+            or L_R.shape != (B, lay.nr, lay.nr) or chain_V.shape != (n_k, nx) \
+            or intr_V.shape != (n_k, ni) or border_V.shape != (nb,) \
+            or n != n_k * (nx + ni) + nb:
+        raise ValueError(f'{name}: inconsistent shapes')
+    smem = 8 * (n + n_k * lay.c)   # the interiors and the reduced rhs (n), Xc_k^T t_k
+    x = torch.empty_like(rhs)
+    _check(name, library().block_solve(_ptr(Li), _ptr(Xc), _ptr(L_R), _ptr(rhs),
+                                       _ptr(chain_V), _ptr(intr_V), _ptr(border_V), _ptr(x),
+                                       B, n_k, nx, ni, nb, n, smem, _stream()))
+    LAUNCHES[name] += 1
+    return x
+
+
+# --- K10, K11: the condensed Cholesky factor and solve -------------------------
+
+def chol_factor_batched_plain(M):
+    """(B, n, n) -> (L lower, ok (B,)): the Cholesky factor of each lane and
+    whether it is finite (batch.py:215-219); a failed lane's L is NaN, as
+    jnp.linalg.cholesky's."""
+    L = _cholesky_or_nan(M)
+    return L, torch.isfinite(L).flatten(1).all(dim=1)
+
+
+CHOL_NB = 32                # panel width of K10 (K10_NB)
+
+
+def chol_factor_batched(M):
+    """(B, n, n) f64 -> (L (B, n, n) f64, lower with zeros above, ok (B,)
+    bool), as chol_factor_batched_plain; a lane whose pivot is <= 0 or not
+    finite, or whose L has a non-finite entry, gets ok False and an L of
+    NaN, and the other lanes' bits do not depend on it. On the card one
+    launch, a CTA per lane: a right-looking factor in panels of CHOL_NB
+    columns, the panel in shared memory, the trailing update in global
+    memory (the lane stays in the L2)."""
+    if not M.is_cuda:
+        return chol_factor_batched_plain(M)
+    name = 'chol_factor_batched'
+    _require(name, (M, torch.float64))
+    B, n, n2 = M.shape
+    if n != n2:
+        raise ValueError(f'{name}: square matrices expected')
+    smem = 8 * n * (CHOL_NB + 1)   # the panel's rows at leading dimension K10_LD
+    if smem + BLOCK_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f'{name}: n={n} leaves no room for a panel of {CHOL_NB} columns')
+    L = torch.empty_like(M)
+    ok = torch.empty(B, dtype=torch.bool, device=M.device)
+    _check(name, library().chol_factor_batched(_ptr(M), _ptr(L), _ptr(ok), B, n, _stream()))
+    LAUNCHES[name] += 1
+    return L, ok
+
+
+def chol_solve_batched_plain(L, b):
+    """(B, n, n) lower factor, (B, n) -> L^-T L^-1 b (batch.py:234-236)."""
+    t = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), t, upper=True)[..., 0]
+
+
+def chol_solve_batched(L, b):
+    """(B, n, n) f64, (B, n) f64 -> (B, n) f64, as chol_solve_batched_plain.
+    On the card one launch, a CTA per lane: both substitutions in tiles of
+    32 rows, the vector in shared memory, L read once a substitution."""
+    if not L.is_cuda:
+        return chol_solve_batched_plain(L, b)
+    name = 'chol_solve_batched'
+    f64 = torch.float64
+    _require(name, (L, f64), (b, f64))
+    B, n, _ = L.shape
+    if b.shape != (B, n) or L.shape != (B, n, n):
+        raise ValueError(f'{name}: inconsistent shapes')
+    x = torch.empty_like(b)
+    _check(name, library().chol_solve_batched(_ptr(L), _ptr(b), _ptr(x), B, n, _stream()))
     LAUNCHES[name] += 1
     return x
 

@@ -56,12 +56,7 @@ def wind_sweep_problem(trial, anchor, B, spread=0.05, u_ref=10.0,
     ocp = trial.ocp
     V0 = build_initial_guess(ocp)
     base_P = build_p_fix(ocp, build_reference(ocp, V0))
-    lbf, ubf = final_bounds(ocp, trial.lb_nominal, trial.ub_nominal, V0)
-    relax = 1e-8
-    fin_l = np.isfinite(lbf) & (lbf != ubf)
-    fin_u = np.isfinite(ubf) & (lbf != ubf)
-    lbf = np.where(fin_l, lbf - relax * np.maximum(1., np.abs(lbf)), lbf)
-    ubf = np.where(fin_u, ubf + relax * np.maximum(1., np.abs(ubf)), ubf)
+    lbf, ubf = sweep_bounds(trial, V0)
     fc = final_cost_values(ocp)
 
     u_refs = u_ref * (1.0 + spread * np.linspace(-1., 1., B))
@@ -82,6 +77,22 @@ def wind_sweep_problem(trial, anchor, B, spread=0.05, u_ref=10.0,
     lbw, ubw, free, _ = InteriorPointSolver.split_pins(lbf, ubf)
     as64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
     return state, P64, as64(lbw), as64(ubw), as64(free), u_refs
+
+
+def sweep_bounds(trial, V0=None, relax=1e-8):
+    """The final-step bounds (lbf, ubf), numpy, with every finite bound that
+    does not pin its variable relaxed by ``relax`` (relative, at least
+    absolute), as the host solver left them: the bounds of the sweep's
+    lanes, before split_pins (make_batched_solver takes these). ``V0`` is
+    the initial guess the bounds are set around, built when not given."""
+    ocp = trial.ocp
+    V0 = build_initial_guess(ocp) if V0 is None else V0
+    lbf, ubf = final_bounds(ocp, trial.lb_nominal, trial.ub_nominal, V0)
+    fin_l = np.isfinite(lbf) & (lbf != ubf)
+    fin_u = np.isfinite(ubf) & (lbf != ubf)
+    lbf = np.where(fin_l, lbf - relax * np.maximum(1., np.abs(lbf)), lbf)
+    ubf = np.where(fin_u, ubf + relax * np.maximum(1., np.abs(ubf)), ubf)
+    return lbf, ubf
 
 
 def make_refiner(ocp, lbw, ubw, free, kappa_mu=0.4, auglu_factor='qr'):

@@ -38,9 +38,16 @@ and checks the hand-written CUDA kernels on the way:
               solve_triangular) are also timed queued
               behind a device sleep, which hides the host's dispatch, beside
               an empty kernel's time (the launch floor); each kernel's bound
-              (bytes over HBM rate or operations over the CUDA cores' peak)
+              (bytes over HBM rate or operations over the card's peak)
               is computed from its shapes; the aten operations and the time
-              of one direction call with each factor
+              of one direction call with each factor; the block and condensed
+              KKT modes' kernels: K8 block_factor and K9 block_solve on the
+              anchor's frames at B = 1, 16 and 128 (and the n_k=8 anchor's at
+              B=16, in phase 7), K10 chol_factor_batched and K11
+              chol_solve_batched on the anchor's condensed M (n=280; n=540
+              in phase 7), each with an indefinite and a NaN lane, and K4's
+              advance_state bit for bit, each beside its bound, its plain
+              version and a library yardstick
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
               9.5..10.5 m/s from tests/artifacts/bench_anchor_nk4_d3.npz,
               iterated to convergence (at most 100 iterations), once with
@@ -55,7 +62,17 @@ and checks the hand-written CUDA kernels on the way:
               K6 per attempt, two K7 solves per factor and no LU kernel; no
               plain version of any kernel called; state on the card; the
               lanes of each K5 call
-  6. n_k=8    the same sweep from tests/artifacts/bench_anchor_nk8_d3.npz
+  6. solver   the reference's own batched API: make_batched_solver with its
+              defaults (kkt='auto', which is 'block' here; [slice-block]) and
+              with kkt='dense' in f64 ([slice-dense]) on the same 16 lanes,
+              each after its first iteration is held against the plain path
+              on the CPU; every lane must reach err <= 1e-5 with f64 max |eq|
+              <= 1e-4 and the 9.5 m/s lane the JAX package's power and period
+              to 1e-6; every lane's power and period printed; then its
+              [path]: K8 (K10) once per ladder attempt, K9 (K11) three times
+              and K4's advance_state once per iteration, no other kernel and
+              no plain version
+  7. n_k=8    the same sweep from tests/artifacts/bench_anchor_nk8_d3.npz
               ([slice-nk8] with LU, [slice-nk8-qr] with QR, each followed by
               its [path]), every factor through the blocked variants: the
               first LU iteration against the plain path on the CPU, then
@@ -81,6 +98,24 @@ ANCHOR8 = os.path.join(HERE, 'tests', 'artifacts', 'bench_anchor_nk8_d3.npz')
 B = 16
 N_TIMED = 25
 NK8_ITERS = 12    # iterations of each n_k=8 slice (its lanes do not converge; see main)
+# The JAX package's converged B=2 sweep (u_ref 9.5, 10.5 m/s) through
+# make_batched_solver(batch_p=True, tol=1e-5) on the CPU in f64: average
+# power [W] and period [s] in each mode, as `python -m tests.sweep_modes_cpu
+# converge MODE CAP` prints them (the slow test of
+# tests/test_torch_batched_solver.py runs the same), and the 10.5 m/s lane's
+# power through the auglu direction (tests/test_torch_refine.py)
+JAX_CONVERGED = {
+    'block': ((10120.21197851301, 12004.83706630143), (38.568498529831544, 42.55828460882993)),
+    'dense': ((10120.211978365909, 11946.823207327776), (38.56849852572657, 43.96690580295076)),
+    'auglu_10.5': 11947.573}
+# K9's forward gap max |x_k - x_p| / max |x_p| to its plain version on the
+# same factor of the anchor's frames: the CPU mirror of K9's order reads up to
+# 2.9e-6 there (cond of the reduced system ~ 1e19); a solve returning zeros,
+# or one that drops a term of a sum, reads ~1
+TOL_K9_FWD = 1e-4
+# the first iteration's gap card - CPU over the step: the CPU lockstep test's
+# tolerance (tests/test_torch_sweep_lockstep.py::LOCKSTEP_W)
+FIRST_ITER = {'block': 0.3, 'dense': 2e-3}
 
 
 def phase(name, msg):
@@ -151,8 +186,9 @@ def main():
     from awebox_tpu_torch.api.trial import Trial
     from awebox_tpu_torch.configs import bench_options
     from awebox_tpu_torch.parallel import batch, kernels
-    from awebox_tpu_torch.parallel.refine import (average_power, make_refiner,
-                                                  refine, wind_sweep_problem)
+    from awebox_tpu_torch.parallel.refine import (average_power, make_refiner, refine,
+                                                  sweep_bounds, wind_sweep_problem)
+    from awebox_tpu_torch.tree import tree_map
     from awebox_tpu_torch.ocp.structured import make_structured_derivs
     from awebox_tpu_torch.probes.direction_ops import count_and_time
 
@@ -192,12 +228,14 @@ def main():
     delta = torch.full((B,), 1e-8, dtype=f64, device=dev)
     report = {}
 
-    def bound(nbytes, ops=0, peak=67e12):
+    def bound(nbytes, ops=0):
         """The least time the card could take for the work, in ms, and what
         sets it: the larger of the bytes over HBM3's 3.35 TB/s and the
-        operations over their peak (H100 SXM data sheet, at 700 W): f32 on
-        the CUDA cores 67 TFLOP/s, f64 34 TFLOP/s."""
-        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / peak * 1e3
+        operations over their peak (H100 SXM data sheet, at 700 W), 67
+        TFLOP/s for both types here: f32 on the CUDA cores, and f64 on the
+        tensor cores, the fastest the card does f64, although these kernels
+        run f64 on the CUDA cores' 34."""
+        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
         return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
     def nbytes(*tensors):
@@ -751,8 +789,7 @@ def main():
         st, dv_ = args[0], args[1]
         ins = [x, ok, sys_['rn'], sys_['r1'], dv_[2], dv_[3], dv_[5]] + list(st.values()) \
             + list(args[2:])
-        b_, by_ = bound(nbytes(*ins, *o_k.values()), 2 * x.shape[0] * n_ineq * args[4].numel(),
-                        34e12)
+        b_, by_ = bound(nbytes(*ins, *o_k.values()), 2 * x.shape[0] * n_ineq * args[4].numel())
         rec = dict(max_abs_err=err, ms=cuda_median_ms(k4), queued_ms=cuda_median_ms(k4, queued=True),
                    plain_ms=cuda_median_ms(lambda: kernels.ip_step_plain(*step)),
                    bound_ms=b_, bound_by=by_, library_ms=None, gaps=gaps,
@@ -773,6 +810,280 @@ def main():
     x_r, ok_r = step_solution(B, N, device=dev)
     k4_at['random B=16'] = hold_k4('random B=16', x_r, ok_r, rand_ref, rand_args)
     report['ip_step'] = dict(k4_at[f'B={B}'], at=k4_at)
+
+    # --- K8-K11 and K4's advance_state: the block and condensed KKT modes --
+    # K8 block_factor and K9 block_solve on the frames of the anchor's block
+    # systems (ocp/blockkkt.py's assembly of the same 16 lanes, damped by
+    # delta_w), K10/K11 on the anchor's condensed M = W0 + delta_w diag(free)
+    # + A_s^T A_s. Each against its plain version on the same inputs, with an
+    # indefinite lane and a NaN lane that must fail alone (ok False, NaN
+    # solution) while every other lane keeps the bits of a clean run. The
+    # direct solves of these systems are ill-conditioned (cond(M) ~ 1e19 at
+    # the anchor: the block solve and a dense LU solve of the same M differ
+    # by ~9%), so solutions are gated by their residual |M x - b| / |b|,
+    # within 10x of the plain version's, and the factors by what they
+    # reproduce: Li and Xc within 1e-10 of their max (the interiors are well
+    # conditioned; the CPU mirror of K8's schedule agrees to 4e-13),
+    # R = L_R L_R^T within 1e-10 of its max (the mirror: 3e-15), and
+    # L L^T - M of K10 within 10x of the plain factor's.
+    from awebox_tpu_torch.ocp.blockkkt import make_block_kkt
+    st_ = torch.linalg.solve_triangular
+
+    def block_inputs(ocp_, state_, P_, lbw_, ubw_, free_):
+        """The block path's frames (damped by delta_w), right-hand sides and
+        maps on the card, and its condensed M and right-hand side."""
+        derivs_b, kkt_b, maps_ = make_block_kkt(ocp_)
+        blocks = derivs_b(state_['w'], state_['y'], state_['lam'], P_)
+        asm = maps_.assemble(blocks, *[state_[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu')],
+                             lbw_, ubw_, free_, state_['mu'], 1e-8, 1e-8)
+        fV = torch.as_tensor(maps_.frame_V.astype(np.int64), device=dev)
+        own_free = (torch.as_tensor(maps_.own, device=dev) * free_[fV]).contiguous()
+        index_maps = tuple(torch.as_tensor(getattr(maps_, k).astype(np.int64), device=dev)
+                           for k in ('chain_V', 'intr_V', 'border_V'))
+        return maps_, asm, own_free, index_maps, fV, blocks, kkt_b
+
+    def frames_to_M(Frame, fV, delta, free_):
+        """The condensed M that the frames make up (each frame's entries
+        summed into the n variables) and its damping delta diag(free)."""
+        B_, n_ = Frame.shape[0], free_.shape[0]
+        M = torch.zeros(B_, n_, n_, dtype=f64, device=dev)
+        for k in range(Frame.shape[1]):
+            M[:, fV[k][:, None], fV[k][None, :]] += Frame[:, k]
+        return M + delta[:, None, None] * torch.diag(free_)
+
+    def rel_res(M, x, b):
+        return ((M @ x[..., None])[..., 0] - b).abs().amax(dim=1) / b.abs().amax(dim=1)
+
+    def spoil(T, idx_neg, idx_nan):
+        """A copy of T with lane 1 made indefinite and lane 2 given a NaN (where B > 2)."""
+        T = T.clone()
+        if T.shape[0] > 2:
+            T[(1,) + idx_neg] = -1e6
+            T[(2,) + idx_nan] = float('nan')
+        return T
+
+    def ladder_delta(ok_at):
+        """The least delta_w 100^k (k <= 7, the ladder's values) at which
+        ok_at(delta) holds for every lane: the damping the path's ladder
+        factors these systems with."""
+        for k in range(8):
+            if ok_at(1e-8 * 100. ** k):
+                return 1e-8 * 100. ** k
+        raise RuntimeError('chip_smoke: no damping of the ladder factors these systems')
+
+    def hold_block(tag, Frame, own_free, index_maps, rhs, fV, free_, lay):
+        Frame, rhs = Frame.contiguous(), rhs.contiguous()
+        B_ = Frame.shape[0]
+        d0 = ladder_delta(lambda d: bool(kernels.block_factor_plain(
+            Frame, torch.full((B_,), d, dtype=f64, device=dev), own_free, lay)[3].all()))
+        delta = torch.full((B_,), d0, dtype=f64, device=dev)
+        tag = f'{tag} delta {d0:.0e}'
+        oi = 2 * lay.nx
+        Fb = spoil(Frame, (lay.n_k - 1, oi + 3, oi + 3), (0, oi + 1, oi + 1))
+        before = dict(kernels.LAUNCHES)
+        fac_k = kernels.block_factor(Fb, delta, own_free, lay)
+        x_k = kernels.block_solve(*fac_k[:3], rhs, index_maps, lay)
+        fac_p = kernels.block_factor_plain(Fb, delta, own_free, lay)
+        x_p = kernels.block_solve_plain(*fac_p[:3], rhs, index_maps, lay)
+        fac_c = kernels.block_factor(Frame, delta, own_free, lay)
+        x_c = kernels.block_solve(*fac_c[:3], rhs, index_maps, lay)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES['block_factor'] == before['block_factor'] + 2
+                and kernels.LAUNCHES['block_solve'] == before['block_solve'] + 2,
+                f'K8/K9 {tag}: launches')
+        bad = [b_ for b_ in (1, 2) if B_ > 2]
+        good = [b_ for b_ in range(B_) if b_ not in bad]
+        require(torch.equal(fac_k[3], fac_p[3]) and not bool(fac_k[3][bad].any())
+                and bool(fac_k[3][good].all()), f'K8 {tag}: ok {fac_k[3].tolist()} vs '
+                f'plain {fac_p[3].tolist()}')
+        gaps = [float((fac_k[k][good] - fac_p[k][good]).abs().max()
+                      / fac_p[k][good].abs().max()) for k in range(2)]
+        Rk = fac_k[2][good] @ fac_k[2][good].transpose(1, 2)
+        Rp = fac_p[2][good] @ fac_p[2][good].transpose(1, 2)
+        gaps.append(float((Rk - Rp).abs().max() / Rp.abs().max()))
+        require(max(gaps) <= 1e-10, f'K8 {tag}: Li, Xc, R gaps {gaps}')
+        # K9 against its plain version on the same (kernel's) factor of the
+        # clean frames: the forward gap max |x_k - x_p| / max |x_p| per lane
+        fwd = (x_c - kernels.block_solve_plain(*fac_c[:3], rhs, index_maps, lay)).abs().amax(dim=1) \
+            / kernels.block_solve_plain(*fac_c[:3], rhs, index_maps, lay).abs().amax(dim=1)
+        require(bool(fac_c[3].all()) and bool((fwd <= TOL_K9_FWD).all()),
+                f'K9 {tag}: forward gaps to the plain solve {fwd.tolist()}')
+        # the residuals on M of the frames, for information only: the reduced
+        # system is too ill-conditioned for them to tell a right solve
+        M = frames_to_M(Frame[good], fV, delta[good], free_)
+        res_k, res_p = rel_res(M, x_k[good], rhs[good]), rel_res(M, x_p[good], rhs[good])
+        require(bool(torch.isnan(fac_k[2][bad]).all()) and bool(torch.isnan(x_k[bad]).all()),
+                f'K8/K9 {tag}: a failed lane is not NaN')
+        require(all(torch.equal(t[good], tc[good]) for t, tc in zip(fac_k[:3] + (x_k,),
+                                                                     fac_c[:3] + (x_c,))),
+                f'K8/K9 {tag}: a failed lane changed another lane')
+        # the library composition: cholesky, solve_triangular, a product per
+        # frame and cholesky of R (K8); four triangular solves and two
+        # products (K9), on the clean lanes' factor
+        c2, og = 2 * lay.nx, 2 * lay.nx + lay.ni
+        Fr = Frame.clone()
+        Fr.diagonal(dim1=-2, dim2=-1).add_(delta[:, None, None] * own_free)
+        Mii = Fr[:, :, oi:og, oi:og].contiguous()
+        Mic = torch.cat([Fr[:, :, oi:og, :c2], Fr[:, :, oi:og, og:]], dim=-1).contiguous()
+        Rc = (fac_c[2] @ fac_c[2].transpose(1, 2)).contiguous()
+        Li, Xc, LR = fac_c[:3]
+
+        def lib8():
+            L_ = torch.linalg.cholesky_ex(Mii)[0]
+            X_ = st_(L_, Mic, upper=False)
+            return X_.transpose(-1, -2) @ X_, torch.linalg.cholesky_ex(Rc)[0]
+
+        r_int = rhs[:, index_maps[1]][..., None]
+        r_red = rhs[:, :lay.nr, None].contiguous()
+        x_cpl = rhs[:, None, :lay.c, None].expand(-1, lay.n_k, -1, -1).contiguous()
+
+        def lib9():
+            t_ = st_(Li, r_int, upper=False)
+            u_ = Xc.transpose(-1, -2) @ t_
+            xr_ = st_(LR.transpose(-1, -2), st_(LR, r_red, upper=False), upper=True)
+            return st_(Li.transpose(-1, -2), t_ - Xc @ x_cpl, upper=True), u_, xr_
+
+        n_k_, nx, ni, nb = lay.n_k, lay.nx, lay.ni, lay.nb
+        c_, nr = lay.c, lay.nr
+        b8 = bound(nbytes(Frame, delta, own_free, Li, Xc, LR, fac_c[3]),
+                   B_ * (n_k_ * (ni ** 3 / 3 + ni * ni * c_ + ni * c_ * c_) + nr ** 3 / 3))
+        b9 = bound(nbytes(Li, Xc, LR, rhs, x_c) + 8 * (n_k_ * (nx + ni) + nb),
+                   B_ * (2 * n_k_ * ni * ni + 4 * n_k_ * ni * c_ + 2 * nr * nr))
+        k8 = lambda: kernels.block_factor(Frame, delta, own_free, lay)
+        k9 = lambda: kernels.block_solve(Li, Xc, LR, rhs, index_maps, lay)
+        recs = []
+        for fn, plain, lib, (b_, by_), err in (
+                (k8, lambda: kernels.block_factor_plain(Frame, delta, own_free, lay), lib8, b8,
+                 max(gaps)),
+                (k9, lambda: kernels.block_solve_plain(Li, Xc, LR, rhs, index_maps, lay), lib9, b9,
+                 float(fwd.max()))):
+            recs.append(dict(max_abs_err=err, ms=cuda_median_ms(fn),
+                             queued_ms=cuda_median_ms(fn, queued=True),
+                             plain_ms=cuda_median_ms(plain), library_ms=cuda_median_ms(lib),
+                             library_queued_ms=cuda_median_ms(lib, queued=True),
+                             bound_ms=b_, bound_by=by_, delta=d0))
+        phase('kernels', f'K8 block_factor {tag}: ok {int(fac_k[3].sum())}/{B_} as plain '
+              f'(indefinite and NaN lanes fail alone), Li/Xc/R gaps {gaps[0]:.2e}/{gaps[1]:.2e}/'
+              f'{gaps[2]:.2e}; {recs[0]["ms"]:.4f} ms, queued {recs[0]["queued_ms"]:.4f} ms, plain '
+              f'{recs[0]["plain_ms"]:.3f} ms, library {recs[0]["library_ms"]:.3f} ms (queued '
+              f'{recs[0]["library_queued_ms"]:.3f}); bound {b8[0]:.5f} ms ({b8[1]})')
+        phase('kernels', f'K9 block_solve {tag}: forward gap to plain {float(fwd.max()):.2e} '
+              f'(tolerance {TOL_K9_FWD:.0e}; zeros read 1), residual on M max '
+              f'{float(res_k.max()):.2e} vs plain {float(res_p.max()):.2e}; {recs[1]["ms"]:.4f} ms, queued {recs[1]["queued_ms"]:.4f} '
+              f'ms, plain {recs[1]["plain_ms"]:.3f} ms, library {recs[1]["library_ms"]:.3f} ms '
+              f'(queued {recs[1]["library_queued_ms"]:.3f}); bound {b9[0]:.5f} ms ({b9[1]})')
+        return recs
+
+    def condensed(state_, P_, lbw_, ubw_, free_, ocp_):
+        """The condensed M and right-hand side of the dense path at the anchor
+        (f64 derivatives, as make_batched_solver's), M damped by the least
+        delta of the ladder at which every lane factors."""
+        vf, jf, hf = make_structured_derivs(ocp_)
+        w_, y_, l_ = state_['w'], state_['y'], state_['lam']
+        dv_ = tuple(vf(w_, y_, l_, P_)) + tuple(jf(w_, P_)) + (hf(w_, y_, l_, P_),)
+        sys_ = kernels.newton_system(state_, dv_, lbw_, ubw_, free_)
+        As = sys_['A'] / torch.sqrt(sys_['D'])[:, :, None]
+        AtA = As.transpose(1, 2) @ As
+        M_of = lambda d: (sys_['W0'] + d * torch.diag(free_) + AtA).contiguous()
+        d0 = ladder_delta(lambda d: bool(kernels.chol_factor_batched_plain(M_of(d))[1].all()))
+        rhs_ = sys_['r1'] - (sys_['A'].transpose(1, 2) @ (sys_['r2'] / sys_['D'])[..., None])[..., 0]
+        return M_of(d0), rhs_.contiguous(), d0
+
+    def hold_chol(tag, M, b):
+        B_, n_ = M.shape[0], M.shape[1]
+        Mb = spoil(M, (n_ // 2, n_ // 2), (n_ - 1, 3))
+        before = dict(kernels.LAUNCHES)
+        L_k, ok_k = kernels.chol_factor_batched(Mb)
+        x_k = kernels.chol_solve_batched(L_k, b)
+        L_p, ok_p = kernels.chol_factor_batched_plain(Mb)
+        x_p = kernels.chol_solve_batched_plain(L_p, b)
+        L_c, ok_c = kernels.chol_factor_batched(M)
+        x_c = kernels.chol_solve_batched(L_c, b)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES['chol_factor_batched'] == before['chol_factor_batched'] + 2
+                and kernels.LAUNCHES['chol_solve_batched'] == before['chol_solve_batched'] + 2,
+                f'K10/K11 {tag}: launches')
+        bad = [b_ for b_ in (1, 2) if B_ > 2]
+        good = [b_ for b_ in range(B_) if b_ not in bad]
+        require(torch.equal(ok_k, ok_p) and bool(ok_k[good].all()) and not bool(ok_k[bad].any()),
+                f'K10 {tag}: ok {ok_k.tolist()} vs plain {ok_p.tolist()}')
+        rec_k = (L_k[good] @ L_k[good].transpose(1, 2) - M[good]).abs().amax(dim=(1, 2))
+        rec_p = (L_p[good] @ L_p[good].transpose(1, 2) - M[good]).abs().amax(dim=(1, 2))
+        scale = M[good].abs().amax(dim=(1, 2))
+        require(bool((rec_k <= 10 * torch.clamp(rec_p, min=1e-15 * scale)).all()),
+                f'K10 {tag}: |L L^T - M| {rec_k.tolist()} vs plain {rec_p.tolist()}')
+        res_k, res_p = rel_res(M[good], x_k[good], b[good]), rel_res(M[good], x_p[good], b[good])
+        require(bool((res_k <= 10 * torch.clamp(res_p, min=1e-12)).all()),
+                f'K11 {tag}: residuals {res_k.tolist()} vs plain {res_p.tolist()}')
+        require(bool(torch.isnan(L_k[bad]).all()) and bool(torch.isnan(x_k[bad]).all()),
+                f'K10/K11 {tag}: a failed lane is not NaN')
+        require(torch.equal(L_k[good], L_c[good]) and torch.equal(x_k[good], x_c[good]),
+                f'K10/K11 {tag}: a failed lane changed another lane')
+        k10 = lambda: kernels.chol_factor_batched(M)
+        k11 = lambda: kernels.chol_solve_batched(L_c, b)
+        lib10 = lambda: torch.linalg.cholesky_ex(M)
+        b_col = b[..., None].contiguous()
+        lib11 = lambda: torch.cholesky_solve(b_col, L_c)
+        b10 = bound(nbytes(M, L_c, ok_c), B_ * n_ ** 3 / 3)
+        b11 = bound(nbytes(L_c, b, x_c), 2 * B_ * n_ * n_)
+        recs = []
+        for fn, plain, lib, (b_, by_), err in (
+                (k10, lambda: kernels.chol_factor_batched_plain(M), lib10, b10,
+                 float((rec_k / scale).max())),
+                (k11, lambda: kernels.chol_solve_batched_plain(L_c, b), lib11, b11,
+                 float(res_k.max()))):
+            recs.append(dict(max_abs_err=err, ms=cuda_median_ms(fn),
+                             queued_ms=cuda_median_ms(fn, queued=True),
+                             plain_ms=cuda_median_ms(plain), library_ms=cuda_median_ms(lib),
+                             library_queued_ms=cuda_median_ms(lib, queued=True),
+                             bound_ms=b_, bound_by=by_))
+        phase('kernels', f'K10 chol_factor_batched {tag}: ok {int(ok_k.sum())}/{B_} as plain, '
+              f'max |L L^T - M| {float(rec_k.max()):.2e} vs plain {float(rec_p.max()):.2e} (max |M| '
+              f'{float(scale.max()):.2e}); {recs[0]["ms"]:.4f} ms, queued {recs[0]["queued_ms"]:.4f} '
+              f'ms, plain {recs[0]["plain_ms"]:.3f} ms, torch.linalg.cholesky_ex '
+              f'{recs[0]["library_ms"]:.3f} ms (queued {recs[0]["library_queued_ms"]:.3f}); bound '
+              f'{b10[0]:.5f} ms ({b10[1]})')
+        phase('kernels', f'K11 chol_solve_batched {tag}: residual max {float(res_k.max()):.2e} vs '
+              f'plain {float(res_p.max()):.2e}; {recs[1]["ms"]:.4f} ms, queued '
+              f'{recs[1]["queued_ms"]:.4f} ms, plain {recs[1]["plain_ms"]:.3f} ms, '
+              f'torch.cholesky_solve {recs[1]["library_ms"]:.3f} ms (queued '
+              f'{recs[1]["library_queued_ms"]:.3f}); bound {b11[0]:.5f} ms ({b11[1]})')
+        return recs
+
+    block_at, bsolve_at, chol_at, csolve_at = {}, {}, {}, {}
+    maps4, asm4, own4, imaps4, fV4, blocks4, kkt_solve4 = block_inputs(ocp, state, P64, lbw, ubw,
+                                                                     free)
+    lay4 = maps4.layout
+    for Bk in (1, B, 8 * B):
+        block_at[f'n_k=4 B={Bk}'], bsolve_at[f'n_k=4 B={Bk}'] = hold_block(
+            f'n_k=4 B={Bk}', lanes(asm4['Frame'], Bk), own4, imaps4, lanes(asm4['rhs_w'], Bk),
+            fV4, free, lay4)
+    M4, rhs4, d4 = condensed(state, P64, lbw, ubw, free, ocp)
+    chol_at[f'n={n} B={B}'], csolve_at[f'n={n} B={B}'] = hold_chol(f'n={n} B={B} delta {d4:.0e}',
+                                                                   M4, rhs4)
+    # K4's advance_state bit for bit on the block direction at the anchor
+    direction4 = kkt_solve4(blocks4, *[state[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu')],
+                            lbw, ubw, free, state['mu'], 1e-8, 1e-8, 1e-8)
+    adv_args = (state, tuple(t.contiguous() for t in direction4[:6]), direction4[6],
+                direction4[7]['err_d'], direction4[7]['err_d'], lbw, ubw, 0.99, 0.8, 1e-8)
+    before = kernels.LAUNCHES['advance_state']
+    adv_k, adv_p = kernels.advance_state(*adv_args), kernels.advance_state_plain(*adv_args)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES['advance_state'] == before + 1
+            and all(same_bits(adv_k[k], adv_p[k]) for k in adv_p),
+            'K4 advance_state differs from its plain version')
+    adv_fn = lambda: kernels.advance_state(*adv_args)
+    adv_in = [state[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu', 'mu')] + list(adv_args[1]) \
+        + [adv_args[2], adv_args[3], adv_args[4], lbw, ubw]
+    b_adv = bound(nbytes(*adv_in, *adv_k.values()))
+    report['advance_state'] = dict(
+        max_abs_err=0.0, ms=cuda_median_ms(adv_fn), queued_ms=cuda_median_ms(adv_fn, queued=True),
+        plain_ms=cuda_median_ms(lambda: kernels.advance_state_plain(*adv_args)),
+        bound_ms=b_adv[0], bound_by=b_adv[1], library_ms=None)
+    phase('kernels', f'K4 advance_state anchor B={B}: bit for bit; '
+          f'{report["advance_state"]["ms"]:.4f} ms, queued '
+          f'{report["advance_state"]["queued_ms"]:.4f} ms, vs plain '
+          f'{report["advance_state"]["plain_ms"]:.3f} ms; bound {b_adv[0]:.5f} ms ({b_adv[1]})')
 
     # aten operations one direction call dispatches on the card, and its
     # time, with each factor
@@ -811,7 +1122,9 @@ def main():
     plain_names = ('newton_system', 'equilibrate', 'kkt_assemble_plain',
                    'kkt_assemble_scaled_plain', 'newton_kkt_plain', 'lu_factor_batched_plain',
                    'lu_solve_batched_plain', 'ruiz_scale_plain', 'qr_factor_batched_plain',
-                   'qr_solve_batched_plain', 'advance_state', 'ip_step_plain')
+                   'qr_solve_batched_plain', 'advance_state_plain', 'ip_step_plain',
+                   'block_factor_plain', 'block_solve_plain', 'chol_factor_batched_plain',
+                   'chol_solve_batched_plain')
 
     def run_slice(tag, fac, cell, variant, max_iter=100, converge=True):
         """The cell ``cell`` (ocp, state, P64, lbw, ubw, free, u_refs) with
@@ -918,7 +1231,156 @@ def main():
           f'({it_qr} against {it_lu} iterations)')
     require(power_gap <= 1e-6, f'QR and LU average powers differ: {powers_qr} vs {powers_lu}')
 
-    # --- 6. the n_k=8 slices ----------------------------------------------
+    # --- 6. the reference's batched solver: [slice-block], [slice-dense] --
+    # make_batched_solver with the JAX package's defaults (kkt='auto', which
+    # is 'block' for this configuration; kappa_mu 0.8) and with kkt='dense'
+    # in f64 as bench.py runs BENCH_KKT=dense, on the same 16 lanes from the
+    # make_batched_solver's own bounds (the relaxed final bounds, before
+    # split_pins). Gates: every lane reaches err <= 1e-5 with f64 max |eq|
+    # <= 1e-4, the 9.5 m/s lane at the JAX package's power and period
+    # (CPU, f64, JAX_CONVERGED) to 1e-6
+    # relative, and the first iteration on the card within the CPU lockstep
+    # test's tolerance of the plain path on the CPU (FIRST_ITER, the gap in
+    # w over the step's size: the directions come from systems of
+    # cond(M) ~ 1e19, and the port's and the JAX package's first block
+    # directions already differ by ~1% of the step on the CPU). The 10.5 m/s
+    # lane is printed beside both JAX optima; which one it reaches is
+    # recorded, not gated (on the CPU the port's block path latches at the
+    # auglu optimum where the JAX package's goes on to another).
+    lbf, ubf = sweep_bounds(trial)
+    state_h16 = {k: v.cpu() for k, v in state.items()}
+    P_h16 = tree_map(lambda t: t.cpu(), P64)
+    solver_plain = ('block_factor_plain', 'block_solve_plain', 'chol_factor_batched_plain',
+                    'chol_solve_batched_plain', 'advance_state_plain', 'newton_kkt_plain',
+                    'ip_step_plain', 'lu_factor_batched_plain', 'lu_solve_batched_plain',
+                    'ruiz_scale_plain', 'qr_factor_batched_plain', 'qr_solve_batched_plain')
+
+    def run_solver(tag, kkt, mode, kw, n_iter):
+        """make_batched_solver with ``kkt`` ('auto': the default, not passed),
+        resolving to ``mode``: the first iteration against the CPU, then the
+        run, its gates and its path."""
+        pick = {} if kkt == 'auto' else dict(kkt=kkt)
+        step_c = batch.make_ip_step(ocp, **pick, **kw)
+        t0 = time.time()
+        it_c = step_c(state, P64, lbw, ubw, free)
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        t0 = time.time()
+        it_h = step_c(state_h16, P_h16, lbw.cpu(), ubw.cpu(), free.cpu())
+        t_cpu = time.time() - t0
+        step_size = (it_h['w'] - state_h16['w']).abs().amax(dim=1)
+        gap = ((it_c['w'].cpu() - it_h['w']).abs().amax(dim=1) / step_size)
+        require(float(gap.max()) <= FIRST_ITER[mode], f'{tag}: the first iteration on the card is '
+                f'{gap.tolist()} of the step from the CPU\'s (tolerance {FIRST_ITER[mode]})')
+        phase(tag, f'first iteration card vs cpu plain, 16 lanes: max |w diff| / step '
+              f'{float(gap.max()):.3e} (tolerance {FIRST_ITER[mode]}); {t_card:.1f} s on the card '
+              f'(first call), {t_cpu:.1f} s on the CPU')
+        solve = batch.make_batched_solver(ocp, lbf, ubf, n_iter=n_iter, batch_p=True, tol=1e-5,
+                                          **pick, **kw)
+        plain_calls = {k: 0 for k in solver_plain}
+        saved = {k: getattr(kernels, k) for k in plain_calls}
+
+        def counted(name):
+            def call(*args, **kwargs):
+                plain_calls[name] += 1
+                return saved[name](*args, **kwargs)
+            return call
+        for k in plain_calls:
+            setattr(kernels, k, counted(k))
+        kernels.reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solve(state, P64)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            for k, fn in saved.items():
+                setattr(kernels, k, fn)
+        launches = dict(kernels.LAUNCHES)
+        it = solve.n_iter
+        err = out['err'].cpu().numpy()
+        eq = torch.abs(torch.func.vmap(ocp.eq_fn)(out['w'], P64)).amax(dim=1).cpu().numpy()
+        powers = average_power(ocp, out['w'], P64).cpu().numpy()
+        periods = torch.func.vmap(ocp.time_period_fn)(out['w']).cpu().numpy()
+        conv = (err <= 1e-5) & (eq <= 1e-4)
+        phase(tag, f'make_batched_solver(kkt={kkt!r} -> {mode!r}'
+              f'{", solve_dtype=float64" if kw else ""}), '
+              f'B={B}, u_ref {u_refs[0]:.2f}..{u_refs[-1]:.2f} m/s: {it} iterations (the '
+              f'loop\'s own count; cap {n_iter}), {1e3 * seconds / it:.1f} ms/iter, converged '
+              f'{int(conv.sum())}/{B}, err {err.min():.2e}..{err.max():.2e}, max f64 eq '
+              f'{eq.max():.2e}, {conv.sum() / seconds:.3f} solves/s')
+        for b_ in range(B):
+            phase(tag, f'lane {b_:2d} u_ref {u_refs[b_]:.4f} m/s: P_avg {powers[b_]:.6f} W, T '
+                  f'{periods[b_]:.6f} s, err {err[b_]:.2e}, max eq {eq[b_]:.2e}')
+        ref_p, ref_t = JAX_CONVERGED[mode]
+        phase(tag, f'lane u_ref {u_refs[-1]:.2f}: {powers[-1]:.6f} W / {periods[-1]:.6f} s; the JAX '
+              f'package (CPU) reaches {ref_p[1]:.6f} W / {ref_t[1]:.6f} s in this mode, '
+              f'{JAX_CONVERGED["auglu_10.5"]:.3f} W with auglu')
+        require(conv.all(), f'{tag}: unconverged lanes {np.where(~conv)[0]} (err {err}, eq {eq})')
+        dp = abs(powers[0] / ref_p[0] - 1.)
+        dt_ = abs(periods[0] / ref_t[0] - 1.)
+        require(dp <= 1e-6 and dt_ <= 1e-6, f'{tag}: the 9.5 m/s lane at {powers[0]} W / '
+                f'{periods[0]} s, the JAX package at {ref_p[0]} / {ref_t[0]}')
+        phase(tag, f'lane u_ref {u_refs[0]:.2f}: power and period within {dp:.2e} and {dt_:.2e} of '
+              f'the JAX package\'s')
+        # the path
+        if mode == 'block':
+            fac, sol = 'block_factor', 'block_solve'
+        else:
+            fac, sol = 'chol_factor_batched', 'chol_solve_batched'
+        retries = launches[fac] - it
+        require(retries >= 0 and launches[sol] == 3 * it and launches['advance_state'] == it,
+                f'{tag}: not one {fac} per ladder attempt, three {sol} and one advance_state per '
+                f'iteration ({it}): {launches}')
+        others = [k for k in launches if k not in (fac, sol, 'advance_state') and launches[k]]
+        require(not others, f'{tag}: other kernels ran: {others}')
+        require(not any(plain_calls.values()), f'{tag}: plain versions ran: {plain_calls}')
+        require(all(v.is_cuda for v in out.values()), f'{tag}: the state left the card')
+        phase('path', f'{tag}: kernel launches in the run: '
+              f'{ {k: v for k, v in launches.items() if v} }; {fac} {launches[fac]} = {it} '
+              f'iterations + {retries} ladder retries, {sol} 3 per iteration, advance_state 1 per '
+              f'iteration; plain versions called: {sum(plain_calls.values())}; state on the card')
+        return launches, it, seconds
+
+    # one iteration's pieces, host clock around each, device synchronized
+    def pieces_ms(kkt, kw):
+        if kkt == 'block':
+            derivs_b, kkt_b, _ = make_block_kkt(ocp)
+            fns = [('derivs', lambda: derivs_b(state['w'], state['y'], state['lam'], P64))]
+            fns.append(('direction', lambda blk: kkt_b(
+                blk, *[state[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu')], lbw, ubw, free,
+                state['mu'], 1e-8, 1e-8, 1e-8)))
+        else:
+            derivs_d, direction_d = batch.make_ip_step(ocp, kkt=kkt, split=True, **kw)
+            fns = [('derivs', lambda: derivs_d(state['w'], state['y'], state['lam'], P64)),
+                   ('direction', lambda dv_: direction_d(state, dv_, lbw, ubw, free))]
+        times = {}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mid = fns[0][1]()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fns[1][1](mid)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            times.setdefault('derivs', []).append(1e3 * (t1 - t0))
+            times.setdefault('direction', []).append(1e3 * (t2 - t1))
+        return {k: sorted(v)[1] for k, v in times.items()}
+
+    solver_runs = {}
+    for tag, kkt, kw, cap in (('slice-block', 'auto', {}, 200),
+                              ('slice-dense', 'dense', dict(solve_dtype=torch.float64), 100)):
+        mode = batch.resolve_kkt(ocp, kkt)
+        require(mode == ('block' if kkt == 'auto' else kkt), f'{tag}: kkt resolves to {mode}')
+        pc = pieces_ms(mode, kw)
+        phase(tag, f'one iteration\'s pieces at B={B}, median of 3 (host clock, synchronized): '
+              f'derivatives {pc["derivs"]:.1f} ms, direction {pc["direction"]:.1f} ms')
+        solver_runs[mode] = run_solver(tag, kkt, mode, kw, cap)
+    launches_block, launches_dense = solver_runs['block'][0], solver_runs['dense'][0]
+
+    # --- 7. the n_k=8 slices ----------------------------------------------
     # bench_options(n_k=8) from tests/artifacts/bench_anchor_nk8_d3.npz:
     # n=540, m=515, N=1055, which only the blocked factors take. The anchor
     # is no start from which the batched refinement converges, in the JAX
@@ -952,6 +1414,19 @@ def main():
     k4_at[f'n_k=8 B={B}'] = hold_k4(f'n_k=8 anchor B={B}', x8, ok8, sys8_k,
                                    ({k: state8[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu',
                                                             'mu')},) + args8[1:])
+    # K8/K9 on the n_k=8 anchor's frames (n_k=8: a 108 x 108 reduced system)
+    # and K10/K11 on its condensed M (n=540), B=16
+    maps8, asm8, own8, imaps8, fV8, _, _ = block_inputs(ocp8, state8, P64_8, lbw8, ubw8, free8)
+    block_at[f'n_k=8 B={B}'], bsolve_at[f'n_k=8 B={B}'] = hold_block(
+        f'n_k=8 B={B}', asm8['Frame'], own8, imaps8, asm8['rhs_w'], fV8, free8, maps8.layout)
+    M8c, rhs8c, d8 = condensed(state8, P64_8, lbw8, ubw8, free8, ocp8)
+    n8c = M8c.shape[1]
+    chol_at[f'n={n8c} B={B}'], csolve_at[f'n={n8c} B={B}'] = hold_chol(
+        f'n={n8c} B={B} delta {d8:.0e}', M8c, rhs8c)
+    report['block_factor'] = dict(block_at[f'n_k=4 B={B}'], at=block_at)
+    report['block_solve'] = dict(bsolve_at[f'n_k=4 B={B}'], at=bsolve_at)
+    report['chol_factor_batched'] = dict(chol_at[f'n={n} B={B}'], at=chol_at)
+    report['chol_solve_batched'] = dict(csolve_at[f'n={n} B={B}'], at=csolve_at)
     cell8_h = wind_sweep_problem(trial8, anchor8, 2, device='cpu')
     for fac in ('lu', 'qr'):
         it_c = make_refiner(ocp8, *cell8[3:6], auglu_factor=fac)(
@@ -987,16 +1462,24 @@ def main():
                'ruiz_scale': 'awebox_tpu/parallel/batch.py:375',
                'qr_factor_cluster': 'awebox_tpu/parallel/batch.py:382',
                'qr_factor_blocked': 'awebox_tpu/parallel/batch.py:382',
-               'qr_solve_batched': 'awebox_tpu/parallel/batch.py:344'}
+               'qr_solve_batched': 'awebox_tpu/parallel/batch.py:344',
+               'advance_state': 'awebox_tpu/parallel/batch.py:449',
+               'chol_factor_batched': 'awebox_tpu/parallel/batch.py:215',
+               'chol_solve_batched': 'awebox_tpu/parallel/batch.py:234',
+               'block_factor': 'awebox_tpu/ocp/blockkkt.py:539',
+               'block_solve': 'awebox_tpu/ocp/blockkkt.py:646'}
     own = {'kkt_assemble_scaled': launches_lu, 'lu_factor_cluster': launches_lu,
            'lu_solve_batched': launches_lu, 'lu_factor_blocked': launches_lu8,
-           'qr_factor_blocked': launches_qr8}
+           'qr_factor_blocked': launches_qr8, 'advance_state': launches_block,
+           'block_factor': launches_block, 'block_solve': launches_block,
+           'chol_factor_batched': launches_dense, 'chol_solve_batched': launches_dense}
     phase('done', f'chip_smoke.py ran {time.time() - t_start:.1f} s')
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', source='awebox_tpu_torch/csrc/auglu.cu',
              replaces=sources[k], launches=own.get(k, launches_qr)[k],
              launches_lu_slice=launches_lu[k], launches_qr_slice=launches_qr[k],
              launches_nk8_lu_slice=launches_lu8[k], launches_nk8_qr_slice=launches_qr8[k],
+             launches_block_slice=launches_block[k], launches_dense_slice=launches_dense[k],
              **report[k])
         for k in sources]}), flush=True)
     print(smi, flush=True)

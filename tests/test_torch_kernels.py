@@ -1456,6 +1456,329 @@ def test_step_gate_fails_on_a_stray_nan(key):
     assert gaps[key] == float('inf') and not step_within_tolerance(gaps), gaps
 
 
+# --- K8-K11 and K4's advance_state: the block and condensed KKT modes --------
+
+BLOCK_LAYOUTS = {'tiny': (2, 3, 5, 4, 15), 'n_k=4': (4, 11, 54, 20, 96),
+                 'n_k=8': (8, 11, 54, 20, 96)}   # (n_k, nx, ni, nb, nloc)
+
+
+def random_frames(lay, B, seed=0, device='cpu'):
+    """Symmetric positive definite frames (B, n_k, nloc, nloc) laid out as
+    ocp/blockkkt.py's: frame 0's x_0 slot empty (zero rows and columns);
+    with the damping delta (B,) and the ownership mask own_free (n_k,
+    nloc). Lane 1 (if B > 2) has an indefinite interior pivot, lane 2 a NaN
+    entry: both must fail alone."""
+    from awebox_tpu_torch.parallel import kernels
+    lay = kernels.BlockLayout(*lay)
+    n_k, nx, nloc = lay.n_k, lay.nx, lay.nloc
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, n_k, nloc, nloc)) * 10.0 ** rng.uniform(-1, 1, (B, n_k, nloc, 1))
+    F = G @ G.transpose(0, 1, 3, 2) / nloc + np.eye(nloc) * 0.1
+    F[:, 0, :nx, :] = 0.
+    F[:, 0, :, :nx] = 0.
+    if B > 2:
+        F[1, n_k - 1, 2 * nx + 3, 2 * nx + 3] = -1.0
+        F[2, 0, 2 * nx + 1, nloc - 1] = F[2, 0, nloc - 1, 2 * nx + 1] = np.nan
+    own = np.ones((n_k, nloc))
+    own[0, :nx] = 0.
+    own[:-1, nx:2 * nx] = 0.
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    return lay, t(F), t(10.0 ** rng.uniform(-8, -2, B)), t(own)
+
+
+def block_index_maps(lay, seed=0, device='cpu'):
+    """chain_V, intr_V, border_V of a random partition of the n variables."""
+    n = lay.n_k * (lay.nx + lay.ni) + lay.nb
+    perm = np.random.default_rng(seed).permutation(n)
+    nc, ni_all = lay.n_k * lay.nx, lay.n_k * lay.ni
+    t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return (t(perm[:nc].reshape(lay.n_k, lay.nx)), t(perm[nc:nc + ni_all].reshape(lay.n_k, lay.ni)),
+            t(perm[nc + ni_all:])), n
+
+
+def kb8_cidx(a, nx, og):
+    return a if a < 2 * nx else og + (a - 2 * nx)
+
+
+def kb8_rmap(k, a, n_k, nx):
+    if a < nx:
+        return -1 if k == 0 else (k - 1) * nx + a
+    if a < 2 * nx:
+        return k * nx + (a - nx)
+    return n_k * nx + (a - 2 * nx)
+
+
+def block_factor_mirror(Frame, delta, own_free, lay):
+    """K8's schedule on one lane at a time, in numpy f64: the frame damped,
+    its interior pivots eliminated right-looking over the whole frame, S
+    added into R at the coupling positions, R factored."""
+    n_k, nx, ni, nb, nloc = lay
+    nr, c = n_k * nx + nb, 2 * nx + nb
+    oi, og = 2 * nx, 2 * nx + ni
+    B = Frame.shape[0]
+    Li = np.zeros((B, n_k, ni, ni)); Xc = np.zeros((B, n_k, ni, c)); LR = np.zeros((B, nr, nr))
+    ok = np.zeros(B, bool)
+    for lane in range(B):
+        R = np.zeros((nr, nr))
+        failed = False
+        for k in range(n_k):
+            F = Frame[lane, k].copy()
+            F[np.arange(nloc), np.arange(nloc)] += delta[lane] * own_free[k]
+            for p in range(oi, og):
+                d2 = F[p, p]
+                if not (d2 > 0) or not np.isfinite(d2):
+                    failed = True
+                    break
+                dp = np.sqrt(d2)
+                rin = og - 1 - p
+                rem = [p + 1 + t if t < rin else kb8_cidx(t - rin, nx, og) for t in range(rin + c)]
+                rem = np.array(rem)
+                col = F[rem, p] / dp
+                F[rem, p] = col
+                F[p, p] = dp
+                F[np.ix_(rem, rem)] -= np.outer(col, col)
+            if failed:
+                break
+            L = np.tril(F[oi:og, oi:og])
+            Li[lane, k] = L
+            cid = np.array([kb8_cidx(a, nx, og) for a in range(c)])
+            Xc[lane, k] = F[cid][:, oi:og].T
+            for a in range(c):
+                for b in range(c):
+                    ra, rb = kb8_rmap(k, a, n_k, nx), kb8_rmap(k, b, n_k, nx)
+                    if ra >= 0 and rb >= 0:
+                        R[ra, rb] += F[cid[a], cid[b]]
+            if not np.isfinite(L).all():
+                failed = True
+                break
+        if not failed:
+            for p in range(nr):
+                d2 = R[p, p]
+                if not (d2 > 0) or not np.isfinite(d2):
+                    failed = True
+                    break
+                dp = np.sqrt(d2)
+                col = R[p + 1:, p] / dp
+                R[p + 1:, p] = col
+                R[p, p] = dp
+                R[p + 1:, p + 1:] -= np.outer(col, col)
+        if not failed:
+            LR[lane] = np.tril(R)
+            failed = not np.isfinite(LR[lane]).all()
+        if failed:
+            LR[lane] = np.nan
+        ok[lane] = not failed
+    return Li, Xc, LR, ok
+
+
+def tri_lower_mirror(L, b):
+    """tri_lower_solve's tile order: the solved part first, then the diagonal tile."""
+    m = len(b); x = b.copy()
+    for t0 in range(0, m, 32):
+        h = min(32, m - t0)
+        for i in range(h):
+            x[t0 + i] -= L[t0 + i, :t0] @ x[:t0]
+        for j in range(h):
+            x[t0 + j] = x[t0 + j] / L[t0 + j, t0 + j]
+            x[t0 + j + 1:t0 + h] -= L[t0 + j + 1:t0 + h, t0 + j] * x[t0 + j]
+    return x
+
+
+def tri_upper_t_mirror(L, b):
+    m = len(b); x = b.copy()
+    for t0 in range(((m - 1) // 32) * 32, -1, -32):
+        h = min(32, m - t0); t1 = t0 + h
+        x[t0:t1] -= L[t1:, t0:t1].T @ x[t1:]
+        for j in range(h - 1, -1, -1):
+            x[t0 + j] = x[t0 + j] / L[t0 + j, t0 + j]
+            x[t0:t0 + j] -= L[t0 + j, t0:t0 + j] * x[t0 + j]
+    return x
+
+
+def block_solve_mirror(Li, Xc, LR, rhs, chain_V, intr_V, border_V, lay):
+    """K9's schedule on one lane at a time."""
+    n_k, nx, ni, nb, nloc = lay
+    nr, c, nc = n_k * nx + nb, 2 * nx + nb, n_k * nx
+    B, n = rhs.shape
+    out = np.zeros_like(rhs)
+    for lane in range(B):
+        v = rhs[lane]
+        t = v[intr_V].reshape(n_k, ni).copy()
+        rr = np.concatenate([v[chain_V.reshape(-1)], v[border_V]])
+        for k in range(n_k):
+            t[k] = tri_lower_mirror(Li[lane, k], t[k])
+        upd = np.einsum('kia,ki->ka', Xc[lane], t)
+        for q in range(nr):
+            if q < nc:
+                j, a = divmod(q, nx)
+                rr[q] -= upd[j, nx + a]
+                if j + 1 < n_k:
+                    rr[q] -= upd[j + 1, a]
+            else:
+                rr[q] -= upd[:, 2 * nx + q - nc].sum()
+        rr = tri_lower_mirror(LR[lane], rr)
+        rr = tri_upper_t_mirror(LR[lane], rr)
+        for k in range(n_k):
+            xa = np.concatenate([rr[nc:nc + nx] if k == 0 else rr[(k - 1) * nx:k * nx],
+                                 rr[k * nx:(k + 1) * nx], rr[nc:]])
+            t[k] -= Xc[lane, k] @ xa
+            t[k] = tri_upper_t_mirror(Li[lane, k], t[k])
+        out[lane, intr_V.reshape(-1)] = t.reshape(-1)
+        out[lane, chain_V.reshape(-1)] = rr[:nc]
+        out[lane, border_V] = rr[nc:]
+    return out
+
+
+def chol_factor_mirror(M, nb=32):
+    """K10's schedule: panels of nb columns, right-looking."""
+    B, n, _ = M.shape
+    L = np.tril(M).copy(); ok = np.ones(B, bool)
+    for lane in range(B):
+        Lw = L[lane]; failed = False
+        for j0 in range(0, n, nb):
+            w = min(nb, n - j0)
+            P = Lw[j0:, j0:j0 + w].copy()
+            for cc in range(w):
+                d2 = P[cc, cc]
+                if not (d2 > 0) or not np.isfinite(d2):
+                    failed = True; break
+                dp = np.sqrt(d2)
+                P[cc + 1:, cc] /= dp
+                P[cc, cc] = dp
+                for c2 in range(cc + 1, w):
+                    P[c2:, c2] -= P[c2:, cc] * P[c2, cc]
+            if failed:
+                break
+            Lw[j0:, j0:j0 + w] = np.tril(P)
+            Pt = P[w:]
+            Lw[j0 + w:, j0 + w:] -= np.tril(Pt @ Pt.T)
+        if failed or not np.isfinite(Lw).all():
+            Lw[:] = np.nan; ok[lane] = False
+    return L, ok
+
+
+@pytest.mark.parametrize('name', list(BLOCK_LAYOUTS))
+def test_block_factor_mirror_matches_plain(name):
+    """K8's schedule (the interior pivots eliminated right-looking over the
+    whole frame, S summed into R at the coupling positions, R factored in
+    place) against block_factor_plain: Li and Xc to 1e-12 of their max, R =
+    L_R L_R^T to 1e-12 of its max (the frames are well conditioned; only
+    the order of the sums differs); ok lane by lane, the indefinite and the
+    NaN lane failing alone with a NaN L_R."""
+    from awebox_tpu_torch.parallel import kernels
+    lay, F, delta, own = random_frames(BLOCK_LAYOUTS[name], B=4, seed=len(name))
+    ref = kernels.block_factor_plain(F, delta, own, lay)
+    mir = block_factor_mirror(F.numpy(), delta.numpy(), own.numpy(), lay)
+    np.testing.assert_array_equal(ref[3].numpy(), mir[3])
+    assert ref[3].tolist() == [True, False, False, True]
+    good = [0, 3]
+    for k in range(2):
+        a, b = ref[k].numpy()[good], mir[k][good]
+        assert np.abs(a - b).max() <= 1e-12 * np.abs(a).max(), k
+    LR_p, LR_m = ref[2].numpy(), mir[2]
+    R_p = LR_p[good] @ LR_p[good].transpose(0, 2, 1)
+    R_m = LR_m[good] @ LR_m[good].transpose(0, 2, 1)
+    assert np.abs(R_p - R_m).max() <= 1e-12 * np.abs(R_p).max()
+    assert np.isnan(LR_p[[1, 2]]).all() and np.isnan(LR_m[[1, 2]]).all()
+
+
+@pytest.mark.parametrize('name', list(BLOCK_LAYOUTS))
+def test_block_solve_mirror_matches_plain(name):
+    """K9's schedule (interior forward solves, the coupling updates summed in
+    frame order, the reduced pair, the back substitution, in 32-row tiles)
+    against block_solve_plain on the plain factor: 1e-11 of max |x| on the
+    lanes that factored, NaN throughout on the lanes that failed; the
+    solution satisfies the frames' M x = b."""
+    from awebox_tpu_torch.parallel import kernels
+    lay, F, delta, own = random_frames(BLOCK_LAYOUTS[name], B=4, seed=7)
+    maps, n = block_index_maps(lay, seed=3)
+    fac = kernels.block_factor_plain(F, delta, own, lay)
+    rhs = torch.as_tensor(np.random.default_rng(5).standard_normal((4, n)))
+    x = kernels.block_solve_plain(*fac[:3], rhs, maps, lay).numpy()
+    xm = block_solve_mirror(*(f.numpy() for f in fac[:3]), rhs.numpy(),
+                            *(m.numpy() for m in maps), lay)
+    good = [0, 3]
+    assert np.abs(x[good] - xm[good]).max() <= 1e-11 * np.abs(x[good]).max()
+    assert np.isnan(x[[1, 2]]).all() and np.isnan(xm[[1, 2]]).all()
+    # M from the frames, in the variables' order (frame slots -> variables)
+    chain, intr, border = (m.numpy() for m in maps)
+    Fd = F.numpy().copy()
+    Fd[:, :, np.arange(lay.nloc), np.arange(lay.nloc)] += delta.numpy()[:, None, None] * own.numpy()
+    for lane in good:
+        M = np.zeros((n, n))
+        for k in range(lay.n_k):
+            b_slot = border[:lay.nx] if k == 0 else chain[k - 1]
+            fv = np.concatenate([b_slot, chain[k], intr[k], border])
+            M[np.ix_(fv, fv)] += Fd[lane, k]
+        res = np.abs(M @ x[lane] - rhs.numpy()[lane]).max()
+        assert res <= 1e-9 * np.abs(rhs.numpy()[lane]).max(), res
+
+
+@pytest.mark.parametrize('n', [37, 280, 540])
+def test_chol_mirrors_match_plain(n):
+    """K10's schedule (panels of 32, each factored column by column, then the
+    trailing update summed from zero) and K11's tiled substitutions against
+    chol_factor_batched_plain / chol_solve_batched_plain: L to 1e-13 of its
+    max, x to 1e-12 of its max on SPD lanes; a lane with a negative pivot and
+    one with a NaN entry fail alone (ok False, L NaN), as potrf under
+    jnp.linalg.cholesky."""
+    from awebox_tpu_torch.parallel import kernels
+    rng = np.random.default_rng(n)
+    G = rng.standard_normal((4, n, n))
+    M = G @ G.transpose(0, 2, 1) / n + np.eye(n)
+    M[1, n // 2, n // 2] = -1.0
+    M[2, n - 1, 3] = M[2, 3, n - 1] = np.nan
+    Lp, okp = kernels.chol_factor_batched_plain(torch.as_tensor(M))
+    Lm, okm = chol_factor_mirror(M)
+    assert okp.tolist() == okm.tolist() == [True, False, False, True]
+    good = [0, 3]
+    assert np.abs(Lp.numpy()[good] - Lm[good]).max() <= 1e-13 * np.abs(Lm[good]).max()
+    assert np.isnan(Lp.numpy()[[1, 2]]).all() and np.isnan(Lm[[1, 2]]).all()
+    b = rng.standard_normal((4, n))
+    xp = kernels.chol_solve_batched_plain(Lp, torch.as_tensor(b)).numpy()
+    xm = np.stack([tri_upper_t_mirror(Lm[i], tri_lower_mirror(Lm[i], b[i])) for i in good])
+    assert np.abs(xp[good] - xm).max() <= 1e-12 * np.abs(xm).max()
+
+
+@pytest.mark.parametrize('n_k, fits', [(4, True), (8, True), (10, True), (11, False)])
+def test_block_factor_smem(n_k, fits):
+    """K8 holds one frame and the reduced system in one block's shared memory
+    (n_k = 4: 108 KB; n_k = 8: 166 KB); past that it raises by name."""
+    from awebox_tpu_torch.parallel import kernels
+    lay = kernels.BlockLayout(n_k, 11, 54, 20, 96)
+    if fits:
+        smem = kernels.block_factor_smem(lay)
+        assert smem == 8 * (96 * 96 + lay.nr ** 2 + max(96, lay.nr))
+        assert smem + kernels.BLOCK_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+    else:
+        with pytest.raises(ValueError, match='block_factor'):
+            kernels.block_factor_smem(lay)
+
+
+def test_advance_state_plain_takes_lanes_without_rows():
+    """advance_state_plain without inequality rows (the s and lam ratios drop
+    out) and without equality rows equals the full call's other outputs
+    where those rows do not enter."""
+    from awebox_tpu_torch.parallel import kernels
+    args = random_step_inputs()
+    state, direction = args[0], args[1]
+    full = kernels.advance_state_plain(*args)
+    for cut in ('ineq', 'eq'):
+        st = dict(state)
+        dr = list(direction)
+        if cut == 'ineq':
+            st['s'], st['lam'] = state['s'][:, :0], state['lam'][:, :0]
+            dr[2], dr[3] = dr[2][:, :0], dr[3][:, :0]
+        else:
+            st['y'] = state['y'][:, :0]
+            dr[1] = dr[1][:, :0]
+        out = kernels.advance_state_plain(st, tuple(dr), *args[2:])
+        assert all(bool(torch.isfinite(v).all()) for v in out.values()), cut
+        if cut == 'eq':   # no y enters alpha: the step is the full call's
+            for k in ('w', 's', 'lam', 'zl', 'zu', 'mu', 'err'):
+                assert torch.equal(out[k], full[k]), k
+
+
 def test_pointer_structs_match_the_field_orders():
     """newton_kkt and ip_step hand their tensors to csrc/auglu.cu as one array
     of pointers: kernels.NEWTON_FIELDS and STEP_FIELDS must name the fields
@@ -1470,6 +1793,7 @@ def test_pointer_structs_match_the_field_orders():
         return tuple(re.findall(r'\*\s*(\w+);', body[:body.index('};')]))
     assert fields('NewtonPtrs') == kernels.NEWTON_FIELDS
     assert fields('StepPtrs') == kernels.STEP_FIELDS
+    assert fields('AdvancePtrs') == kernels.ADVANCE_FIELDS
     assert set(kernels.NEWTON_OUTPUTS) <= set(kernels.NEWTON_FIELDS)
 
 
@@ -1489,6 +1813,12 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
     assert 'K' in kernels.newton_kkt(state, derivs, lbw, ubw, free, 1e-8, 1e-8, scaled=False)
     x, ok = step_solution(*out['b'].shape)
     kernels.ip_step(x, ok, out['rn'], out['r1'], state, derivs, lbw, ubw, free, 0.99, 0.4, 1e-8)
+    lay, F, delta, own = random_frames(BLOCK_LAYOUTS['tiny'], B=2)
+    maps, n = block_index_maps(lay)
+    fac = kernels.block_factor(F, delta, own, lay)
+    kernels.block_solve(*fac[:3], torch.ones(2, n, dtype=torch.float64), maps, lay)
+    L, _ = kernels.chol_factor_batched(torch.eye(5, dtype=torch.float64).expand(2, 5, 5))
+    kernels.chol_solve_batched(L, torch.ones(2, 5, dtype=torch.float64))
     assert kernels.LAUNCHES == before
     assert kernels._lib is None
 
@@ -1853,3 +2183,103 @@ def test_qr_direction_solve_on_card_matches_cpu(cuda):
         ref = out_h[k].numpy()
         np.testing.assert_allclose(out_c[k].cpu().numpy(), ref, rtol=0,
                                    atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_advance_state_kernel_matches_plain_on_card(cuda):
+    """K4's advance_state entry bit for bit against advance_state_plain (the
+    same f64 operations in the same order), with a failed lane, pinned and
+    infinite bounds, and without inequality or equality rows."""
+    from awebox_tpu_torch.parallel import kernels
+    for B, n, n_eq, n_ineq in ((4, 40, 20, 8), (4, 280, 247, 16), (3, 40, 20, 0),
+                               (3, 40, 0, 8), (4, 540, 499, 16)):
+        args = random_step_inputs(B=B, n=n, n_eq=n_eq, n_ineq=n_ineq, seed=n, device=cuda)
+        before = kernels.LAUNCHES['advance_state']
+        out = kernels.advance_state(*args)
+        ref = kernels.advance_state_plain(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['advance_state'] == before + 1
+        assert set(out) == set(ref)
+        for k in ref:
+            assert same_bits(out[k], ref[k]), (n, n_eq, n_ineq, k)
+
+
+def block_gates(fac_k, fac_p, x_k, x_p, good):
+    """K8 + K9 against their plain versions on lanes that factored: Li and Xc
+    within 1e-10 of their max, R = L_R L_R^T within 1e-10 of its max (the
+    reduced system's factor itself is as ill-conditioned as R), and x within
+    1e-8 of max |x| on these well-conditioned frames."""
+    for k in range(2):
+        a, b = fac_k[k][good], fac_p[k][good]
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max()), k
+    Rk = fac_k[2][good] @ fac_k[2][good].transpose(1, 2)
+    Rp = fac_p[2][good] @ fac_p[2][good].transpose(1, 2)
+    assert float((Rk - Rp).abs().max()) <= 1e-10 * float(Rp.abs().max())
+    assert float((x_k[good] - x_p[good]).abs().max()) <= 1e-8 * float(x_p[good].abs().max())
+
+
+@pytest.mark.cuda
+def test_block_kernels_match_plain_on_card(cuda):
+    """K8 (block_factor) and K9 (block_solve) against their plain versions on
+    random frames of the n_k = 4 and n_k = 8 layouts (B = 1, 16, 128 and
+    16), with an indefinite lane and a NaN lane that fail alone (ok False,
+    L_R NaN, x NaN) while the other lanes keep the bits of a clean run."""
+    from awebox_tpu_torch.parallel import kernels
+    for name, B in (('tiny', 4), ('n_k=4', 1), ('n_k=4', 16), ('n_k=4', 128), ('n_k=8', 16)):
+        lay, F, delta, own = random_frames(BLOCK_LAYOUTS[name], B=B, seed=B, device=cuda)
+        maps, n = block_index_maps(lay, seed=B, device=cuda)
+        rhs = torch.as_tensor(np.random.default_rng(B).standard_normal((B, n)), device=cuda)
+        before = dict(kernels.LAUNCHES)
+        fac_k = kernels.block_factor(F, delta, own, lay)
+        x_k = kernels.block_solve(*fac_k[:3], rhs, maps, lay)
+        fac_p = kernels.block_factor_plain(F, delta, own, lay)
+        x_p = kernels.block_solve_plain(*fac_p[:3], rhs, maps, lay)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['block_factor'] == before['block_factor'] + 1
+        assert kernels.LAUNCHES['block_solve'] == before['block_solve'] + 1
+        assert torch.equal(fac_k[3], fac_p[3]), (name, B, fac_k[3], fac_p[3])
+        bad = [b for b in (1, 2) if b < B]
+        good = [b for b in range(B) if b not in bad]
+        block_gates(fac_k, fac_p, x_k, x_p, good)
+        assert not bool(fac_k[3][bad].any()) and bool(torch.isnan(fac_k[2][bad]).all())
+        assert bool(torch.isnan(x_k[bad]).all())
+        if bad:   # the failing lanes change no other lane's bits
+            F_clean = F.clone()
+            F_clean[bad] = F[good[0]]
+            fac_c = kernels.block_factor(F_clean, delta, own, lay)
+            x_c = kernels.block_solve(*fac_c[:3], rhs, maps, lay)
+            for t, tc in zip(fac_k[:3] + (x_k,), fac_c[:3] + (x_c,)):
+                assert torch.equal(t[good], tc[good])
+
+
+@pytest.mark.cuda
+def test_chol_kernels_match_plain_on_card(cuda):
+    """K10 (chol_factor_batched) and K11 (chol_solve_batched) against their
+    plain versions at n = 37, 280 and 540, B = 16: L within 1e-12 of its max
+    and x within 1e-10 of max |x| on SPD lanes (cond ~ 1e3; only the order
+    of the sums differs); a negative pivot and a NaN entry fail their lane
+    alone (ok False, L NaN) and change no other lane's bits."""
+    from awebox_tpu_torch.parallel import kernels
+    for n in (37, 280, 540):
+        rng = np.random.default_rng(n)
+        G = rng.standard_normal((16, n, n))
+        M = G @ G.transpose(0, 2, 1) / n + np.eye(n)
+        M_clean = torch.as_tensor(M, device=cuda)
+        M[1, n // 2, n // 2] = -1.0
+        M[2, n - 1, 3] = M[2, 3, n - 1] = np.nan
+        Mt = torch.as_tensor(M, device=cuda)
+        b = torch.as_tensor(rng.standard_normal((16, n)), device=cuda)
+        before = dict(kernels.LAUNCHES)
+        L, ok = kernels.chol_factor_batched(Mt)
+        x = kernels.chol_solve_batched(L, b)
+        Lp, okp = kernels.chol_factor_batched_plain(Mt)
+        xp = kernels.chol_solve_batched_plain(Lp, b)
+        L_c, _ = kernels.chol_factor_batched(M_clean)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['chol_factor_batched'] == before['chol_factor_batched'] + 2
+        assert kernels.LAUNCHES['chol_solve_batched'] == before['chol_solve_batched'] + 1
+        assert ok.tolist() == okp.tolist() == [b_ not in (1, 2) for b_ in range(16)]
+        good = [b_ for b_ in range(16) if b_ not in (1, 2)]
+        assert float((L[good] - Lp[good]).abs().max()) <= 1e-12 * float(Lp[good].abs().max())
+        assert float((x[good] - xp[good]).abs().max()) <= 1e-10 * float(xp[good].abs().max())
+        assert bool(torch.isnan(L[[1, 2]]).all()) and torch.equal(L[good], L_c[good])

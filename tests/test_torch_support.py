@@ -153,25 +153,27 @@ def test_unported_options_raise(path, value, what):
         Trial(options, 'refused').build()
 
 
-PORTED = dict(kkt='auglu', split=True)   # the path the port runs
-
-
 def test_unported_solver_modes_raise():
+    """What the port leaves out of make_ip_step raises by name: the
+    stale-factor modes of auglu, the Gauss-Newton Hessian (both on the
+    do-not-port list); an unknown factor is refused by ValueError; both
+    factors build."""
     from awebox_tpu_torch.parallel.batch import make_ip_step
     ocp = torch_trial().ocp
-    for kwargs in ({'kkt': 'block'}, dict(PORTED, auglu_mode='stale'),
-                   dict(PORTED, auglu_mode='refresh'), {'kkt': 'auglu', 'split': False}):
-        with pytest.raises(NotImplementedError):
+    for kwargs, what in ((dict(kkt='auglu', auglu_mode='stale'), 'auglu_mode'),
+                         (dict(kkt='auglu', auglu_mode='refresh'), 'auglu_mode'),
+                         (dict(hessian='gauss_newton'), 'hessian')):
+        with pytest.raises(NotImplementedError, match=what):
             make_ip_step(ocp, **kwargs)
     with pytest.raises(ValueError, match='auglu_factor'):
-        make_ip_step(ocp, auglu_factor='cholesky', **PORTED)
+        make_ip_step(ocp, auglu_factor='cholesky', kkt='auglu', split=True)
     for factor in ('qr', 'lu'):
-        assert len(make_ip_step(ocp, auglu_factor=factor, **PORTED)) == 2
+        assert len(make_ip_step(ocp, auglu_factor=factor, kkt='auglu', split=True)) == 2
 
 
 @pytest.mark.parametrize('name', ['kkt', 'split', 'auglu_factor', 'auglu_mode', 'hessian',
                                   'delta_w', 'delta_c', 'tau', 'kappa_mu', 'mu_min',
-                                  'n_ladder', 'ladder_factor'])
+                                  'n_ladder', 'ladder_factor', 'derivs_fn', 'solve_dtype'])
 def test_make_ip_step_has_the_reference_defaults(name):
     """A caller who takes each package's defaults asks both for the same
     algorithm: every parameter the two make_ip_step share has one default."""
@@ -182,20 +184,25 @@ def test_make_ip_step_has_the_reference_defaults(name):
     assert default(make_t) == default(make_j)
 
 
-@pytest.mark.parametrize('kwargs, what', [
-    ({}, r"kkt='block' \(resolved from 'auto'\) is not ported"),
-    ({'split': True}, r"kkt='block' \(resolved from 'auto'\) is not ported"),
-    ({'kkt': 'block', 'split': True}, r"kkt='block' is not ported"),
-    ({'kkt': 'dense', 'split': True}, r"kkt='dense' is not ported"),
-    ({'kkt': 'auglu'}, r'split=False \(the fused step\) is not ported'),
+@pytest.mark.parametrize('kwargs, fused', [
+    ({}, True),                                   # 'auto' -> 'block'
+    ({'split': True}, True),                      # 'block' is fused whatever split says
+    ({'kkt': 'block', 'split': True}, True),
+    ({'kkt': 'dense'}, True),
+    ({'kkt': 'dense', 'split': True, 'solve_dtype': 'float64'}, False),
+    ({'kkt': 'auglu'}, True),
 ])
-def test_default_modes_raise_by_name(kwargs, what):
-    """With the reference's defaults the bench configuration resolves 'auto'
-    to 'block', which the port refuses by name, as it refuses 'dense' and
-    the fused step of split=False."""
+def test_every_mode_builds(kwargs, fused):
+    """Every KKT mode of the reference but the stale-factor ones builds on
+    the bench configuration: the fused step step(state, p, lbw, ubw, free),
+    or with split=True (derivs_fn, direction_fn); 'block' returns the fused
+    step whatever split says, as the JAX package's make_ip_step does."""
     from awebox_tpu_torch.parallel.batch import make_ip_step
-    with pytest.raises(NotImplementedError, match=what):
-        make_ip_step(torch_trial().ocp, **kwargs)
+    out = make_ip_step(torch_trial().ocp, **kwargs)
+    if fused:
+        assert callable(out) and not isinstance(out, tuple)
+    else:
+        assert isinstance(out, tuple) and len(out) == 2 and all(map(callable, out))
 
 
 def test_auto_resolves_as_in_the_reference(monkeypatch):
@@ -207,6 +214,27 @@ def test_auto_resolves_as_in_the_reference(monkeypatch):
     assert batch_j.make_ip_step(jax_trial().ocp) == 'block'
     assert resolve_kkt(torch_trial().ocp, 'auto') == 'block'
     assert resolve_kkt(torch_trial().ocp, 'auglu') == 'auglu'
+
+
+@pytest.mark.parametrize('with_model', [True, False])
+def test_auto_resolves_dense_for_a_derivs_fn(monkeypatch, with_model):
+    """With a caller's derivs_fn, or for an OCP without a model, 'auto' is
+    'dense' in both packages (awebox_tpu/parallel/batch.py:94-96): the JAX
+    package's make_ip_step then builds no block step."""
+    from types import SimpleNamespace
+    from awebox_tpu.parallel import batch as batch_j
+    from awebox_tpu_torch.parallel.batch import resolve_kkt
+    monkeypatch.setattr(batch_j, '_make_block_ip_step', lambda *a, **k: 'block')
+    derivs = lambda w, y, lam, p: None
+    if with_model:
+        ocp_j, ocp_t = jax_trial().ocp, torch_trial().ocp
+        assert batch_j.make_ip_step(ocp_j, derivs_fn=derivs) != 'block'
+        assert resolve_kkt(ocp_t, 'auto', derivs) == 'dense'
+        assert resolve_kkt(ocp_t, 'auto') == 'block'
+    else:
+        fake = SimpleNamespace(vstruct=SimpleNamespace(total=4), n_eq=1, n_ineq=1)
+        assert batch_j.make_ip_step(fake, derivs_fn=derivs) != 'block'
+        assert resolve_kkt(fake, 'auto') == resolve_kkt(fake, 'auto', derivs) == 'dense'
 
 
 def test_package_imports_no_jax():
