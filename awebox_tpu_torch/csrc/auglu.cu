@@ -49,7 +49,9 @@
 //                            a direction the caller computed
 //   K8 block_factor          ocp/blockkkt.py:539-588  the two-level Cholesky
 //                            of the per-interval frames and the reduced
-//                            bordered system, a CTA per lane
+//                            bordered system: a thread-block cluster per
+//                            lane, a CTA per frame, R gathered through
+//                            distributed shared memory
 //   K9 block_solve           ocp/blockkkt.py:646-679  the structured solve
 //                            through K8's factor
 //   K10 chol_factor_batched  batch.py:215-231  Cholesky of the condensed M
@@ -3371,151 +3373,406 @@ __device__ void tri_upper_t_solve(const double* L, int ld, int m, double* xs, do
 // replacing awebox_tpu/ocp/blockkkt.py:539-588 (per lane: the interval
 // interiors' Cholesky, the coupling solve Xc = Li^-1 M_ic, the Schur
 // products S = M_cc - Xc^T Xc, the reduced bordered system R assembled from
-// them, and its Cholesky), f64, as kernels.block_factor_plain.
+// them, and its Cholesky: five XLA ops, a dozen gathers), f64, as
+// kernels.block_factor_plain.
 //
-// What bounds it: the chain of pivots, not bytes or operations. A lane
-// reads n_k frames (n_k = 4: 295 KB) and writes ~140 KB; its work is ~1.4
-// MFLOP, but every pivot depends on the one before. The XLA version is six
-// batched library calls and a dozen gathers, each a launch of tiny
-// matrices. Here one CTA per lane walks its n_k frames: a frame is copied
-// into shared memory (96 x 96 f64, 72 KB at n_k = 4), damped on its owned
-// diagonal, and its interior pivots are eliminated right-looking over the
-// whole frame, so that after the ni interior pivots the interior block
-// holds Li, the coupling rows of the interior columns hold Xc^T and the
-// coupling block holds S (the Schur complement, the same algebra as the
-// reference's Cholesky, triangular solve and product). S is added into R,
-// which stays in shared memory (64 x 64 at n_k = 4, 108 x 108 at n_k = 8),
-// at the positions of the frame's coupling variables (x_k -> chain k - 1,
-// x_{k+1} -> chain k, border -> border; frame 0's x_0 slot is empty); then
-// R is factored in place. A pivot is two block barriers: the column scaled
-// into a shared copy (no bank conflicts in the update), then the rank-one
-// update of the remaining rows and columns (the full square, so both
-// triangles stay equal). On failure (a pivot <= 0 or not finite, or a
-// non-finite entry of Li or L_R) ok = 0 and L_R is NaN, so K9 gives NaN.
+// What bounds it: the chain of dependent pivots, ni a frame and nr in R
+// (54 + 64 at n_k = 4, 54 + 108 at n_k = 8), then bytes: a lane needs the
+// lower triangles of its n_k symmetric frames (149 KB at n_k = 4) and writes
+// Li, Xc and L_R with their zeros (199 KB), 0.0017 ms at B = 16 on 3.35
+// TB/s; its ~1.4 MFLOP are nothing to the card. What the design does:
+// - a thread-block cluster per lane, one CTA (rank k) per frame k: the
+//   frames' interiors are eliminated side by side, since only their Schur
+//   complements meet, in R;
+// - the frame permuted at copy-in: rank k copies frame k whole into shared
+//   memory by 16-byte cp.async (8-byte where a segment is odd) in the order
+//   [interior (ni) | x_k | x_{k+1} | border] and damps its owned diagonal
+//   (a copy of the lower triangle alone issues as many warp-wide copies and
+//   took longer: the copy-in waits on latency, not bytes),
+//   so that the elimination is a plain partial Cholesky of the first ni
+//   columns of an nloc x nloc SPD matrix, lower triangle only: its first ni
+//   columns become [Li; Xc^T] and its trailing c x c block S, and no loop of
+//   the elimination maps an index;
+// - panels of KB8_W = 8 columns, right-looking (kb8_factor): warps 0 and 1
+//   factor a panel in registers (warp 0 its first 32 rows: shuffles bring
+//   the pivot and its multipliers, one rsqrt a column on the chain; warp 1
+//   the rows below, from the multipliers warp 0 publishes a column at a
+//   time); every warp then applies it to the next panel's columns, and
+//   warps 0 and 1 factor that panel while the other warps apply it to the
+//   rest of the trailing lower triangle (a look-ahead, two block barriers a
+//   panel). An update takes 8 x 8 tiles (none above the diagonal) and
+//   subtracts the panel's rank-8 product by two f64 tensor-core MMAs a tile
+//   (mma.sync m8n8k4; an entry a thread by CUDA-core FMAs took longer on the
+//   chain). The leading dimensions are 4 mod 8 doubles, so a fragment's 32
+//   loads hit distinct banks;
+// - R through distributed shared memory: each rank copies its S into a
+//   buffer of its own and publishes its failure flag; after one cluster
+//   barrier the ranks gather R's lower triangle from the ranks' S, rank k
+//   the rows k, k + n_k, .. (an entry is its frames' terms summed in frame
+//   order, k = 0 .. n_k - 1, so L_R does not depend on scheduling; frame 0's
+//   x_0 slot maps nowhere), and store it into the space rank 0's frame used;
+//   after a second cluster barrier the other ranks leave and rank 0 factors
+//   R with the same panels.
+// Everything is f64: the MMA rounds each product-sum as IEEE f64, in another
+// order than the plain version (so Li, Xc and R agree to rounding, not bit
+// for bit). A lane fails (ok = 0, L_R NaN) where a pivot is <= 0 or not
+// finite, or Li or L_R has a non-finite entry, on any rank: after the
+// first cluster barrier every rank reads every rank's flag.
 // ---------------------------------------------------------------------------
 constexpr int KB8_THREADS = 256;
+constexpr int KB8_WARPS = KB8_THREADS / 32;
+constexpr int KB8_W = 8;              // panel width: the MMA's two k = 4 steps
+constexpr int KB8_CHUNKS = 5;         // 32-row chunks of a panel a lane holds: n <= 160
+constexpr int KB8_MAX_CLUSTER = 16;   // frames a lane (a non-portable cluster size past 8)
 
-// frame position of coupling column a: [x_k | x_{k+1}] then the border
-__device__ __forceinline__ int kb8_cidx(int a, int nx, int og) {
-  return a < 2 * nx ? a : og + (a - 2 * nx);
+// the position of frame variable r in the permuted frame [interior | x_k | x_{k+1} | border]
+__device__ __forceinline__ int kb8_perm(int r, int nx, int ni) {
+  return r < 2 * nx ? ni + r : (r < 2 * nx + ni ? r - 2 * nx : r);
 }
 
-// position in R of frame k's coupling column a, or -1 (frame 0's x_0 slot)
-__device__ __forceinline__ int kb8_rmap(int k, int a, int n_k, int nx) {
-  if (a < nx) return k == 0 ? -1 : (k - 1) * nx + a;
-  if (a < 2 * nx) return k * nx + (a - nx);
-  return n_k * nx + (a - 2 * nx);
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-__global__ void __launch_bounds__(KB8_THREADS, 1)
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// d += a b over one 8 x 8 x 4 step: a = A[lane / 4][lane % 4], b = B[lane % 4][lane / 4],
+// d = D[lane / 4][2 (lane % 4) + {0, 1}]
+__device__ __forceinline__ void kb8_dmma(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d0), "+d"(d1) : "d"(a), "d"(b));
+}
+
+// rows r0 + wl + 32 t of the panel P (row r at P + r ld, 16-byte aligned)
+// into a, columns past w and rows past n as zeros
+template <int CH>
+__device__ __forceinline__ void kb8_panel_load(double (&a)[CH][KB8_W], const double* P, int ld,
+                                               int n, int r0, int w, int wl) {
+#pragma unroll
+  for (int t = 0; t < CH; ++t) {
+    const int r = r0 + wl + 32 * t;
+    const double2* src = reinterpret_cast<const double2*>(P + (size_t)r * ld);
+#pragma unroll
+    for (int h = 0; h < KB8_W / 2; ++h) {
+      const double2 v = r < n ? src[h] : make_double2(0.0, 0.0);
+      a[t][2 * h] = 2 * h < w ? v.x : 0.0;
+      a[t][2 * h + 1] = 2 * h + 1 < w ? v.y : 0.0;
+    }
+  }
+}
+
+// a back to the panel's lower part: rows below the diagonal block (from p0 +
+// KB8_W) of a full panel in 16-byte words, the rest entry by entry
+template <int CH>
+__device__ __forceinline__ void kb8_panel_store(const double (&a)[CH][KB8_W], double* P, int ld,
+                                                int n, int p0, int r0, int w, int wl) {
+#pragma unroll
+  for (int t = 0; t < CH; ++t) {
+    const int r = r0 + wl + 32 * t;
+    double* row = P + (size_t)r * ld;
+    if (r < n && w == KB8_W && r >= p0 + KB8_W) {
+#pragma unroll
+      for (int h = 0; h < KB8_W / 2; ++h) {
+        reinterpret_cast<double2*>(row)[h] = make_double2(a[t][2 * h], a[t][2 * h + 1]);
+      }
+    } else if (r < n) {
+#pragma unroll
+      for (int j = 0; j < KB8_W; ++j) {
+        if (j < w && r > p0 + j) row[j] = a[t][j];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void kb8_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void kb8_bar_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// Warps 0 and 1: the panel of columns p0 .. p0 + w - 1 (w <= KB8_W) of the
+// n x n lower triangle A (leading dimension ld, even; p0 a multiple of 8),
+// rows p0 .. n - 1, factored in registers: lane wl of warp 0 holds row
+// p0 + wl (so pivot j sits in lane j), lane wl of warp 1 rows p0 + wl + 32 t,
+// t = 1 .. KB8_CHUNKS - 1. Columns past w are zeros that run through the
+// same straight-line code (a NaN there is never stored). The chain is warp
+// 0's: an rsqrt, a product, an FMA and a shuffle a column (lane j + 1 forms
+// pivot j + 1 from its own row and broadcasts it). Warp 0 publishes column
+// j's 1 / sqrt(pivot) and multipliers in slot[j] and arrives at named
+// barrier 1 + j without waiting; warp 1 waits there and applies them to its
+// rows, a column behind. Writes the panel's lower part back, L_jj = d2
+// rsqrt(d2); returns, in warp 0, whether a pivot was <= 0 or not finite.
+__device__ bool kb8_panel(double* A, int ld, int n, int p0, int w, double* slot, int warp,
+                          int wl) {
+  double* P = A + p0;   // row r of the panel at P + r ld
+  if (warp == 1) {
+    double a[KB8_CHUNKS - 1][KB8_W];
+    kb8_panel_load(a, P, ld, n, p0 + 32, w, wl);
+#pragma unroll
+    for (int j = 0; j < KB8_W; ++j) {
+      kb8_bar_sync(1 + j);
+      const double rs = slot[j * KB8_W];
+#pragma unroll
+      for (int t = 0; t < KB8_CHUNKS - 1; ++t) a[t][j] *= rs;
+#pragma unroll
+      for (int jj = j + 1; jj < KB8_W; ++jj) {
+        const double l = slot[j * KB8_W + jj];
+#pragma unroll
+        for (int t = 0; t < KB8_CHUNKS - 1; ++t) a[t][jj] = fma(-a[t][j], l, a[t][jj]);
+      }
+    }
+    kb8_panel_store(a, P, ld, n, p0, p0 + 32, w, wl);
+    return false;
+  }
+  double a[1][KB8_W];
+  kb8_panel_load(a, P, ld, n, p0, w, wl);
+  double dg = 0.0;   // lane j < w: pivot j's square
+  double d2 = __shfl_sync(FULL_MASK, a[0][0], 0);
+#pragma unroll
+  for (int j = 0; j < KB8_W; ++j) {
+    if (wl == j) dg = d2;
+    const double rs = rsqrt(d2);
+    a[0][j] *= rs;                    // rows above pivot j: unused
+    double d2n = 0.0;                 // the next pivot first: lane j + 1's update below
+    if (j + 1 < KB8_W) d2n = __shfl_sync(FULL_MASK, fma(-a[0][j], a[0][j], a[0][j + 1]), j + 1);
+    if (wl == 0) slot[j * KB8_W] = rs;
+    if (wl > j && wl < KB8_W) slot[j * KB8_W + wl] = a[0][j];
+    kb8_bar_arrive(1 + j);
+#pragma unroll
+    for (int jj = j + 1; jj < KB8_W; ++jj) {
+      a[0][jj] = fma(-a[0][j], __shfl_sync(FULL_MASK, a[0][j], jj), a[0][jj]);
+    }
+    d2 = d2n;
+  }
+  kb8_panel_store(a, P, ld, n, p0, p0, w, wl);
+  if (wl < w) A[(size_t)(p0 + wl) * (ld + 1)] = dg * rsqrt(dg);
+  return __any_sync(FULL_MASK, wl < w && (!(dg > 0.0) || !isfinite(dg)));
+}
+
+// Warps w0 .. KB8_WARPS - 1: A[i][j] -= sum_{k < w} A[i][p0 + k] A[j][p0 + k]
+// for the lower entries (j <= i < n, cl <= j < ch) of the 8 x 8 tiles (I, J)
+// at origin o (rows o + 8 I .., columns o + 8 J ..): with strip the tiles
+// (I, 0), otherwise every tile J <= I, dealt round-robin in row order; two
+// tiles at a time, each by two MMAs (k = 0..3, 4..7; panel columns past w
+// read as zero). Entries outside the mask are neither read nor written.
+__device__ void kb8_update(double* A, int ld, int n, int p0, int w, int o, int cl, int ch,
+                           bool strip, int w0, int warp, int wl) {
+  const int nt = (n - o + 7) >> 3, step = KB8_WARPS - w0;
+  const int g = wl >> 2, tg = wl & 3;
+  int I = strip ? warp - w0 : 0, J = strip ? 0 : warp - w0;
+  while (J > I) J -= ++I;
+  while (I < nt) {
+    int I2 = I + (strip ? step : 0), J2 = J + (strip ? 0 : step);
+    while (J2 > I2) J2 -= ++I2;
+    double c[2][2], a[2][2], b[2][2];
+    int ra[2], cc[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int Iu = u ? I2 : I, Ju = u ? J2 : J;
+      const bool tile = Iu < nt;
+      ra[u] = tile ? o + 8 * Iu + g : n;
+      cc[u] = o + 8 * Ju + 2 * tg;
+      const int rb = o + 8 * Ju + g;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const bool kin = 4 * s + tg < w;
+        a[u][s] = (ra[u] < n && kin) ? -A[(size_t)ra[u] * ld + p0 + 4 * s + tg] : 0.0;
+        b[u][s] = (tile && rb < n && kin) ? A[(size_t)rb * ld + p0 + 4 * s + tg] : 0.0;
+        const int j = cc[u] + s;
+        c[u][s] = (ra[u] < n && j <= ra[u] && j >= cl && j < ch) ? A[(size_t)ra[u] * ld + j] : 0.0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      kb8_dmma(c[u][0], c[u][1], a[u][0], b[u][0]);
+      kb8_dmma(c[u][0], c[u][1], a[u][1], b[u][1]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int j = cc[u] + s;
+        if (ra[u] < n && j <= ra[u] && j >= cl && j < ch) A[(size_t)ra[u] * ld + j] = c[u][s];
+      }
+    }
+    I = I2 + (strip ? step : 0);
+    J = J2 + (strip ? 0 : step);
+    while (J > I) J -= ++I;
+  }
+}
+
+// The partial Cholesky of the first npiv columns of the n x n lower triangle
+// A in panels of KB8_W, with a look-ahead: once panel p is factored, every
+// warp applies it to panel p + 1's columns (one barrier), then warps 0 and 1
+// factor panel p + 1 while the other warps apply panel p to the columns
+// after it (a second barrier), so the bulk of the trailing update runs in
+// the shadow of the next panel's chain. slot holds the panel's multipliers
+// (KB8_W x KB8_W). flag is the block's
+// shared failure word (0 on entry). Returns, uniformly over the block,
+// whether a pivot failed (the panels after it are skipped).
+__device__ bool kb8_factor(double* A, int ld, int n, int npiv, int* flag, double* slot, int warp,
+                           int wl) {
+  if (warp < 2 && kb8_panel(A, ld, n, 0, min(KB8_W, npiv), slot, warp, wl) && wl == 0) *flag = 1;
+  __syncthreads();
+  if (*flag) return true;
+  for (int p0 = 0; p0 < npiv; p0 += KB8_W) {
+    const int w = min(KB8_W, npiv - p0), q0 = p0 + w, wn = min(KB8_W, npiv - q0);
+    if (wn > 0) {
+      kb8_update(A, ld, n, p0, w, q0, q0, q0 + wn, true, 0, warp, wl);
+      __syncthreads();
+      if (warp < 2) {
+        if (kb8_panel(A, ld, n, q0, wn, slot, warp, wl) && wl == 0) *flag = 1;
+      } else {
+        kb8_update(A, ld, n, p0, w, wn == KB8_W ? q0 + KB8_W : q0, q0 + wn, n, false, 2, warp,
+                   wl);
+      }
+      __syncthreads();
+      if (*flag) return true;
+    } else {
+      kb8_update(A, ld, n, p0, w, q0, q0, n, false, 0, warp, wl);
+      __syncthreads();
+    }
+  }
+  return false;
+}
+
+// A[i][j] for j <= i < n, zeros above the diagonal, to the row-major n x n
+// dst (two entries a lane where n is even: the rows are then 16-byte
+// aligned); returns whether an entry was not finite (this thread's)
+__device__ __forceinline__ bool kb8_store_lower(double* __restrict__ dst, const double* A, int ld,
+                                                int n, int warp, int wl) {
+  bool bad = false;
+  if ((n & 1) == 0) {
+    for (int i = warp; i < n; i += KB8_WARPS) {
+      for (int j = 2 * wl; j < n; j += 64) {
+        const double2 s = *reinterpret_cast<const double2*>(A + (size_t)i * ld + j);
+        const double2 v = make_double2(j <= i ? s.x : 0.0, j < i ? s.y : 0.0);
+        bad |= !isfinite(v.x) || !isfinite(v.y);
+        *reinterpret_cast<double2*>(dst + (size_t)i * n + j) = v;
+      }
+    }
+    return bad;
+  }
+  for (int i = warp; i < n; i += KB8_WARPS) {
+    for (int j = wl; j < n; j += 32) {
+      const double v = j <= i ? A[(size_t)i * ld + j] : 0.0;
+      bad |= !isfinite(v);
+      dst[(size_t)i * n + j] = v;
+    }
+  }
+  return bad;
+}
+
+__global__ void __launch_bounds__(KB8_THREADS, 2)
 block_factor_kernel(const double* __restrict__ Frame, const double* __restrict__ delta,
                     const double* __restrict__ own_free, double* __restrict__ Li,
                     double* __restrict__ Xc, double* __restrict__ L_R, uint8_t* __restrict__ ok,
-                    int n_k, int nx, int ni, int nb) {
+                    int n_k, int nx, int ni, int nb, int ldf, int ldr, int lds) {
   extern __shared__ double kb8_smem[];
-  const int nloc = 2 * nx + ni + nb, nr = n_k * nx + nb, c = 2 * nx + nb;
-  const int oi = 2 * nx, og = 2 * nx + ni;
-  double* F = kb8_smem;                 // [nloc][nloc]
-  double* R = F + nloc * nloc;          // [nr][nr]
-  double* col = R + nr * nr;            // the scaled pivot column, max(nloc, nr)
-  const int lane = blockIdx.x, tid = threadIdx.x;
+  __shared__ double kb8_slot[KB8_W * KB8_W];         // a panel's multipliers, warp 0 to 1
+  __shared__ int kb8_flag;                          // a panel's failed pivot
+  __shared__ int kb8_bad;                           // this rank's failure, for the cluster
+  __shared__ unsigned char kb8_blk[32 * KB8_CHUNKS];   // R index -> chain block (n_k: border)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.block_rank();           // the frame
+  const int nloc = 2 * nx + ni + nb, c = 2 * nx + nb, nr = n_k * nx + nb;
+  const int lane = (int)blockIdx.x / n_k;
+  double* F = kb8_smem;                              // the permuted frame; on rank 0 then R
+  double* S = kb8_smem + max(nloc * ldf, nr * ldr);  // [c][lds], lower triangle
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+
+  // 1. frame k in, permuted (16-byte copies where every segment is an even
+  //    number of doubles), its owned diagonal damped
+  const double* Fk = Frame + ((size_t)lane * n_k + k) * nloc * nloc;
+  const bool pairs = ((ni | nb) & 1) == 0;
+  for (int r = warp; r < nloc; r += KB8_WARPS) {
+    double* row = F + (size_t)kb8_perm(r, nx, ni) * ldf;
+    const double* src = Fk + (size_t)r * nloc;
+    if (pairs) {
+      for (int j = 2 * wl; j < nloc; j += 64) cp_async16(row + kb8_perm(j, nx, ni), src + j);
+    } else {
+      for (int j = wl; j < nloc; j += 32) cp_async8(row + kb8_perm(j, nx, ni), src + j);
+    }
+  }
+  if (tid == 0) {
+    kb8_flag = 0;
+    kb8_bad = 0;
+  }
+  for (int b = 0; b <= n_k; ++b) {
+    for (int o = tid; o < (b < n_k ? nx : nb); o += KB8_THREADS) {
+      kb8_blk[b * nx + o] = (unsigned char)b;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
   const double dl = delta[lane];
-  for (int i = tid; i < nr * nr; i += KB8_THREADS) R[i] = 0.0;
-  bool failed = false;
-
-  for (int k = 0; k < n_k && !failed; ++k) {
-    const double* Fk = Frame + ((size_t)lane * n_k + k) * nloc * nloc;
-    __syncthreads();   // the previous frame's last reads of F are done
-    for (int i = tid; i < nloc * nloc; i += KB8_THREADS) {
-      double v = Fk[i];
-      const int r = i / nloc;
-      if (i == r * (nloc + 1)) v = __dadd_rn(v, __dmul_rn(dl, own_free[k * nloc + r]));
-      F[i] = v;
-    }
-    __syncthreads();
-    for (int p = oi; p < og; ++p) {
-      const double d2 = F[p * nloc + p];
-      if (!(d2 > 0.0) || !isfinite(d2)) {   // every thread reads the same pivot
-        failed = true;
-        break;
-      }
-      const double dp = sqrt(d2);
-      const int rin = og - 1 - p, r = rin + c;   // remaining: interior after p, coupling
-      for (int t = tid; t < r; t += KB8_THREADS) {
-        const int q = t < rin ? p + 1 + t : kb8_cidx(t - rin, nx, og);
-        const double l = F[q * nloc + p] / dp;
-        F[q * nloc + p] = l;
-        col[t] = l;
-      }
-      __syncthreads();
-      if (tid == 0) F[p * nloc + p] = dp;
-      for (int t = tid; t < r * r; t += KB8_THREADS) {
-        const int a = t / r, b = t - a * r;
-        const int qa = a < rin ? p + 1 + a : kb8_cidx(a - rin, nx, og);
-        const int qb = b < rin ? p + 1 + b : kb8_cidx(b - rin, nx, og);
-        F[qa * nloc + qb] = fma(-col[a], col[b], F[qa * nloc + qb]);
-      }
-      __syncthreads();
-    }
-    if (failed) break;
-    // Li (zeros above the diagonal), Xc, and S into R
-    bool bad = false;
-    double* Lk = Li + ((size_t)lane * n_k + k) * ni * ni;
-    for (int t = tid; t < ni * ni; t += KB8_THREADS) {
-      const int i = t / ni, j = t - i * ni;
-      const double v = j <= i ? F[(oi + i) * nloc + oi + j] : 0.0;
-      bad |= !isfinite(v);
-      Lk[t] = v;
-    }
-    double* Xk = Xc + ((size_t)lane * n_k + k) * ni * c;
-    for (int t = tid; t < ni * c; t += KB8_THREADS) {
-      const int i = t / c, a = t - i * c;
-      Xk[t] = F[kb8_cidx(a, nx, og) * nloc + oi + i];
-    }
-    for (int t = tid; t < c * c; t += KB8_THREADS) {
-      const int a = t / c, b = t - a * c;
-      const int ra = kb8_rmap(k, a, n_k, nx), rb = kb8_rmap(k, b, n_k, nx);
-      if (ra >= 0 && rb >= 0) {
-        R[ra * nr + rb] += F[kb8_cidx(a, nx, og) * nloc + kb8_cidx(b, nx, og)];
-      }
-    }
-    failed = __syncthreads_or(bad) != 0;
+  for (int r = tid; r < nloc; r += KB8_THREADS) {
+    const int q = kb8_perm(r, nx, ni);
+    F[(size_t)q * (ldf + 1)] = __dadd_rn(F[(size_t)q * (ldf + 1)],
+                                         __dmul_rn(dl, own_free[k * nloc + r]));
   }
+  __syncthreads();
 
+  // 2. the interior's ni pivots
+  bool failed = kb8_factor(F, ldf, nloc, ni, &kb8_flag, kb8_slot, warp, wl);
+
+  // 3. Li, Xc (coupling order [x_k | x_{k+1} | border] = the permuted order)
+  //    and S into its buffer
+  bool bad = kb8_store_lower(Li + ((size_t)lane * n_k + k) * ni * ni, F, ldf, ni, warp, wl);
+  double* Xk = Xc + ((size_t)lane * n_k + k) * ni * c;
+  for (int i = warp; i < ni; i += KB8_WARPS) {
+    for (int a = wl; a < c; a += 32) Xk[(size_t)i * c + a] = F[(size_t)(ni + a) * ldf + i];
+  }
+  for (int a = warp; a < c; a += KB8_WARPS) {
+    for (int b = wl; b <= a; b += 32) S[a * lds + b] = F[(size_t)(ni + a) * ldf + ni + b];
+  }
+  failed = __syncthreads_or(failed || bad) != 0;
+  if (tid == 0) kb8_bad = failed ? 1 : 0;
+  cluster.sync();   // every rank's S and flag are published; rank 0's frame is spent
+
+  // 4. R's lower triangle from the ranks' S, each entry its frames' terms
+  //    summed in frame order, written into rank 0's shared memory: rank k
+  //    gathers rows k, k + n_k, .. (skipped where a rank failed)
+  failed = false;
+  for (int q = 0; q < n_k; ++q) failed |= *cluster.map_shared_rank(&kb8_bad, q) != 0;
   if (!failed) {
-    for (int p = 0; p < nr; ++p) {
-      const double d2 = R[p * nr + p];
-      if (!(d2 > 0.0) || !isfinite(d2)) {
-        failed = true;
-        break;
+    double* R = cluster.map_shared_rank(F, 0);
+    const int x1 = nx, xb = 2 * nx;   // S positions of x_{k+1} and the border
+    for (int i = k + n_k * warp; i < nr; i += n_k * KB8_WARPS) {
+      const int bi = kb8_blk[i], oi = i - bi * nx;   // border: bi = n_k, oi = i - n_k nx
+      for (int j = wl; j <= i; j += 32) {
+        const int bj = kb8_blk[j], oj = j - bj * nx;
+        double v = 0.0;
+        if (bi == n_k && bj == n_k) {        // border x border: every frame
+          for (int q = 0; q < n_k; ++q) {
+            v += cluster.map_shared_rank(S, q)[(xb + oi) * lds + xb + oj];
+          }
+        } else if (bi == n_k) {              // border x x_{bj+1}: frames bj, bj + 1
+          v = cluster.map_shared_rank(S, bj)[(xb + oi) * lds + x1 + oj];
+          if (bj + 1 < n_k) v += cluster.map_shared_rank(S, bj + 1)[(xb + oi) * lds + oj];
+        } else if (bi == bj) {               // x_{bi+1} x x_{bi+1}: frames bi, bi + 1
+          v = cluster.map_shared_rank(S, bi)[(x1 + oi) * lds + x1 + oj];
+          if (bi + 1 < n_k) v += cluster.map_shared_rank(S, bi + 1)[oi * lds + oj];
+        } else if (bi == bj + 1) {           // x_{bi+1} x x_{bi}: frame bi
+          v = cluster.map_shared_rank(S, bi)[(x1 + oi) * lds + oj];
+        }
+        R[(size_t)i * ldr + j] = v;
       }
-      const double dp = sqrt(d2);
-      const int r = nr - 1 - p;
-      for (int t = tid; t < r; t += KB8_THREADS) {
-        const int q = p + 1 + t;
-        const double l = R[q * nr + p] / dp;
-        R[q * nr + p] = l;
-        col[t] = l;
-      }
-      __syncthreads();
-      if (tid == 0) R[p * nr + p] = dp;
-      for (int t = tid; t < r * r; t += KB8_THREADS) {
-        const int a = t / r, b = t - a * r;
-        R[(p + 1 + a) * nr + p + 1 + b] = fma(-col[a], col[b], R[(p + 1 + a) * nr + p + 1 + b]);
-      }
-      __syncthreads();
     }
   }
+  cluster.sync();   // R is whole in rank 0, and no rank reads another's S any more
+  if (k != 0) return;
+
+  // 5. rank 0: R factored, L_R out
+  if (!failed) failed = kb8_factor(F, ldr, nr, nr, &kb8_flag, kb8_slot, warp, wl);
   double* LR = L_R + (size_t)lane * nr * nr;
-  bool bad = false;
-  if (!failed) {
-    for (int t = tid; t < nr * nr; t += KB8_THREADS) {
-      const int i = t / nr, j = t - i * nr;
-      const double v = j <= i ? R[t] : 0.0;
-      bad |= !isfinite(v);
-      LR[t] = v;
-    }
-  }
+  bad = !failed && kb8_store_lower(LR, F, ldr, nr, warp, wl);
   failed = __syncthreads_or(failed || bad) != 0;
   if (failed) {
     for (int t = tid; t < nr * nr; t += KB8_THREADS) LR[t] = __longlong_as_double(0x7ff8000000000000ll);
@@ -3986,20 +4243,30 @@ int chol_solve_batched(const void* L, const void* b, void* x, int B, int n, void
   return (int)cudaGetLastError();
 }
 
-// smem: kernels.block_factor_smem, the frame, R and the pivot column in f64
+// The layout (the leading dimensions ldf, ldr, lds and smem, the dynamic
+// shared memory of a rank) comes from kernels.block_factor_geometry; only the
+// limits compiled into the kernel are checked here. B clusters of n_k CTAs.
 int block_factor(const void* Frame, const void* delta, const void* own_free, void* Li, void* Xc,
-                 void* L_R, void* ok, int B, int n_k, int nx, int ni, int nb, int smem,
-                 void* stream) {
-  const int nloc = 2 * nx + ni + nb, nr = n_k * nx + nb;
-  if (smem < 8 * (nloc * nloc + nr * nr + (nloc > nr ? nloc : nr))) {
+                 void* L_R, void* ok, int B, int n_k, int nx, int ni, int nb, int ldf, int ldr,
+                 int lds, int smem, void* stream) {
+  const int nloc = 2 * nx + ni + nb, nr = n_k * nx + nb, c = 2 * nx + nb;
+  const long long need = 8LL * ((nloc * ldf > nr * ldr ? nloc * ldf : nr * ldr) + c * lds);
+  if (n_k < 1 || n_k > KB8_MAX_CLUSTER || ni < 1 || nloc > 32 * KB8_CHUNKS
+      || nr > 32 * KB8_CHUNKS || ldf < nloc || ldr < nr || lds < c || smem < need) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute((const void*)block_factor_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const void* fn = (const void*)block_factor_kernel;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  block_factor_kernel<<<B, KB8_THREADS, smem, (cudaStream_t)stream>>>(
-      (const double*)Frame, (const double*)delta, (const double*)own_free, (double*)Li,
-      (double*)Xc, (double*)L_R, (uint8_t*)ok, n_k, nx, ni, nb);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = k2c_config(B, n_k, smem, stream, &attr);
+  cfg.blockDim = dim3(KB8_THREADS);
+  err = cudaLaunchKernelEx(&cfg, block_factor_kernel, (const double*)Frame, (const double*)delta,
+                           (const double*)own_free, (double*)Li, (double*)Xc, (double*)L_R,
+                           (uint8_t*)ok, n_k, nx, ni, nb, ldf, ldr, lds);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

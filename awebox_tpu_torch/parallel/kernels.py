@@ -29,7 +29,8 @@ chol_factor_batched    jnp.linalg.cholesky of the condensed M,       f64
 chol_solve_batched     msolve = two solve_triangular, :234-236       f64
 block_factor           the two-level factor of ocp/blockkkt.py,      f64
                        :539-588 (interior Cholesky, coupling solve,
-                       Schur sums, Cholesky of the reduced system)
+                       Schur sums, Cholesky of the reduced system;
+                       a thread-block cluster a lane)
 block_solve            block_solve of ocp/blockkkt.py, :646-679      f64
 =====================  ===========================================  ==========
 
@@ -93,7 +94,7 @@ SIGNATURES = {
     'advance_state': [_P] + [_I] * 4 + [_D] * 3 + [_P],
     'chol_factor_batched': [_P] * 3 + [_I] * 2 + [_P],
     'chol_solve_batched': [_P] * 3 + [_I] * 2 + [_P],
-    'block_factor': [_P] * 7 + [_I] * 6 + [_P],
+    'block_factor': [_P] * 7 + [_I] * 9 + [_P],
     'block_solve': [_P] * 8 + [_I] * 7 + [_P],
     'noop': [_I, _P],
 }
@@ -1109,28 +1110,61 @@ def block_factor_plain(Frame, delta, own_free, lay: BlockLayout):
     return Li, Xc, L_R, ok
 
 
-BLOCK_STATIC_SMEM = 1_024   # room for K8's static shared arrays (none today)
+BLOCK_WIDTH = 8             # panel width of K8 (KB8_W): the MMA's two k = 4 steps
+BLOCK_ROW_MAX = 160         # rows of a frame or of R a panel holds in registers (32 KB8_CHUNKS)
+BLOCK_CLUSTER_MAX = 16      # frames a lane, a CTA each (KB8_MAX_CLUSTER; non-portable past 8)
+BLOCK_STATIC_SMEM = 1_024   # room for K8's static shared arrays (688 B)
 
 
-def block_factor_smem(lay: BlockLayout) -> int:
-    """K8's dynamic shared memory in bytes: one frame, the reduced system and
-    the pivot column, f64 (the need block_factor_kernel's entry computes);
-    raises by name where one block's shared memory does not hold them
-    (n_k = 4: 108 KB, n_k = 8: 166 KB; n_k >= 11 raises at nx = 11)."""
-    smem = 8 * (lay.nloc * lay.nloc + lay.nr * lay.nr + max(lay.nloc, lay.nr))
+class BlockGeometry(NamedTuple):
+    """How K8 lays one lane out: a thread-block cluster of n_k CTAs, rank k
+    holding frame k (nloc rows at leading dimension ``ld_frame``) and then
+    its Schur complement S (c rows at ``ld_s``); after a cluster barrier the
+    ranks gather R (nr rows at ``ld_r``) into the space rank 0's frame used.
+    ``smem_bytes`` of dynamic shared memory a rank (a launch gives every
+    rank the same); panels of BLOCK_WIDTH columns."""
+    ld_frame: int
+    ld_r: int
+    ld_s: int
+    smem_bytes: int
+
+
+def block_ld(n: int) -> int:
+    """The least leading dimension >= n that is 4 mod 8 doubles: the 8 rows
+    of 4 columns of an MMA fragment then fall on distinct banks."""
+    return n + (4 - n) % 8
+
+
+def block_factor_geometry(lay: BlockLayout) -> BlockGeometry:
+    """K8's layout of a lane: a cluster of n_k CTAs, each with the larger of a
+    frame and R plus S in shared memory (n_k = 4: 91.6 KB and n_k = 8: 108.1
+    KB, two CTAs an SM; n_k = 10: 152.2 KB); raises by name where a frame or
+    R has more rows than a panel holds in registers, or more frames than a
+    cluster has CTAs, or does not fit one block's shared memory (n_k >= 13
+    at nx = 11)."""
+    nloc, nr, c = lay.nloc, lay.nr, lay.c
+    if lay.n_k > BLOCK_CLUSTER_MAX or max(nloc, nr) > BLOCK_ROW_MAX:
+        raise ValueError(f'block_factor: {lay.n_k} frames of {nloc} and a reduced system of '
+                         f'{nr} exceed K8 (at most {BLOCK_CLUSTER_MAX} frames, '
+                         f'{BLOCK_ROW_MAX} rows)')
+    ldf, ldr, lds = block_ld(nloc), block_ld(nr), block_ld(c)
+    smem = 8 * (max(nloc * ldf, nr * ldr) + c * lds)
     if smem + BLOCK_STATIC_SMEM > SMEM_PER_BLOCK:
-        raise ValueError(f'block_factor: a frame of {lay.nloc} and a reduced system of '
-                         f'{lay.nr} need {smem} B of shared memory, more than one block has')
-    return smem
+        raise ValueError(f'block_factor: a frame of {nloc}, a reduced system of {nr} and a '
+                         f'Schur complement of {c} need {smem} B of shared memory, more than '
+                         f'one block has')
+    return BlockGeometry(ldf, ldr, lds, smem)
 
 
 def block_factor(Frame, delta, own_free, lay: BlockLayout):
     """(B, n_k, nloc, nloc) f64, (B,) f64, (n_k, nloc) f64 -> (Li, Xc, L_R,
     ok) as block_factor_plain; on a lane that fails (a pivot <= 0 or
     non-finite, or a non-finite entry of Li or L_R) ok is False and L_R is
-    NaN, Li and Xc unspecified. On the card one launch, a CTA per lane that
-    walks the lane's n_k frames in shared memory and sums their Schur
-    complements into R there; raises where a frame and R do not fit."""
+    NaN, Li and Xc unspecified. On the card one launch, a thread-block
+    cluster per lane laid out by block_factor_geometry: each CTA factors a
+    frame's interior, the Schur complements are gathered into R in rank 0
+    through distributed shared memory, and rank 0 factors it; raises where
+    that layout does not fit."""
     if not Frame.is_cuda:
         return block_factor_plain(Frame, delta, own_free, lay)
     name = 'block_factor'
@@ -1141,13 +1175,14 @@ def block_factor(Frame, delta, own_free, lay: BlockLayout):
     if Frame.shape != (B, n_k, nloc, nloc) or delta.shape != (B,) \
             or own_free.shape != (n_k, nloc) or nloc != 2 * nx + ni + nb:
         raise ValueError(f'{name}: inconsistent shapes')
-    smem = block_factor_smem(lay)
+    geom = block_factor_geometry(lay)
     new = lambda *shape: torch.empty(shape, dtype=f64, device=Frame.device)
     Li, Xc, L_R = new(B, n_k, ni, ni), new(B, n_k, ni, lay.c), new(B, lay.nr, lay.nr)
     ok = torch.empty(B, dtype=torch.bool, device=Frame.device)
     _check(name, library().block_factor(_ptr(Frame), _ptr(delta), _ptr(own_free), _ptr(Li),
                                         _ptr(Xc), _ptr(L_R), _ptr(ok), B, n_k, nx, ni, nb,
-                                        smem, _stream()))
+                                        geom.ld_frame, geom.ld_r, geom.ld_s, geom.smem_bytes,
+                                        _stream()))
     LAUNCHES[name] += 1
     return Li, Xc, L_R, ok
 

@@ -42,7 +42,7 @@ and checks the hand-written CUDA kernels on the way:
               is computed from its shapes; the aten operations and the time
               of one direction call with each factor; the block and condensed
               KKT modes' kernels: K8 block_factor and K9 block_solve on the
-              anchor's frames at B = 1, 16 and 128 (and the n_k=8 anchor's at
+              anchor's frames at B = 1, 2, 16 and 128 (and the n_k=8 anchor's at
               B=16, in phase 7), K10 chol_factor_batched and K11
               chol_solve_batched on the anchor's condensed M (n=280; n=540
               in phase 7), each with an indefinite and a NaN lane, and K4's
@@ -191,6 +191,8 @@ def main():
     from awebox_tpu_torch.tree import tree_map
     from awebox_tpu_torch.ocp.structured import make_structured_derivs
     from awebox_tpu_torch.probes.direction_ops import count_and_time
+    from awebox_tpu_torch.probes.yardstick import (block_factor_bound, block_factor_gaps,
+                                                   block_factor_library, bound)
 
     dev = torch.device('cuda')
     f32, f64 = torch.float32, torch.float64
@@ -227,16 +229,6 @@ def main():
         + (hess_fn(w, y, lam, P64).to(f32),)
     delta = torch.full((B,), 1e-8, dtype=f64, device=dev)
     report = {}
-
-    def bound(nbytes, ops=0):
-        """The least time the card could take for the work, in ms, and what
-        sets it: the larger of the bytes over HBM3's 3.35 TB/s and the
-        operations over their peak (H100 SXM data sheet, at 700 W), 67
-        TFLOP/s for both types here: f32 on the CUDA cores, and f64 on the
-        tensor cores, the fastest the card does f64, although these kernels
-        run f64 on the CUDA cores' 34."""
-        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
-        return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
@@ -896,11 +888,7 @@ def main():
         require(torch.equal(fac_k[3], fac_p[3]) and not bool(fac_k[3][bad].any())
                 and bool(fac_k[3][good].all()), f'K8 {tag}: ok {fac_k[3].tolist()} vs '
                 f'plain {fac_p[3].tolist()}')
-        gaps = [float((fac_k[k][good] - fac_p[k][good]).abs().max()
-                      / fac_p[k][good].abs().max()) for k in range(2)]
-        Rk = fac_k[2][good] @ fac_k[2][good].transpose(1, 2)
-        Rp = fac_p[2][good] @ fac_p[2][good].transpose(1, 2)
-        gaps.append(float((Rk - Rp).abs().max() / Rp.abs().max()))
+        gaps = block_factor_gaps(fac_k, fac_p, good)
         require(max(gaps) <= 1e-10, f'K8 {tag}: Li, Xc, R gaps {gaps}')
         # K9 against its plain version on the same (kernel's) factor of the
         # clean frames: the forward gap max |x_k - x_p| / max |x_p| per lane
@@ -920,19 +908,8 @@ def main():
         # the library composition: cholesky, solve_triangular, a product per
         # frame and cholesky of R (K8); four triangular solves and two
         # products (K9), on the clean lanes' factor
-        c2, og = 2 * lay.nx, 2 * lay.nx + lay.ni
-        Fr = Frame.clone()
-        Fr.diagonal(dim1=-2, dim2=-1).add_(delta[:, None, None] * own_free)
-        Mii = Fr[:, :, oi:og, oi:og].contiguous()
-        Mic = torch.cat([Fr[:, :, oi:og, :c2], Fr[:, :, oi:og, og:]], dim=-1).contiguous()
-        Rc = (fac_c[2] @ fac_c[2].transpose(1, 2)).contiguous()
         Li, Xc, LR = fac_c[:3]
-
-        def lib8():
-            L_ = torch.linalg.cholesky_ex(Mii)[0]
-            X_ = st_(L_, Mic, upper=False)
-            return X_.transpose(-1, -2) @ X_, torch.linalg.cholesky_ex(Rc)[0]
-
+        lib8 = block_factor_library(Frame, delta, own_free, lay, LR)
         r_int = rhs[:, index_maps[1]][..., None]
         r_red = rhs[:, :lay.nr, None].contiguous()
         x_cpl = rhs[:, None, :lay.c, None].expand(-1, lay.n_k, -1, -1).contiguous()
@@ -945,8 +922,7 @@ def main():
 
         n_k_, nx, ni, nb = lay.n_k, lay.nx, lay.ni, lay.nb
         c_, nr = lay.c, lay.nr
-        b8 = bound(nbytes(Frame, delta, own_free, Li, Xc, LR, fac_c[3]),
-                   B_ * (n_k_ * (ni ** 3 / 3 + ni * ni * c_ + ni * c_ * c_) + nr ** 3 / 3))
+        b8 = block_factor_bound(lay, B_)
         b9 = bound(nbytes(Li, Xc, LR, rhs, x_c) + 8 * (n_k_ * (nx + ni) + nb),
                    B_ * (2 * n_k_ * ni * ni + 4 * n_k_ * ni * c_ + 2 * nr * nr))
         k8 = lambda: kernels.block_factor(Frame, delta, own_free, lay)
@@ -962,6 +938,10 @@ def main():
                              plain_ms=cuda_median_ms(plain), library_ms=cuda_median_ms(lib),
                              library_queued_ms=cuda_median_ms(lib, queued=True),
                              bound_ms=b_, bound_by=by_, delta=d0))
+        geom = kernels.block_factor_geometry(lay)
+        phase('kernels', f'K8 block_factor {tag}: {B_} clusters of {lay.n_k} CTAs, '
+              f'{geom.smem_bytes} B of shared memory a CTA, leading dimensions {geom.ld_frame} / '
+              f'{geom.ld_r} / {geom.ld_s} (frame / R / S), panels of {kernels.BLOCK_WIDTH}')
         phase('kernels', f'K8 block_factor {tag}: ok {int(fac_k[3].sum())}/{B_} as plain '
               f'(indefinite and NaN lanes fail alone), Li/Xc/R gaps {gaps[0]:.2e}/{gaps[1]:.2e}/'
               f'{gaps[2]:.2e}; {recs[0]["ms"]:.4f} ms, queued {recs[0]["queued_ms"]:.4f} ms, plain '
@@ -1054,7 +1034,7 @@ def main():
     maps4, asm4, own4, imaps4, fV4, blocks4, kkt_solve4 = block_inputs(ocp, state, P64, lbw, ubw,
                                                                      free)
     lay4 = maps4.layout
-    for Bk in (1, B, 8 * B):
+    for Bk in (1, 2, B, 8 * B):   # B=2: the size of a delta-ladder retry
         block_at[f'n_k=4 B={Bk}'], bsolve_at[f'n_k=4 B={Bk}'] = hold_block(
             f'n_k=4 B={Bk}', lanes(asm4['Frame'], Bk), own4, imaps4, lanes(asm4['rhs_w'], Bk),
             fV4, free, lay4)

@@ -1496,72 +1496,92 @@ def block_index_maps(lay, seed=0, device='cpu'):
             t(perm[nc + ni_all:])), n
 
 
-def kb8_cidx(a, nx, og):
-    return a if a < 2 * nx else og + (a - 2 * nx)
+def kb8_perm(r, nx, ni):
+    """The position of frame variable r in K8's permuted frame [interior |
+    x_k | x_{k+1} | border]."""
+    return ni + r if r < 2 * nx else (r - 2 * nx if r < 2 * nx + ni else r)
 
 
-def kb8_rmap(k, a, n_k, nx):
-    if a < nx:
-        return -1 if k == 0 else (k - 1) * nx + a
-    if a < 2 * nx:
-        return k * nx + (a - nx)
-    return n_k * nx + (a - 2 * nx)
+def kb8_factor_mirror(A, npiv, w=8):
+    """K8's panels (kb8_factor) on the lower triangle of A, in place: the
+    first npiv columns in panels of w, each factored column by column (the
+    pivot's 1/sqrt, the column scaled, the panel's later columns updated),
+    then the trailing lower triangle less the panel's rank-w product.
+    Returns False where a pivot is <= 0 or not finite."""
+    for p0 in range(0, npiv, w):
+        q0 = min(p0 + w, npiv)
+        for j in range(p0, q0):
+            d2 = A[j, j]
+            if not (d2 > 0) or not np.isfinite(d2):
+                return False
+            rs = 1. / np.sqrt(d2)
+            A[j + 1:, j] *= rs
+            A[j, j] = d2 * rs
+            for jj in range(j + 1, q0):
+                A[jj:, jj] -= A[jj:, j] * A[jj, j]
+        L = A[q0:, p0:q0]
+        A[q0:, q0:] -= np.tril(L @ L.T)
+    return True
+
+
+def kb8_gather_mirror(S, lay):
+    """R's lower triangle from the frames' Schur complements S[k] (c x c,
+    coupling order [x_k | x_{k+1} | border]) as K8's gather forms it: each
+    entry its frames' terms summed in frame order; frame 0's x_0 slot maps
+    nowhere."""
+    n_k, nx = lay.n_k, lay.nx
+    nc, nr, xb = n_k * nx, lay.nr, 2 * nx
+    blk = lambda q: divmod(q, nx) if q < nc else (n_k, q - nc)
+    R = np.zeros((nr, nr))
+    for i in range(nr):
+        bi, oi = blk(i)
+        for j in range(i + 1):
+            bj, oj = blk(j)
+            if bi == n_k and bj == n_k:       # border x border: every frame
+                terms = [S[q][xb + oi, xb + oj] for q in range(n_k)]
+            elif bi == n_k:                   # border x x_{bj+1}: frames bj, bj + 1
+                terms = [S[bj][xb + oi, nx + oj]] + ([S[bj + 1][xb + oi, oj]] if bj + 1 < n_k else [])
+            elif bi == bj:                    # x_{bi+1} x x_{bi+1}: frames bi, bi + 1
+                terms = [S[bi][nx + oi, nx + oj]] + ([S[bi + 1][oi, oj]] if bi + 1 < n_k else [])
+            elif bi == bj + 1:                # x_{bi+1} x x_{bi}: frame bi
+                terms = [S[bi][nx + oi, oj]]
+            else:
+                terms = []
+            R[i, j] = sum(terms, 0.)
+    return R
 
 
 def block_factor_mirror(Frame, delta, own_free, lay):
-    """K8's schedule on one lane at a time, in numpy f64: the frame damped,
-    its interior pivots eliminated right-looking over the whole frame, S
-    added into R at the coupling positions, R factored."""
+    """K8's schedule on one lane at a time, in numpy f64: each frame copied
+    in the permuted order [interior | x_k | x_{k+1} | border] (NaN above the
+    diagonal, which nothing may read: the bound counts the lower triangle
+    alone) and damped, its
+    first ni columns factored in panels (Li, Xc^T below it, S the trailing
+    block), R gathered from the S in frame order, R factored in panels."""
     n_k, nx, ni, nb, nloc = lay
     nr, c = n_k * nx + nb, 2 * nx + nb
-    oi, og = 2 * nx, 2 * nx + ni
+    perm = np.array([kb8_perm(r, nx, ni) for r in range(nloc)])
     B = Frame.shape[0]
     Li = np.zeros((B, n_k, ni, ni)); Xc = np.zeros((B, n_k, ni, c)); LR = np.zeros((B, nr, nr))
     ok = np.zeros(B, bool)
     for lane in range(B):
-        R = np.zeros((nr, nr))
-        failed = False
+        S, failed = [], False
         for k in range(n_k):
             F = Frame[lane, k].copy()
             F[np.arange(nloc), np.arange(nloc)] += delta[lane] * own_free[k]
-            for p in range(oi, og):
-                d2 = F[p, p]
-                if not (d2 > 0) or not np.isfinite(d2):
-                    failed = True
-                    break
-                dp = np.sqrt(d2)
-                rin = og - 1 - p
-                rem = [p + 1 + t if t < rin else kb8_cidx(t - rin, nx, og) for t in range(rin + c)]
-                rem = np.array(rem)
-                col = F[rem, p] / dp
-                F[rem, p] = col
-                F[p, p] = dp
-                F[np.ix_(rem, rem)] -= np.outer(col, col)
+            P = np.zeros((nloc, nloc))
+            P[np.ix_(perm, perm)] = F
+            P[np.triu_indices(nloc, 1)] = np.nan   # nothing may read above the diagonal
+            failed = not kb8_factor_mirror(P, ni)
+            Li[lane, k] = np.tril(P[:ni, :ni])
+            Xc[lane, k] = P[ni:, :ni].T
+            S.append(P[ni:, ni:])
+            failed = failed or not np.isfinite(Li[lane, k]).all()
             if failed:
                 break
-            L = np.tril(F[oi:og, oi:og])
-            Li[lane, k] = L
-            cid = np.array([kb8_cidx(a, nx, og) for a in range(c)])
-            Xc[lane, k] = F[cid][:, oi:og].T
-            for a in range(c):
-                for b in range(c):
-                    ra, rb = kb8_rmap(k, a, n_k, nx), kb8_rmap(k, b, n_k, nx)
-                    if ra >= 0 and rb >= 0:
-                        R[ra, rb] += F[cid[a], cid[b]]
-            if not np.isfinite(L).all():
-                failed = True
-                break
         if not failed:
-            for p in range(nr):
-                d2 = R[p, p]
-                if not (d2 > 0) or not np.isfinite(d2):
-                    failed = True
-                    break
-                dp = np.sqrt(d2)
-                col = R[p + 1:, p] / dp
-                R[p + 1:, p] = col
-                R[p, p] = dp
-                R[p + 1:, p + 1:] -= np.outer(col, col)
+            R = kb8_gather_mirror(S, lay)
+            failed = not kb8_factor_mirror(R, nr)
         if not failed:
             LR[lane] = np.tril(R)
             failed = not np.isfinite(LR[lane]).all()
@@ -1659,12 +1679,13 @@ def chol_factor_mirror(M, nb=32):
 
 @pytest.mark.parametrize('name', list(BLOCK_LAYOUTS))
 def test_block_factor_mirror_matches_plain(name):
-    """K8's schedule (the interior pivots eliminated right-looking over the
-    whole frame, S summed into R at the coupling positions, R factored in
-    place) against block_factor_plain: Li and Xc to 1e-12 of their max, R =
-    L_R L_R^T to 1e-12 of its max (the frames are well conditioned; only
-    the order of the sums differs); ok lane by lane, the indefinite and the
-    NaN lane failing alone with a NaN L_R."""
+    """K8's schedule (each frame permuted to [interior | x_k | x_{k+1} |
+    border] and its interior factored in panels of 8 on the lower triangle,
+    S summed into R in frame order, R factored in panels) against
+    block_factor_plain: Li and Xc to 1e-12 of their max, R = L_R L_R^T to
+    1e-12 of its max (the frames are well conditioned; only the order of the
+    sums differs); ok lane by lane, the indefinite and the NaN lane failing
+    alone with a NaN L_R."""
     from awebox_tpu_torch.parallel import kernels
     lay, F, delta, own = random_frames(BLOCK_LAYOUTS[name], B=4, seed=len(name))
     ref = kernels.block_factor_plain(F, delta, own, lay)
@@ -1740,19 +1761,27 @@ def test_chol_mirrors_match_plain(n):
     assert np.abs(xp[good] - xm).max() <= 1e-12 * np.abs(xm).max()
 
 
-@pytest.mark.parametrize('n_k, fits', [(4, True), (8, True), (10, True), (11, False)])
-def test_block_factor_smem(n_k, fits):
-    """K8 holds one frame and the reduced system in one block's shared memory
-    (n_k = 4: 108 KB; n_k = 8: 166 KB); past that it raises by name."""
+@pytest.mark.parametrize('n_k', range(1, 14))
+def test_block_factor_geometry(n_k):
+    """K8 lays a lane out as a cluster of n_k CTAs (non-portable past 8), each
+    with the larger of a frame (96 rows at leading dimension 100) and R plus
+    S (42 rows at 44) in shared memory, leading dimensions 4 mod 8 doubles:
+    two CTAs an SM up to n_k = 8, one block's shared memory up to n_k = 12;
+    at n_k = 13 R has more rows than a panel holds and it raises by name."""
     from awebox_tpu_torch.parallel import kernels
     lay = kernels.BlockLayout(n_k, 11, 54, 20, 96)
-    if fits:
-        smem = kernels.block_factor_smem(lay)
-        assert smem == 8 * (96 * 96 + lay.nr ** 2 + max(96, lay.nr))
-        assert smem + kernels.BLOCK_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
-    else:
+    if n_k > 12:
         with pytest.raises(ValueError, match='block_factor'):
-            kernels.block_factor_smem(lay)
+            kernels.block_factor_geometry(lay)
+        return
+    g = kernels.block_factor_geometry(lay)
+    assert (g.ld_frame, g.ld_s) == (100, 44) and kernels.BLOCK_WIDTH == 8
+    assert lay.nr <= g.ld_r < lay.nr + 8 and g.ld_r % 8 == 4
+    assert g.smem_bytes == 8 * (max(96 * 100, lay.nr * g.ld_r) + 42 * 44)
+    assert g.smem_bytes + kernels.BLOCK_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+    assert {4: 91_584, 8: 108_096, 10: 152_064}.get(n_k, g.smem_bytes) == g.smem_bytes
+    # two CTAs an SM (228 KB, 1 KB of it reserved a CTA) up to n_k = 8
+    assert (2 * (g.smem_bytes + kernels.BLOCK_STATIC_SMEM + 1024) <= 228 * 1024) == (n_k <= 8)
 
 
 def test_advance_state_plain_takes_lanes_without_rows():
@@ -2222,11 +2251,15 @@ def block_gates(fac_k, fac_p, x_k, x_p, good):
 def test_block_kernels_match_plain_on_card(cuda):
     """K8 (block_factor) and K9 (block_solve) against their plain versions on
     random frames of the n_k = 4 and n_k = 8 layouts (B = 1, 16, 128 and
-    16), with an indefinite lane and a NaN lane that fail alone (ok False,
-    L_R NaN, x NaN) while the other lanes keep the bits of a clean run."""
+    16) and of K8's other cluster sizes (n_k = 1; 10 and 12, non-portable
+    clusters), with an indefinite lane and a NaN lane that fail alone (ok
+    False, L_R NaN, x NaN) while the other lanes keep the bits of a clean
+    run."""
     from awebox_tpu_torch.parallel import kernels
-    for name, B in (('tiny', 4), ('n_k=4', 1), ('n_k=4', 16), ('n_k=4', 128), ('n_k=8', 16)):
-        lay, F, delta, own = random_frames(BLOCK_LAYOUTS[name], B=B, seed=B, device=cuda)
+    layouts = dict(BLOCK_LAYOUTS, **{f'n_k={n_k}': (n_k, 11, 54, 20, 96) for n_k in (1, 10, 12)})
+    for name, B in (('tiny', 4), ('n_k=4', 1), ('n_k=4', 16), ('n_k=4', 128),
+                    ('n_k=8', 16), ('n_k=1', 4), ('n_k=10', 4), ('n_k=12', 4)):
+        lay, F, delta, own = random_frames(layouts[name], B=B, seed=B, device=cuda)
         maps, n = block_index_maps(lay, seed=B, device=cuda)
         rhs = torch.as_tensor(np.random.default_rng(B).standard_normal((B, n)), device=cuda)
         before = dict(kernels.LAUNCHES)
