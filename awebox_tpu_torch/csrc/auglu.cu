@@ -54,7 +54,12 @@
 //                            distributed shared memory
 //   K9 block_solve           ocp/blockkkt.py:646-679  the structured solve
 //                            through K8's factor
-//   K10 chol_factor_batched  batch.py:215-231  Cholesky of the condensed M
+//   K10 chol_factor_batched  batch.py:215-231  Cholesky of the condensed M,
+//                            two variants chosen by n: chol_factor_cluster
+//                            (a lane per thread-block cluster, the lower
+//                            triangle in shared memory, the trailing update
+//                            by f64 MMAs) and chol_factor_global (a CTA a
+//                            lane, the lane in global memory)
 //   K11 chol_solve_batched   batch.py:234-236  the two triangular solves
 //
 // Layout follows the JAX package: lanes first, row-major. Every entry point
@@ -74,6 +79,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -3870,10 +3876,13 @@ block_solve_kernel(const double* __restrict__ Li, const double* __restrict__ Xc,
 // ---------------------------------------------------------------------------
 // K10 chol_factor_batched: the Cholesky factor of the condensed M of each
 // lane, replacing jnp.linalg.cholesky at awebox_tpu/parallel/batch.py:215-231,
-// f64, lower with zeros above, as kernels.chol_factor_batched_plain.
-// What bounds it: the chain of pivots and one SM's shared-memory rate. A lane
-// (n = 280: 627 KB; 540: 2.3 MB) fits no CTA's shared memory, so a CTA per
-// lane factors it right-looking in panels of K10_NB columns in its own output:
+// f64, lower with zeros above, as kernels.chol_factor_batched_plain. Two
+// variants, chosen by n alone (kernels.chol_factor_geometry): the cluster
+// variant below (chol_factor_cluster_kernel, n <= 554) and this one-CTA
+// variant (global) for the lanes no cluster holds, up to n = 876.
+// Global variant. What bounds it: the chain of pivots and one SM's
+// shared-memory rate. A CTA per lane factors it right-looking in panels of
+// K10_NB columns in its own output:
 // it copies M's lower triangle there, then for each panel loads the panel's
 // rows into shared memory (odd leading dimension, so a warp's column reads
 // spread over the banks), factors it column by column (two block barriers a
@@ -3952,6 +3961,558 @@ chol_factor_kernel(const double* __restrict__ M, double* __restrict__ L, uint8_t
     for (int t = tid; t < n * n; t += K10_THREADS) Lw[t] = __longlong_as_double(0x7ff8000000000000ll);
   }
   if (tid == 0) ok[lane] = failed ? 0 : 1;
+}
+
+// ---------------------------------------------------------------------------
+// K10, cluster variant: the same function, a thread-block cluster of C CTAs
+// per lane with the lane's lower triangle in the cluster's shared memory
+// (kernels.chol_factor_geometry: the fewest of 4, 8 and 16 CTAs that hold
+// it; 4 at n = 280, 16, a non-portable cluster, at n = 540).
+// What bounds it: the chain of n pivots (a panel's diagonal block factored
+// column by column, its rows handed to the next panel's owner, that panel
+// updated by them), then the waves of clusters (an H100 runs 30 clusters of
+// 4 CTAs at once, 7 of 16). A lane's n^3 / 6 FMAs (26 M at n = 540) are
+// spread over C SMs' f64 tensor cores. What the design does:
+// - panels of K10C_NB = 16 columns dealt block-cyclically over the ranks
+//   (panel p to rank p % C); a panel is trapezoidal, its rows p NB .. n - 1
+//   at leading dimension ld = 4 mod 8 doubles (20), so a fragment's loads
+//   hit distinct banks; a rank's panels lie one after another
+//   (k10c_rows_before), then a receive buffer for the panel being applied.
+//   Only M's lower triangle is copied in (16-byte cp.async where both
+//   entries lie on or below the diagonal and n is even), the entries above
+//   the diagonal of a panel's diagonal block are zeros, and nothing reads
+//   above the diagonal;
+// - a panel's factor (k10c_panel): warp 0 holds rows 0 .. 31 of the panel,
+//   a row a lane, and runs the chain on the 16 x 16 diagonal block in
+//   registers (K8's kb8_panel: an rsqrt a column; lane j + 1 forms pivot
+//   j + 1 from its own row and hands it on by a shuffle), publishing each
+//   column's 1 / sqrt and multipliers in shared memory (which the warp's
+//   lanes read the multipliers from) and arriving at a named barrier every
+//   two columns; each thread of warps 1 .. 7 holds
+//   two rows below and applies the columns as they come (a third row after
+//   the chain). Every factored row goes from registers to its place in L;
+// - L is the medium the ranks read panels from: a split cluster barrier
+//   (K6's), one phase a panel, completes when every thread has arrived,
+//   o(p) after it factored panel p, stored it and set its failure flag.
+//   After the wait every rank reads o(p)'s flag, fetches the rows of panel
+//   p below its first trailing column from the L2 (cp.async.cg into its
+//   receive buffer) and arrives; its trailing panels are updated after the
+//   arrive, in the shadow of the next panels' chains. Pulling a panel from
+//   its owner's shared memory through distributed shared memory instead ran
+//   at ~30-40 B a cycle out of the owner's SM, shared by every reader;
+// - the look-ahead past the barrier: o(p) writes panel p's rows 16 .. 47
+//   (o(p + 1)'s first 32 rows) back into its shared memory and, before it
+//   stores anything to L (so that the release waits for no store to the
+//   L2), arrives at an mbarrier in o(p + 1)'s shared memory. o(p + 1)'s
+//   warp 0 waits there, copies those rows through distributed shared
+//   memory, updates its rows 0 .. 31 by panel p and starts the chain of
+//   panel p + 1, while warps 1 .. 7 wait for panel p's phase, fetch the
+//   rest of panel p from L and update their rows;
+// - the trailing updates on the f64 tensor cores: a warp takes two row
+//   tiles of 8 of a panel at a time and updates their 8 x 8 tiles on or
+//   below the diagonal (J = 0, 1; tile (0, 1) lies above it and is skipped)
+//   by four m8n8k4 MMAs a tile, k = 0..3, 4..7, 8..11, 12..15 in this order
+//   (kb8_dmma), each entry's 16 products summed from zero and subtracted
+//   once; entries above the diagonal of a diagonal tile are neither read
+//   nor written, and no index is divided per entry;
+// - the zeros above each panel are stored once the lane is done, each rank
+//   its panels' columns.
+// Everything is f64 and in a fixed order, so two calls give the same bits
+// and no lane depends on another. A lane fails (ok = 0, L NaN throughout)
+// where a pivot is <= 0 or not finite (its owner's flag stops every rank
+// after that panel's phase) or an entry of L is not finite: each rank
+// publishes its flag, and after a cluster barrier every rank reads every
+// flag; a second barrier keeps every rank until no one reads its shared
+// memory.
+// ---------------------------------------------------------------------------
+constexpr int K10C_NB = 16;
+constexpr int K10C_THREADS = 256;
+constexpr int K10C_WARPS = K10C_THREADS / 32;
+constexpr int K10C_MAX_CLUSTER = 16;
+
+// rows held before a rank's local panel t: its panels r, r + C, .. hold rows p NB .. n - 1
+__device__ __forceinline__ int k10c_rows_before(int t, int r, int C, int n) {
+  return t * n - K10C_NB * (t * r + C * t * (t - 1) / 2);
+}
+
+// Row tiles I and I2 of T (the panel of columns q0 .. q0 + w - 1, h = n -
+// q0 rows, row r at T + r ld) less the rank-16 product of the panel Pr (row
+// i at Pr + (i - base) ld) on their 8 x 8 tiles on or below the diagonal: J
+// = 0, 1 (tile (0, 1) lies above it); each entry's 16 products summed from
+// zero by four MMAs, k = 0..3, 4..7, 8..11, 12..15 in this order, then
+// subtracted once (an entry rounded once a panel, as LAPACK's blocked
+// update does); entries above the diagonal neither read nor written. b:
+// Pr's rows q0 .. q0 + 15 as B fragments.
+__device__ __forceinline__ void k10c_tile_pair(double* T, const double* Pr, int ld, int h, int q0,
+                                               int w, int base, int I, int I2,
+                                               const double (&b)[2][4], int g, int tg) {
+  double a[2][4], acc[2][2][2];
+  int ri[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    ri[u] = 8 * (u ? I2 : I) + g;   // the fragment's row, from q0
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      a[u][s] = ri[u] < h ? Pr[(size_t)(q0 + ri[u] - base) * ld + 4 * s + tg] : 0.0;
+    }
+#pragma unroll
+    for (int J = 0; J < 2; ++J) acc[u][J][0] = acc[u][J][1] = 0.0;
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) kb8_dmma(acc[u][0][0], acc[u][0][1], a[u][s], b[0][s]);
+    if ((u ? I2 : I) > 0) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) kb8_dmma(acc[u][1][0], acc[u][1][1], a[u][s], b[1][s]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int J = 0; J < 2; ++J) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * J + 2 * tg + e;
+        if (ri[u] < h && j < w && j <= ri[u]) {
+          double* t = T + (size_t)ri[u] * ld + j;
+          *t = *t - acc[u][J][e];
+        }
+      }
+    }
+  }
+}
+
+// Pr's rows q0 .. q0 + 15 as the B fragments of an update of the panel at q0
+__device__ __forceinline__ void k10c_bfrag(double (&b)[2][4], const double* Pr, int ld, int q0,
+                                           int w, int base, int g, int tg) {
+#pragma unroll
+  for (int J = 0; J < 2; ++J) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      b[J][s] = 8 * J + g < w ? Pr[(size_t)(q0 + 8 * J + g - base) * ld + 4 * s + tg] : 0.0;
+    }
+  }
+}
+
+// T -= the rank-16 product of the panel Pr with itself on the lower 8 x 8
+// tiles of the panel T: a warp takes the row tiles I and I + 8, I = warp,
+// warp + 16, .., two at a time.
+__device__ void k10c_update(double* T, const double* Pr, int ld, int n, int q0, int w, int base,
+                            int warp, int wl) {
+  const int g = wl >> 2, tg = wl & 3, h = n - q0, nt = (h + 7) >> 3;
+  double b[2][4];
+  k10c_bfrag(b, Pr, ld, q0, w, base, g, tg);
+  for (int I = warp; I < nt; I += 2 * K10C_WARPS) {
+    k10c_tile_pair(T, Pr, ld, h, q0, w, base, I, I + K10C_WARPS, b, g, tg);
+  }
+}
+
+// Rows lo .. hi - 1 of panel k (its 16 columns at k0 = 16 k) from L, which
+// its owner published, into recv (row i at recv + (i - base) ld) by the
+// threads t0 .. t0 + nthr - 1, through the L2 (cp.async.cg where n is even);
+// waits for this thread's copies
+__device__ void k10c_fetch(double* recv, const double* Lw, int ld, int n, int k0, int lo, int hi,
+                           int base, int t, int nthr) {
+  if ((n & 1) == 0) {
+    for (int e = t; e < (hi - lo) * (K10C_NB / 2); e += nthr) {
+      const int i = lo + (e >> 3), c = 2 * (e & 7);
+      const unsigned d = (unsigned)__cvta_generic_to_shared(recv + (size_t)(i - base) * ld + c);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   ::"r"(d), "l"(Lw + (size_t)i * n + k0 + c) : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    for (int e = t; e < (hi - lo) * K10C_NB; e += nthr) {
+      const int i = lo + (e >> 4), c = e & 15;
+      recv[(size_t)(i - base) * ld + c] = __ldcg(Lw + (size_t)i * n + k0 + c);
+    }
+  }
+}
+
+// Row r (entries a[0 .. w - 1], zeros past the diagonal r) of a panel to L
+// at dst; returns whether an entry was not finite
+__device__ __forceinline__ bool k10c_put_row(double* __restrict__ dst, const double (&a)[K10C_NB],
+                                             int w, int r, bool pairs) {
+  bool bad = false;
+  if (pairs && w == K10C_NB) {
+#pragma unroll
+    for (int j = 0; j < K10C_NB / 2; ++j) {
+      const double2 v = make_double2(2 * j <= r ? a[2 * j] : 0.0,
+                                     2 * j + 1 <= r ? a[2 * j + 1] : 0.0);
+      bad |= !isfinite(v.x) || !isfinite(v.y);
+      reinterpret_cast<double2*>(dst)[j] = v;
+    }
+    return bad;
+  }
+#pragma unroll
+  for (int j = 0; j < K10C_NB; ++j) {
+    if (j < w) {
+      const double v = j <= r ? a[j] : 0.0;
+      bad |= !isfinite(v);
+      dst[j] = v;
+    }
+  }
+  return bad;
+}
+
+// a panel's row of 16 from shared memory (zeros where not in)
+__device__ __forceinline__ void k10c_load_row(double (&a)[K10C_NB], const double* row, bool in) {
+#pragma unroll
+  for (int j = 0; j < K10C_NB / 2; ++j) {
+    const double2 v = in ? reinterpret_cast<const double2*>(row)[j] : make_double2(0.0, 0.0);
+    a[2 * j] = v.x;
+    a[2 * j + 1] = v.y;
+  }
+}
+
+// a panel's row of 16 back to shared memory
+__device__ __forceinline__ void k10c_store_row(double* row, const double (&a)[K10C_NB]) {
+#pragma unroll
+  for (int j = 0; j < K10C_NB / 2; ++j) {
+    reinterpret_cast<double2*>(row)[j] = make_double2(a[2 * j], a[2 * j + 1]);
+  }
+}
+
+// column J of a panel's factor on a row below its diagonal block: the
+// pivot's 1 / sqrt from rs, the block's column J from lt (its L^T), two
+// entries at a time
+template <int J>
+__device__ __forceinline__ void k10c_apply_col(double (&a)[K10C_NB], const double* rs,
+                                               const double* lt) {
+  a[J] *= rs[J];
+#pragma unroll
+  for (int jj = (J + 1) & ~1; jj < K10C_NB; jj += 2) {
+    const double2 l = *reinterpret_cast<const double2*>(lt + J * K10C_NB + jj);
+    if (jj > J) a[jj] = fma(-a[J], l.x, a[jj]);
+    a[jj + 1] = fma(-a[J], l.y, a[jj + 1]);
+  }
+}
+
+template <int J0, int J1>
+__device__ __forceinline__ void k10c_apply_cols(double (&a)[K10C_NB], const double* rs,
+                                                const double* lt) {
+  if constexpr (J0 < J1) {
+    k10c_apply_col<J0>(a, rs, lt);
+    k10c_apply_cols<J0 + 1, J1>(a, rs, lt);
+  }
+}
+
+__device__ __forceinline__ void k10c_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(K10C_THREADS) : "memory");
+}
+
+__device__ __forceinline__ void k10c_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The handoff barrier: an mbarrier in this CTA's shared memory that the
+// owner of the panel before each of this rank's panels arrives at once its
+// rows q0 .. q0 + 31 (q0: this rank's panel's first row) lie in its shared
+// memory. A wait that outlasts ~2^34 cycles traps, so that a fault of the
+// protocol fails the launch instead of holding the card.
+__device__ __forceinline__ void k10c_hbar_wait(uint64_t* bar, int parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  const long long t0 = clock64();
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void k10c_hbar_arrive_remote(uint64_t* bar, int rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+               " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n"
+               ::"r"(a), "r"(rank) : "memory");
+}
+
+// The panel T (h = n - q0 rows from its diagonal, w <= 16 columns; h > 16
+// implies w = 16) factored and published to L (row r at Lp + r n), zeros
+// above its diagonal, by the whole block. With hsrc (the look-ahead, panel
+// k = q0 / 16 - 1 applied first) warp 0 waits at the handoff barrier
+// (parity), copies panel k's rows q0 .. q0 + 31 from its owner's shared
+// memory (hsrc, row q0 + r at hsrc + r ld) into recv and updates rows 0 ..
+// 31; warps 1 .. 7 wait for panel k's phase of the cluster barrier, fetch
+// its rows q0 + 32 .. n - 1 from L (Lk, row i at Lk + i n; the block's later
+// updates read them as well) and update the row tiles of the rows they
+// factor; warp 0 waits for that phase after its chain. Warp 0 runs the
+// chain on rows 0 .. 31 in registers (a row a lane; K8's kb8_panel: an
+// rsqrt a column, lane j + 1 forming pivot j + 1 from its own row and
+// handing it on by a shuffle) and publishes each column's 1 / sqrt (rs) and
+// multipliers (lt, the diagonal block's L^T, which its lanes read the
+// multipliers from, 2-5% faster than a shuffle each), arriving at a named
+// barrier every two columns; each thread of warps 1 .. 7 holds rows
+// tid and tid + 224 and applies the columns as they come, then sweeps row
+// tid + 448. Where a panel follows (next >= 0: its owner's rank), rows 16
+// .. 47 go back into T and, once warps 0 and 1 have written them, thread 0
+// arrives at the next owner's handoff barrier; then every row goes to L
+// from registers (after the handoff, so that its release waits for no
+// store to the L2). Returns, uniformly over the block, whether a pivot was
+// <= 0 or not finite; bad gathers this thread's non-finite stores.
+__device__ bool k10c_panel(double* T, double* recv, const double* hsrc, const double* Lk,
+                           uint64_t* hbar, int parity, int next, int ld, int n, int q0, int w,
+                           double* rs, double* lt, double* __restrict__ Lp, bool& bad, int tid) {
+  const int warp = tid >> 5, wl = tid & 31, g = wl >> 2, tg = wl & 3;
+  const int h = n - q0;
+  const bool pairs = (n & 1) == 0;
+  bool fail = false;
+  if (warp == 0) {
+    if (hsrc != nullptr) {
+      k10c_hbar_wait(hbar, parity);
+      if (wl < h) {
+        const double2* src = reinterpret_cast<const double2*>(hsrc + (size_t)wl * ld);
+        double2 v[K10C_NB / 2];
+#pragma unroll
+        for (int j = 0; j < K10C_NB / 2; ++j) v[j] = src[j];
+        double2* dst = reinterpret_cast<double2*>(recv + (size_t)wl * ld);
+#pragma unroll
+        for (int j = 0; j < K10C_NB / 2; ++j) dst[j] = v[j];
+      }
+      k10c_bar_arrive(9);   // panel k's rows q0 .. q0 + 31 are in recv
+      __syncwarp();
+      double b[2][4];
+      k10c_bfrag(b, recv, ld, q0, w, q0, g, tg);
+      k10c_tile_pair(T, recv, ld, h, q0, w, q0, 0, 1, b, g, tg);
+      k10c_tile_pair(T, recv, ld, h, q0, w, q0, 2, 3, b, g, tg);
+      __syncwarp();
+    }
+    double a[K10C_NB];
+    k10c_load_row(a, T + (size_t)wl * ld, wl < h);
+#pragma unroll
+    for (int j = 0; j < K10C_NB; ++j) {
+      if (j >= w) a[j] = 0.0;
+    }
+    double dg = 0.0;   // lane j < w: pivot j's square
+    double d2 = __shfl_sync(FULL_MASK, a[0], 0);
+#pragma unroll
+    for (int j = 0; j < K10C_NB; ++j) {
+      if (j < w) {
+        if (wl == j) dg = d2;
+        const double r = rsqrt(d2);
+        a[j] *= r;
+        double d2n = 0.0;   // the next pivot first: lane j + 1's update below
+        if (j + 1 < K10C_NB) d2n = __shfl_sync(FULL_MASK, fma(-a[j], a[j], a[j + 1]), j + 1);
+        if (wl == 0) rs[j] = r;
+        if (wl > j && wl < K10C_NB) lt[j * K10C_NB + wl] = a[j];
+        __syncwarp();
+#pragma unroll
+        for (int jj = j + 1; jj < K10C_NB; ++jj) a[jj] = fma(-a[j], lt[j * K10C_NB + jj], a[jj]);
+        d2 = d2n;
+      }
+      if (j & 1) k10c_bar_arrive(1 + (j >> 1));   // columns j - 1 and j are out
+    }
+    if (wl < K10C_NB) {
+      const double ljj = dg * rsqrt(dg);
+#pragma unroll
+      for (int j = 0; j < K10C_NB; ++j) {
+        if (j == wl) a[j] = ljj;
+      }
+    }
+    if (next >= 0) {
+      if (wl >= K10C_NB && wl < h) k10c_store_row(T + (size_t)wl * ld, a);
+      k10c_bar_sync(10, 64);
+      if (wl == 0) k10c_hbar_arrive_remote(hbar, next);
+    }
+    if (wl < h) bad |= k10c_put_row(Lp + (size_t)wl * n, a, w, wl, pairs);
+    fail = __any_sync(FULL_MASK, wl < w && (!(dg > 0.0) || !isfinite(dg)));
+    if (hsrc != nullptr) k6_cluster_wait();   // panel k's phase
+  } else {
+    const int i0 = tid, i1 = tid + 224, i2 = tid + 448;   // this thread's rows
+    if (hsrc != nullptr) {
+      k6_cluster_wait();                // panel k's phase: its rows are in L
+      if (q0 + 32 < n) k10c_fetch(recv, Lk, ld, n, 0, q0 + 32, n, q0, tid - 32, 224);
+      k10c_bar_sync(9, K10C_THREADS);   // and warp 0's
+      double b[2][4];
+      k10c_bfrag(b, recv, ld, q0, w, q0, g, tg);
+#pragma unroll
+      for (int grp = 0; grp < 3; ++grp) {
+        const int I = 4 * warp + 28 * grp;   // the row tiles of rows 32 warp + 224 grp ..
+        if (8 * I < h) {
+          k10c_tile_pair(T, recv, ld, h, q0, w, q0, I, I + 1, b, g, tg);
+          k10c_tile_pair(T, recv, ld, h, q0, w, q0, I + 2, I + 3, b, g, tg);
+        }
+      }
+      __syncwarp();
+    }
+    double a[K10C_NB], c[K10C_NB];
+    k10c_load_row(a, T + (size_t)i0 * ld, i0 < h);
+    k10c_load_row(c, T + (size_t)i1 * ld, i1 < h);
+    k10c_bar_sync(1, K10C_THREADS); k10c_apply_cols<0, 2>(a, rs, lt); k10c_apply_cols<0, 2>(c, rs, lt);
+    k10c_bar_sync(2, K10C_THREADS); k10c_apply_cols<2, 4>(a, rs, lt); k10c_apply_cols<2, 4>(c, rs, lt);
+    k10c_bar_sync(3, K10C_THREADS); k10c_apply_cols<4, 6>(a, rs, lt); k10c_apply_cols<4, 6>(c, rs, lt);
+    k10c_bar_sync(4, K10C_THREADS); k10c_apply_cols<6, 8>(a, rs, lt); k10c_apply_cols<6, 8>(c, rs, lt);
+    k10c_bar_sync(5, K10C_THREADS); k10c_apply_cols<8, 10>(a, rs, lt); k10c_apply_cols<8, 10>(c, rs, lt);
+    k10c_bar_sync(6, K10C_THREADS); k10c_apply_cols<10, 12>(a, rs, lt); k10c_apply_cols<10, 12>(c, rs, lt);
+    k10c_bar_sync(7, K10C_THREADS); k10c_apply_cols<12, 14>(a, rs, lt); k10c_apply_cols<12, 14>(c, rs, lt);
+    k10c_bar_sync(8, K10C_THREADS); k10c_apply_cols<14, 16>(a, rs, lt); k10c_apply_cols<14, 16>(c, rs, lt);
+    if (next >= 0 && warp == 1) {
+      if (wl < K10C_NB && i0 < h) k10c_store_row(T + (size_t)i0 * ld, a);
+      k10c_bar_sync(10, 64);
+    }
+    if (i0 < h) bad |= k10c_put_row(Lp + (size_t)i0 * n, a, K10C_NB, i0, pairs);
+    if (i1 < h) bad |= k10c_put_row(Lp + (size_t)i1 * n, c, K10C_NB, i1, pairs);
+    if (i2 < h) {
+      k10c_load_row(a, T + (size_t)i2 * ld, true);
+      k10c_apply_cols<0, K10C_NB>(a, rs, lt);
+      bad |= k10c_put_row(Lp + (size_t)i2 * n, a, K10C_NB, i2, pairs);
+    }
+  }
+  return __syncthreads_or(fail) != 0;
+}
+
+// Rows 0 .. q0 - 1 of each of a rank's panels' columns as zeros or, with
+// nan, every row as NaN
+__device__ void k10c_fill(double* __restrict__ Lw, int n, int rank, int C, int n_local, bool nan,
+                          int tid) {
+  const double v = nan ? __longlong_as_double(0x7ff8000000000000ll) : 0.0;
+  for (int t = 0; t < n_local; ++t) {
+    const int q0 = (rank + t * C) * K10C_NB, w = min(K10C_NB, n - q0), rows = nan ? n : q0;
+    for (int e = tid; e < rows * w; e += K10C_THREADS) {
+      const int i = e / w;
+      Lw[(size_t)i * n + q0 + e - i * w] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(K10C_THREADS, 1)
+chol_factor_cluster_kernel(const double* __restrict__ M, double* __restrict__ L,
+                           uint8_t* __restrict__ ok, int n, int ld, int recv_off) {
+  extern __shared__ double2 k10c_dyn[];
+  __shared__ double k10c_rs[K10C_NB];   // the pivots' 1 / sqrt of the panel factored last
+  __shared__ __align__(16) double k10c_lt[K10C_NB * K10C_NB];   // its diagonal block's L^T
+  __shared__ int k10c_fail;             // a panel of this rank failed (read after its phase)
+  __shared__ int k10c_bad;              // this rank failed or published a non-finite entry
+  __shared__ uint64_t k10c_hbar;        // the handoff barrier of this rank's panels
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x, rank = (int)cluster.block_rank();
+  const int lane = (int)blockIdx.x / C;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int P = (n + K10C_NB - 1) / K10C_NB;
+  const int n_local = (P - rank + C - 1) / C;
+  double* S = reinterpret_cast<double*>(k10c_dyn);   // this rank's panels
+  double* recv = S + recv_off;                       // row i of the applied panel at row i - (k + 1) NB
+  const double* A = M + (size_t)lane * n * n;
+  double* Lw = L + (size_t)lane * n * n;
+
+  // 1. the lower triangle of this rank's panels in; zeros above the diagonal
+  for (int t = 0; t < n_local; ++t) {
+    const int q0 = (rank + t * C) * K10C_NB, w = min(K10C_NB, n - q0), h = n - q0;
+    double* T = S + (size_t)k10c_rows_before(t, rank, C, n) * ld;
+    if ((n & 1) == 0) {
+      for (int e = tid; e < h * (K10C_NB / 2); e += K10C_THREADS) {
+        const int r = e >> 3, c = 2 * (e & 7);
+        double* dst = T + (size_t)r * ld + c;
+        const double* src = A + (size_t)(q0 + r) * n + q0 + c;
+        if (c + 1 < w && c + 1 <= r) {
+          cp_async16(dst, src);
+        } else {
+          dst[0] = (c < w && c <= r) ? src[0] : 0.0;
+          dst[1] = 0.0;
+        }
+      }
+    } else {
+      for (int e = tid; e < h * K10C_NB; e += K10C_THREADS) {
+        const int r = e >> 4, c = e & 15;
+        double* dst = T + (size_t)r * ld + c;
+        if (c < w && c <= r) {
+          cp_async8(dst, A + (size_t)(q0 + r) * n + q0 + c);
+        } else {
+          *dst = 0.0;
+        }
+      }
+    }
+  }
+  if (tid == 0) {
+    k10c_fail = 0;
+    k10c_bad = 0;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 ::"r"((unsigned)__cvta_generic_to_shared(&k10c_hbar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  cluster.sync();                       // every rank's handoff barrier is ready
+
+  // 2. panel 0 by rank 0 before the first phase; then a phase a panel
+  bool bad = false;   // this thread published a non-finite entry
+  if (rank == 0 && k10c_panel(S, recv, nullptr, nullptr, &k10c_hbar, 0, P > 1 ? 1 : -1, ld, n, 0,
+                              min(K10C_NB, n), k10c_rs, k10c_lt, Lw, bad, tid) && tid == 0) {
+    k10c_fail = 1;
+  }
+  k6_cluster_arrive();
+  bool failed = false;
+  for (int k = 0; k < P; ++k) {
+    const int owner = k % C;
+    const int t0 = k < rank ? 0 : (k - rank) / C + 1;   // this rank's first panel after k
+    int t_rest = t0;
+    if (k + 1 < P && rank == (k + 1) % C) {   // the look-ahead: panel k + 1 is local panel t0
+      const int q0 = (k + 1) * K10C_NB;
+      const double* hsrc = cluster.map_shared_rank(S, owner)
+          + (size_t)(k10c_rows_before(k / C, owner, C, n) + K10C_NB) * ld;
+      if (k10c_panel(S + (size_t)k10c_rows_before(t0, rank, C, n) * ld, recv, hsrc,
+                     Lw + (size_t)k * K10C_NB, &k10c_hbar, (rank > 0 ? t0 : t0 - 1) & 1,
+                     k + 2 < P ? (k + 2) % C : -1, ld, n, q0, min(K10C_NB, n - q0), k10c_rs,
+                     k10c_lt, Lw + (size_t)q0 * (n + 1), bad, tid) && tid == 0) {
+        k10c_fail = 1;
+      }
+      // every thread has waited for panel k's phase
+      if (*cluster.map_shared_rank(&k10c_fail, owner)) {
+        failed = true;
+        break;
+      }
+      t_rest = t0 + 1;
+    } else {
+      k6_cluster_wait();                // panel k is published
+      if (*cluster.map_shared_rank(&k10c_fail, owner)) {
+        failed = true;
+        break;
+      }
+      if (k == P - 1) break;
+      if (t0 < n_local) {               // uniform over the block
+        k10c_fetch(recv, Lw, ld, n, k * K10C_NB, (rank + t0 * C) * K10C_NB, n, (k + 1) * K10C_NB,
+                   tid, K10C_THREADS);
+        __syncthreads();
+      }
+    }
+    k6_cluster_arrive();                // panel k read; panel k + 1 published if ours
+    for (int t = t_rest; t < n_local; ++t) {
+      const int q0 = (rank + t * C) * K10C_NB;
+      k10c_update(S + (size_t)k10c_rows_before(t, rank, C, n) * ld, recv, ld, n, q0,
+                  min(K10C_NB, n - q0), (k + 1) * K10C_NB, warp, wl);
+    }
+    __syncthreads();                    // recv is free for the next panel
+  }
+
+  // 3. zeros above the panels; the flags exchanged
+  if (!failed) k10c_fill(Lw, n, rank, C, n_local, false, tid);
+  bad = __syncthreads_or(failed || bad) != 0;
+  if (tid == 0) k10c_bad = bad ? 1 : 0;
+  cluster.sync();                       // every rank's flag is published
+  bool any = false;
+  for (int q = 0; q < C; ++q) any |= *cluster.map_shared_rank(&k10c_bad, q) != 0;
+  cluster.sync();                       // no rank reads another's shared memory any more
+  if (any) k10c_fill(Lw, n, rank, C, n_local, true, tid);
+  if (rank == 0 && tid == 0) ok[lane] = any ? 0 : 1;
+}
+
+// the cluster variant's launch: the attributes a launch needs and its configuration,
+// B clusters of C CTAs
+cudaError_t k10c_attributes(int C, int smem) {
+  const void* fn = (const void*)chol_factor_cluster_kernel;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess || C <= 8) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t k10c_config(int B, int C, int smem, void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = k2c_config(B, C, smem, stream, attr);
+  cfg.blockDim = dim3(K10C_THREADS);
+  return cfg;
 }
 
 // ---------------------------------------------------------------------------
@@ -4223,13 +4784,46 @@ int advance_state(const void* const* ptrs, int B, int n, int n_eq, int n_ineq, d
   return (int)cudaGetLastError();
 }
 
-int chol_factor_batched(const void* M, void* L, void* ok, int B, int n, void* stream) {
+// K10's global variant, for the n that kernels.chol_factor_geometry gives it
+int chol_factor_global(const void* M, void* L, void* ok, int B, int n, void* stream) {
   const size_t smem = sizeof(double) * (size_t)n * K10_LD;
   cudaError_t err = cudaFuncSetAttribute((const void*)chol_factor_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   chol_factor_kernel<<<B, K10_THREADS, smem, (cudaStream_t)stream>>>(
       (const double*)M, (double*)L, (uint8_t*)ok, n);
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of C CTAs with smem bytes of dynamic shared memory each
+// the card runs at once; written to *max_clusters (int).
+int chol_factor_cluster_occupancy(int C, int smem, void* max_clusters) {
+  cudaError_t err = k10c_attributes(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k10c_config(1, C, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      (int*)max_clusters, (const void*)chol_factor_cluster_kernel, &cfg);
+}
+
+// The layout (C CTAs a lane, the leading dimension ld, the receive buffer
+// at recv_off doubles, smem bytes of dynamic shared memory a rank) comes from
+// kernels.chol_factor_geometry; only the limits compiled into the kernel
+// are checked here.
+int chol_factor_cluster(const void* M, void* L, void* ok, int B, int n, int C, int ld,
+                        int recv_off, int smem, void* stream) {
+  const int P = (n + K10C_NB - 1) / K10C_NB;
+  if (C < 1 || C > K10C_MAX_CLUSTER || C > P || ld < K10C_NB || ld % 2 != 0
+      || (size_t)smem < sizeof(double) * (size_t)recv_off) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = k10c_attributes(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k10c_config(B, C, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, chol_factor_cluster_kernel, (const double*)M, (double*)L,
+                           (uint8_t*)ok, n, ld, recv_off);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -25,7 +25,7 @@ qr_solve_batched       msolve = R^-1 Q^T v, :344-346                 f32
 advance_state          _advance_state, :449-512, from a direction    f64
                        (the step half of ip_step's kernel)
 chol_factor_batched    jnp.linalg.cholesky of the condensed M,       f64
-                       :215-231
+                       :215-231 (cluster or global variant, by n)
 chol_solve_batched     msolve = two solve_triangular, :234-236       f64
 block_factor           the two-level factor of ocp/blockkkt.py,      f64
                        :539-588 (interior Cholesky, coupling solve,
@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -57,13 +58,15 @@ import torch
 # newton_kkt counts its kernel pair once; lu_factor_batched counts every
 # factor, lu_factor_cluster and lu_factor_blocked say which of K2's two
 # variants ran (a blocked factor's launches a panel are counted once);
-# likewise qr_factor_batched with qr_factor_cluster and qr_factor_blocked
+# likewise qr_factor_batched with qr_factor_cluster and qr_factor_blocked,
+# and chol_factor_batched with chol_factor_cluster and chol_factor_global
 LAUNCHES = {'newton_kkt': 0, 'kkt_assemble_scaled': 0, 'lu_factor_batched': 0,
             'lu_factor_cluster': 0, 'lu_factor_blocked': 0,
             'lu_solve_batched': 0, 'ip_step': 0,
             'kkt_assemble': 0, 'ruiz_scale': 0, 'qr_factor_batched': 0,
             'qr_factor_cluster': 0, 'qr_factor_blocked': 0, 'qr_solve_batched': 0,
-            'advance_state': 0, 'chol_factor_batched': 0, 'chol_solve_batched': 0,
+            'advance_state': 0, 'chol_factor_batched': 0, 'chol_factor_cluster': 0,
+            'chol_factor_global': 0, 'chol_solve_batched': 0,
             'block_factor': 0, 'block_solve': 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -92,7 +95,9 @@ SIGNATURES = {
     'qr_factor_blocked': [_P] * 5 + [_I] * 4 + [_P],
     'qr_solve_batched': [_P] * 4 + [_I] * 5 + [_P],
     'advance_state': [_P] + [_I] * 4 + [_D] * 3 + [_P],
-    'chol_factor_batched': [_P] * 3 + [_I] * 2 + [_P],
+    'chol_factor_global': [_P] * 3 + [_I] * 2 + [_P],
+    'chol_factor_cluster_occupancy': [_I, _I, _P],
+    'chol_factor_cluster': [_P] * 3 + [_I] * 6 + [_P],
     'chol_solve_batched': [_P] * 3 + [_I] * 2 + [_P],
     'block_factor': [_P] * 7 + [_I] * 9 + [_P],
     'block_solve': [_P] * 8 + [_I] * 7 + [_P],
@@ -1259,16 +1264,102 @@ def chol_factor_batched_plain(M):
     return L, torch.isfinite(L).flatten(1).all(dim=1)
 
 
-CHOL_NB = 32                # panel width of K10 (K10_NB)
+CHOL_NB = 32                # panel width of K10's global variant (K10_NB)
+CHOL_CLUSTER_NB = 16        # panel width of K10's cluster variant (K10C_NB)
+CHOL_CLUSTER_MAX = 16       # CTAs a lane (K10C_MAX_CLUSTER; non-portable past 8)
+CHOL_STATIC_SMEM = 3_072    # room for the cluster variant's static shared arrays (2192 B)
+
+
+class CholGeometry(NamedTuple):
+    """How K10 lays one lane out. 'cluster': a thread-block cluster of ``C``
+    CTAs, panels of ``nb`` columns dealt block-cyclically (rank r holds
+    ``panels[r]``, panel p's rows p nb .. n - 1 from row ``offsets[r][i]`` of
+    its shared memory, at leading dimension ``ld``), then a receive buffer of
+    ``recv_rows`` rows from row ``recv_off`` for the panel being applied, in
+    ``smem_bytes`` of dynamic shared memory a rank (a launch gives every rank
+    the same). 'global': one CTA a lane, the lane in global memory and a
+    panel of ``nb`` columns (n rows at leading dimension ``ld``) in
+    ``smem_bytes`` (C = 1). This is the one place that computes the layout:
+    the kernels take it as it is."""
+    variant: str
+    C: int
+    nb: int
+    ld: int
+    panels: tuple
+    offsets: tuple
+    recv_off: int
+    recv_rows: int
+    smem_bytes: int
+
+
+CHOL_CLUSTER_SIZES = (4, 8, 16)   # the cluster sizes K10's geometry tries, in order
+
+
+def chol_cluster_layout(n: int, C: int) -> Optional[CholGeometry]:
+    """K10's cluster layout of an n x n lane over min(C, panels) CTAs, or None
+    where a rank's panels and the receive buffer do not fit one block's
+    shared memory."""
+    nb = CHOL_CLUSTER_NB
+    P = -(-n // nb)
+    C = min(C, P)
+    ld = block_ld(nb)
+    panels = tuple(tuple(range(r, P, C)) for r in range(C))
+    offsets = tuple(tuple(itertools.accumulate([n - p * nb for p in ps[:-1]], initial=0))
+                    for ps in panels)
+    rows = max(sum(n - p * nb for p in ps) for ps in panels)
+    recv = n - nb if P > 1 else 0
+    smem = 8 * ld * (rows + recv)
+    if smem + CHOL_STATIC_SMEM > SMEM_PER_BLOCK:
+        return None
+    return CholGeometry('cluster', C, nb, ld, panels, offsets, rows * ld, recv, smem)
+
+
+def chol_factor_geometry(n: int) -> CholGeometry:
+    """K10's variant and layout for n x n lanes: the cluster variant with the
+    fewest CTAs of CHOL_CLUSTER_SIZES (4, 8, 16; never more than the lane has
+    panels of 16) whose ranks hold the lower triangle and a receive buffer in
+    one block's shared memory (n <= 344: 4; <= 443: 8; <= 554: 16): the
+    factor is bound by its chain of pivots, which more CTAs a lane do not
+    shorten, while fewer let more lanes run at once; else the global variant
+    while its panel of 32 columns fits (n <= 876); beyond that it raises by
+    name."""
+    for C in CHOL_CLUSTER_SIZES:
+        geom = chol_cluster_layout(n, C)
+        if geom is not None:
+            return geom
+    smem = 8 * n * (CHOL_NB + 1)   # the panel's rows at leading dimension K10_LD
+    if smem + BLOCK_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f'chol_factor_batched: n={n} fits no variant of K10 (the global '
+                         f'variant\'s panel of {CHOL_NB} columns needs {smem} B of shared '
+                         f'memory)')
+    return CholGeometry('global', 1, CHOL_NB, CHOL_NB + 1, (), (), 0, 0, smem)
+
+
+def chol_cluster_max_active(geom: CholGeometry) -> int:
+    """Clusters of K10's cluster geometry the card runs at once (asked once
+    per geometry); raises if it cannot run one."""
+    key = ('chol', geom.C, geom.smem_bytes)
+    if key not in _max_clusters:
+        count = ctypes.c_int(0)
+        _check('chol_factor_cluster_occupancy', library().chol_factor_cluster_occupancy(
+            geom.C, geom.smem_bytes, ctypes.byref(count)))
+        if count.value < 1:
+            raise RuntimeError(f'chol_factor_cluster: a cluster of {geom.C} CTAs with '
+                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
+        _max_clusters[key] = count.value
+    return _max_clusters[key]
 
 
 def chol_factor_batched(M):
     """(B, n, n) f64 -> (L (B, n, n) f64, lower with zeros above, ok (B,)
     bool), as chol_factor_batched_plain; a lane whose pivot is <= 0 or not
     finite, or whose L has a non-finite entry, gets ok False and an L of
-    NaN, and the other lanes' bits do not depend on it. On the card one
-    launch, a CTA per lane: a right-looking factor in panels of CHOL_NB
-    columns, the panel in shared memory, the trailing update in global
+    NaN, and the other lanes' bits do not depend on it. Only M's lower
+    triangle is read. On the card one launch of the variant
+    chol_factor_geometry(n) gives: a thread-block cluster per lane with the
+    lower triangle in its shared memory, panels of 16 and the trailing
+    update by f64 tensor-core MMAs; or, for lanes no cluster holds, a CTA per
+    lane, panels of 32 in shared memory and the trailing update in global
     memory (the lane stays in the L2)."""
     if not M.is_cuda:
         return chol_factor_batched_plain(M)
@@ -1277,13 +1368,18 @@ def chol_factor_batched(M):
     B, n, n2 = M.shape
     if n != n2:
         raise ValueError(f'{name}: square matrices expected')
-    smem = 8 * n * (CHOL_NB + 1)   # the panel's rows at leading dimension K10_LD
-    if smem + BLOCK_STATIC_SMEM > SMEM_PER_BLOCK:
-        raise ValueError(f'{name}: n={n} leaves no room for a panel of {CHOL_NB} columns')
+    geom = chol_factor_geometry(n)
     L = torch.empty_like(M)
     ok = torch.empty(B, dtype=torch.bool, device=M.device)
-    _check(name, library().chol_factor_batched(_ptr(M), _ptr(L), _ptr(ok), B, n, _stream()))
+    if geom.variant == 'cluster':
+        chol_cluster_max_active(geom)
+        _check(name, library().chol_factor_cluster(_ptr(M), _ptr(L), _ptr(ok), B, n, geom.C,
+                                                   geom.ld, geom.recv_off, geom.smem_bytes,
+                                                   _stream()))
+    else:
+        _check(name, library().chol_factor_global(_ptr(M), _ptr(L), _ptr(ok), B, n, _stream()))
     LAUNCHES[name] += 1
+    LAUNCHES[f'chol_factor_{geom.variant}'] += 1
     return L, ok
 
 

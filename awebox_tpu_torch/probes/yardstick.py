@@ -1,8 +1,8 @@
 """The yardsticks a kernel is held against, shared by chip_smoke.py and the
 phase probes so that both report the same numbers: the least time the card
-could take for a piece of work, and for K8 (block_factor) the work its
-function must do, the library composition of the same function and the
-gaps of a factor to a reference.
+could take for a piece of work, for K10 (chol_factor_batched) the work its
+function must do, and for K8 (block_factor) that work, the library
+composition of the same function and the gaps of a factor to a reference.
 """
 import torch
 
@@ -15,8 +15,8 @@ def bound(nbytes, ops=0):
     sets it: the larger of the bytes over HBM3's 3.35 TB/s and the
     operations over their peak (H100 SXM data sheet, at 700 W), 67 TFLOP/s
     for both types here: f32 on the CUDA cores, and f64 on the tensor
-    cores, the fastest the card does f64 (K8's updates run there; the other
-    f64 kernels run on the CUDA cores' 34)."""
+    cores, the fastest the card does f64 (K8's and K10's updates run there;
+    the other f64 kernels run on the CUDA cores' 34)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
@@ -33,6 +33,15 @@ def block_factor_bound(lay, B):
                   + B * (n_k * ni * ni + n_k * ni * c + nr * nr)) + B
     ops = B * (n_k * (ni ** 3 / 3 + ni * ni * c + ni * c * c) + nr ** 3 / 3)
     return bound(nbytes, ops)
+
+
+def chol_factor_bound(n, B):
+    """K10's bound at B lanes of n x n: the lower triangle of each (symmetric)
+    M read once, L (with its zeros, which the contract writes) and ok
+    written once; n^3 / 3 operations a lane, at the f64 tensor-core peak
+    (the cluster variant's updates run there)."""
+    nbytes = 8 * B * (n * (n + 1) // 2 + n * n) + B
+    return bound(nbytes, B * n ** 3 / 3)
 
 
 def block_factor_library(Frame, delta, own_free, lay, L_R):

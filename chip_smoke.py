@@ -43,9 +43,12 @@ and checks the hand-written CUDA kernels on the way:
               of one direction call with each factor; the block and condensed
               KKT modes' kernels: K8 block_factor and K9 block_solve on the
               anchor's frames at B = 1, 2, 16 and 128 (and the n_k=8 anchor's at
-              B=16, in phase 7), K10 chol_factor_batched and K11
-              chol_solve_batched on the anchor's condensed M (n=280; n=540
-              in phase 7), each with an indefinite and a NaN lane, and K4's
+              B=16, in phase 7), K10 chol_factor_batched in its cluster
+              variant (its geometry and the clusters that run at once
+              printed) and K11 chol_solve_batched on the anchor's condensed
+              M (n=280, B = 1, 2 and 16; n=540, B=16 in phase 7) and K10's
+              global variant with K11 on random SPD matrices at n=700 (B = 4
+              and 2), each with an indefinite and a NaN lane where B > 2, and K4's
               advance_state bit for bit, each beside its bound, its plain
               version and a library yardstick
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
@@ -69,9 +72,9 @@ and checks the hand-written CUDA kernels on the way:
               on the CPU; every lane must reach err <= 1e-5 with f64 max |eq|
               <= 1e-4 and the 9.5 m/s lane the JAX package's power and period
               to 1e-6; every lane's power and period printed; then its
-              [path]: K8 (K10) once per ladder attempt, K9 (K11) three times
-              and K4's advance_state once per iteration, no other kernel and
-              no plain version
+              [path]: K8 (K10, every launch in its cluster variant) once per
+              ladder attempt, K9 (K11) three times and K4's advance_state
+              once per iteration, no other kernel and no plain version
   7. n_k=8    the same sweep from tests/artifacts/bench_anchor_nk8_d3.npz
               ([slice-nk8] with LU, [slice-nk8-qr] with QR, each followed by
               its [path]), every factor through the blocked variants: the
@@ -192,7 +195,8 @@ def main():
     from awebox_tpu_torch.ocp.structured import make_structured_derivs
     from awebox_tpu_torch.probes.direction_ops import count_and_time
     from awebox_tpu_torch.probes.yardstick import (block_factor_bound, block_factor_gaps,
-                                                   block_factor_library, bound)
+                                                   block_factor_library, bound,
+                                                   chol_factor_bound)
 
     dev = torch.device('cuda')
     f32, f64 = torch.float32, torch.float64
@@ -969,8 +973,13 @@ def main():
         rhs_ = sys_['r1'] - (sys_['A'].transpose(1, 2) @ (sys_['r2'] / sys_['D'])[..., None])[..., 0]
         return M_of(d0), rhs_.contiguous(), d0
 
-    def hold_chol(tag, M, b):
+    def hold_chol(tag, M, b, variant):
+        """K10 (in the variant chol_factor_geometry gives, which must be
+        ``variant``) and K11 on M and b against their plain versions."""
+        M, b = M.contiguous(), b.contiguous()
         B_, n_ = M.shape[0], M.shape[1]
+        geom = kernels.chol_factor_geometry(n_)
+        require(geom.variant == variant, f'K10 {tag}: the {geom.variant} variant, not {variant}')
         Mb = spoil(M, (n_ // 2, n_ // 2), (n_ - 1, 3))
         before = dict(kernels.LAUNCHES)
         L_k, ok_k = kernels.chol_factor_batched(Mb)
@@ -981,6 +990,8 @@ def main():
         x_c = kernels.chol_solve_batched(L_c, b)
         torch.cuda.synchronize()
         require(kernels.LAUNCHES['chol_factor_batched'] == before['chol_factor_batched'] + 2
+                and kernels.LAUNCHES[f'chol_factor_{variant}']
+                == before[f'chol_factor_{variant}'] + 2
                 and kernels.LAUNCHES['chol_solve_batched'] == before['chol_solve_batched'] + 2,
                 f'K10/K11 {tag}: launches')
         bad = [b_ for b_ in (1, 2) if B_ > 2]
@@ -1004,7 +1015,7 @@ def main():
         lib10 = lambda: torch.linalg.cholesky_ex(M)
         b_col = b[..., None].contiguous()
         lib11 = lambda: torch.cholesky_solve(b_col, L_c)
-        b10 = bound(nbytes(M, L_c, ok_c), B_ * n_ ** 3 / 3)
+        b10 = chol_factor_bound(n_, B_)
         b11 = bound(nbytes(L_c, b, x_c), 2 * B_ * n_ * n_)
         recs = []
         for fn, plain, lib, (b_, by_), err in (
@@ -1017,7 +1028,13 @@ def main():
                              plain_ms=cuda_median_ms(plain), library_ms=cuda_median_ms(lib),
                              library_queued_ms=cuda_median_ms(lib, queued=True),
                              bound_ms=b_, bound_by=by_))
-        phase('kernels', f'K10 chol_factor_batched {tag}: ok {int(ok_k.sum())}/{B_} as plain, '
+        if variant == 'cluster':
+            active = kernels.chol_cluster_max_active(geom)
+            phase('kernels', f'K10 chol_factor_cluster {tag}: clusters of C={geom.C} CTAs, panels of '
+                  f'{geom.nb} at leading dimension {geom.ld}, {geom.smem_bytes} B of shared memory a '
+                  f'rank; {active} clusters at once: {-(-B_ // active)} wave(s) at B={B_}, '
+                  f'{-(-B // active)} at B={B}, {-(-8 * B // active)} at B={8 * B}')
+        phase('kernels', f'K10 chol_factor_{variant} {tag}: ok {int(ok_k.sum())}/{B_} as plain, '
               f'max |L L^T - M| {float(rec_k.max()):.2e} vs plain {float(rec_p.max()):.2e} (max |M| '
               f'{float(scale.max()):.2e}); {recs[0]["ms"]:.4f} ms, queued {recs[0]["queued_ms"]:.4f} '
               f'ms, plain {recs[0]["plain_ms"]:.3f} ms, torch.linalg.cholesky_ex '
@@ -1039,8 +1056,20 @@ def main():
             f'n_k=4 B={Bk}', lanes(asm4['Frame'], Bk), own4, imaps4, lanes(asm4['rhs_w'], Bk),
             fV4, free, lay4)
     M4, rhs4, d4 = condensed(state, P64, lbw, ubw, free, ocp)
-    chol_at[f'n={n} B={B}'], csolve_at[f'n={n} B={B}'] = hold_chol(f'n={n} B={B} delta {d4:.0e}',
-                                                                   M4, rhs4)
+    for Bk in (1, 2, B):   # B = 1, 2: a delta-ladder retry's size
+        chol_at[f'n={n} B={Bk}'], csolve_at[f'n={n} B={Bk}'] = hold_chol(
+            f'n={n} B={Bk} delta {d4:.0e}', M4[:Bk], rhs4[:Bk], 'cluster')
+    # the global variant, for lanes no cluster holds, on random SPD matrices
+    # (cond ~ 1e3) at n = 700: B = 4 with an indefinite and a NaN lane, B = 2
+    n_g = 700
+    rng_g = np.random.default_rng(n_g)
+    G_g = rng_g.standard_normal((4, n_g, n_g))
+    M_g = torch.as_tensor(G_g @ G_g.transpose(0, 2, 1) / n_g + np.eye(n_g), device=dev)
+    b_g = torch.as_tensor(rng_g.standard_normal((4, n_g)), device=dev)
+    global_at, gsolve_at = {}, {}
+    for Bk in (4, 2):
+        global_at[f'n={n_g} B={Bk}'], gsolve_at[f'n={n_g} B={Bk}'] = hold_chol(
+            f'n={n_g} B={Bk} random SPD', M_g[:Bk], b_g[:Bk], 'global')
     # K4's advance_state bit for bit on the block direction at the anchor
     direction4 = kkt_solve4(blocks4, *[state[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu')],
                             lbw, ubw, free, state['mu'], 1e-8, 1e-8, 1e-8)
@@ -1313,13 +1342,21 @@ def main():
         require(retries >= 0 and launches[sol] == 3 * it and launches['advance_state'] == it,
                 f'{tag}: not one {fac} per ladder attempt, three {sol} and one advance_state per '
                 f'iteration ({it}): {launches}')
-        others = [k for k in launches if k not in (fac, sol, 'advance_state') and launches[k]]
+        variants = ()
+        if mode == 'dense':   # every K10 launch takes the cluster variant at n = 280
+            variants = ('chol_factor_cluster',)
+            require(launches['chol_factor_cluster'] == launches[fac]
+                    and launches['chol_factor_global'] == 0,
+                    f'{tag}: K10 launches not all in the cluster variant: {launches}')
+        others = [k for k in launches
+                  if k not in (fac, sol, 'advance_state') + variants and launches[k]]
         require(not others, f'{tag}: other kernels ran: {others}')
         require(not any(plain_calls.values()), f'{tag}: plain versions ran: {plain_calls}')
         require(all(v.is_cuda for v in out.values()), f'{tag}: the state left the card')
         phase('path', f'{tag}: kernel launches in the run: '
               f'{ {k: v for k, v in launches.items() if v} }; {fac} {launches[fac]} = {it} '
-              f'iterations + {retries} ladder retries, {sol} 3 per iteration, advance_state 1 per '
+              f'iterations + {retries} ladder retries{", all in the cluster variant" if variants else ""}, '
+              f'{sol} 3 per iteration, advance_state 1 per '
               f'iteration; plain versions called: {sum(plain_calls.values())}; state on the card')
         return launches, it, seconds
 
@@ -1402,10 +1439,11 @@ def main():
     M8c, rhs8c, d8 = condensed(state8, P64_8, lbw8, ubw8, free8, ocp8)
     n8c = M8c.shape[1]
     chol_at[f'n={n8c} B={B}'], csolve_at[f'n={n8c} B={B}'] = hold_chol(
-        f'n={n8c} B={B} delta {d8:.0e}', M8c, rhs8c)
+        f'n={n8c} B={B} delta {d8:.0e}', M8c, rhs8c, 'cluster')
     report['block_factor'] = dict(block_at[f'n_k=4 B={B}'], at=block_at)
     report['block_solve'] = dict(bsolve_at[f'n_k=4 B={B}'], at=bsolve_at)
-    report['chol_factor_batched'] = dict(chol_at[f'n={n} B={B}'], at=chol_at)
+    report['chol_factor_cluster'] = dict(chol_at[f'n={n} B={B}'], at=chol_at)
+    report['chol_factor_global'] = dict(global_at[f'n={n_g} B=2'], at=global_at)
     report['chol_solve_batched'] = dict(csolve_at[f'n={n} B={B}'], at=csolve_at)
     cell8_h = wind_sweep_problem(trial8, anchor8, 2, device='cpu')
     for fac in ('lu', 'qr'):
@@ -1444,7 +1482,8 @@ def main():
                'qr_factor_blocked': 'awebox_tpu/parallel/batch.py:382',
                'qr_solve_batched': 'awebox_tpu/parallel/batch.py:344',
                'advance_state': 'awebox_tpu/parallel/batch.py:449',
-               'chol_factor_batched': 'awebox_tpu/parallel/batch.py:215',
+               'chol_factor_cluster': 'awebox_tpu/parallel/batch.py:215',
+               'chol_factor_global': 'awebox_tpu/parallel/batch.py:215',
                'chol_solve_batched': 'awebox_tpu/parallel/batch.py:234',
                'block_factor': 'awebox_tpu/ocp/blockkkt.py:539',
                'block_solve': 'awebox_tpu/ocp/blockkkt.py:646'}
@@ -1452,7 +1491,8 @@ def main():
            'lu_solve_batched': launches_lu, 'lu_factor_blocked': launches_lu8,
            'qr_factor_blocked': launches_qr8, 'advance_state': launches_block,
            'block_factor': launches_block, 'block_solve': launches_block,
-           'chol_factor_batched': launches_dense, 'chol_solve_batched': launches_dense}
+           'chol_factor_cluster': launches_dense, 'chol_factor_global': launches_dense,
+           'chol_solve_batched': launches_dense}
     phase('done', f'chip_smoke.py ran {time.time() - t_start:.1f} s')
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', source='awebox_tpu_torch/csrc/auglu.cu',

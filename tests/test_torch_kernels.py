@@ -1677,6 +1677,191 @@ def chol_factor_mirror(M, nb=32):
     return L, ok
 
 
+def k10c_panel_mirror(T, w):
+    """chol_factor_cluster_kernel's panel factor (k10c_panel) in place on T,
+    the panel's rows from its diagonal (w columns): column by column, the
+    pivot's 1/sqrt, the column below it scaled, L_jj = d2 / sqrt(d2), the
+    panel's later columns updated, as warp 0's chain and the row sweep below
+    the block both do. Returns False where a pivot is <= 0 or not finite."""
+    ok = True
+    for j in range(w):
+        d2 = T[j, j]
+        ok = ok and bool(d2 > 0) and bool(np.isfinite(d2))
+        with np.errstate(invalid='ignore', divide='ignore'):
+            rs = 1. / np.sqrt(d2)
+        T[j + 1:, j] *= rs
+        T[j, j] = d2 * rs
+        for jj in range(j + 1, w):
+            T[jj:, jj] -= T[jj:, j] * T[jj, j]
+    return ok
+
+
+def k10c_update_mirror(T, Pr, q0, base, w):
+    """k10c_tile_pair: T (rows q0.., w columns) less the rank-16 product of
+    the applied panel Pr (rows base..) on T's 8 x 8 tiles on or below the
+    diagonal: each entry's products summed from zero in four k-steps of 4,
+    in order, then subtracted once; entries above the diagonal of a diagonal
+    tile neither read nor written (row tiles are independent, so each tile
+    column J is taken for all row tiles at once)."""
+    h = T.shape[0]
+    for J in range(2):
+        cols = np.arange(8 * J, min(8 * J + 8, w))
+        if len(cols) == 0:
+            continue
+        rows = np.arange(8 if J else 0, h)            # tile (0, 1) lies above the diagonal
+        A = Pr[q0 - base + rows]
+        Bm = Pr[q0 - base + cols]
+        upd = np.zeros((len(rows), len(cols)))
+        for s in range(4):
+            k = slice(4 * s, 4 * s + 4)
+            upd = upd + A[:, k] @ Bm[:, k].T
+        blk = T[np.ix_(rows, cols)]
+        T[np.ix_(rows, cols)] = np.where(cols[None, :] <= rows[:, None], blk - upd, blk)
+
+
+def chol_factor_cluster_mirror(M, geom=None):
+    """K10's cluster variant on one lane at a time, in numpy f64: each rank's
+    panels of 16 (chol_factor_geometry's deal) copied in from M's lower
+    triangle alone (M may hold NaN above the diagonal: nothing reads there),
+    panel 0 factored by its owner, then a phase a panel: the owner's flag
+    stops every rank; each rank receives the panel's rows below its first
+    trailing column (the kernel hands them over through the L2 and, to the
+    next panel's owner, its first 32 rows through distributed shared
+    memory: the same values); the owner of p + 1 applies panel p to it and
+    factors it (the look-ahead), every rank applies panel p to its other
+    trailing panels; L gathered from the ranks' panels, NaN where the lane
+    failed."""
+    from awebox_tpu_torch.parallel import kernels
+    B, n, _ = M.shape
+    g = geom or kernels.chol_factor_geometry(n)
+    nb, C = g.nb, g.C
+    P = -(-n // nb)
+    owner = lambda p: p % C
+    L = np.zeros_like(M); ok = np.ones(B, bool)
+    for lane in range(B):
+        A = M[lane]
+        pan = {}
+        for r in range(C):
+            for p in g.panels[r]:
+                q0, w = p * nb, min(nb, n - p * nb)
+                T = np.zeros((n - q0, nb))
+                for i in range(q0, n):
+                    cols = range(q0, min(q0 + w, i + 1))
+                    T[i - q0, :len(cols)] = [A[i, j] for j in cols]
+                pan[p] = T
+        failed = not k10c_panel_mirror(pan[0], min(nb, n))
+        for k in range(P - 1):
+            if failed:
+                break
+            base = (k + 1) * nb
+            recv = {}
+            for r in range(C):
+                later = [p for p in g.panels[r] if p > k]
+                if later:
+                    lo = later[0] * nb
+                    recv[r] = np.full((n - base, nb), np.nan)
+                    recv[r][lo - base:] = pan[k][lo - k * nb:]
+            o = owner(k + 1)
+            q0 = (k + 1) * nb
+            k10c_update_mirror(pan[k + 1], recv[o], q0, base, min(nb, n - q0))
+            failed = not k10c_panel_mirror(pan[k + 1], min(nb, n - q0))
+            for r in range(C):
+                for p in g.panels[r]:
+                    if p > k + (1 if r == o else 0):
+                        k10c_update_mirror(pan[p], recv[r], p * nb, base, min(nb, n - p * nb))
+        Lw = L[lane]
+        for p, T in pan.items():
+            q0, w = p * nb, min(nb, n - p * nb)
+            Lw[q0:, q0:q0 + w] = np.tril(T[:, :w])
+        if failed or not np.isfinite(Lw).all():
+            Lw[:] = np.nan; ok[lane] = False
+    return L, ok
+
+
+def chol_test_matrices(n, B=4, seed=None):
+    """SPD lanes (cond ~ 1e3) with lane 1 made indefinite and lane 2 given a
+    NaN in both triangles, as test_chol_mirrors_match_plain builds them."""
+    rng = np.random.default_rng(n if seed is None else seed)
+    G = rng.standard_normal((B, n, n))
+    M = G @ G.transpose(0, 2, 1) / n + np.eye(n)
+    M[1, n // 2, n // 2] = -1.0
+    M[2, n - 1, 3] = M[2, 3, n - 1] = np.nan
+    return M
+
+
+@pytest.mark.parametrize('n', [37, 280, 540])
+def test_chol_cluster_mirror_matches_plain(n):
+    """K10's cluster schedule (chol_factor_cluster_mirror: the panel deal of
+    chol_factor_geometry, the look-ahead order, tiles of 8 on or below the
+    diagonal with their k-steps in order), fed M with NaN above the diagonal,
+    against chol_factor_batched_plain on the symmetric M: L to 1e-13 of its
+    max on SPD lanes, the indefinite and the NaN lane failing alone (ok
+    False, L NaN throughout)."""
+    from awebox_tpu_torch.parallel import kernels
+    M = chol_test_matrices(n)
+    Lp, okp = kernels.chol_factor_batched_plain(torch.as_tensor(M))
+    Mu = M.copy()
+    Mu[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
+    Lm, okm = chol_factor_cluster_mirror(Mu)
+    assert okp.tolist() == okm.tolist() == [True, False, False, True]
+    good = [0, 3]
+    assert np.abs(Lp.numpy()[good] - Lm[good]).max() <= 1e-13 * np.abs(Lm[good]).max()
+    assert np.isnan(Lp.numpy()[[1, 2]]).all() and np.isnan(Lm[[1, 2]]).all()
+    assert (Lm[good][:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] == 0).all()
+
+
+CHOL_CLUSTER_LAST = 554     # the largest n the cluster variant holds
+
+
+@pytest.mark.parametrize('n', [37, 280, 540, CHOL_CLUSTER_LAST, CHOL_CLUSTER_LAST + 1, 876, 877])
+def test_chol_factor_geometry(n):
+    """K10 takes its cluster variant up to n = 554, with the fewest CTAs of 4,
+    8 and 16 (a non-portable cluster) that hold the lane (never more than it
+    has panels: 3 at n = 37, 4 at 280, 16 at 540), the one-CTA global
+    variant up to 876, and raises by name at 877. In the cluster layout
+    every panel of 16 is dealt to exactly one rank (panel p to rank p % C),
+    each rank stores each of its panels' lower-triangle rows (p 16 .. n - 1)
+    once, one after another and then the receive buffer (n - 16 rows), at
+    leading dimension 20 (4 mod 8 doubles), within one block's shared
+    memory."""
+    from awebox_tpu_torch.parallel import kernels
+    if n > 876:
+        with pytest.raises(ValueError, match='chol_factor_batched'):
+            kernels.chol_factor_geometry(n)
+        return
+    g = kernels.chol_factor_geometry(n)
+    if n > CHOL_CLUSTER_LAST:
+        assert g.smem_bytes + kernels.BLOCK_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+        assert (g.variant, g.C, g.nb, g.ld) == ('global', 1, 32, 33)
+        assert g.smem_bytes == 8 * n * 33
+        return
+    assert g.smem_bytes + kernels.CHOL_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+    assert g.variant == 'cluster' and g.nb == 16 and g.ld == 20 and g.ld % 8 == 4
+    P = -(-n // 16)
+    assert g.C == {37: 3, 280: 4, 540: 16, CHOL_CLUSTER_LAST: 16}[n]
+    assert all(kernels.chol_cluster_layout(n, c) is None
+               for c in kernels.CHOL_CLUSTER_SIZES if c < g.C)
+    dealt = sorted(p for ps in g.panels for p in ps)
+    assert dealt == list(range(P))
+    assert all(p % g.C == r for r, ps in enumerate(g.panels) for p in ps)
+    stored = set()
+    for r, (ps, offs) in enumerate(zip(g.panels, g.offsets)):
+        end = 0
+        for p, off in zip(ps, offs):
+            assert off == end                   # one after another, no gap, no overlap
+            end = off + n - 16 * p
+            for i in range(16 * p, n):          # row i of panel p, once
+                assert (p, i) not in stored
+                stored.add((p, i))
+        assert end * g.ld <= g.recv_off
+    assert stored == {(p, i) for p in range(P) for i in range(16 * p, n)}
+    assert g.recv_rows == (n - 16 if P > 1 else 0)
+    assert g.smem_bytes == 8 * (g.recv_off + g.recv_rows * g.ld)
+    if n == CHOL_CLUSTER_LAST:
+        nxt = kernels.chol_factor_geometry(n + 1)
+        assert nxt.variant == 'global'
+
+
 @pytest.mark.parametrize('name', list(BLOCK_LAYOUTS))
 def test_block_factor_mirror_matches_plain(name):
     """K8's schedule (each frame permuted to [interior | x_k | x_{k+1} |
@@ -2288,31 +2473,37 @@ def test_block_kernels_match_plain_on_card(cuda):
 @pytest.mark.cuda
 def test_chol_kernels_match_plain_on_card(cuda):
     """K10 (chol_factor_batched) and K11 (chol_solve_batched) against their
-    plain versions at n = 37, 280 and 540, B = 16: L within 1e-12 of its max
-    and x within 1e-10 of max |x| on SPD lanes (cond ~ 1e3; only the order
-    of the sums differs); a negative pivot and a NaN entry fail their lane
-    alone (ok False, L NaN) and change no other lane's bits."""
+    plain versions at n = 37, 280 and 540 (K10's cluster variant) and 700
+    (its global variant), B = 16: L within 1e-12 of its max and x within
+    1e-10 of max |x| on SPD lanes (cond ~ 1e3; only the order of the sums
+    differs); a negative pivot and a NaN entry fail their lane alone (ok
+    False, L NaN) and change no other lane's bits; two calls give the same
+    bits; each launch counted under the variant chol_factor_geometry gives."""
     from awebox_tpu_torch.parallel import kernels
-    for n in (37, 280, 540):
-        rng = np.random.default_rng(n)
-        G = rng.standard_normal((16, n, n))
-        M = G @ G.transpose(0, 2, 1) / n + np.eye(n)
-        M_clean = torch.as_tensor(M, device=cuda)
-        M[1, n // 2, n // 2] = -1.0
-        M[2, n - 1, 3] = M[2, 3, n - 1] = np.nan
+    for n in (37, 280, 540, 700):
+        variant = kernels.chol_factor_geometry(n).variant
+        assert variant == ('global' if n == 700 else 'cluster')
+        M = chol_test_matrices(n, B=16)
+        M_clean = M.copy()
+        M_clean[[1, 2]] = M[0]
+        M_clean = torch.as_tensor(M_clean, device=cuda)
         Mt = torch.as_tensor(M, device=cuda)
-        b = torch.as_tensor(rng.standard_normal((16, n)), device=cuda)
+        b = torch.as_tensor(np.random.default_rng(n).standard_normal((16, n)), device=cuda)
         before = dict(kernels.LAUNCHES)
         L, ok = kernels.chol_factor_batched(Mt)
         x = kernels.chol_solve_batched(L, b)
         Lp, okp = kernels.chol_factor_batched_plain(Mt)
         xp = kernels.chol_solve_batched_plain(Lp, b)
         L_c, _ = kernels.chol_factor_batched(M_clean)
+        L_2, ok_2 = kernels.chol_factor_batched(Mt)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES['chol_factor_batched'] == before['chol_factor_batched'] + 2
+        assert kernels.LAUNCHES['chol_factor_batched'] == before['chol_factor_batched'] + 3
+        assert kernels.LAUNCHES[f'chol_factor_{variant}'] \
+            == before[f'chol_factor_{variant}'] + 3
         assert kernels.LAUNCHES['chol_solve_batched'] == before['chol_solve_batched'] + 1
         assert ok.tolist() == okp.tolist() == [b_ not in (1, 2) for b_ in range(16)]
         good = [b_ for b_ in range(16) if b_ not in (1, 2)]
         assert float((L[good] - Lp[good]).abs().max()) <= 1e-12 * float(Lp[good].abs().max())
         assert float((x[good] - xp[good]).abs().max()) <= 1e-10 * float(xp[good].abs().max())
         assert bool(torch.isnan(L[[1, 2]]).all()) and torch.equal(L[good], L_c[good])
+        assert torch.equal(L.view(torch.int64), L_2.view(torch.int64)) and torch.equal(ok, ok_2)
