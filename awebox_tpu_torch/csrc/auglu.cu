@@ -3300,81 +3300,6 @@ advance_state_kernel(AdvancePtrs p, int n, int n_eq, int n_ineq, double tau, dou
 }
 
 // ---------------------------------------------------------------------------
-// Triangular solves of one lane by one CTA, f64, shared by K9 and K11: the
-// vector in shared memory, the factor L (lower, row-major, leading
-// dimension ld) read from global memory once a substitution, in tiles of 32
-// rows. A tile's rows first take the solved part of the vector (a warp a
-// row, coalesced reads of the row, a shuffle sum), then warp 0 solves the
-// 32 x 32 diagonal tile, a lane a row. L^T x = b walks the tiles backwards:
-// the warps stream the solved rows below the tile (row j's 32 entries of
-// the tile's columns, coalesced), their partial sums meet in `red`, and
-// warp 0 solves the transposed diagonal tile reading its rows. Two block
-// barriers a tile; the sums are in a fixed order.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
-  return v;
-}
-
-// L x = b in place in xs[0..m)
-__device__ void tri_lower_solve(const double* L, int ld, int m, double* xs) {
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31, W = blockDim.x >> 5;
-  for (int t0 = 0; t0 < m; t0 += 32) {
-    const int h = min(32, m - t0);
-    if (t0 > 0) {
-      for (int i = warp; i < h; i += W) {
-        const double* Lr = L + (size_t)(t0 + i) * ld;
-        double acc = 0.0;
-        for (int j = wl; j < t0; j += 32) acc = fma(Lr[j], xs[j], acc);
-        acc = warp_sum(acc);
-        if (wl == 0) xs[t0 + i] -= acc;
-      }
-      __syncthreads();
-    }
-    if (warp == 0) {
-      double b = (wl < h) ? xs[t0 + wl] : 0.0;
-      for (int j = 0; j < h; ++j) {
-        if (wl == j) b = b / L[(size_t)(t0 + j) * ld + t0 + j];
-        const double xj = __shfl_sync(FULL_MASK, b, j);
-        if (wl > j && wl < h) b = fma(-L[(size_t)(t0 + wl) * ld + t0 + j], xj, b);
-      }
-      if (wl < h) xs[t0 + wl] = b;
-    }
-    __syncthreads();
-  }
-}
-
-// L^T x = b in place in xs[0..m); red holds 32 doubles a warp
-__device__ void tri_upper_t_solve(const double* L, int ld, int m, double* xs, double* red) {
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31, W = blockDim.x >> 5;
-  for (int t0 = ((m - 1) / 32) * 32; t0 >= 0; t0 -= 32) {
-    const int h = min(32, m - t0), t1 = t0 + h;
-    double s = 0.0;
-    if (t1 < m) {
-      double acc = 0.0;
-      for (int j = t1 + warp; j < m; j += W) {
-        if (wl < h) acc = fma(L[(size_t)j * ld + t0 + wl], xs[j], acc);
-      }
-      red[warp * 32 + wl] = acc;
-      __syncthreads();
-      if (warp == 0) {
-        for (int v = 0; v < W; ++v) s += red[v * 32 + wl];
-      }
-    }
-    if (warp == 0) {
-      double b = (wl < h) ? xs[t0 + wl] - s : 0.0;
-      for (int j = h - 1; j >= 0; --j) {
-        if (wl == j) b = b / L[(size_t)(t0 + j) * ld + t0 + j];
-        const double xj = __shfl_sync(FULL_MASK, b, j);
-        if (wl < j) b = fma(-L[(size_t)(t0 + j) * ld + t0 + wl], xj, b);
-      }
-      if (wl < h) xs[t0 + wl] = b;
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K8 block_factor: the two-level factor of the block-structured KKT system,
 // replacing awebox_tpu/ocp/blockkkt.py:539-588 (per lane: the interval
 // interiors' Cholesky, the coupling solve Xc = Li^-1 M_ic, the Schur
@@ -3787,90 +3712,489 @@ block_factor_kernel(const double* __restrict__ Frame, const double* __restrict__
 }
 
 // ---------------------------------------------------------------------------
+// The substitutions of K9 and K11, f64: L x = b (ks_forward) and L^T x = b
+// (ks_backward) of one lane by one CTA of KS_WARPS warps, L lower, in tiles
+// of 32 x 32. A tile is staged in shared memory as 32 rows of KS_LDT doubles
+// (16-byte rows: a warp reads a tile's column as pairs, and a tile's row,
+// without bank conflicts), its entries outside the m x m matrix as zeros.
+// Where the tiles come from is the source's business (take / done): K9
+// holds its factors whole in shared memory (KsResident), K11 streams L
+// through a ring of slots a warp (KsRing).
+//
+// Right-looking, step s solving row tile s (the backward pass walks the
+// tiles from the last):
+// - warp 0 runs the chain on the diagonal tile, a lane a row: x_j = b_j *
+//   (1 / L_jj), the reciprocals formed once before the first step, then one
+//   shuffle and one FMA a column. The diagonal tile and the tile that meets
+//   the next rows (forward: tile (s + 1, s); backward: (s, s - 1)) are in
+//   shared memory before the step starts, so no column step of the chain
+//   issues a global load. The same column step folds x_j into the lane's
+//   row of the next tile (an FMA off the chain): when the chain ends, the
+//   next tile lacks nothing of this one.
+// - meanwhile warps 1 .. 7 apply the previous tile's x to the rows after the
+//   next (forward: tiles (i, s - 1), i > s; backward: (s + 1, i), i < s), a
+//   tile at a time, dealt round-robin; a tile's 32 products in four
+//   interleaved partial sums, (a0 + a1) + (a2 + a3), taken from y at once.
+// - one block barrier a step.
+// Every sum has a fixed order: row tile i takes the tiles of the columns
+// two or more tiles away in the order of the steps, then the fold of the
+// adjacent tile (its products in column order, from zero), then its chain.
+// Rows past m stay zero and are never broadcast.
+// ---------------------------------------------------------------------------
+constexpr int KS_NB = 32;                    // tile width
+constexpr int KS_LDT = 34;                   // doubles a staged tile row
+constexpr int KS_TILE = KS_NB * KS_LDT;      // doubles a tile slot
+constexpr int KS_THREADS = 256;
+constexpr int KS_WARPS = KS_THREADS / 32;
+
+// Phase stamps for probes/solve_chains.py, which builds the source with
+// KS_STAMPS defined and its own stamps (lane 0 of warps 0 and 1 each add up
+// the cycles since their last stamp); nothing here otherwise.
+#ifndef KS_STAMPS
+#define KS_STAMP_BEGIN()
+#define KS_STAMP(i)
+#define KS_STAMP_END()
+#endif
+
+__device__ __forceinline__ int ks_tiles(int m) { return (m + KS_NB - 1) / KS_NB; }
+
+__device__ __forceinline__ void cp_async8_z(double* dst, const double* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// wait until at most n (0 .. 3) of this thread's cp.async groups are pending
+__device__ __forceinline__ void ks_wait_group(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// Threads q0, q0 + nq, .. copy tile (ti, tj) of the m x m row-major L
+// (leading dimension ld) into dst, entries outside L as zeros (copies that
+// read nothing). pairs: 16-byte copies (m and ld even, L 16-byte aligned).
+__device__ __forceinline__ void ks_copy_tile(double* dst, const double* L, int ld, int m, int ti,
+                                             int tj, bool pairs, int q0, int nq) {
+  const int r0 = ti * KS_NB, c0 = tj * KS_NB;
+  if (pairs) {
+    for (int q = q0; q < KS_NB * KS_NB / 2; q += nq) {
+      const int r = q >> 4, c = 2 * (q & 15);
+      const bool in = r0 + r < m && c0 + c < m;
+      cp_async16_zfill(reinterpret_cast<float*>(dst + r * KS_LDT + c),
+                       reinterpret_cast<const float*>(in ? L + (size_t)(r0 + r) * ld + c0 + c : L),
+                       in);
+    }
+  } else {
+    for (int q = q0; q < KS_NB * KS_NB; q += nq) {
+      const int r = q >> 5, c = q & 31;
+      const bool in = r0 + r < m && c0 + c < m;
+      cp_async8_z(dst + r * KS_LDT + c, in ? L + (size_t)(r0 + r) * ld + c0 + c : L,
+                  in ? 8 : 0);
+    }
+  }
+}
+
+// The lower tiles (ti, tj), tj <= ti, held whole in shared memory, tile
+// (ti, tj) at ti (ti + 1) / 2 + tj.
+struct KsResident {
+  const double* tiles;
+  __device__ __forceinline__ const double* take(int ti, int tj) const {
+    return tiles + (size_t)(ti * (ti + 1) / 2 + tj) * KS_TILE;
+  }
+  __device__ __forceinline__ void done() const {}
+};
+
+// The whole CTA stages the lower tiles of the m x m L (leading dimension m)
+// in the layout KsResident reads (16-byte copies where pairs).
+__device__ void ks_stage(double* tiles, const double* L, int m, bool pairs) {
+  const int T = ks_tiles(m);
+  for (int ti = 0, q = 0; ti < T; ++ti) {
+    for (int tj = 0; tj <= ti; ++tj, ++q) {
+      ks_copy_tile(tiles + (size_t)q * KS_TILE, L, m, m, ti, tj, pairs, threadIdx.x, KS_THREADS);
+    }
+  }
+}
+
+// The tiles a warp takes, in order: the idx-th of step s (s < T: forward
+// step s; then backward, row tile 2T - 1 - s); false where there is none.
+// Warp 0: the diagonal tile and the one it folds; warp w > 0: every
+// (KS_WARPS - 1)-th of the other tiles, from the w-th.
+__device__ __forceinline__ bool ks_step_tile(int s, int idx, int T, int warp, int& ti, int& tj) {
+  if (s < T) {
+    if (warp == 0) {
+      ti = s + idx;
+      tj = s;
+      return idx == 0 || (idx == 1 && s + 1 < T);
+    }
+    ti = s + warp + (KS_WARPS - 1) * idx;
+    tj = s - 1;
+    return s > 0 && ti < T;
+  }
+  const int t = 2 * T - 1 - s;
+  if (warp == 0) {
+    ti = t;
+    tj = t - idx;
+    return idx == 0 || (idx == 1 && t > 0);
+  }
+  ti = t + 1;
+  tj = t - warp - (KS_WARPS - 1) * idx;
+  return ti < T && tj >= 0;
+}
+
+// A warp's ring of sw (<= 4) slots over the tiles it takes in both passes
+// (ks_step_tile's order), as K3's: tile q lands in slot q % sw; giving a
+// tile back issues the copy of the tile sw further on into its slot, so
+// the copies run a step or more ahead of use and none is issued on the
+// chain. One cp.async group a copy (empty once the walk is over): tile q
+// has landed once at most sw - 1 - (tiles held) groups are pending.
+struct KsRing {
+  double* slots;
+  const double* L;
+  int m, T, sw, warp, wl;
+  bool pairs;
+  int s, idx;           // the next tile to copy (s == 2T: none left)
+  int taken, freed;
+
+  __device__ void advance() {
+    int ti, tj;
+    ++idx;
+    while (s < 2 * T && !ks_step_tile(s, idx, T, warp, ti, tj)) {
+      ++s;
+      idx = 0;
+    }
+  }
+
+  __device__ void issue(double* slot) {
+    if (s < 2 * T) {
+      int ti, tj;
+      ks_step_tile(s, idx, T, warp, ti, tj);
+      ks_copy_tile(slot, L, m, m, ti, tj, pairs, wl, 32);
+      advance();
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  __device__ void start() {
+    s = 0;
+    idx = -1;
+    advance();
+    taken = freed = 0;
+    for (int i = 0; i < sw; ++i) issue(slots + i * KS_TILE);
+  }
+
+  __device__ const double* take(int, int) {
+    ks_wait_group(sw - 1 - (taken - freed));
+    __syncwarp();
+    return slots + (taken++ % sw) * KS_TILE;
+  }
+
+  __device__ void done() {
+    __syncwarp();                       // every lane is done with the slots
+    while (freed < taken) issue(slots + (freed++ % sw) * KS_TILE);
+  }
+};
+
+
+// one column step j of warp 0's forward chain (d = L[row][j] of the
+// diagonal tile, e = L[next row][j] of the tile below, r = 1 / L_rowrow)
+__device__ __forceinline__ void ks_fwd_col(double& b, double& an, double d, double e, double r,
+                                           int j, int h, int wl) {
+  if (j < h) {
+    if (wl == j) b *= r;
+    const double xj = __shfl_sync(FULL_MASK, b, j);
+    if (wl > j) b = fma(-d, xj, b);
+    an = fma(-e, xj, an);
+  }
+}
+
+// L y = b in place in y[0 .. 32T) (zeros past m), rinv[i] = 1 / L_ii (1 past
+// m); ph: the stamps' phase of the chains (ph + 1: the step barriers)
+template <class Src>
+__device__ void ks_forward(Src& src, double* y, const double* rinv, int m, int ph, int warp,
+                           int wl) {
+  const int T = ks_tiles(m);
+  double acc = 0.0;                     // warp 0: the fold into the lane's row of this tile
+  for (int s = 0; s < T; ++s) {
+    const int r0 = s * KS_NB;
+    if (warp == 0) {
+      const bool fold = s + 1 < T;
+      const double* D = src.take(s, s) + wl * KS_LDT;
+      const double* E = fold ? src.take(s + 1, s) + wl * KS_LDT : D;
+      KS_STAMP(1);
+      const int h = min(KS_NB, m - r0);
+      const double r = rinv[r0 + wl];
+      double b = y[r0 + wl] + acc, an = 0.0;
+#pragma unroll
+      for (int p = 0; p < KS_NB / 2; ++p) {
+        const double2 d = *reinterpret_cast<const double2*>(D + 2 * p);
+        const double2 e = fold ? *reinterpret_cast<const double2*>(E + 2 * p)
+                               : make_double2(0.0, 0.0);
+        ks_fwd_col(b, an, d.x, e.x, r, 2 * p, h, wl);
+        ks_fwd_col(b, an, d.y, e.y, r, 2 * p + 1, h, wl);
+      }
+      if (wl < h) y[r0 + wl] = b;
+      acc = an;
+      KS_STAMP(ph);
+      src.done();
+      KS_STAMP(10);
+    } else if (s > 0) {
+      const double2* xs = reinterpret_cast<const double2*>(y + r0 - KS_NB);
+      for (int i = s + warp; i < T; i += KS_WARPS - 1) {
+        const double* M = src.take(i, s - 1) + wl * KS_LDT;
+        KS_STAMP(1);
+        double a[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+        for (int p = 0; p < KS_NB / 2; ++p) {
+          const double2 v = *reinterpret_cast<const double2*>(M + 2 * p), x = xs[p];
+          a[(2 * p) & 3] = fma(v.x, x.x, a[(2 * p) & 3]);
+          a[(2 * p + 1) & 3] = fma(v.y, x.y, a[(2 * p + 1) & 3]);
+        }
+        if (i * KS_NB + wl < m) y[i * KS_NB + wl] -= (a[0] + a[1]) + (a[2] + a[3]);
+        KS_STAMP(9);
+        src.done();
+        KS_STAMP(10);
+      }
+    }
+    __syncthreads();
+    KS_STAMP(ph + 1);
+  }
+}
+
+// L^T y = b in place, as ks_forward
+template <class Src>
+__device__ void ks_backward(Src& src, double* y, const double* rinv, int m, int ph, int warp,
+                            int wl) {
+  const int T = ks_tiles(m);
+  double acc = 0.0;
+  for (int t = T - 1; t >= 0; --t) {
+    const int r0 = t * KS_NB;
+    if (warp == 0) {
+      const bool fold = t > 0;
+      const double* D = src.take(t, t) + wl;
+      const double* E = fold ? src.take(t, t - 1) + wl : D;
+      KS_STAMP(1);
+      const int h = min(KS_NB, m - r0);
+      const double r = rinv[r0 + wl];
+      double b = y[r0 + wl] + acc, an = 0.0;
+#pragma unroll
+      for (int j = KS_NB - 1; j >= 0; --j) {
+        if (j < h) {
+          if (wl == j) b *= r;
+          const double xj = __shfl_sync(FULL_MASK, b, j);
+          if (wl < j) b = fma(-D[j * KS_LDT], xj, b);
+          if (fold) an = fma(-E[j * KS_LDT], xj, an);
+        }
+      }
+      if (wl < h) y[r0 + wl] = b;
+      acc = an;
+      KS_STAMP(ph);
+      src.done();
+      KS_STAMP(10);
+    } else if (t + 1 < T) {
+      const double2* xs = reinterpret_cast<const double2*>(y + r0 + KS_NB);
+      for (int i = t - warp; i >= 0; i -= KS_WARPS - 1) {
+        const double* M = src.take(t + 1, i) + wl;
+        KS_STAMP(1);
+        double a[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+        for (int p = 0; p < KS_NB / 2; ++p) {
+          const double2 x = xs[p];
+          a[(2 * p) & 3] = fma(M[2 * p * KS_LDT], x.x, a[(2 * p) & 3]);
+          a[(2 * p + 1) & 3] = fma(M[(2 * p + 1) * KS_LDT], x.y, a[(2 * p + 1) & 3]);
+        }
+        y[i * KS_NB + wl] -= (a[0] + a[1]) + (a[2] + a[3]);
+        KS_STAMP(9);
+        src.done();
+        KS_STAMP(10);
+      }
+    }
+    __syncthreads();
+    KS_STAMP(ph + 1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K9 block_solve: M^-1 v through K8's factor, replacing
 // awebox_tpu/ocp/blockkkt.py:646-679, f64, as kernels.block_solve_plain.
-// What bounds it: the substitution chains (2 n_k interior solves of ni rows
-// and the reduced pair of nr rows) and the factor's ~140 KB a lane read once
-// each. One CTA per lane: the lane's right-hand side is gathered into shared
-// memory by block (interiors, chain, border), the interiors are solved one
-// after the other (tri_lower_solve), a thread per coupling column forms
-// Xc_k^T t_k, the reduced right-hand side takes those in a fixed order, the
-// reduced pair is solved, a warp per interior row subtracts Xc_k x_c, and the
-// transposed interior solves and the scatter finish.
+// What bounds it: the substitution chains, then the factor's bytes (a lane's
+// lower triangles of Li and L_R and its Xc, ~75 KB at n_k = 4, once). The
+// frames' interiors are independent until their coupling products meet in
+// the reduced right-hand side, so a thread-block cluster of n_k CTAs a lane
+// (kernels.block_solve_geometry) solves them side by side:
+// - rank k stages frame k's Li_k (lower tiles) and Xc_k in its shared
+//   memory, rank 0 also L_R's lower tiles (a second cp.async group that
+//   lands while the interiors are solved), and the reciprocals of their
+//   diagonals are formed ahead;
+// - rank k solves its interior forward (ks_forward), forms Xc_k^T t_k (four
+//   threads a coupling column, strided partial sums joined by two xor
+//   shuffles) and writes it into rank 0's shared memory; one cluster
+//   barrier;
+// - rank 0 forms the reduced right-hand side in frame order (chain j takes
+//   frame j's x_{k+1} slot and frame j + 1's x_k slot; the border every
+//   frame's border slots, k = 0 .. n_k - 1), solves the reduced pair from
+//   its shared memory and writes x_r into every rank; a second cluster
+//   barrier;
+// - rank k subtracts Xc_k [x_k; x_{k+1}; border] (four threads a row),
+//   solves its interior backward and scatters its interior and chain block
+//   (rank 0 the border).
+// The chain is 2 + 2 + 2 + 2 tile steps at n_k = 4 (ni = 54, nr = 64) and
+// 2 + 4 + 4 + 2 at n_k = 8, from 20 and 40 with the frames one after
+// another. No rank reads another's shared memory: the products and x_r are
+// written remotely before a barrier, so a rank may leave after the last.
 // ---------------------------------------------------------------------------
-constexpr int KB9_THREADS = 256;
-
-__global__ void __launch_bounds__(KB9_THREADS)
+__global__ void __launch_bounds__(KS_THREADS, 2)
 block_solve_kernel(const double* __restrict__ Li, const double* __restrict__ Xc,
                    const double* __restrict__ L_R, const double* __restrict__ rhs,
                    const long long* __restrict__ chain_V, const long long* __restrict__ intr_V,
                    const long long* __restrict__ border_V, double* __restrict__ x, int n_k,
-                   int nx, int ni, int nb, int n) {
-  extern __shared__ double kb9_smem[];
-  __shared__ double red[KB9_THREADS];
+                   int nx, int ni, int nb, int n, int ldx) {
+  extern __shared__ double2 kb9_dyn[];
+  KS_STAMP_BEGIN();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.block_rank();          // the frame
+  const int lane = (int)blockIdx.x / n_k;
   const int nr = n_k * nx + nb, c = 2 * nx + nb, nc = n_k * nx;
-  double* t = kb9_smem;            // [n_k][ni]
-  double* rr = t + n_k * ni;       // [nr]
-  double* upd = rr + nr;           // [n_k][c]
-  const int lane = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const int W = KB9_THREADS / 32;
+  const int Ti = ks_tiles(ni), Tr = ks_tiles(nr);
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  double* Lt = reinterpret_cast<double*>(kb9_dyn);     // Li_k's lower tiles
+  double* Rt = Lt + (size_t)Ti * (Ti + 1) / 2 * KS_TILE;   // L_R's (rank 0)
+  double* X = Rt + (size_t)Tr * (Tr + 1) / 2 * KS_TILE;    // Xc_k, ni rows at ldx (odd)
+  double* t = X + ((ni * ldx + 1) & ~1);               // [32 Ti] the interior
+  double* t_inv = t + Ti * KS_NB;                      // [32 Ti] 1 / Li_k's diagonal
+  double* rr = t_inv + Ti * KS_NB;                     // [32 Tr] the reduced system, then x_r
+  double* rr_inv = rr + Tr * KS_NB;                    // [32 Tr] 1 / L_R's diagonal (rank 0)
+  double* upd = rr_inv + Tr * KS_NB;                   // [n_k][c] Xc_k^T t_k (rank 0)
+  const double* Lk = Li + ((size_t)lane * n_k + k) * ni * ni;
+  const double* Xk = Xc + ((size_t)lane * n_k + k) * ni * c;
+  const double* LR = L_R + (size_t)lane * nr * nr;
   const double* v = rhs + (size_t)lane * n;
-  const double* Lb = Li + (size_t)lane * n_k * ni * ni;
-  const double* Xb = Xc + (size_t)lane * n_k * ni * c;
-  for (int i = tid; i < n_k * ni; i += KB9_THREADS) t[i] = v[intr_V[i]];
-  for (int i = tid; i < nc; i += KB9_THREADS) rr[i] = v[chain_V[i]];
-  for (int i = tid; i < nb; i += KB9_THREADS) rr[nc + i] = v[border_V[i]];
-  __syncthreads();
-  for (int k = 0; k < n_k; ++k) tri_lower_solve(Lb + (size_t)k * ni * ni, ni, ni, t + k * ni);
-  // Xc_k^T t_k, a thread per (interval, coupling column)
-  for (int q = tid; q < n_k * c; q += KB9_THREADS) {
-    const int k = q / c, a = q - k * c;
-    const double* X = Xb + (size_t)k * ni * c + a;
-    double acc = 0.0;
-    for (int i = 0; i < ni; ++i) acc = fma(X[(size_t)i * c], t[k * ni + i], acc);
-    upd[q] = acc;
+
+  // 1. copy-in: Li_k and Xc_k (one group), L_R on rank 0 (a second one); the
+  //    right-hand sides gathered and the reciprocals formed meanwhile
+  ks_stage(Lt, Lk, ni, (ni & 1) == 0 && ((uintptr_t)Li & 15) == 0);
+  for (int q = tid; q < ni * c; q += KS_THREADS) {
+    const int i = q / c;
+    cp_async8(X + i * ldx + (q - i * c), Xk + q);
   }
-  __syncthreads();
-  // chain j takes frame j's x_{k+1} slot and frame j+1's x_k slot; the
-  // border takes every frame's border slots, in frame order
-  for (int q = tid; q < nr; q += KB9_THREADS) {
-    double val = rr[q];
-    if (q < nc) {
-      const int j = q / nx, a = q - j * nx;
-      val -= upd[j * c + nx + a];
-      if (j + 1 < n_k) val -= upd[(j + 1) * c + a];
-    } else {
-      double s = 0.0;
-      for (int k = 0; k < n_k; ++k) s += upd[k * c + 2 * nx + (q - nc)];
-      val -= s;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (k == 0) ks_stage(Rt, LR, nr, (nr & 1) == 0 && ((uintptr_t)L_R & 15) == 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = tid; i < Ti * KS_NB; i += KS_THREADS) {
+    t[i] = i < ni ? v[intr_V[(size_t)k * ni + i]] : 0.0;
+    t_inv[i] = i < ni ? 1.0 / Lk[(size_t)i * (ni + 1)] : 1.0;
+  }
+  if (k == 0) {
+    for (int q = tid; q < Tr * KS_NB; q += KS_THREADS) {
+      rr[q] = q < nc ? v[chain_V[q]] : (q < nr ? v[border_V[q - nc]] : 0.0);
+      rr_inv[q] = q < nr ? 1.0 / LR[(size_t)q * (nr + 1)] : 1.0;
     }
-    rr[q] = val;
   }
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   __syncthreads();
-  const double* LRl = L_R + (size_t)lane * nr * nr;
-  tri_lower_solve(LRl, nr, nr, rr);
-  tri_upper_t_solve(LRl, nr, nr, rr, red);
-  // interior back substitution: t_k - Xc_k [x_k; x_{k+1}; border], a warp a row
-  for (int row = warp; row < n_k * ni; row += W) {
-    const int k = row / ni, i = row - k * ni;
-    const double* X = Xb + ((size_t)k * ni + i) * c;
-    double acc = 0.0;
-    for (int a = wl; a < c; a += 32) {
-      double xa;
-      if (a < nx) xa = k == 0 ? rr[nc + a] : rr[(k - 1) * nx + a];
-      else if (a < 2 * nx) xa = rr[k * nx + a - nx];
-      else xa = rr[nc + a - 2 * nx];
-      acc = fma(X[a], xa, acc);
+  KS_STAMP(0);
+
+  // 2. the interior forward, Xc_k^T t_k into rank 0's upd[k]
+  KsResident li = {Lt};
+  ks_forward(li, t, t_inv, ni, 2, warp, wl);
+  double* upd0 = cluster.map_shared_rank(upd, 0);
+  for (int base = 0; base < 4 * c; base += KS_THREADS) {
+    const int q = base + tid, a = q >> 2;
+    double s = 0.0;
+    if (a < c) {
+      for (int i = q & 3; i < ni; i += 4) s = fma(X[i * ldx + a], t[i], s);
     }
-    acc = warp_sum(acc);
-    if (wl == 0) t[row] -= acc;
+    s += __shfl_xor_sync(FULL_MASK, s, 1);
+    s += __shfl_xor_sync(FULL_MASK, s, 2);
+    if (a < c && (q & 3) == 0) upd0[k * c + a] = s;
+  }
+  KS_STAMP(6);
+  cluster.sync();   // every frame's products are in rank 0
+  KS_STAMP(7);
+
+  // 3. rank 0: the reduced right-hand side in frame order, the reduced pair,
+  //    x_r into every rank
+  if (k == 0) {
+    for (int q = tid; q < nr; q += KS_THREADS) {
+      double val = rr[q];
+      if (q < nc) {
+        const int j = q / nx, a = q - j * nx;
+        val -= upd[j * c + nx + a];
+        if (j + 1 < n_k) val -= upd[(j + 1) * c + a];
+      } else {
+        double s = 0.0;
+        for (int f = 0; f < n_k; ++f) s += upd[f * c + 2 * nx + (q - nc)];
+        val -= s;
+      }
+      rr[q] = val;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    KS_STAMP(6);
+    KsResident lr = {Rt};
+    ks_forward(lr, rr, rr_inv, nr, 4, warp, wl);
+    ks_backward(lr, rr, rr_inv, nr, 4, warp, wl);
+    for (int q = tid; q < (n_k - 1) * nr; q += KS_THREADS) {
+      const int f = 1 + q / nr, i = q - (f - 1) * nr;
+      cluster.map_shared_rank(rr, f)[i] = rr[i];
+    }
+    KS_STAMP(6);
+  }
+  cluster.sync();   // x_r is in every rank; nothing is read remotely after this
+  KS_STAMP(7);
+
+  // 4. t_k -= Xc_k [x_k; x_{k+1}; border] (frame 0's x_k slot reads the
+  //    border's first nx), the interior backward, the scatter
+  for (int base = 0; base < 4 * ni; base += KS_THREADS) {
+    const int q = base + tid, i = q >> 2;
+    double s = 0.0;
+    if (i < ni) {
+      for (int a = q & 3; a < c; a += 4) {
+        const double xa = a < nx ? (k == 0 ? rr[nc + a] : rr[(k - 1) * nx + a])
+                                 : (a < 2 * nx ? rr[k * nx + a - nx] : rr[nc + a - 2 * nx]);
+        s = fma(X[i * ldx + a], xa, s);
+      }
+    }
+    s += __shfl_xor_sync(FULL_MASK, s, 1);
+    s += __shfl_xor_sync(FULL_MASK, s, 2);
+    if (i < ni && (q & 3) == 0) t[i] -= s;
   }
   __syncthreads();
-  for (int k = 0; k < n_k; ++k) tri_upper_t_solve(Lb + (size_t)k * ni * ni, ni, ni, t + k * ni, red);
+  KS_STAMP(6);
+  ks_backward(li, t, t_inv, ni, 2, warp, wl);
   double* xo = x + (size_t)lane * n;
-  for (int i = tid; i < n_k * ni; i += KB9_THREADS) xo[intr_V[i]] = t[i];
-  for (int i = tid; i < nc; i += KB9_THREADS) xo[chain_V[i]] = rr[i];
-  for (int i = tid; i < nb; i += KB9_THREADS) xo[border_V[i]] = rr[nc + i];
+  for (int i = tid; i < ni; i += KS_THREADS) xo[intr_V[(size_t)k * ni + i]] = t[i];
+  for (int a = tid; a < nx; a += KS_THREADS) xo[chain_V[(size_t)k * nx + a]] = rr[k * nx + a];
+  if (k == 0) {
+    for (int a = tid; a < nb; a += KS_THREADS) xo[border_V[a]] = rr[nc + a];
+  }
+  KS_STAMP(8);
+  KS_STAMP_END();
+}
+
+// doubles of K9's dynamic shared memory a rank, as kernels.block_solve_geometry
+size_t kb9_smem_doubles(int n_k, int nx, int ni, int nb, int ldx) {
+  const int nr = n_k * nx + nb, c = 2 * nx + nb;
+  const size_t Ti = (ni + KS_NB - 1) / KS_NB, Tr = (nr + KS_NB - 1) / KS_NB;
+  return (Ti * (Ti + 1) / 2 + Tr * (Tr + 1) / 2) * KS_TILE + (((size_t)ni * ldx + 1) & ~(size_t)1)
+      + 2 * KS_NB * (Ti + Tr) + (size_t)n_k * c;
+}
+
+// the launch: B clusters of n_k CTAs
+cudaError_t kb9_attributes(int n_k, int smem) {
+  const void* fn = (const void*)block_solve_kernel;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess || n_k <= 8) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t kb9_config(int B, int n_k, int smem, void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = k2c_config(B, n_k, smem, stream, attr);
+  cfg.blockDim = dim3(KS_THREADS);
+  return cfg;
 }
 
 // ---------------------------------------------------------------------------
@@ -4519,24 +4843,57 @@ cudaLaunchConfig_t k10c_config(int B, int C, int smem, void* stream, cudaLaunchA
 // K11 chol_solve_batched: x = L^-T L^-1 b through K10's factor, replacing
 // msolve at awebox_tpu/parallel/batch.py:234-236 (two solve_triangular), f64,
 // as kernels.chol_solve_batched_plain. What bounds it: the substitution
-// chains (n rows each way) and L read twice (n = 280: 2 x 314 KB a lane).
-// One CTA per lane: the vector in shared memory, tri_lower_solve then
-// tri_upper_t_solve.
+// chains (ceil(n / 32) tile steps each way), then L's bytes (its lower
+// triangle, 314 KB a lane at n = 280, read once each way). One CTA a lane
+// (kernels.chol_solve_geometry): the vector and the reciprocals of L's
+// diagonal in shared memory, and L streamed through K11_RING tile slots by
+// cp.async, each warp keeping the tiles it takes next in flight in a ring of
+// its own (KsRing: warp 0 the diagonal and fold tiles of its next two steps,
+// warps 1 .. 7 two tiles each), across both passes: ks_forward, then
+// ks_backward.
 // ---------------------------------------------------------------------------
-constexpr int K11_THREADS = 256;
+constexpr int K11_SLOTS0 = 4;   // warp 0's ring: the diagonal and fold tiles of two steps
+constexpr int K11_SLOTS = 2;    // the ring of each of warps 1 .. 7
+constexpr int K11_RING = K11_SLOTS0 + (KS_WARPS - 1) * K11_SLOTS;
 
-__global__ void __launch_bounds__(K11_THREADS)
+__global__ void __launch_bounds__(KS_THREADS, 1)
 chol_solve_kernel(const double* __restrict__ L, const double* __restrict__ b,
                   double* __restrict__ x, int n) {
-  extern __shared__ double xs[];
-  __shared__ double red[K11_THREADS];
-  const int lane = blockIdx.x, tid = threadIdx.x;
+  extern __shared__ double2 k11_dyn[];
+  KS_STAMP_BEGIN();
+  const int T = ks_tiles(n), lane = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  double* slots = reinterpret_cast<double*>(k11_dyn);
+  double* y = slots + (size_t)K11_RING * KS_TILE;   // [32 T], zeros past n
+  double* rinv = y + T * KS_NB;                     // [32 T], ones past n
   const double* Ll = L + (size_t)lane * n * n;
-  for (int i = tid; i < n; i += K11_THREADS) xs[i] = b[(size_t)lane * n + i];
+  KsRing ring;
+  ring.slots = slots + (warp == 0 ? 0 : K11_SLOTS0 + (warp - 1) * K11_SLOTS) * KS_TILE;
+  ring.L = Ll;
+  ring.m = n;
+  ring.T = T;
+  ring.sw = warp == 0 ? K11_SLOTS0 : K11_SLOTS;
+  ring.warp = warp;
+  ring.wl = wl;
+  ring.pairs = (n & 1) == 0 && ((uintptr_t)L & 15) == 0;
+  ring.start();
+  for (int i = tid; i < T * KS_NB; i += KS_THREADS) {
+    y[i] = i < n ? b[(size_t)lane * n + i] : 0.0;
+    rinv[i] = i < n ? 1.0 / Ll[(size_t)i * (n + 1)] : 1.0;
+  }
   __syncthreads();
-  tri_lower_solve(Ll, n, n, xs);
-  tri_upper_t_solve(Ll, n, n, xs, red);
-  for (int i = tid; i < n; i += K11_THREADS) x[(size_t)lane * n + i] = xs[i];
+  KS_STAMP(0);
+  ks_forward(ring, y, rinv, n, 2, warp, wl);
+  ks_backward(ring, y, rinv, n, 2, warp, wl);
+  for (int i = tid; i < n; i += KS_THREADS) x[(size_t)lane * n + i] = y[i];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  KS_STAMP(8);
+  KS_STAMP_END();
+}
+
+// doubles of K11's dynamic shared memory at n, as kernels.chol_solve_geometry
+size_t k11_smem_doubles(int n) {
+  return (size_t)K11_RING * KS_TILE + 2 * KS_NB * (size_t)((n + KS_NB - 1) / KS_NB);
 }
 
 // The launch floor: an empty kernel, timed by chip_smoke.py beside K1-K7.
@@ -4827,12 +5184,17 @@ int chol_factor_cluster(const void* M, void* L, void* ok, int B, int n, int C, i
   return (int)cudaGetLastError();
 }
 
-int chol_solve_batched(const void* L, const void* b, void* x, int B, int n, void* stream) {
-  const size_t smem = sizeof(double) * (size_t)n;
+// smem, the dynamic shared memory, comes from kernels.chol_solve_geometry;
+// only that it covers the ring and the vectors at n is checked.
+int chol_solve_batched(const void* L, const void* b, void* x, int B, int n, int smem,
+                       void* stream) {
+  if (n < 1 || (size_t)smem < sizeof(double) * k11_smem_doubles(n)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute((const void*)chol_solve_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  chol_solve_kernel<<<B, K11_THREADS, smem, (cudaStream_t)stream>>>(
+  chol_solve_kernel<<<B, KS_THREADS, smem, (cudaStream_t)stream>>>(
       (const double*)L, (const double*)b, (double*)x, n);
   return (int)cudaGetLastError();
 }
@@ -4864,16 +5226,37 @@ int block_factor(const void* Frame, const void* delta, const void* own_free, voi
   return (int)cudaGetLastError();
 }
 
+// How many clusters of n_k CTAs with smem bytes of dynamic shared memory
+// each K9 runs at once; written to *max_clusters (int).
+int block_solve_occupancy(int n_k, int smem, void* max_clusters) {
+  cudaError_t err = kb9_attributes(n_k, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = kb9_config(1, n_k, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters((int*)max_clusters,
+                                             (const void*)block_solve_kernel, &cfg);
+}
+
+// The layout (ldx, Xc's leading dimension in shared memory, and smem, the
+// dynamic shared memory of a rank) comes from kernels.block_solve_geometry;
+// only the limits compiled into the kernel are checked here. B clusters of
+// n_k CTAs.
 int block_solve(const void* Li, const void* Xc, const void* L_R, const void* rhs,
                 const void* chain_V, const void* intr_V, const void* border_V, void* x, int B,
-                int n_k, int nx, int ni, int nb, int n, int smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute((const void*)block_solve_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                int n_k, int nx, int ni, int nb, int n, int ldx, int smem, void* stream) {
+  if (n_k < 1 || n_k > KB8_MAX_CLUSTER || ni < 1 || ldx < 2 * nx + nb || ldx % 2 == 0
+      || (size_t)smem < sizeof(double) * kb9_smem_doubles(n_k, nx, ni, nb, ldx)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = kb9_attributes(n_k, smem);
   if (err != cudaSuccess) return (int)err;
-  block_solve_kernel<<<B, KB9_THREADS, smem, (cudaStream_t)stream>>>(
-      (const double*)Li, (const double*)Xc, (const double*)L_R, (const double*)rhs,
-      (const long long*)chain_V, (const long long*)intr_V, (const long long*)border_V,
-      (double*)x, n_k, nx, ni, nb, n);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = kb9_config(B, n_k, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, block_solve_kernel, (const double*)Li, (const double*)Xc,
+                           (const double*)L_R, (const double*)rhs, (const long long*)chain_V,
+                           (const long long*)intr_V, (const long long*)border_V, (double*)x, n_k,
+                           nx, ni, nb, n, ldx);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,7 @@ block_factor           the two-level factor of ocp/blockkkt.py,      f64
                        Schur sums, Cholesky of the reduced system;
                        a thread-block cluster a lane)
 block_solve            block_solve of ocp/blockkkt.py, :646-679      f64
+                       (a thread-block cluster a lane)
 =====================  ===========================================  ==========
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
@@ -98,9 +99,10 @@ SIGNATURES = {
     'chol_factor_global': [_P] * 3 + [_I] * 2 + [_P],
     'chol_factor_cluster_occupancy': [_I, _I, _P],
     'chol_factor_cluster': [_P] * 3 + [_I] * 6 + [_P],
-    'chol_solve_batched': [_P] * 3 + [_I] * 2 + [_P],
+    'chol_solve_batched': [_P] * 3 + [_I] * 3 + [_P],
     'block_factor': [_P] * 7 + [_I] * 9 + [_P],
-    'block_solve': [_P] * 8 + [_I] * 7 + [_P],
+    'block_solve_occupancy': [_I, _I, _P],
+    'block_solve': [_P] * 8 + [_I] * 8 + [_P],
     'noop': [_I, _P],
 }
 
@@ -1225,12 +1227,71 @@ def block_solve_plain(Li, Xc, L_R, rhs, index_maps, lay: BlockLayout):
     return out
 
 
+SUBST_NB = 32               # tile width of K9's and K11's substitutions (KS_NB)
+SUBST_LD = 34               # doubles a staged tile row (KS_LDT): 16-byte rows
+SUBST_TILE_BYTES = 8 * SUBST_NB * SUBST_LD
+SUBST_STATIC_SMEM = 1_024   # room for static shared arrays (none; a probe's stamps)
+
+
+class BlockSolveGeometry(NamedTuple):
+    """How K9 lays one lane out: a thread-block cluster of ``C`` = n_k CTAs,
+    rank k holding frame k's ``li_tiles`` lower tiles of Li and its Xc (ni
+    rows at the odd leading dimension ``ld_x``), rank 0 also the
+    ``r_tiles`` lower tiles of L_R, then the vectors (the interior and the
+    reduced system, each with the reciprocals of its factor's diagonal, and
+    the frames' coupling products), in ``smem_bytes`` of dynamic shared
+    memory a rank (a launch gives every rank the same). A tile is 32 rows of
+    SUBST_LD doubles. This is the one place that computes the layout:
+    the kernel takes it as it is."""
+    C: int
+    ld_x: int
+    li_tiles: int
+    r_tiles: int
+    smem_bytes: int
+
+
+def block_solve_geometry(lay: BlockLayout) -> BlockSolveGeometry:
+    """K9's layout of a lane (n_k = 4: 74,192 B a rank; n_k = 8: 137,488 B;
+    n_k = 12: 182,864 B); raises by name where there are more frames than a
+    cluster has CTAs or rank 0's factors do not fit one block's shared
+    memory (n_k >= 13 at nx = 11, as block_factor_geometry)."""
+    n_k, nx, ni, nb, nloc = lay
+    c, nr = lay.c, lay.nr
+    ti, tr = -(-ni // SUBST_NB), -(-nr // SUBST_NB)
+    li_tiles, r_tiles = ti * (ti + 1) // 2, tr * (tr + 1) // 2
+    ld_x = c | 1
+    doubles = ((li_tiles + r_tiles) * SUBST_NB * SUBST_LD + (ni * ld_x + 1) // 2 * 2
+               + 2 * SUBST_NB * (ti + tr) + n_k * c)
+    smem = 8 * doubles
+    if n_k > BLOCK_CLUSTER_MAX or smem + SUBST_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f'block_solve: {n_k} frames (interior {ni}) and a reduced system of '
+                         f'{nr} need a cluster of {n_k} CTAs with {smem} B of shared memory each '
+                         f'(at most {BLOCK_CLUSTER_MAX} CTAs, {SMEM_PER_BLOCK} B)')
+    return BlockSolveGeometry(n_k, ld_x, li_tiles, r_tiles, smem)
+
+
+def block_solve_max_active(geom: BlockSolveGeometry) -> int:
+    """Clusters of K9's geometry the card runs at once (asked once per
+    geometry); raises if it cannot run one."""
+    key = ('block_solve', geom.C, geom.smem_bytes)
+    if key not in _max_clusters:
+        count = ctypes.c_int(0)
+        _check('block_solve_occupancy', library().block_solve_occupancy(
+            geom.C, geom.smem_bytes, ctypes.byref(count)))
+        if count.value < 1:
+            raise RuntimeError(f'block_solve: a cluster of {geom.C} CTAs with '
+                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
+        _max_clusters[key] = count.value
+    return _max_clusters[key]
+
+
 def block_solve(Li, Xc, L_R, rhs, index_maps, lay: BlockLayout):
     """(B, n) f64 right-hand sides -> (B, n) f64, as block_solve_plain; the
-    index maps are int64 tensors. On the card one launch, a CTA per lane:
-    the lane's vector (its interiors, then the reduced system's right-hand
-    side) and the coupling products in shared memory, the factors read from
-    global memory."""
+    index maps are int64 tensors. On the card one launch, a thread-block
+    cluster of n_k CTAs a lane laid out by block_solve_geometry: each CTA
+    solves a frame's interior with its factor in shared memory, rank 0 the
+    reduced system after gathering the frames' products through distributed
+    shared memory; raises where that layout does not fit."""
     if not rhs.is_cuda:
         return block_solve_plain(Li, Xc, L_R, rhs, index_maps, lay)
     name = 'block_solve'
@@ -1245,11 +1306,13 @@ def block_solve(Li, Xc, L_R, rhs, index_maps, lay: BlockLayout):
             or intr_V.shape != (n_k, ni) or border_V.shape != (nb,) \
             or n != n_k * (nx + ni) + nb:
         raise ValueError(f'{name}: inconsistent shapes')
-    smem = 8 * (n + n_k * lay.c)   # the interiors and the reduced rhs (n), Xc_k^T t_k
+    geom = block_solve_geometry(lay)
+    block_solve_max_active(geom)
     x = torch.empty_like(rhs)
     _check(name, library().block_solve(_ptr(Li), _ptr(Xc), _ptr(L_R), _ptr(rhs),
                                        _ptr(chain_V), _ptr(intr_V), _ptr(border_V), _ptr(x),
-                                       B, n_k, nx, ni, nb, n, smem, _stream()))
+                                       B, n_k, nx, ni, nb, n, geom.ld_x, geom.smem_bytes,
+                                       _stream()))
     LAUNCHES[name] += 1
     return x
 
@@ -1389,10 +1452,26 @@ def chol_solve_batched_plain(L, b):
     return torch.linalg.solve_triangular(L.transpose(-1, -2), t, upper=True)[..., 0]
 
 
+CHOL_SOLVE_SLOTS = 4 + 7 * 2   # K11's ring (K11_RING): warp 0's four, two for each other warp
+
+
+def chol_solve_geometry(n: int) -> int:
+    """K11's dynamic shared memory at n, bytes: the ring of CHOL_SOLVE_SLOTS
+    tiles and the vector with the reciprocals of L's diagonal, each 32
+    ceil(n / 32) doubles (156,672 + 4,608 B at n = 280); raises by name where
+    that does not fit one block (n > ~4,700)."""
+    smem = CHOL_SOLVE_SLOTS * SUBST_TILE_BYTES + 16 * SUBST_NB * -(-n // SUBST_NB)
+    if smem + SUBST_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f'chol_solve_batched: n={n} needs {smem} B of shared memory, more than '
+                         f'one block has')
+    return smem
+
+
 def chol_solve_batched(L, b):
     """(B, n, n) f64, (B, n) f64 -> (B, n) f64, as chol_solve_batched_plain.
     On the card one launch, a CTA per lane: both substitutions in tiles of
-    32 rows, the vector in shared memory, L read once a substitution."""
+    32, the vector in shared memory, L streamed through rings of tile slots
+    (chol_solve_geometry) and read once a substitution."""
     if not L.is_cuda:
         return chol_solve_batched_plain(L, b)
     name = 'chol_solve_batched'
@@ -1401,8 +1480,9 @@ def chol_solve_batched(L, b):
     B, n, _ = L.shape
     if b.shape != (B, n) or L.shape != (B, n, n):
         raise ValueError(f'{name}: inconsistent shapes')
+    smem = chol_solve_geometry(n)
     x = torch.empty_like(b)
-    _check(name, library().chol_solve_batched(_ptr(L), _ptr(b), _ptr(x), B, n, _stream()))
+    _check(name, library().chol_solve_batched(_ptr(L), _ptr(b), _ptr(x), B, n, smem, _stream()))
     LAUNCHES[name] += 1
     return x
 

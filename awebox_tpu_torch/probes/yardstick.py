@@ -1,8 +1,9 @@
 """The yardsticks a kernel is held against, shared by chip_smoke.py and the
 phase probes so that both report the same numbers: the least time the card
-could take for a piece of work, for K10 (chol_factor_batched) the work its
-function must do, and for K8 (block_factor) that work, the library
-composition of the same function and the gaps of a factor to a reference.
+could take for a piece of work, for K8-K11 (block_factor, block_solve,
+chol_factor_batched, chol_solve_batched) the work each function must do,
+for K8 and K9 the library composition of the same function, and the gaps
+of a factor to a reference.
 """
 import torch
 
@@ -42,6 +43,43 @@ def chol_factor_bound(n, B):
     (the cluster variant's updates run there)."""
     nbytes = 8 * B * (n * (n + 1) // 2 + n * n) + B
     return bound(nbytes, B * n ** 3 / 3)
+
+
+def block_solve_bound(lay, B):
+    """K9's bound at B lanes of layout lay: the lower triangles of Li and L_R,
+    Xc, the right-hand sides and the index maps read once, x written once;
+    the operations of the four triangular solves and the two coupling
+    products."""
+    n_k, nx, ni, nb, nloc = lay
+    c, nr = lay.c, lay.nr
+    n = n_k * (nx + ni) + nb
+    nbytes = 8 * (B * (n_k * ni * (ni + 1) // 2 + nr * (nr + 1) // 2 + n_k * ni * c + 2 * n) + n)
+    ops = B * (2 * n_k * ni * ni + 4 * n_k * ni * c + 2 * nr * nr)
+    return bound(nbytes, ops)
+
+
+def chol_solve_bound(n, B):
+    """K11's bound at B lanes of n x n: the lower triangle of L and b read
+    once, x written once; the 2 n^2 operations of the two substitutions."""
+    return bound(8 * B * (n * (n + 1) // 2 + 2 * n), 2 * B * n * n)
+
+
+def block_solve_library(Li, Xc, L_R, rhs, lay, intr_V):
+    """A call of PyTorch's composition of K9's function on these inputs, as
+    chip_smoke.py times it: the interior solve_triangular, the coupling
+    product, the reduced pair, the coupling update and the transposed
+    interior solve (four solve_triangular and two products)."""
+    st = torch.linalg.solve_triangular
+    r_int = rhs[:, intr_V][..., None]
+    r_red = rhs[:, :lay.nr, None].contiguous()
+    x_cpl = rhs[:, None, :lay.c, None].expand(-1, lay.n_k, -1, -1).contiguous()
+
+    def call():
+        t = st(Li, r_int, upper=False)
+        u = Xc.transpose(-1, -2) @ t
+        xr = st(L_R.transpose(-1, -2), st(L_R, r_red, upper=False), upper=True)
+        return st(Li.transpose(-1, -2), t - Xc @ x_cpl, upper=True), u, xr
+    return call
 
 
 def block_factor_library(Frame, delta, own_free, lay, L_R):

@@ -195,8 +195,9 @@ def main():
     from awebox_tpu_torch.ocp.structured import make_structured_derivs
     from awebox_tpu_torch.probes.direction_ops import count_and_time
     from awebox_tpu_torch.probes.yardstick import (block_factor_bound, block_factor_gaps,
-                                                   block_factor_library, bound,
-                                                   chol_factor_bound)
+                                                   block_factor_library, block_solve_bound,
+                                                   block_solve_library, bound, chol_factor_bound,
+                                                   chol_solve_bound)
 
     dev = torch.device('cuda')
     f32, f64 = torch.float32, torch.float64
@@ -823,7 +824,6 @@ def main():
     # R = L_R L_R^T within 1e-10 of its max (the mirror: 3e-15), and
     # L L^T - M of K10 within 10x of the plain factor's.
     from awebox_tpu_torch.ocp.blockkkt import make_block_kkt
-    st_ = torch.linalg.solve_triangular
 
     def block_inputs(ocp_, state_, P_, lbw_, ubw_, free_):
         """The block path's frames (damped by delta_w), right-hand sides and
@@ -914,21 +914,9 @@ def main():
         # products (K9), on the clean lanes' factor
         Li, Xc, LR = fac_c[:3]
         lib8 = block_factor_library(Frame, delta, own_free, lay, LR)
-        r_int = rhs[:, index_maps[1]][..., None]
-        r_red = rhs[:, :lay.nr, None].contiguous()
-        x_cpl = rhs[:, None, :lay.c, None].expand(-1, lay.n_k, -1, -1).contiguous()
-
-        def lib9():
-            t_ = st_(Li, r_int, upper=False)
-            u_ = Xc.transpose(-1, -2) @ t_
-            xr_ = st_(LR.transpose(-1, -2), st_(LR, r_red, upper=False), upper=True)
-            return st_(Li.transpose(-1, -2), t_ - Xc @ x_cpl, upper=True), u_, xr_
-
-        n_k_, nx, ni, nb = lay.n_k, lay.nx, lay.ni, lay.nb
-        c_, nr = lay.c, lay.nr
+        lib9 = block_solve_library(Li, Xc, LR, rhs, lay, index_maps[1])
         b8 = block_factor_bound(lay, B_)
-        b9 = bound(nbytes(Li, Xc, LR, rhs, x_c) + 8 * (n_k_ * (nx + ni) + nb),
-                   B_ * (2 * n_k_ * ni * ni + 4 * n_k_ * ni * c_ + 2 * nr * nr))
+        b9 = block_solve_bound(lay, B_)
         k8 = lambda: kernels.block_factor(Frame, delta, own_free, lay)
         k9 = lambda: kernels.block_solve(Li, Xc, LR, rhs, index_maps, lay)
         recs = []
@@ -946,6 +934,11 @@ def main():
         phase('kernels', f'K8 block_factor {tag}: {B_} clusters of {lay.n_k} CTAs, '
               f'{geom.smem_bytes} B of shared memory a CTA, leading dimensions {geom.ld_frame} / '
               f'{geom.ld_r} / {geom.ld_s} (frame / R / S), panels of {kernels.BLOCK_WIDTH}')
+        g9 = kernels.block_solve_geometry(lay)
+        a9 = kernels.block_solve_max_active(g9)
+        phase('kernels', f'K9 block_solve {tag}: clusters of {g9.C} CTAs, {g9.smem_bytes} B of '
+              f'shared memory a rank ({g9.li_tiles} + {g9.r_tiles} tiles of Li / L_R, Xc at '
+              f'leading dimension {g9.ld_x}); {a9} clusters at once: {-(-B_ // a9)} wave(s)')
         phase('kernels', f'K8 block_factor {tag}: ok {int(fac_k[3].sum())}/{B_} as plain '
               f'(indefinite and NaN lanes fail alone), Li/Xc/R gaps {gaps[0]:.2e}/{gaps[1]:.2e}/'
               f'{gaps[2]:.2e}; {recs[0]["ms"]:.4f} ms, queued {recs[0]["queued_ms"]:.4f} ms, plain '
@@ -1016,7 +1009,7 @@ def main():
         b_col = b[..., None].contiguous()
         lib11 = lambda: torch.cholesky_solve(b_col, L_c)
         b10 = chol_factor_bound(n_, B_)
-        b11 = bound(nbytes(L_c, b, x_c), 2 * B_ * n_ * n_)
+        b11 = chol_solve_bound(n_, B_)
         recs = []
         for fn, plain, lib, (b_, by_), err in (
                 (k10, lambda: kernels.chol_factor_batched_plain(M), lib10, b10,
@@ -1040,6 +1033,9 @@ def main():
               f'ms, plain {recs[0]["plain_ms"]:.3f} ms, torch.linalg.cholesky_ex '
               f'{recs[0]["library_ms"]:.3f} ms (queued {recs[0]["library_queued_ms"]:.3f}); bound '
               f'{b10[0]:.5f} ms ({b10[1]})')
+        phase('kernels', f'K11 chol_solve_batched {tag}: a CTA a lane, {kernels.CHOL_SOLVE_SLOTS} '
+              f'tile slots of ring and the vectors, {kernels.chol_solve_geometry(n_)} B of shared '
+              f'memory, {-(-n_ // kernels.SUBST_NB)} tile steps each way')
         phase('kernels', f'K11 chol_solve_batched {tag}: residual max {float(res_k.max()):.2e} vs '
               f'plain {float(res_p.max()):.2e}; {recs[1]["ms"]:.4f} ms, queued '
               f'{recs[1]["queued_ms"]:.4f} ms, plain {recs[1]["plain_ms"]:.3f} ms, '

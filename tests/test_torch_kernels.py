@@ -1591,32 +1591,150 @@ def block_factor_mirror(Frame, delta, own_free, lay):
     return Li, Xc, LR, ok
 
 
-def tri_lower_mirror(L, b):
-    """tri_lower_solve's tile order: the solved part first, then the diagonal tile."""
-    m = len(b); x = b.copy()
-    for t0 in range(0, m, 32):
-        h = min(32, m - t0)
-        for i in range(h):
-            x[t0 + i] -= L[t0 + i, :t0] @ x[:t0]
+def ks_tile_sum(M, x):
+    """A tile's products as warps 1 .. 7 of ks_forward / ks_backward sum them:
+    four interleaved partial sums (column k into sum k % 4), then (a0 + a1)
+    + (a2 + a3). M (rows, w) with w <= 32, x (w,)."""
+    a = [np.zeros(M.shape[0]) for _ in range(4)]
+    for k in range(M.shape[1]):
+        a[k % 4] = a[k % 4] + M[:, k] * x[k]
+    return (a[0] + a[1]) + (a[2] + a[3])
+
+
+def tri_lower_mirror(L, b, nb=32):
+    """ks_forward's order of sums: row tile i takes the column tiles c <= i - 2
+    in order, each as one ks_tile_sum, then the fold of tile i - 1 (its
+    products in column order, from zero), then the diagonal tile's chain,
+    x_j = b_j * (1 / L_jj) with the reciprocals formed ahead."""
+    m = len(b); y = b.copy(); rinv = 1. / np.diag(L)
+    for i in range(-(-m // nb)):
+        r0, r1 = i * nb, min(i * nb + nb, m)
+        for c in range(i - 1):
+            y[r0:r1] -= ks_tile_sum(L[r0:r1, c * nb:c * nb + nb], y[c * nb:c * nb + nb])
+        acc = np.zeros(r1 - r0)
+        for j in range(max(0, r0 - nb), r0):
+            acc = acc - L[r0:r1, j] * y[j]
+        t = y[r0:r1] + acc
+        for j in range(r1 - r0):
+            t[j] = t[j] * rinv[r0 + j]
+            t[j + 1:] -= L[r0 + j + 1:r1, r0 + j] * t[j]
+        y[r0:r1] = t
+    return y
+
+
+def tri_upper_t_mirror(L, b, nb=32):
+    """ks_backward's order: row tile t takes the x tiles q >= t + 2 from the
+    last (each as one ks_tile_sum over L's rows of tile q), then the fold of
+    tile t + 1 (from its last row up, from zero), then the chain from the
+    tile's last column, with the reciprocals of the diagonal."""
+    m = len(b); y = b.copy(); rinv = 1. / np.diag(L); T = -(-m // nb)
+    for t in range(T - 1, -1, -1):
+        r0, r1 = t * nb, min(t * nb + nb, m)
+        for q in range(T - 1, t + 1, -1):
+            q0, q1 = q * nb, min(q * nb + nb, m)
+            y[r0:r1] -= ks_tile_sum(L[q0:q1, r0:r1].T, y[q0:q1])
+        acc = np.zeros(r1 - r0)
+        for j in range(min(r1 + nb, m) - 1, r1 - 1, -1):
+            acc = acc - L[j, r0:r1] * y[j]
+        u = y[r0:r1] + acc
+        for j in range(r1 - r0 - 1, -1, -1):
+            u[j] = u[j] * rinv[r0 + j]
+            u[:j] -= L[r0 + j, r0:r0 + j] * u[j]
+        y[r0:r1] = u
+    return y
+
+
+def ks_step_tile(s, idx, T, warp):
+    """ks_step_tile of csrc/auglu.cu: the idx-th tile (ti, tj) warp takes in
+    step s (s < T forward, then backward, row tile 2T - 1 - s), or None."""
+    if s < T:
+        if warp == 0:
+            return (s + idx, s) if idx == 0 or (idx == 1 and s + 1 < T) else None
+        ti = s + warp + 7 * idx
+        return (ti, s - 1) if s > 0 and ti < T else None
+    t = 2 * T - 1 - s
+    if warp == 0:
+        return (t, t - idx) if idx == 0 or (idx == 1 and t > 0) else None
+    tj = t - warp - 7 * idx
+    return (t + 1, tj) if t + 1 < T and tj >= 0 else None
+
+
+def ks_walk(T, warp):
+    """The tiles a warp's ring copies, in order (KsRing's walk)."""
+    for s in range(2 * T):
+        idx = 0
+        while (tile := ks_step_tile(s, idx, T, warp)) is not None:
+            yield tile
+            idx += 1
+
+
+def ks_schedule_mirror(L, b, nb=32):
+    """ks_forward then ks_backward step by step as the CTA runs them, each
+    tile taken from its warp's walk (which must be the tile the step asks
+    for): warp 0's chain with its fold, then warps 1 .. 7's tiles of the
+    step, on the lane's vector padded with zeros to 32 T."""
+    m = len(b); T = -(-m // nb); P = T * nb
+    Lp = np.zeros((P, P)); Lp[:m, :m] = L
+    y = np.zeros(P); y[:m] = b
+    rinv = np.ones(P); rinv[:m] = 1. / np.diag(L)
+    walks = [ks_walk(T, w) for w in range(8)]
+
+    def take(w, ti, tj):
+        assert next(walks[w]) == (ti, tj), (w, ti, tj)
+        return Lp[ti * nb:ti * nb + nb, tj * nb:tj * nb + nb]
+
+    acc = np.zeros(nb)
+    for s in range(T):
+        r0, h = s * nb, min(nb, m - s * nb)
+        D = take(0, s, s)
+        E = take(0, s + 1, s) if s + 1 < T else None
+        u, an = y[r0:r0 + nb] + acc, np.zeros(nb)
         for j in range(h):
-            x[t0 + j] = x[t0 + j] / L[t0 + j, t0 + j]
-            x[t0 + j + 1:t0 + h] -= L[t0 + j + 1:t0 + h, t0 + j] * x[t0 + j]
-    return x
-
-
-def tri_upper_t_mirror(L, b):
-    m = len(b); x = b.copy()
-    for t0 in range(((m - 1) // 32) * 32, -1, -32):
-        h = min(32, m - t0); t1 = t0 + h
-        x[t0:t1] -= L[t1:, t0:t1].T @ x[t1:]
+            u[j] = u[j] * rinv[r0 + j]
+            u[j + 1:h] -= D[j + 1:h, j] * u[j]
+            if E is not None:
+                an = an - E[:, j] * u[j]
+        y[r0:r0 + h] = u[:h]
+        acc = an
+        for w in range(1, 8):
+            for i in range(s + w, T, 7) if s > 0 else ():
+                rows = slice(i * nb, min(i * nb + nb, m))
+                tile = take(w, i, s - 1)[:rows.stop - rows.start]
+                y[rows] -= ks_tile_sum(tile, y[r0 - nb:r0])
+    acc = np.zeros(nb)
+    for t in range(T - 1, -1, -1):
+        r0, h = t * nb, min(nb, m - t * nb)
+        D = take(0, t, t)
+        E = take(0, t, t - 1) if t > 0 else None
+        u, an = y[r0:r0 + nb] + acc, np.zeros(nb)
         for j in range(h - 1, -1, -1):
-            x[t0 + j] = x[t0 + j] / L[t0 + j, t0 + j]
-            x[t0:t0 + j] -= L[t0 + j, t0:t0 + j] * x[t0 + j]
-    return x
+            u[j] = u[j] * rinv[r0 + j]
+            u[:j] -= D[j, :j] * u[j]
+            if E is not None:
+                an = an - E[j, :] * u[j]
+        y[r0:r0 + h] = u[:h]
+        acc = an
+        for w in range(1, 8):
+            for i in range(t - w, -1, -7) if t + 1 < T else ():
+                y[i * nb:i * nb + nb] -= ks_tile_sum(take(w, t + 1, i).T, y[r0 + nb:r0 + 2 * nb])
+    assert all(next(wk, None) is None for wk in walks)   # every copied tile was taken
+    return y[:m]
+
+
+def strided_sum(M, x):
+    """K9's coupling products, four threads an output: thread p sums the terms
+    p, p + 4, .. in order, then (s0 + s1) + (s2 + s3). M (outputs, terms)."""
+    s = [np.zeros(M.shape[0]) for _ in range(4)]
+    for k in range(M.shape[1]):
+        s[k % 4] = s[k % 4] + M[:, k] * x[k]
+    return (s[0] + s[1]) + (s[2] + s[3])
 
 
 def block_solve_mirror(Li, Xc, LR, rhs, chain_V, intr_V, border_V, lay):
-    """K9's schedule on one lane at a time."""
+    """K9's schedule on one lane at a time: each frame's interior forward
+    (rank k), its coupling products Xc_k^T t_k, the reduced right-hand side
+    in frame order, the reduced pair (rank 0), then each frame's Xc_k x
+    subtracted and its interior backward."""
     n_k, nx, ni, nb, nloc = lay
     nr, c, nc = n_k * nx + nb, 2 * nx + nb, n_k * nx
     B, n = rhs.shape
@@ -1627,7 +1745,7 @@ def block_solve_mirror(Li, Xc, LR, rhs, chain_V, intr_V, border_V, lay):
         rr = np.concatenate([v[chain_V.reshape(-1)], v[border_V]])
         for k in range(n_k):
             t[k] = tri_lower_mirror(Li[lane, k], t[k])
-        upd = np.einsum('kia,ki->ka', Xc[lane], t)
+        upd = np.stack([strided_sum(Xc[lane, k].T, t[k]) for k in range(n_k)])
         for q in range(nr):
             if q < nc:
                 j, a = divmod(q, nx)
@@ -1635,13 +1753,16 @@ def block_solve_mirror(Li, Xc, LR, rhs, chain_V, intr_V, border_V, lay):
                 if j + 1 < n_k:
                     rr[q] -= upd[j + 1, a]
             else:
-                rr[q] -= upd[:, 2 * nx + q - nc].sum()
+                s = 0.
+                for k in range(n_k):
+                    s += upd[k, 2 * nx + q - nc]
+                rr[q] -= s
         rr = tri_lower_mirror(LR[lane], rr)
         rr = tri_upper_t_mirror(LR[lane], rr)
         for k in range(n_k):
             xa = np.concatenate([rr[nc:nc + nx] if k == 0 else rr[(k - 1) * nx:k * nx],
                                  rr[k * nx:(k + 1) * nx], rr[nc:]])
-            t[k] -= Xc[lane, k] @ xa
+            t[k] -= strided_sum(Xc[lane, k], xa)
             t[k] = tri_upper_t_mirror(Li[lane, k], t[k])
         out[lane, intr_V.reshape(-1)] = t.reshape(-1)
         out[lane, chain_V.reshape(-1)] = rr[:nc]
@@ -1946,6 +2067,24 @@ def test_chol_mirrors_match_plain(n):
     assert np.abs(xp[good] - xm).max() <= 1e-12 * np.abs(xm).max()
 
 
+@pytest.mark.parametrize('n', [37, 54, 64, 108, 280, 540])
+def test_ks_schedule_matches_mirrors(n):
+    """The substitutions' step schedule (warp 0's chain with its fold, warps 1
+    .. 7 dealt the other tiles by ks_step_tile, each warp's ring walking its
+    tiles in the order it takes them, every tile once) gives the mirrors'
+    order of sums bit for bit: K11's x, and K9's frames and reduced pair."""
+    rng = np.random.default_rng(n)
+    G = rng.standard_normal((n, n))
+    L = np.linalg.cholesky(G @ G.T / n + np.eye(n))
+    b = rng.standard_normal(n)
+    want = tri_upper_t_mirror(L, tri_lower_mirror(L, b))
+    np.testing.assert_array_equal(ks_schedule_mirror(L, b), want)
+    T = -(-n // 32)
+    taken = sorted(t for w in range(8) for t in ks_walk(T, w))
+    lower = sorted((i, j) for i in range(T) for j in range(i + 1))
+    assert taken == sorted(lower * 2)   # each pass takes every lower tile once
+
+
 @pytest.mark.parametrize('n_k', range(1, 14))
 def test_block_factor_geometry(n_k):
     """K8 lays a lane out as a cluster of n_k CTAs (non-portable past 8), each
@@ -1967,6 +2106,32 @@ def test_block_factor_geometry(n_k):
     assert {4: 91_584, 8: 108_096, 10: 152_064}.get(n_k, g.smem_bytes) == g.smem_bytes
     # two CTAs an SM (228 KB, 1 KB of it reserved a CTA) up to n_k = 8
     assert (2 * (g.smem_bytes + kernels.BLOCK_STATIC_SMEM + 1024) <= 228 * 1024) == (n_k <= 8)
+
+
+@pytest.mark.parametrize('n_k', range(1, 14))
+def test_block_solve_geometry(n_k):
+    """K9 lays a lane out as a cluster of n_k CTAs, each with its frame's Li
+    (three lower tiles at ni = 54) and Xc (54 rows at the odd leading
+    dimension 43), rank 0 also L_R's lower tiles, then the vectors: every
+    layout block_factor_geometry accepts (n_k <= 12) fits one block's
+    shared memory, and n_k = 13 raises by name, as K8 does."""
+    from awebox_tpu_torch.parallel import kernels
+    lay = kernels.BlockLayout(n_k, 11, 54, 20, 96)
+    if n_k > 12:
+        with pytest.raises(ValueError, match='block_solve'):
+            kernels.block_solve_geometry(lay)
+        with pytest.raises(ValueError, match='block_factor'):
+            kernels.block_factor_geometry(lay)
+        return
+    kernels.block_factor_geometry(lay)
+    g = kernels.block_solve_geometry(lay)
+    tr = -(-lay.nr // 32)
+    assert (g.C, g.ld_x, g.li_tiles, g.r_tiles) == (n_k, 43, 3, tr * (tr + 1) // 2)
+    assert kernels.SUBST_TILE_BYTES == 8 * 32 * 34
+    assert g.smem_bytes == (g.li_tiles + g.r_tiles) * kernels.SUBST_TILE_BYTES \
+        + 8 * (54 * 43 + 2 * 32 * (2 + tr) + n_k * 42)
+    assert g.smem_bytes + kernels.SUBST_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+    assert {4: 74_192, 8: 137_488, 12: 182_864}.get(n_k, g.smem_bytes) == g.smem_bytes
 
 
 def test_advance_state_plain_takes_lanes_without_rows():
@@ -2437,9 +2602,10 @@ def test_block_kernels_match_plain_on_card(cuda):
     """K8 (block_factor) and K9 (block_solve) against their plain versions on
     random frames of the n_k = 4 and n_k = 8 layouts (B = 1, 16, 128 and
     16) and of K8's other cluster sizes (n_k = 1; 10 and 12, non-portable
-    clusters), with an indefinite lane and a NaN lane that fail alone (ok
-    False, L_R NaN, x NaN) while the other lanes keep the bits of a clean
-    run."""
+    clusters; K9's cluster has the same sizes), with an indefinite lane and a
+    NaN lane that fail alone (ok False, L_R NaN, x NaN) while the other lanes
+    keep the bits of a clean run; two K9 calls give the same bits; each
+    launch counted."""
     from awebox_tpu_torch.parallel import kernels
     layouts = dict(BLOCK_LAYOUTS, **{f'n_k={n_k}': (n_k, 11, 54, 20, 96) for n_k in (1, 10, 12)})
     for name, B in (('tiny', 4), ('n_k=4', 1), ('n_k=4', 16), ('n_k=4', 128),
@@ -2461,6 +2627,10 @@ def test_block_kernels_match_plain_on_card(cuda):
         block_gates(fac_k, fac_p, x_k, x_p, good)
         assert not bool(fac_k[3][bad].any()) and bool(torch.isnan(fac_k[2][bad]).all())
         assert bool(torch.isnan(x_k[bad]).all())
+        x_2 = kernels.block_solve(*fac_k[:3], rhs, maps, lay)   # a second call: the same bits
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['block_solve'] == before['block_solve'] + 2
+        assert torch.equal(x_k.view(torch.int64), x_2.view(torch.int64))
         if bad:   # the failing lanes change no other lane's bits
             F_clean = F.clone()
             F_clean[bad] = F[good[0]]
@@ -2477,8 +2647,9 @@ def test_chol_kernels_match_plain_on_card(cuda):
     (its global variant), B = 16: L within 1e-12 of its max and x within
     1e-10 of max |x| on SPD lanes (cond ~ 1e3; only the order of the sums
     differs); a negative pivot and a NaN entry fail their lane alone (ok
-    False, L NaN) and change no other lane's bits; two calls give the same
-    bits; each launch counted under the variant chol_factor_geometry gives."""
+    False, L NaN, x NaN) and change no other lane's bits; two calls of each
+    give the same bits; each launch counted (K10's under the variant
+    chol_factor_geometry gives); K11 at every n, 700 included."""
     from awebox_tpu_torch.parallel import kernels
     for n in (37, 280, 540, 700):
         variant = kernels.chol_factor_geometry(n).variant
@@ -2496,14 +2667,18 @@ def test_chol_kernels_match_plain_on_card(cuda):
         xp = kernels.chol_solve_batched_plain(Lp, b)
         L_c, _ = kernels.chol_factor_batched(M_clean)
         L_2, ok_2 = kernels.chol_factor_batched(Mt)
+        x_c = kernels.chol_solve_batched(L_c, b)
+        x_2 = kernels.chol_solve_batched(L, b)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES['chol_factor_batched'] == before['chol_factor_batched'] + 3
         assert kernels.LAUNCHES[f'chol_factor_{variant}'] \
             == before[f'chol_factor_{variant}'] + 3
-        assert kernels.LAUNCHES['chol_solve_batched'] == before['chol_solve_batched'] + 1
+        assert kernels.LAUNCHES['chol_solve_batched'] == before['chol_solve_batched'] + 3
+        assert torch.equal(x.view(torch.int64), x_2.view(torch.int64))
         assert ok.tolist() == okp.tolist() == [b_ not in (1, 2) for b_ in range(16)]
         good = [b_ for b_ in range(16) if b_ not in (1, 2)]
         assert float((L[good] - Lp[good]).abs().max()) <= 1e-12 * float(Lp[good].abs().max())
         assert float((x[good] - xp[good]).abs().max()) <= 1e-10 * float(xp[good].abs().max())
         assert bool(torch.isnan(L[[1, 2]]).all()) and torch.equal(L[good], L_c[good])
+        assert bool(torch.isnan(x[[1, 2]]).all()) and torch.equal(x[good], x_c[good])
         assert torch.equal(L.view(torch.int64), L_2.view(torch.int64)) and torch.equal(ok, ok_2)
