@@ -62,6 +62,14 @@
 //                            lane, the lane in global memory)
 //   K11 chol_solve_batched   batch.py:234-236  the two triangular solves
 //
+// and, f64, those of the host solver's dense direction (opti/ipsolver.py
+// kkt_solve, behind Trial.optimize):
+//
+//   K12 lu_factor_f64        ipsolver.py:194  partial-pivot LU of the
+//                            augmented KKT matrix (K2's blocked design)
+//   K13 lu_solve_f64         ipsolver.py:195, 197  the interchanges, the
+//                            unit-lower and the upper substitution
+//
 // Layout follows the JAX package: lanes first, row-major. Every entry point
 // is a plain C function that returns a CUDA error code; a launch goes to the
 // caller's stream and returns cudaGetLastError(). newton_rows, newton_tiles,
@@ -567,6 +575,25 @@ __device__ __forceinline__ void argmax_redux(unsigned& key, int& row) {
   key = m;
 }
 
+// the same in f64 (K12): a 64-bit key, reduced by xor shuffles since
+// redux.sync takes 32 bits
+__device__ __forceinline__ unsigned long long amax_key(double x) {
+  const double a = fabs(x);
+  return (a == a) ? (unsigned long long)__double_as_longlong(a) + 1ull : 0ull;
+}
+
+__device__ __forceinline__ void argmax_redux(unsigned long long& key, int& row) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long k2 = __shfl_xor_sync(FULL_MASK, key, off);
+    const int r2 = __shfl_xor_sync(FULL_MASK, row, off);
+    if (k2 > key || (k2 == key && r2 < row)) {
+      key = k2;
+      row = r2;
+    }
+  }
+}
+
 // Unblocked LU of the owner's panel: columns P + k*ld (k < w), global rows
 // p0..N-1. Each thread holds its rows p0 + tid + s*K2C_THREADS of the panel
 // in registers (N - p0 <= K2C_ROWS * K2C_THREADS); per column every warp
@@ -869,38 +896,62 @@ constexpr int KB_UTHREADS = 256;              // update kernels: 32 columns x 8 
 static_assert(KB_WARPS == KB_NB, "a warp per panel column, an argmax slot per warp");
 static_assert(KB_UTHREADS == 32 * 8 && KB_TR == 8 * 8 && KB_TC == 2 * 32, "8 x 2 register tiles");
 
+// The blocked trio is a template on the element type T and the panel width
+// NB (its panel kernel has NB warps): K2 instantiates it at (float, 32), K12
+// at (double, 16). What differs by type is below: the FMA, the pivot key
+// (amax_key and argmax_redux have a double overload) and the 8-wide load.
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+
+// l[0..7] = p[0..7] from 16-byte aligned shared memory
+__device__ __forceinline__ void load8(const float* __restrict__ p, float (&l)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  l[0] = a.x; l[1] = a.y; l[2] = a.z; l[3] = a.w;
+  l[4] = b.x; l[5] = b.y; l[6] = b.z; l[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const double* __restrict__ p, double (&l)[8]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const double2 v = *reinterpret_cast<const double2*>(p + 2 * q);
+    l[2 * q] = v.x;
+    l[2 * q + 1] = v.y;
+  }
+}
+
 // A[r0 + i][c0 + j] -= sum_k Ls[k][i] Us[k][j] for the tile's rows i < nr and
-// columns j < nc, k = 0 .. KB_NB - 1 in order (the k past a narrower last
+// columns j < nc, k = 0 .. NB - 1 in order (the k past a narrower last
 // panel hold zeros on both sides, so they add 0 * 0): thread (tx, ty) of
 // 32 x 8 updates rows 8 ty .. 8 ty + 7 and columns tx, tx + 32 in registers;
-// its rows of Ls are two 16-byte broadcasts, its columns of Us two
+// its rows of Ls are 16-byte broadcasts, its columns of Us two
 // conflict-free loads a step. The sum is taken from 0 and subtracted once,
 // as a GEMM does: accumulated into A itself, a diagonal entry of U would
 // take one rounding per column of L (N of them) instead of one per panel.
-__device__ __forceinline__ void kb_rank_update(float* __restrict__ a, int N, int r0, int c0,
-                                               int nr, int nc, const float* __restrict__ Ls,
-                                               const float* __restrict__ Us) {
+template <typename T, int NB>
+__device__ __forceinline__ void kb_rank_update(T* __restrict__ a, int N, int r0, int c0, int nr,
+                                               int nc, const T* __restrict__ Ls,
+                                               const T* __restrict__ Us) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  float old[8][2], acc[8][2];
+  T old[8][2], acc[8][2];
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int i = 8 * ty + p, j = tx + 32 * q;
-      old[p][q] = (i < nr && j < nc) ? a[(size_t)(r0 + i) * N + c0 + j] : 0.0f;
-      acc[p][q] = 0.0f;
+      old[p][q] = (i < nr && j < nc) ? a[(size_t)(r0 + i) * N + c0 + j] : T(0);
+      acc[p][q] = T(0);
     }
   }
-#pragma unroll 8
-  for (int k = 0; k < KB_NB; ++k) {
-    const float4 l0 = *reinterpret_cast<const float4*>(Ls + k * KB_LDL + 8 * ty);
-    const float4 l1 = *reinterpret_cast<const float4*>(Ls + k * KB_LDL + 8 * ty + 4);
-    const float l[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-    const float u[2] = {Us[k * KB_TC + tx], Us[k * KB_TC + tx + 32]};
+#pragma unroll (NB / 4)
+  for (int k = 0; k < NB; ++k) {
+    T l[8];
+    load8(Ls + k * KB_LDL + 8 * ty, l);
+    const T u[2] = {Us[k * KB_TC + tx], Us[k * KB_TC + tx + 32]};
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) acc[p][q] = fmaf(l[p], u[q], acc[p][q]);
+      for (int q = 0; q < 2; ++q) acc[p][q] = fma_t(l[p], u[q], acc[p][q]);
     }
   }
 #pragma unroll
@@ -913,70 +964,77 @@ __device__ __forceinline__ void kb_rank_update(float* __restrict__ a, int N, int
   }
 }
 
-// rows k0..N-1 of the panel's columns into P (column c, row k0 + r at
-// c * lds + r; columns past the panel's w hold zeros): a warp per row
-__device__ __forceinline__ void kb_load_panel(float* __restrict__ P, const float* __restrict__ a,
-                                              int N, int k0, int w, int lds) {
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  for (int r = warp; r < N - k0; r += KB_WARPS) {
-    P[wl * lds + r] = wl < w ? a[(size_t)(k0 + r) * N + k0 + wl] : 0.0f;
+// rows k0..N-1 of the panel's NB columns into P (column c, row k0 + r at
+// c * lds + r; columns past the panel's w hold zeros), NB consecutive
+// threads a row
+template <typename T, int NB, int THREADS>
+__device__ __forceinline__ void kb_load_panel(T* __restrict__ P, const T* __restrict__ a, int N,
+                                              int k0, int w, int lds) {
+  for (int e = threadIdx.x; e < (N - k0) * NB; e += THREADS) {
+    const int r = e / NB, c = e % NB;
+    P[c * lds + r] = c < w ? a[(size_t)(k0 + r) * N + k0 + c] : T(0);
   }
 }
 
-__device__ __forceinline__ void kb_store_panel(const float* __restrict__ P, float* __restrict__ a,
-                                               int N, int k0, int w, int lds) {
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  for (int r = warp; r < N - k0; r += KB_WARPS) {
-    if (wl < w) a[(size_t)(k0 + r) * N + k0 + wl] = P[wl * lds + r];
+template <typename T, int NB, int THREADS>
+__device__ __forceinline__ void kb_store_panel(const T* __restrict__ P, T* __restrict__ a, int N,
+                                               int k0, int w, int lds) {
+  for (int e = threadIdx.x; e < (N - k0) * NB; e += THREADS) {
+    const int r = e / NB, c = e % NB;
+    if (c < w) a[(size_t)(k0 + r) * N + k0 + c] = P[c * lds + r];
   }
 }
 
-__global__ void __launch_bounds__(KB_THREADS, 1)
-lu_panel_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0, int lds) {
-  extern __shared__ float kb_dyn[];
-  float* P = kb_dyn;                          // [KB_NB][lds] the panel's rows k0..N-1
-  __shared__ unsigned s_key[KB_WARPS];
-  __shared__ int s_row[KB_WARPS];
-  __shared__ float s_prow[KB_NB];             // the pivot row of the current column
-  float* a = Ks + (size_t)blockIdx.x * N * N;
+template <typename T, int NB>
+__global__ void __launch_bounds__(NB * 32, 1)
+lu_panel_kernel(T* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0, int lds) {
+  constexpr int THREADS = NB * 32;            // a warp per panel column, an argmax slot each
+  using Key = decltype(amax_key(T(0)));
+  extern __shared__ __align__(16) unsigned char lu_dyn[];
+  T* P = reinterpret_cast<T*>(lu_dyn);        // [NB][lds] the panel's rows k0..N-1
+  __shared__ Key s_key[NB];
+  __shared__ int s_row[NB];
+  __shared__ T s_prow[NB];                    // the pivot row of the current column
+  T* a = Ks + (size_t)blockIdx.x * N * N;
   int32_t* pv = piv + (size_t)blockIdx.x * N;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const int w = min(KB_NB, N - k0), rows = N - k0;
-  kb_load_panel(P, a, N, k0, w, lds);
+  const int w = min(NB, N - k0), rows = N - k0;
+  kb_load_panel<T, NB, THREADS>(P, a, N, k0, w, lds);
   __syncthreads();
   // rows are local (k0 + r global); a thread visits its rows in increasing
-  // order and keeps the first of equal keys, redux keeps the lowest row
-  unsigned key = 0u;
+  // order and keeps the first of equal keys, the reduction keeps the lowest row
+  Key key = 0;
   int brow = N;
-  for (int r = tid; r < rows; r += KB_THREADS) {
-    if (amax_key(P[r]) > key) { key = amax_key(P[r]); brow = r; }
+  for (int r = tid; r < rows; r += THREADS) {
+    const Key kk = amax_key(P[r]);
+    if (kk > key) { key = kk; brow = r; }
   }
   argmax_redux(key, brow);
   if (wl == 0) { s_key[warp] = key; s_row[warp] = brow; }
   for (int k = 0; k < w; ++k) {
     __syncthreads();                          // the slots of column k are in
-    key = s_key[wl];
-    brow = s_row[wl];
+    key = wl < NB ? s_key[wl] : Key(0);
+    brow = wl < NB ? s_row[wl] : N;
     argmax_redux(key, brow);
     const int p = key ? brow : k;             // a column of NaNs keeps the diagonal
-    if (warp == 0) {                          // rows k and p swap across the panel
-      const float vp = P[wl * lds + p], vk = P[wl * lds + k];
+    if (warp == 0 && wl < NB) {               // rows k and p swap across the panel
+      const T vp = P[wl * lds + p], vk = P[wl * lds + k];
       s_prow[wl] = vp;
       P[wl * lds + k] = vp;
       P[wl * lds + p] = vk;
       if (wl == 0) pv[k0 + k] = k0 + p + 1;   // LAPACK's 1-based convention
     }
     __syncthreads();                          // the pivot row is published
-    const float pivot = s_prow[k];
-    key = 0u;
+    const T pivot = s_prow[k];
+    key = 0;
     brow = N;
-    for (int r = k + 1 + tid; r < rows; r += KB_THREADS) {
-      const float l = P[k * lds + r] / pivot;
+    for (int r = k + 1 + tid; r < rows; r += THREADS) {
+      const T l = P[k * lds + r] / pivot;
       P[k * lds + r] = l;
-      for (int c = k + 1; c < w; ++c) P[c * lds + r] = fmaf(-l, s_prow[c], P[c * lds + r]);
-      if (k + 1 < w && amax_key(P[(k + 1) * lds + r]) > key) {
-        key = amax_key(P[(k + 1) * lds + r]);
-        brow = r;
+      for (int c = k + 1; c < w; ++c) P[c * lds + r] = fma_t(-l, s_prow[c], P[c * lds + r]);
+      if (k + 1 < w) {
+        const Key kk = amax_key(P[(k + 1) * lds + r]);
+        if (kk > key) { key = kk; brow = r; }
       }
     }
     if (k + 1 < w) {                          // uniform over the block
@@ -985,7 +1043,7 @@ lu_panel_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0
     }
   }
   __syncthreads();
-  kb_store_panel(P, a, N, k0, w, lds);
+  kb_store_panel<T, NB, THREADS>(P, a, N, k0, w, lds);
 }
 
 // The panel's interchanges on every column outside it (columns j < k0 and
@@ -993,18 +1051,19 @@ lu_panel_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0
 // LAPACK's w sequential swaps of rows k0 + q and p_q move at most 2 w rows:
 // destination d takes the row found by tracing d back through the swaps,
 // from the last one, so every source is loaded before any row is stored.
+template <typename T, int NB>
 __global__ void __launch_bounds__(KB_SCOLS)
-lu_swap_kernel(float* __restrict__ Ks, const int32_t* __restrict__ piv, int N, int k0) {
-  __shared__ int s_piv[KB_NB];                // the panel's pivots, 0-based
-  __shared__ int s_dst[2 * KB_NB], s_src[2 * KB_NB];
-  __shared__ float L11[KB_NB][KB_NB + 1];     // strictly lower, zeros elsewhere
-  float* a = Ks + (size_t)blockIdx.y * N * N;
+lu_swap_kernel(T* __restrict__ Ks, const int32_t* __restrict__ piv, int N, int k0) {
+  __shared__ int s_piv[NB];                   // the panel's pivots, 0-based
+  __shared__ int s_dst[2 * NB], s_src[2 * NB];
+  __shared__ T L11[NB][NB + 1];               // strictly lower, zeros elsewhere
+  T* a = Ks + (size_t)blockIdx.y * N * N;
   const int tid = threadIdx.x;
-  const int w = min(KB_NB, N - k0);
+  const int w = min(NB, N - k0);
   if (tid < w) s_piv[tid] = piv[(size_t)blockIdx.y * N + k0 + tid] - 1;
-  for (int e = tid; e < KB_NB * KB_NB; e += KB_SCOLS) {
-    const int i = e / KB_NB, t = e % KB_NB;
-    L11[i][t] = (i < w && t < i) ? a[(size_t)(k0 + i) * N + k0 + t] : 0.0f;
+  for (int e = tid; e < NB * NB; e += KB_SCOLS) {
+    const int i = e / NB, t = e % NB;
+    L11[i][t] = (i < w && t < i) ? a[(size_t)(k0 + i) * N + k0 + t] : T(0);
   }
   __syncthreads();
   if (tid < 2 * w) {
@@ -1021,47 +1080,77 @@ lu_swap_kernel(float* __restrict__ Ks, const int32_t* __restrict__ piv, int N, i
   const int c = blockIdx.x * KB_SCOLS + tid;
   if (c >= N - w) return;
   const int j = c < k0 ? c : c + w;
-  float v[2 * KB_NB];
+  T v[2 * NB];
 #pragma unroll
-  for (int d = 0; d < 2 * KB_NB; ++d) v[d] = d < 2 * w ? a[(size_t)s_src[d] * N + j] : 0.0f;
+  for (int d = 0; d < 2 * NB; ++d) v[d] = d < 2 * w ? a[(size_t)s_src[d] * N + j] : T(0);
 #pragma unroll
-  for (int d = 0; d < 2 * KB_NB; ++d) {
+  for (int d = 0; d < 2 * NB; ++d) {
     if (d < 2 * w) a[(size_t)s_dst[d] * N + j] = v[d];
   }
   if (j < k0) return;
   // rows k0..k0+w-1 of the column after the interchanges are v[0..w-1]
 #pragma unroll
-  for (int k = 1; k < KB_NB; ++k) {
+  for (int k = 1; k < NB; ++k) {
 #pragma unroll
-    for (int t = 0; t < k; ++t) v[k] = fmaf(-L11[k][t], v[t], v[k]);
+    for (int t = 0; t < k; ++t) v[k] = fma_t(-L11[k][t], v[t], v[k]);
   }
 #pragma unroll
-  for (int k = 0; k < KB_NB; ++k) {
+  for (int k = 0; k < NB; ++k) {
     if (k < w) a[(size_t)(k0 + k) * N + j] = v[k];
   }
 }
 
 // A22 -= L21 U12 on the trailing rows and columns k0 + w .. N-1
+template <typename T, int NB>
 __global__ void __launch_bounds__(KB_UTHREADS)
-lu_update_kernel(float* __restrict__ Ks, int N, int k0) {
-  __shared__ __align__(16) float Ls[KB_NB * KB_LDL];   // [k][i] L21 of the tile's rows
-  __shared__ __align__(16) float Us[KB_NB * KB_TC];    // [k][j] U12 of the tile's columns
-  float* a = Ks + (size_t)blockIdx.y * N * N;
+lu_update_kernel(T* __restrict__ Ks, int N, int k0) {
+  __shared__ __align__(16) T Ls[NB * KB_LDL];   // [k][i] L21 of the tile's rows
+  __shared__ __align__(16) T Us[NB * KB_TC];    // [k][j] U12 of the tile's columns
+  T* a = Ks + (size_t)blockIdx.y * N * N;
   const int tid = threadIdx.x;
-  const int w = min(KB_NB, N - k0), t0 = k0 + w;
+  const int w = min(NB, N - k0), t0 = k0 + w;
   const int tiles_c = (N - t0 + KB_TC - 1) / KB_TC;
   const int r0 = t0 + (blockIdx.x / tiles_c) * KB_TR, c0 = t0 + (blockIdx.x % tiles_c) * KB_TC;
   const int nr = min(KB_TR, N - r0), nc = min(KB_TC, N - c0);
-  for (int e = tid; e < KB_NB * KB_TR; e += KB_UTHREADS) {   // a warp reads a row
-    const int i = e / KB_NB, k = e % KB_NB;
-    Ls[k * KB_LDL + i] = (i < nr && k < w) ? a[(size_t)(r0 + i) * N + k0 + k] : 0.0f;
+  for (int e = tid; e < NB * KB_TR; e += KB_UTHREADS) {   // consecutive threads read a row
+    const int i = e / NB, k = e % NB;
+    Ls[k * KB_LDL + i] = (i < nr && k < w) ? a[(size_t)(r0 + i) * N + k0 + k] : T(0);
   }
-  for (int e = tid; e < KB_NB * KB_TC; e += KB_UTHREADS) {
+  for (int e = tid; e < NB * KB_TC; e += KB_UTHREADS) {
     const int k = e / KB_TC, j = e % KB_TC;
-    Us[e] = (k < w && j < nc) ? a[(size_t)(k0 + k) * N + c0 + j] : 0.0f;
+    Us[e] = (k < w && j < nc) ? a[(size_t)(k0 + k) * N + c0 + j] : T(0);
   }
   __syncthreads();
-  kb_rank_update(a, N, r0, c0, nr, nc, Ls, Us);
+  kb_rank_update<T, NB>(a, N, r0, c0, nr, nc, Ls, Us);
+}
+
+// The host side of the trio: ceil(N / NB) panels, each its three launches
+// on the stream. lds (the panel's odd leading dimension, >= N) and smem (the
+// panel kernel's dynamic shared memory) come from kernels.py; only that
+// they cover the panel is checked.
+template <typename T, int NB>
+int lu_blocked_launch(T* a, int32_t* pv, int B, int N, int lds, int smem, cudaStream_t st) {
+  if (lds < N || lds % 2 == 0 || (size_t)smem < sizeof(T) * NB * (size_t)lds) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute((const void*)lu_panel_kernel<T, NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  for (int k0 = 0; k0 < N; k0 += NB) {
+    const int w = min(NB, N - k0), nt = N - k0 - w;
+    lu_panel_kernel<T, NB><<<B, NB * 32, smem, st>>>(a, pv, N, k0, lds);
+    if (N > w) {
+      lu_swap_kernel<T, NB><<<dim3((N - w + KB_SCOLS - 1) / KB_SCOLS, B), KB_SCOLS, 0, st>>>(
+          a, pv, N, k0);
+    }
+    if (nt > 0) {
+      const int tiles = ((nt + KB_TR - 1) / KB_TR) * ((nt + KB_TC - 1) / KB_TC);
+      lu_update_kernel<T, NB><<<dim3(tiles, B), KB_UTHREADS, 0, st>>>(a, N, k0);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -2574,7 +2663,7 @@ qr_panel_kernel(float* __restrict__ qr, float* __restrict__ tau, float* __restri
   float* a = qr + (size_t)blockIdx.x * N * N;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
   const int w = min(KB_NB, N - k0), rows = N - k0;
-  kb_load_panel(P, a, N, k0, w, lds);
+  kb_load_panel<float, KB_NB, KB_THREADS>(P, a, N, k0, w, lds);
   for (int e = tid; e < KB_NB * (KB_NB + 1); e += KB_THREADS) (&T[0][0])[e] = 0.0f;
   __syncthreads();
   float* col = P + warp * lds;                // this warp's column
@@ -2641,7 +2730,7 @@ qr_panel_kernel(float* __restrict__ qr, float* __restrict__ tau, float* __restri
   if (tid < w) tl[tid] = s_tau[tid];
   float* Tl = Tg + (size_t)blockIdx.x * KB_NB * KB_NB;
   for (int e = tid; e < KB_NB * KB_NB; e += KB_THREADS) Tl[e] = T[e / KB_NB][e % KB_NB];
-  kb_store_panel(P, a, N, k0, w, lds);
+  kb_store_panel<float, KB_NB, KB_THREADS>(P, a, N, k0, w, lds);
 }
 
 // entry (r, k0 + k) of V: the factor's below the diagonal, an implied 1 on
@@ -2738,7 +2827,7 @@ qr_update_kernel(float* __restrict__ qr, const float* __restrict__ Tg,
     Us[e] = y;
   }
   __syncthreads();
-  kb_rank_update(a, N, r0, c0, nr, nc, Ls, Us);
+  kb_rank_update<float, KB_NB>(a, N, r0, c0, nr, nc, Ls, Us);
 }
 
 // ---------------------------------------------------------------------------
@@ -4896,6 +4985,199 @@ size_t k11_smem_doubles(int n) {
   return (size_t)K11_RING * KS_TILE + 2 * KS_NB * (size_t)((n + KS_NB - 1) / KS_NB);
 }
 
+// ---------------------------------------------------------------------------
+// K12 lu_factor_f64: replaces jax.scipy.linalg.lu_factor of the host
+// solver's augmented KKT matrix at awebox_tpu/opti/ipsolver.py:194, f64, as
+// kernels.lu_factor_f64_plain (LAPACK getrf: partial pivoting, the first
+// maximum |a| of a column, 1-based int32 pivots, L unit lower and U in
+// place). It is K2's blocked trio (lu_panel_kernel, lu_swap_kernel,
+// lu_update_kernel, lu_blocked_launch) instantiated at T = double and
+// panels of K12_NB = 16 columns: the lane stays in global memory and the
+// panel kernel, one CTA of 16 warps per lane, holds the panel's rows
+// k0..N-1 in shared memory (69 KB at N = 543, 135 KB at N = 1055); the
+// pivot key is |a|'s 64 bits plus one (0 for a NaN, so a NaN is never
+// chosen; ties to the lowest row), reduced by xor shuffles since redux.sync
+// takes 32 bits.
+// A zero pivot is divided by, so a singular lane's factor holds inf or NaN
+// below it and its solve is not finite; a NaN lane stays NaN. Nothing is
+// atomic and every sum runs in a fixed order: a lane's bits do not depend on
+// the batch. What bounds it on the host solver's path (B = 1): the chain of
+// N pivot steps of the panels, each two block barriers on one SM, and
+// 3 ceil(N / 16) launches; the update's 2/3 N^3 operations spread over the
+// card.
+// ---------------------------------------------------------------------------
+constexpr int K12_NB = 16;                    // panel width: 16 warps in the panel kernel
+
+// ---------------------------------------------------------------------------
+// K13 lu_solve_f64: x = lu_solve((lu, piv), b), replacing
+// jax.scipy.linalg.lu_solve at awebox_tpu/opti/ipsolver.py:195 and :197,
+// f64, as kernels.lu_solve_f64_plain. One CTA of KS_WARPS warps a lane, in
+// K11's layout (kernels.lu_solve_f64_geometry): the vector, the pivots and
+// the reciprocals of U's diagonal in shared memory, the factor streamed
+// through K11_RING tile slots by cp.async. The row interchanges are applied
+// to the vector in order by one thread, from shared memory; then the
+// unit-lower forward pass is K9's and K11's ks_forward on the factor's
+// strictly lower tiles with a diagonal of ones, and the upper backward pass
+// is its mirror on U's tiles read as rows (k13_backward), each warp's ring
+// (K13Ring) walking the lower tiles of the forward pass and the upper ones
+// of the backward pass. What bounds it: the two chains of ceil(N / 32) tile
+// steps, then the serial interchanges (N shared-memory swaps), then the
+// factor's bytes (2.36 MB at N = 543, read once).
+// ---------------------------------------------------------------------------
+
+// KsRing's walk with the backward pass's tiles transposed: tile (ti, tj) of
+// ks_step_tile's backward half is U's tile (tj, ti)
+struct K13Ring {
+  double* slots;
+  const double* L;
+  int m, T, sw, warp, wl;
+  bool pairs;
+  int s, idx;
+  int taken, freed;
+
+  __device__ void advance() {
+    int ti, tj;
+    ++idx;
+    while (s < 2 * T && !ks_step_tile(s, idx, T, warp, ti, tj)) {
+      ++s;
+      idx = 0;
+    }
+  }
+
+  __device__ void fetch(double* slot) {
+    if (s < 2 * T) {
+      int ti, tj;
+      ks_step_tile(s, idx, T, warp, ti, tj);
+      if (s >= T) {
+        const int t = ti;
+        ti = tj;
+        tj = t;
+      }
+      ks_copy_tile(slot, L, m, m, ti, tj, pairs, wl, 32);
+      advance();
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  __device__ void start() {
+    s = 0;
+    idx = -1;
+    advance();
+    taken = freed = 0;
+    for (int i = 0; i < sw; ++i) fetch(slots + i * KS_TILE);
+  }
+
+  __device__ const double* take(int, int) {
+    ks_wait_group(sw - 1 - (taken - freed));
+    __syncwarp();
+    return slots + (taken++ % sw) * KS_TILE;
+  }
+
+  __device__ void done() {
+    __syncwarp();
+    while (freed < taken) fetch(slots + (freed++ % sw) * KS_TILE);
+  }
+};
+
+// U y = b in place, U the upper triangle of the factor (tiles (i, j), i <= j,
+// taken as rows), rinv[i] = 1 / U_ii (1 past m): ks_backward's steps, its
+// products read along U's rows instead of L's columns
+template <class Src>
+__device__ void k13_backward(Src& src, double* y, const double* rinv, int m, int warp, int wl) {
+  const int T = ks_tiles(m);
+  double acc = 0.0;
+  for (int t = T - 1; t >= 0; --t) {
+    const int r0 = t * KS_NB;
+    if (warp == 0) {
+      const bool fold = t > 0;
+      const double* D = src.take(t, t) + wl * KS_LDT;
+      const double* E = fold ? src.take(t - 1, t) + wl * KS_LDT : D;
+      const int h = min(KS_NB, m - r0);
+      const double r = rinv[r0 + wl];
+      double b = y[r0 + wl] + acc, an = 0.0;
+#pragma unroll
+      for (int j = KS_NB - 1; j >= 0; --j) {
+        if (j < h) {
+          if (wl == j) b *= r;
+          const double xj = __shfl_sync(FULL_MASK, b, j);
+          if (wl < j) b = fma(-D[j], xj, b);
+          if (fold) an = fma(-E[j], xj, an);
+        }
+      }
+      if (wl < h) y[r0 + wl] = b;
+      acc = an;
+      src.done();
+    } else if (t + 1 < T) {
+      const double2* xs = reinterpret_cast<const double2*>(y + r0 + KS_NB);
+      for (int i = t - warp; i >= 0; i -= KS_WARPS - 1) {
+        const double* M = src.take(i, t + 1) + wl * KS_LDT;
+        double a[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+        for (int p = 0; p < KS_NB / 2; ++p) {
+          const double2 v = *reinterpret_cast<const double2*>(M + 2 * p), x = xs[p];
+          a[(2 * p) & 3] = fma(v.x, x.x, a[(2 * p) & 3]);
+          a[(2 * p + 1) & 3] = fma(v.y, x.y, a[(2 * p + 1) & 3]);
+        }
+        y[i * KS_NB + wl] -= (a[0] + a[1]) + (a[2] + a[3]);
+        src.done();
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(KS_THREADS, 1)
+lu_solve_f64_kernel(const double* __restrict__ LU, const int32_t* __restrict__ piv,
+                    const double* __restrict__ b, double* __restrict__ x, int n) {
+  extern __shared__ double2 k13_dyn[];
+  const int T = ks_tiles(n), lane = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  double* slots = reinterpret_cast<double*>(k13_dyn);
+  double* y = slots + (size_t)K11_RING * KS_TILE;   // [32 T], zeros past n
+  double* ones = y + T * KS_NB;                     // [32 T], L's unit diagonal
+  double* rinv = ones + T * KS_NB;                  // [32 T], ones past n
+  int* sp = reinterpret_cast<int*>(rinv + T * KS_NB);   // [32 T], 0-based pivots
+  const double* F = LU + (size_t)lane * n * n;
+  K13Ring ring;
+  ring.slots = slots + (warp == 0 ? 0 : K11_SLOTS0 + (warp - 1) * K11_SLOTS) * KS_TILE;
+  ring.L = F;
+  ring.m = n;
+  ring.T = T;
+  ring.sw = warp == 0 ? K11_SLOTS0 : K11_SLOTS;
+  ring.warp = warp;
+  ring.wl = wl;
+  ring.pairs = (n & 1) == 0 && ((uintptr_t)LU & 15) == 0;
+  ring.start();
+  for (int i = tid; i < T * KS_NB; i += KS_THREADS) {
+    y[i] = i < n ? b[(size_t)lane * n + i] : 0.0;
+    ones[i] = 1.0;
+    rinv[i] = i < n ? 1.0 / F[(size_t)i * (n + 1)] : 1.0;
+    sp[i] = i < n ? piv[(size_t)lane * n + i] - 1 : i;
+  }
+  __syncthreads();
+  if (tid == 0) {                       // LAPACK's interchanges, in order
+    for (int k = 0; k < n; ++k) {
+      const int p = sp[k];
+      if (p != k && p >= 0 && p < n) {
+        const double t = y[k];
+        y[k] = y[p];
+        y[p] = t;
+      }
+    }
+  }
+  __syncthreads();
+  ks_forward(ring, y, ones, n, 2, warp, wl);
+  k13_backward(ring, y, rinv, n, warp, wl);
+  for (int i = tid; i < n; i += KS_THREADS) x[(size_t)lane * n + i] = y[i];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// bytes of K13's dynamic shared memory at n, as kernels.lu_solve_f64_geometry
+size_t k13_smem_bytes(int n) {
+  const size_t rows = (size_t)KS_NB * ((n + KS_NB - 1) / KS_NB);
+  return sizeof(double) * ((size_t)K11_RING * KS_TILE + 3 * rows) + sizeof(int) * rows;
+}
+
 // The launch floor: an empty kernel, timed by chip_smoke.py beside K1-K7.
 __global__ void noop_kernel() {}
 
@@ -4978,31 +5260,10 @@ int lu_factor_cluster(void* Ks, void* piv, int B, int N, int C, int cols,
   return (int)cudaGetLastError();
 }
 
-// lds, the panel's leading dimension in shared memory (odd, >= N), and smem,
-// the panel kernel's dynamic shared memory, come from
-// kernels.lu_factor_geometry; only that they cover the panel is checked.
+// lds and smem come from kernels.lu_factor_geometry
 int lu_factor_blocked(void* Ks, void* piv, int B, int N, int lds, int smem, void* stream) {
-  if (lds < N || lds % 2 == 0 || (size_t)smem < sizeof(float) * KB_NB * (size_t)lds) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute((const void*)lu_panel_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  float* a = (float*)Ks;
-  int32_t* pv = (int32_t*)piv;
-  for (int k0 = 0; k0 < N; k0 += KB_NB) {
-    const int w = min(KB_NB, N - k0), nt = N - k0 - w;
-    lu_panel_kernel<<<B, KB_THREADS, smem, st>>>(a, pv, N, k0, lds);
-    if (N > w) lu_swap_kernel<<<dim3((N - w + KB_SCOLS - 1) / KB_SCOLS, B), KB_SCOLS, 0, st>>>(a, pv, N, k0);
-    if (nt > 0) {
-      const int tiles = ((nt + KB_TR - 1) / KB_TR) * ((nt + KB_TC - 1) / KB_TC);
-      lu_update_kernel<<<dim3(tiles, B), KB_UTHREADS, 0, st>>>(a, N, k0);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return lu_blocked_launch<float, KB_NB>((float*)Ks, (int32_t*)piv, B, N, lds, smem,
+                                         (cudaStream_t)stream);
 }
 
 // sw, the ring slots per warp, and smem, the dynamic shared memory, come
@@ -5257,6 +5518,25 @@ int block_solve(const void* Li, const void* Xc, const void* L_R, const void* rhs
                            (const long long*)intr_V, (const long long*)border_V, (double*)x, n_k,
                            nx, ni, nb, n, ldx);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// lds and smem come from kernels.lu_factor_f64_geometry
+int lu_factor_f64(void* Ks, void* piv, int B, int N, int lds, int smem, void* stream) {
+  return lu_blocked_launch<double, K12_NB>((double*)Ks, (int32_t*)piv, B, N, lds, smem,
+                                           (cudaStream_t)stream);
+}
+
+// smem, the dynamic shared memory, comes from kernels.lu_solve_f64_geometry;
+// only that it covers the ring and the vectors at n is checked.
+int lu_solve_f64(const void* lu, const void* piv, const void* b, void* x, int B, int n, int smem,
+                 void* stream) {
+  if (n < 1 || (size_t)smem < k13_smem_bytes(n)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute((const void*)lu_solve_f64_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  lu_solve_f64_kernel<<<B, KS_THREADS, smem, (cudaStream_t)stream>>>(
+      (const double*)lu, (const int32_t*)piv, (const double*)b, (double*)x, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,18 +1,27 @@
-"""Homotopy schedule bookkeeping.
+"""Declarative homotopy schedule and its solve loop.
 
-Counterpart of the data half of ``awebox_tpu/opti/homotopy.py``: the
-declarative schedule (steps, cost-weight updates, bound updates) and its
-replay to the bounds and cost weights in effect at the 'final' step, plus
-the numeric NLP parameter tree P (numpy leaves; ``parallel.batch.p_from_numpy``
-turns it into tensors). The homotopy solve loop is not ported.
+Counterpart of ``awebox_tpu/opti/homotopy.py``: the schedule is pure data,
+an ordered list of steps, each with cost-weight updates (indexed into the
+per-name update ladders of solver.cost) and bound updates (pin/release
+homotopy parameters, fictitious controls, phase-fix bounds), with its replay
+to the bounds and cost weights in effect at the 'final' step, and the
+numeric NLP parameter tree P (numpy leaves; ``parallel.batch.p_from_numpy``
+turns it into tensors). ``solve_homotopy`` walks the schedule: one
+interior-point solver (``opti/ipsolver.py``) serves every step, only P and
+the bounds change, and iterates warm-start from the previous step (the hippo
+strategy: relaxed mu_target on intermediate steps).
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
 
 from ..model.system import PHI_NAMES
+from ..utils.logging import awelogger
+from .ipsolver import InteriorPointSolver, IPOptions
 
 COST_NAMES = ['tracking', 'u_regularisation', 'xdot_regularisation',
               'theta_regularisation', 'fictitious', 'power', 't_f', 'beta',
@@ -288,3 +297,171 @@ def final_cost_values(ocp, schedule=None):
         idx = min(max(counter_state[name], 0), len(ladder) - 1)
         out[name] = float(ladder[idx])
     return out
+
+
+@dataclass
+class HomotopySolution:
+    V_opt: np.ndarray
+    P: dict
+    stats: dict
+    success: bool
+    step_results: dict
+    final_state: dict = None
+
+
+def linear_solver_choice(ocp, choice='auto') -> str:
+    """The KKT path of the host solver, as the JAX package chooses it
+    (homotopy.py:334-365): 'auto' takes 'block' for a 3-DOF problem of at
+    least 1200 variables without horizon-coupling rows, else 'dense'; an
+    explicit 'block' on a problem with such rows raises."""
+    induction = ocp.model.cfg.get('induction_model')
+    # vortex couples intervals through the wake history; 'averaged' adds one
+    # dense integral row over the whole horizon: both break the
+    # block-tridiagonal structure
+    dense_only = induction in ('vortex', 'averaged') \
+        or ocp.options['model']['integral_outputs'] \
+        or ocp.vstruct.u_param in ('poly', 'ms') \
+        or getattr(ocp.vstruct, 'with_xi', False) \
+        or ocp.options['user_options']['trajectory']['type'] == 'mpc'
+    if choice == 'auto':
+        # the block path's chol-only inertia test is proven on the 3-DOF
+        # families; auto prefers it only there, and only where it pays
+        block_ok = (ocp.vstruct.total >= 1200
+                    and ocp.model.cfg.get('kite_dof', 3) == 3)
+        choice = 'dense' if (dense_only or not block_ok) else 'block'
+    if dense_only and choice == 'block':
+        raise ValueError(f"linear_solver='block' is incompatible with "
+                         f"induction_model='{induction}' (constraints couple "
+                         "intervals); use 'dense'")
+    return choice
+
+
+def solve_homotopy(ocp, V_init, V_ref, lb_nominal, ub_nominal,
+                   final_homotopy_step='final', solver_cache=None,
+                   verbose=True, skip_through=None, device=None) -> HomotopySolution:
+    """Walk the homotopy schedule (homotopy.py:312-474) on ``device`` (the
+    card unless the caller passes 'cpu').
+
+    skip_through = name of the last homotopy step the warmstart source
+    already completed: the schedule's cost/bound updates up to and including
+    that step are applied but not solved, and solving resumes at the next
+    step. If the source completed the whole schedule, the final step is
+    re-solved once as a refinement."""
+    sol_opts = ocp.options['solver']
+    schedule = define_schedule(ocp)
+    P = build_p_fix(ocp, V_ref)
+    cost_table = sol_opts['cost']
+
+    lb, ub = set_initial_bounds(ocp, lb_nominal, ub_nominal, V_init, schedule)
+    choice = linear_solver_choice(ocp, sol_opts.get('linear_solver', 'auto'))
+
+    if solver_cache is not None and 'solver' in solver_cache:
+        solver = solver_cache['solver']
+    else:
+        block_kkt = None
+        if choice == 'block':
+            from ..ocp.blockkkt import make_block_kkt
+            bd, bs, _maps = make_block_kkt(ocp)
+            block_kkt = (bd, bs)
+        solver = InteriorPointSolver(
+            ocp.f_fn, ocp.eq_fn, ocp.ineq_fn,
+            n=ocp.vstruct.total, n_eq=ocp.n_eq, n_ineq=ocp.n_ineq,
+            options=IPOptions(), block_kkt=block_kkt, device=device)
+        if solver_cache is not None:
+            solver_cache['solver'] = solver
+
+    hippo = sol_opts['hippo_strategy']
+    mu_hippo = sol_opts['mu_hippo']
+    tol_hippo = sol_opts['tol_hippo']
+    tol_final = sol_opts['tol']
+    mu_target_final = sol_opts['mu_target']
+
+    cost_update_counter = {name: -1 for name in COST_NAMES}
+    w = np.asarray(V_init)
+    state = None
+    stats = {'iterations': {}, 't_wall': {}}
+    step_results = {}
+    success = True
+
+    # per-iteration recording (option solver.callback); iterates land in
+    # stats['iterates'][step_key]
+    record_iterates = bool(sol_opts.get('callback', False))
+    callback_step = int(sol_opts.get('callback_step', 1))
+    if record_iterates:
+        stats['iterates'] = {}
+
+    steps = schedule['steps']
+    if final_homotopy_step in steps:
+        steps = steps[:steps.index(final_homotopy_step) + 1]
+    solve_from = 0
+    if skip_through in steps:
+        solve_from = steps.index(skip_through) + 1
+        if solve_from >= len(steps):
+            solve_from = len(steps) - 1   # fully solved source: refine final
+
+    for si, step_name in enumerate(steps):
+        if not success:
+            break
+        n_counters = len(schedule['bounds_to_update'][step_name])
+        for counter in range(max(n_counters, 1)):
+            # cost updates
+            for cost_name in schedule['costs_to_update'][step_name].get(counter, []):
+                cost_update_counter[cost_name] += 1
+                ladder = cost_table.get(cost_name, [0.])
+                idx = min(cost_update_counter[cost_name], len(ladder) - 1)
+                P['cost'][cost_name] = np.asarray(float(ladder[idx]))
+            # bound updates
+            for update in schedule['bounds_to_update'][step_name].get(counter, []):
+                lb, ub = apply_bound_update(ocp, lb, ub, lb_nominal, ub_nominal, update)
+            if si < solve_from:
+                # completed by the warmstart source: updates applied, no solve
+                continue
+
+            if step_name == 'initial' or not hippo:
+                mu_init = sol_opts['mu_init']
+                mu_target = mu_hippo if hippo else mu_target_final
+                tol = tol_hippo if hippo else tol_final
+            elif step_name == 'final':
+                mu_init, mu_target, tol = mu_hippo, mu_target_final, tol_final
+            else:
+                mu_init, mu_target, tol = mu_hippo, mu_hippo, tol_hippo
+
+            if verbose:
+                awelogger.info(f"[homotopy] {schedule['labels'][step_name].get(counter, step_name)}")
+            t0 = time.time()
+            if state is not None:
+                # warm start: keep duals, refresh slacks/barrier state
+                ws = solver.init_state(w, P, lb, ub, y0=state['y'],
+                                       lam0=state['lam'], mu=mu_init)
+            else:
+                ws = solver.init_state(w, P, lb, ub, mu=mu_init)
+            key = f'{step_name}_{counter}'
+            cb = None
+            if record_iterates:
+                recs = stats['iterates'].setdefault(key, [])
+
+                def cb(w=None, recs=recs, **info):  # drop the full iterate, keep scalars
+                    recs.append(info)
+            res = solver.solve(w, P, lb, ub, state=ws, tol=tol,
+                               mu_target=mu_target,
+                               max_iter=sol_opts['max_iter'],
+                               verbose=verbose,
+                               callback=cb, callback_step=callback_step)
+            elapsed = time.time() - t0
+            stats['iterations'][key] = res.iterations
+            stats['t_wall'][key] = elapsed
+            step_results[key] = {'status': res.status, 'kkt_error': res.kkt_error,
+                                 'iterations': res.iterations}
+            if verbose:
+                awelogger.info(f'[homotopy]   {res.status} in {res.iterations} iters '
+                               f'({elapsed:.1f}s), kkt={res.kkt_error:.2e}')
+
+            advance_anyway = sol_opts['homotopy_method']['advance_despite_max_iter']
+            if not res.success and not (res.status == 'max_iter' and advance_anyway):
+                success = False
+            w = res.w.cpu().numpy()
+            state = {k: getattr(res, k).cpu().numpy() for k in ('w', 's', 'y', 'lam', 'zl', 'zu')}
+            state['mu'] = res.mu
+
+    return HomotopySolution(V_opt=w, P=P, stats=stats, success=success,
+                            step_results=step_results, final_state=state)

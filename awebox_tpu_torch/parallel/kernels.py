@@ -35,6 +35,18 @@ block_solve            block_solve of ocp/blockkkt.py, :646-679      f64
                        (a thread-block cluster a lane)
 =====================  ===========================================  ==========
 
+and those of the host solver's dense direction (``opti/ipsolver.py``
+kkt_solve, behind ``Trial.optimize``; ``chol_factor_batched`` is its
+inertia test at B = 1):
+
+=====================  ===========================================  ==========
+wrapper                replaces (awebox_tpu/opti/ipsolver.py)       dtype
+=====================  ===========================================  ==========
+lu_factor_f64          jax.scipy.linalg.lu_factor of the augmented  f64
+                       KKT matrix, :194 (K2's blocked design)
+lu_solve_f64           jax.scipy.linalg.lu_solve, :195, :197         f64
+=====================  ===========================================  ==========
+
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel, and raises on anything the kernel does not
 take; it never falls back. ``LAUNCHES`` counts kernel launches per wrapper.
@@ -68,7 +80,7 @@ LAUNCHES = {'newton_kkt': 0, 'kkt_assemble_scaled': 0, 'lu_factor_batched': 0,
             'qr_factor_cluster': 0, 'qr_factor_blocked': 0, 'qr_solve_batched': 0,
             'advance_state': 0, 'chol_factor_batched': 0, 'chol_factor_cluster': 0,
             'chol_factor_global': 0, 'chol_solve_batched': 0,
-            'block_factor': 0, 'block_solve': 0}
+            'block_factor': 0, 'block_solve': 0, 'lu_factor_f64': 0, 'lu_solve_f64': 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -103,6 +115,8 @@ SIGNATURES = {
     'block_factor': [_P] * 7 + [_I] * 9 + [_P],
     'block_solve_occupancy': [_I, _I, _P],
     'block_solve': [_P] * 8 + [_I] * 8 + [_P],
+    'lu_factor_f64': [_P, _P] + [_I] * 4 + [_P],
+    'lu_solve_f64': [_P] * 4 + [_I] * 3 + [_P],
     'noop': [_I, _P],
 }
 
@@ -1483,6 +1497,99 @@ def chol_solve_batched(L, b):
     smem = chol_solve_geometry(n)
     x = torch.empty_like(b)
     _check(name, library().chol_solve_batched(_ptr(L), _ptr(b), _ptr(x), B, n, smem, _stream()))
+    LAUNCHES[name] += 1
+    return x
+
+
+# --- K12, K13: the host solver's f64 LU factor and solve ---------------------
+
+def lu_factor_f64_plain(K):
+    """(B, N, N) f64 -> (lu, piv (B, N) int32): partial-pivot LU with LAPACK
+    getrf's semantics and 1-based pivots; a singular factor is returned, not
+    raised, so inf/NaN reach the solve."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(K)
+    return lu, piv
+
+
+LU64_NB = 16                # panel width of K12 (K12_NB)
+LU64_STATIC_SMEM = 1_024    # room for the panel kernel's static arrays (320 B)
+
+
+class LU64Geometry(NamedTuple):
+    """How K12 lays one lane out: the lane in global memory, factored in
+    panels of ``nb`` columns, one CTA a lane holding a panel's rows at the odd
+    leading dimension ``ld`` in ``smem_bytes`` of shared memory."""
+    nb: int
+    ld: int
+    smem_bytes: int
+
+
+def lu_factor_f64_geometry(N: int) -> LU64Geometry:
+    """K12's layout for N x N lanes; raises by name where a panel's N rows do
+    not fit one block's shared memory (N > 1807)."""
+    ld = blocked_lds(N)
+    smem = 8 * LU64_NB * ld
+    if smem + LU64_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f'lu_factor_f64: N={N} is beyond K12 (its panel of {LU64_NB} '
+                         f'columns needs {smem} B of shared memory)')
+    return LU64Geometry(LU64_NB, ld, smem)
+
+
+def lu_factor_f64(K):
+    """(B, N, N) f64 -> (lu, piv (B, N) int32), as lu_factor_f64_plain. K is
+    not changed: on the card the factor is computed in place in a copy, by
+    3 ceil(N / 16) launches (a panel factor a lane, the interchanges with
+    U12, the trailing update over the card), counted once."""
+    if not K.is_cuda:
+        return lu_factor_f64_plain(K)
+    name = 'lu_factor_f64'
+    _require(name, (K, torch.float64))
+    B, N, N2 = K.shape
+    if N != N2:
+        raise ValueError(f'{name}: square matrices expected')
+    geom = lu_factor_f64_geometry(N)
+    lu = K.clone()
+    piv = torch.empty(B, N, dtype=torch.int32, device=K.device)
+    _check(name, library().lu_factor_f64(_ptr(lu), _ptr(piv), B, N, geom.ld, geom.smem_bytes,
+                                         _stream()))
+    LAUNCHES[name] += 1
+    return lu, piv
+
+
+def lu_solve_f64_plain(lu, piv, b):
+    """(B, N, N) f64 factor, (B, N) int32 pivots, (B, N) f64 -> (B, N) f64."""
+    return torch.linalg.lu_solve(lu, piv, b[:, :, None])[:, :, 0]
+
+
+def lu_solve_f64_geometry(N: int) -> int:
+    """K13's dynamic shared memory at N, bytes: K11's ring of CHOL_SOLVE_SLOTS
+    tiles, the vector, the unit diagonal, the reciprocals of U's diagonal
+    and the pivots (171,904 B at N = 543); raises by name where that does
+    not fit one block (N > 2,656)."""
+    rows = SUBST_NB * -(-N // SUBST_NB)
+    smem = CHOL_SOLVE_SLOTS * SUBST_TILE_BYTES + 3 * 8 * rows + 4 * rows
+    if smem + SUBST_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f'lu_solve_f64: N={N} needs {smem} B of shared memory, more than one '
+                         f'block has')
+    return smem
+
+
+def lu_solve_f64(lu, piv, b):
+    """(B, N, N) f64, (B, N) int32, (B, N) f64 -> (B, N) f64, as
+    lu_solve_f64_plain. On the card one launch, a CTA per lane: the
+    interchanges, then the unit-lower and the upper substitution in tiles of
+    32, the factor streamed through K11's rings of tile slots."""
+    if not lu.is_cuda:
+        return lu_solve_f64_plain(lu, piv, b)
+    name = 'lu_solve_f64'
+    _require(name, (lu, torch.float64), (piv, torch.int32), (b, torch.float64))
+    B, N, _ = lu.shape
+    if lu.shape != (B, N, N) or piv.shape != (B, N) or b.shape != (B, N):
+        raise ValueError(f'{name}: inconsistent shapes')
+    smem = lu_solve_f64_geometry(N)
+    x = torch.empty_like(b)
+    _check(name, library().lu_solve_f64(_ptr(lu), _ptr(piv), _ptr(b), _ptr(x), B, N, smem,
+                                        _stream()))
     LAUNCHES[name] += 1
     return x
 

@@ -3,8 +3,9 @@
 
 Drives the port's main path, the batched wind-sweep refinement of the
 Ampyx AP2 3-DOF power cycle (n_k=4, d=3: n=280 variables, m=263
-constraints, a 543x543 augmented KKT system per lane), and the same sweep on
-the n_k=8 grid (n=540, m=515, 1055x1055), through its public entry points,
+constraints, a 543x543 augmented KKT system per lane), the same sweep on
+the n_k=8 grid (n=540, m=515, 1055x1055), and the cold homotopy solve of
+the configuration through Trial.optimize, through its public entry points,
 and checks the hand-written CUDA kernels on the way:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA
@@ -12,7 +13,7 @@ and checks the hand-written CUDA kernels on the way:
   2. build    compile awebox_tpu_torch/csrc/auglu.cu with nvcc (sm_90a)
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes, on anchor-derived and random systems, with the
-              times of both (median of 25 runs, CUDA events): K1 newton_kkt
+              times of both (median of N_TIMED = 11 runs, CUDA events): K1 newton_kkt
               (the Newton system and K(delta_w), Jacobi-scaled for the LU
               factor and unscaled for the QR factor) bit for bit and K4 ip_step
               (the direction from the solution and the step) at its stated
@@ -49,15 +50,19 @@ and checks the hand-written CUDA kernels on the way:
               M (n=280, B = 1, 2 and 16; n=540, B=16 in phase 7) and K10's
               global variant with K11 on random SPD matrices at n=700 (B = 4
               and 2), each with an indefinite and a NaN lane where B > 2, and K4's
-              advance_state bit for bit, each beside its bound, its plain
-              version and a library yardstick
+              advance_state bit for bit; K12 lu_factor_f64 and K13
+              lu_solve_f64, the host solver's f64 LU, on its augmented K at
+              the anchor (N=543, B = 1 and 16) and on random saddle systems
+              (N=37, B=4; N=1055, B=1), with a singular and a NaN lane; each
+              beside its bound, its plain version and a library yardstick
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
               9.5..10.5 m/s from tests/artifacts/bench_anchor_nk4_d3.npz,
-              iterated to convergence (at most 100 iterations), once with
-              the LU factor ([slice]) and once with the QR factor, the
-              port's default ([slice-qr]); every lane must latch KKT error
-              <= 1e-5 and pass the f64 dynamics residual check <= 1e-4, and
-              the two runs' average powers must agree lane by lane to 1e-6
+              with the QR factor, the port's default ([slice-qr]), to
+              convergence (at most 100 iterations: every lane must latch
+              KKT error <= 1e-5 and pass the f64 dynamics residual check <=
+              1e-4), and with the LU factor ([slice]) for a fixed LU_ITERS
+              iterations (cut for [slice-trial]'s time; the two runs'
+              powers are printed, not gated)
   5. path     after each slice run, every kernel of its path launched in
               it: K1 and K4 once per iteration, the retry assembly once per
               ladder retry, every factor through the variant of its N; LU:
@@ -66,12 +71,16 @@ and checks the hand-written CUDA kernels on the way:
               plain version of any kernel called; state on the card; the
               lanes of each K5 call
   6. solver   the reference's own batched API: make_batched_solver with its
-              defaults (kkt='auto', which is 'block' here; [slice-block]) and
-              with kkt='dense' in f64 ([slice-dense]) on the same 16 lanes,
-              each after its first iteration is held against the plain path
-              on the CPU; every lane must reach err <= 1e-5 with f64 max |eq|
-              <= 1e-4 and the 9.5 m/s lane the JAX package's power and period
-              to 1e-6; every lane's power and period printed; then its
+              defaults (kkt='auto', which is 'block' here; [slice-block],
+              driven through Sweep.run_batched from the anchor installed as
+              a solved Trial where Sweep.batched_problem gives the same
+              start, bounds and P, [slice-sweep]) and with kkt='dense' in
+              f64 ([slice-dense], cut to DENSE_ITERS iterations) on the same
+              16 lanes, each after its first iteration is held against the
+              plain path on the CPU; [slice-block]'s every lane must reach
+              err <= 1e-5 with f64 max |eq| <= 1e-4 and the 9.5 m/s lane the
+              JAX package's power and period to 1e-6; every lane's power and
+              period printed; then its
               [path]: K8 (K10, every launch in its cluster variant) once per
               ladder attempt, K9 (K11) three times and K4's advance_state
               once per iteration, no other kernel and no plain version
@@ -81,6 +90,13 @@ and checks the hand-written CUDA kernels on the way:
               first LU iteration against the plain path on the CPU, then
               NK8_ITERS iterations (from this anchor the refinement does not
               converge, in the JAX package as in the port; see main)
+  8. trial    Trial(bench_options()).build().optimize() on the card
+              ([slice-trial]): the cold homotopy through the host solver,
+              its dense direction through K10, K12 and K13; solve_succeeded,
+              the anchor's average power and period to 1e-6, the final KKT
+              error within its tol, each step's iterations beside the JAX
+              package's, the first direction held to the CPU's plain path,
+              then its [path]
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -99,8 +115,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ANCHOR = os.path.join(HERE, 'tests', 'artifacts', 'bench_anchor_nk4_d3.npz')
 ANCHOR8 = os.path.join(HERE, 'tests', 'artifacts', 'bench_anchor_nk8_d3.npz')
 B = 16
-N_TIMED = 25
-NK8_ITERS = 12    # iterations of each n_k=8 slice (its lanes do not converge; see main)
+# timed runs a median is taken over (25 before [slice-trial] came). A queued run
+# waits behind a ~0.1 s device sleep, so each queued median costs ~1.2 s
+# whatever it times, and the queued medians set most of the [kernels]
+# phase's length; with [slice-trial] added the script has to fit 1200 s on a
+# slow host (1230.6 s with 25 in one run on an H100 at 700 W)
+N_TIMED = 11
+# The time the script's limit leaves for [slice-trial] is given back from
+# earlier paths, in this order: the n_k=8 slices (12 -> NK8_ITERS
+# iterations; they gate no convergence), the LU slice (to convergence, 22
+# iterations -> LU_ITERS; its convergence stays gated on the CPU in
+# tests/test_torch_refine.py) and the condensed solver's slice (to
+# convergence, 34 iterations -> DENSE_ITERS)
+NK8_ITERS = 3     # iterations of each n_k=8 slice (its lanes do not converge; see main)
+LU_ITERS = 6
+DENSE_ITERS = 8
 # The JAX package's converged B=2 sweep (u_ref 9.5, 10.5 m/s) through
 # make_batched_solver(batch_p=True, tol=1e-5) on the CPU in f64: average
 # power [W] and period [s] in each mode, as `python -m tests.sweep_modes_cpu
@@ -119,10 +148,24 @@ TOL_K9_FWD = 1e-4
 # the first iteration's gap card - CPU over the step: the CPU lockstep test's
 # tolerance (tests/test_torch_sweep_lockstep.py::LOCKSTEP_W)
 FIRST_ITER = {'block': 0.3, 'dense': 2e-3}
+# The JAX package's cold homotopy of the bench configuration on the CPU, its
+# iterations a step (`python -m tests.trial_cold_cpu cold jax`)
+JAX_TRIAL_ITERS = {'initial_0': 23, 'fictitious_0': 5, 'fictitious_1': 2, 'power_0': 30,
+                   'power_1': 1, 'final_0': 47}
+# the first kkt_solve of [slice-trial] on the card against the CPU's plain
+# path (LAPACK getrf/getrs and potrf there, K12, K13 and K10 here) at the same
+# state and derivatives, over each part's max: K's condition number there is
+# ~1e9, so two f64 LU orders may part by up to cond x eps ~1e-7 of the
+# solution; a wrong factor or solve parts by O(1)
+TOL_FIRST_KKT = 1e-8
+
+
+T_START = time.time()
 
 
 def phase(name, msg):
-    print(f'[{name}] {msg}', flush=True)
+    """One line of the run's record, with the seconds since the script began."""
+    print(f'[{name}] {msg} (+{time.time() - T_START:.0f} s)', flush=True)
 
 
 def require(ok, what):
@@ -186,8 +229,13 @@ def main():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from awebox_tpu_torch.api.trial import Trial
+    from awebox_tpu_torch.api.sweep import Sweep
+    from awebox_tpu_torch.api.trial import Trial, install_anchor
     from awebox_tpu_torch.configs import bench_options
+    from awebox_tpu_torch.opti.homotopy import (build_p_fix, final_cost_values,
+                                                linear_solver_choice)
+    from awebox_tpu_torch.opti.initialization import build_reference
+    from awebox_tpu_torch.opti.ipsolver import InteriorPointSolver
     from awebox_tpu_torch.parallel import batch, kernels
     from awebox_tpu_torch.parallel.refine import (average_power, make_refiner, refine,
                                                   sweep_bounds, wind_sweep_problem)
@@ -1090,6 +1138,163 @@ def main():
           f'{report["advance_state"]["queued_ms"]:.4f} ms, vs plain '
           f'{report["advance_state"]["plain_ms"]:.3f} ms; bound {b_adv[0]:.5f} ms ({b_adv[1]})')
 
+    # K12 lu_factor_f64 and K13 lu_solve_f64, the host solver's dense
+    # direction (opti/ipsolver.py kkt_solve, behind Trial.optimize), against
+    # their plain versions (torch.linalg.lu_factor_ex and lu_solve in f64,
+    # cuSOLVER on the card, which are also the library calls): on the
+    # augmented K of the bench problem at the anchor (N=543: mu = 1e-3,
+    # delta_c = 1e-7, delta_w 0 on lane 0 and 1e-8 .. 1e-1 on the others) at
+    # B = 1 and 16, on random saddle systems at N=37 (B=4) and N=1055 (B=1),
+    # with a singular lane (a zero column) and a NaN lane at N=37 and N=543
+    # B=16. Gates, entry by entry or row by row so that K's large -D entries
+    # at the anchor do not hide its O(1) rows: the factor's backward error
+    # max |P L U - K| / (P |L| |U|) and the solve's row-wise backward error
+    # max_i |K x - b|_i / (max_j |K_ij| max |x| + |b_i|) each within 10x the
+    # plain version's (at least one f64 epsilon); the two solutions' gap
+    # max |x - x_plain| / max |x_plain| within what their residuals allow,
+    # 2 max |K^-1| (|r| + |r_plain|) / max |x_plain| (x - x_plain = K^-1
+    # (r - r_plain); |K^-1| from torch.linalg.inv, the 2 for its rounding
+    # and the residuals'; the (|K| |x| + |b|) scaling is no gate here: a
+    # row whose exact x_i and b_i are 0 divides its residual by one of the
+    # rounding's own size, O(1) for any solver);
+    # the pivots equal but where a tie decides them (the first differing
+    # pivot's |U_kk| equal in both to 1e-12), a failed lane's x not finite
+    # and the other lanes' bits as without it, K unchanged, one launch each
+    host = InteriorPointSolver(ocp.f_fn, ocp.eq_fn, ocp.ineq_fn, n=n, n_eq=ocp.n_eq,
+                               n_ineq=ocp.n_ineq, device=dev)
+    P_anchor = build_p_fix(ocp, build_reference(ocp, anchor['V_init']))
+    P_anchor['cost'] = {k: np.asarray(v) for k, v in final_cost_values(ocp).items()}
+    P_anchor = host._p(P_anchor)
+    st1 = [state[k][0] for k in ('w', 's', 'y', 'lam', 'zl', 'zu')]
+    d_anchor = host._derivs(st1[0], st1[2], st1[3], P_anchor)
+    K_lanes = torch.stack([
+        host._augmented(*d_anchor[1:], *st1, lbw, ubw, free, 1e-3, float(dw_), 1e-7, 0.)['K']
+        for dw_ in [0.] + list(np.geomspace(1e-8, 1e-1, B - 1))]).contiguous()
+    rhs_anchor = host._augmented(*d_anchor[1:], *st1, lbw, ubw, free, 1e-3, 0., 1e-7, 0.)['rhs']
+    rhs_lanes = rhs_anchor.expand(B, -1).contiguous()
+
+    def hold_lu64(tag, K, b, bad=()):
+        """K12 and K13 on (K, b) against their plain versions, with the
+        gates above; returns their records."""
+        B_, N_ = K.shape[0], K.shape[1]
+        good = [i for i in range(B_) if i not in bad]
+        K0 = K.clone()
+        before = dict(kernels.LAUNCHES)
+        lu_k, piv_k = kernels.lu_factor_f64(K)
+        x_k = kernels.lu_solve_f64(lu_k, piv_k, b)
+        lu_p, piv_p = kernels.lu_factor_f64_plain(K)
+        lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()   # cuSOLVER's is column-major
+        x_p = kernels.lu_solve_f64_plain(lu_p, piv_p, b)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES['lu_factor_f64'] == before['lu_factor_f64'] + 1
+                and kernels.LAUNCHES['lu_solve_f64'] == before['lu_solve_f64'] + 1,
+                f'K12/K13 {tag}: launches')
+        require(torch.equal(K.view(torch.int64), K0.view(torch.int64)), f'K12 {tag}: K changed')
+        Kg, bg = K[good], b[good]
+        eps = torch.finfo(torch.float64).eps
+
+        def ratio(e, d):
+            return torch.where(d > 0, e / d, e)
+
+        def fac(lu, piv):
+            P_, L_, U_ = torch.lu_unpack(lu[good], piv[good])
+            return ratio((P_ @ L_ @ U_ - Kg).abs(),
+                         P_ @ (L_.abs() @ U_.abs())).amax(dim=(1, 2))
+
+        def resid(x):
+            return ((Kg @ x[good][..., None])[..., 0] - bg).abs()
+
+        row_max = Kg.abs().amax(dim=2)
+
+        def res(x):
+            return ratio(resid(x), row_max * x[good].abs().amax(dim=1, keepdim=True)
+                         + bg.abs()).amax(dim=1)
+        fac_k, fac_p = fac(lu_k, piv_k), fac(lu_p, piv_p)
+        res_k, res_p = res(x_k), res(x_p)
+        require(bool((fac_k <= 10 * torch.clamp(fac_p, min=eps)).all()),
+                f'K12 {tag}: max |P L U - K| / (P |L| |U|) {fac_k.tolist()} vs plain '
+                f'{fac_p.tolist()}')
+        require(bool((res_k <= 10 * torch.clamp(res_p, min=eps)).all()),
+                f'K13 {tag}: backward errors {res_k.tolist()} vs plain {res_p.tolist()}')
+        xp_max = x_p[good].abs().amax(dim=1)
+        gap_limit = 2 * (torch.linalg.inv(Kg).abs() @ (resid(x_k) + resid(x_p))[..., None]
+                         )[..., 0].amax(dim=1) / xp_max
+        gaps = (x_k[good] - x_p[good]).abs().amax(dim=1) / xp_max
+        require(bool((gaps <= gap_limit).all()),
+                f'K13 {tag}: max |x - x_plain| / max |x_plain| {gaps.tolist()} beyond what '
+                f'the residuals allow, {gap_limit.tolist()}')
+        ties = 0
+        for i in good:
+            diff_at = torch.nonzero(piv_k[i] != piv_p[i]).flatten()
+            if diff_at.numel():
+                k0 = int(diff_at[0])
+                uk, up = abs(float(lu_k[i, k0, k0])), abs(float(lu_p[i, k0, k0]))
+                require(abs(uk - up) <= 1e-12 * max(uk, up),
+                        f'K12 {tag}: lane {i} pivots differ at {k0} without a tie')
+                ties += 1
+        for i in bad:
+            require(not bool(torch.isfinite(x_k[i]).all()) and not bool(torch.isfinite(x_p[i]).all()),
+                    f'K12/K13 {tag}: the failed lane {i} gave a finite solution')
+        if bad:
+            lu_c, piv_c = kernels.lu_factor_f64(K[good].contiguous())
+            x_c = kernels.lu_solve_f64(lu_c, piv_c, b[good].contiguous())
+            require(torch.equal(x_c.view(torch.int64), x_k[good].view(torch.int64)),
+                    f'K12/K13 {tag}: a failed lane changed another lane')
+        x_gap = float(gaps.max())
+        factor = lambda: kernels.lu_factor_f64(K)
+        plain_f = lambda: kernels.lu_factor_f64_plain(K)
+        solve = lambda: kernels.lu_solve_f64(lu_k, piv_k, b)
+        b_col = b[..., None].contiguous()
+        plain_s = lambda: torch.linalg.lu_solve(lu_p, piv_p, b_col)
+        b12 = bound(16 * B_ * N_ * N_ + 4 * B_ * N_, 2 / 3 * B_ * N_ ** 3)
+        b13 = bound(8 * B_ * N_ * N_ + 4 * B_ * N_ + 16 * B_ * N_, 2 * B_ * N_ * N_)
+        k12 = dict(max_abs_err=float(fac_k.max()), ms=cuda_median_ms(factor),
+                   queued_ms=cuda_median_ms(factor, queued=True), plain_ms=cuda_median_ms(plain_f),
+                   bound_ms=b12[0], bound_by=b12[1], pivot_ties=ties)
+        k12['library_ms'] = k12['plain_ms']
+        k12['library_queued_ms'] = cuda_median_ms(plain_f, queued=True)
+        k13 = dict(max_abs_err=x_gap, gap_limit=float(gap_limit.min()),
+                   backward_error=float(res_k.max()), ms=cuda_median_ms(solve),
+                   queued_ms=cuda_median_ms(solve, queued=True), plain_ms=cuda_median_ms(plain_s),
+                   bound_ms=b13[0], bound_by=b13[1])
+        k13['library_ms'] = k13['plain_ms']
+        k13['library_queued_ms'] = cuda_median_ms(plain_s, queued=True)
+        phase('kernels', f'K12 lu_factor_f64 {tag}: max |P L U - K| / (P |L| |U|) '
+              f'{float(fac_k.max()):.2e} vs '
+              f'plain {float(fac_p.max()):.2e}; pivots as plain on {len(good) - ties}/{len(good)} '
+              f'lanes{f", the others parting at a tie" if ties else ""}{"; failed lanes " + str(list(bad)) + " not finite, the others unchanged" if bad else ""}; '
+              f'{k12["ms"]:.3f} ms, queued {k12["queued_ms"]:.3f} ms; torch.linalg.lu_factor_ex '
+              f'{k12["library_ms"]:.3f} ms, queued {k12["library_queued_ms"]:.3f} ms; bound '
+              f'{b12[0]:.5f} ms ({b12[1]})')
+        phase('kernels', f'K13 lu_solve_f64 {tag}: row-wise backward error max |K x - b|_i / '
+              f'(max |K_i.| max |x| + |b_i|) {float(res_k.max()):.2e} vs plain '
+              f'{float(res_p.max()):.2e}; max |x - x_plain| / max |x_plain| '
+              f'{[float(f"{g:.3e}") for g in gaps.tolist()]} within '
+              f'{[float(f"{g:.3e}") for g in gap_limit.tolist()]}; '
+              f'{k13["ms"]:.4f} ms, queued {k13["queued_ms"]:.4f} ms; torch.linalg.lu_solve '
+              f'{k13["library_ms"]:.3f} ms, queued {k13["library_queued_ms"]:.3f} ms; bound '
+              f'{b13[0]:.5f} ms ({b13[1]})')
+        return k12, k13
+
+    lu64_at, solve64_at = {}, {}
+    K37, b37 = (torch.as_tensor(a, device=dev) for a in ktests.host_kkt_matrices(37, 4, seed=37))
+    K37[1, :, 5] = 0.
+    K37[2, 4, 7] = float('nan')
+    lu64_at['N=37 B=4'], solve64_at['N=37 B=4'] = hold_lu64('N=37 B=4 random', K37, b37, (1, 2))
+    for Bk in (1, B):
+        lu64_at[f'N={N} B={Bk}'], solve64_at[f'N={N} B={Bk}'] = hold_lu64(
+            f'N={N} B={Bk} anchor', K_lanes[:Bk].contiguous(), rhs_lanes[:Bk].contiguous())
+    K_bad = K_lanes.clone()
+    K_bad[1, :, 100] = 0.
+    K_bad[2, 300, 7] = float('nan')
+    hold_lu64(f'N={N} B={B} anchor, a singular and a NaN lane', K_bad, rhs_lanes, (1, 2))
+    K1055, b1055 = (torch.as_tensor(a, device=dev)
+                    for a in ktests.host_kkt_matrices(N8, 1, seed=N8, n=540))
+    lu64_at[f'N={N8} B=1'], solve64_at[f'N={N8} B=1'] = hold_lu64(f'N={N8} B=1 random', K1055,
+                                                                  b1055)
+    report['lu_factor_f64'] = dict(lu64_at[f'N={N} B=1'], at=lu64_at)
+    report['lu_solve_f64'] = dict(solve64_at[f'N={N} B=1'], at=solve64_at)
+
     # aten operations one direction call dispatches on the card, and its
     # time, with each factor
     for fac in ('lu', 'qr'):
@@ -1131,11 +1336,12 @@ def main():
                    'block_factor_plain', 'block_solve_plain', 'chol_factor_batched_plain',
                    'chol_solve_batched_plain')
 
-    def run_slice(tag, fac, cell, variant, max_iter=100, converge=True):
+    def run_slice(tag, fac, cell, variant, max_iter=100, converge=True, cut=''):
         """The cell ``cell`` (ocp, state, P64, lbw, ubw, free, u_refs) with
         the ``fac`` factor, every factor through its ``variant``: the launch
         counts set to 0 just before, read just after. With ``converge`` every
-        lane must converge within max_iter. Returns the run's launches,
+        lane must converge within max_iter; ``cut`` names a cut of its depth
+        on its phase line. Returns the run's launches,
         iterations and per-lane average powers."""
         ocp_, state_, P64_, lbw_, ubw_, free_, u_refs_ = cell
         plain_calls = {k: 0 for k in plain_names}
@@ -1177,7 +1383,7 @@ def main():
               f'{pieces["direction"]:.1f} ms), latched {int(latched.sum())}/{B}, converged '
               f'{int(conv.sum())}/{B}, KKT error {err.min():.2e}..{err.max():.2e}, max f64 eq '
               f'{eq_res.max():.2e}, P_avg {powers.min() / 1e3:.2f}..{powers.max() / 1e3:.2f} kW, '
-              f'{conv.sum() / res["seconds"]:.3f} solves/s')
+              f'{conv.sum() / res["seconds"]:.3f} solves/s{"; " + cut if cut else ""}')
         if converge:
             require(conv.all(), f'{fac}: unconverged lanes: {np.where(~conv)[0]}')
             require(np.isfinite(powers).all(), f'{fac}: non-finite average power {powers}')
@@ -1229,12 +1435,16 @@ def main():
 
     k5_lanes_at = report['ruiz_scale']['lanes_per_call'] = {}
     cell4 = (ocp, state, P64, lbw, ubw, free, u_refs)
-    launches_lu, it_lu, powers_lu = run_slice('slice', 'lu', cell4, 'cluster')
+    launches_lu, it_lu, powers_lu = run_slice(
+        'slice', 'lu', cell4, 'cluster', LU_ITERS, converge=False,
+        cut=f'CUT: a fixed {LU_ITERS} iterations (22 to convergence before the cut), for the time '
+            f'of [slice-trial]; convergence of this path is gated on the CPU')
     launches_qr, it_qr, powers_qr = run_slice('slice-qr', 'qr', cell4, 'cluster')
     power_gap = float(np.abs(powers_qr / powers_lu - 1.).max())
-    phase('slice-qr', f'per-lane average power, QR against LU: max relative gap {power_gap:.3e} '
+    phase('slice-qr', f'per-lane average power, QR converged against LU after its {it_lu} '
+          f'iterations (cut from convergence at 22 to LU_ITERS={LU_ITERS} for [slice-trial]\'s '
+          f'time; not gated): max relative gap {power_gap:.3e} '
           f'({it_qr} against {it_lu} iterations)')
-    require(power_gap <= 1e-6, f'QR and LU average powers differ: {powers_qr} vs {powers_lu}')
 
     # --- 6. the reference's batched solver: [slice-block], [slice-dense] --
     # make_batched_solver with the JAX package's defaults (kkt='auto', which
@@ -1260,10 +1470,12 @@ def main():
                     'ip_step_plain', 'lu_factor_batched_plain', 'lu_solve_batched_plain',
                     'ruiz_scale_plain', 'qr_factor_batched_plain', 'qr_solve_batched_plain')
 
-    def run_solver(tag, kkt, mode, kw, n_iter):
+    def run_solver(tag, kkt, mode, kw, n_iter, converge=True, cut='', sweep=None):
         """make_batched_solver with ``kkt`` ('auto': the default, not passed),
         resolving to ``mode``: the first iteration against the CPU, then the
-        run, its gates and its path."""
+        run, its gates (with ``converge``) and its path. With ``sweep`` the
+        run is sweep.run_batched(anchor_trial=anchor_trial), the reference's
+        Sweep API over the same solver; ``cut`` names a cut of its depth."""
         pick = {} if kkt == 'auto' else dict(kkt=kkt)
         step_c = batch.make_ip_step(ocp, **pick, **kw)
         t0 = time.time()
@@ -1280,8 +1492,9 @@ def main():
         phase(tag, f'first iteration card vs cpu plain, 16 lanes: max |w diff| / step '
               f'{float(gap.max()):.3e} (tolerance {FIRST_ITER[mode]}); {t_card:.1f} s on the card '
               f'(first call), {t_cpu:.1f} s on the CPU')
-        solve = batch.make_batched_solver(ocp, lbf, ubf, n_iter=n_iter, batch_p=True, tol=1e-5,
-                                          **pick, **kw)
+        if sweep is None:
+            solve = batch.make_batched_solver(ocp, lbf, ubf, n_iter=n_iter, batch_p=True,
+                                              tol=1e-5, **pick, **kw)
         plain_calls = {k: 0 for k in solver_plain}
         saved = {k: getattr(kernels, k) for k in plain_calls}
 
@@ -1296,25 +1509,30 @@ def main():
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = solve(state, P64)
+            if sweep is None:
+                out = solve(state, P64)
+            else:
+                sweep.run_batched(anchor_trial=anchor_trial, n_iter=n_iter, tol=1e-5, device=dev)
+                out = sweep.batched_state
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         finally:
             for k, fn in saved.items():
                 setattr(kernels, k, fn)
         launches = dict(kernels.LAUNCHES)
-        it = solve.n_iter
+        it = solve.n_iter if sweep is None else sweep.n_iter
         err = out['err'].cpu().numpy()
         eq = torch.abs(torch.func.vmap(ocp.eq_fn)(out['w'], P64)).amax(dim=1).cpu().numpy()
         powers = average_power(ocp, out['w'], P64).cpu().numpy()
         periods = torch.func.vmap(ocp.time_period_fn)(out['w']).cpu().numpy()
         conv = (err <= 1e-5) & (eq <= 1e-4)
-        phase(tag, f'make_batched_solver(kkt={kkt!r} -> {mode!r}'
+        api = 'Sweep.run_batched over ' if sweep is not None else ''
+        phase(tag, f'{api}make_batched_solver(kkt={kkt!r} -> {mode!r}'
               f'{", solve_dtype=float64" if kw else ""}), '
               f'B={B}, u_ref {u_refs[0]:.2f}..{u_refs[-1]:.2f} m/s: {it} iterations (the '
               f'loop\'s own count; cap {n_iter}), {1e3 * seconds / it:.1f} ms/iter, converged '
               f'{int(conv.sum())}/{B}, err {err.min():.2e}..{err.max():.2e}, max f64 eq '
-              f'{eq.max():.2e}, {conv.sum() / seconds:.3f} solves/s')
+              f'{eq.max():.2e}, {conv.sum() / seconds:.3f} solves/s{"; " + cut if cut else ""}')
         for b_ in range(B):
             phase(tag, f'lane {b_:2d} u_ref {u_refs[b_]:.4f} m/s: P_avg {powers[b_]:.6f} W, T '
                   f'{periods[b_]:.6f} s, err {err[b_]:.2e}, max eq {eq[b_]:.2e}')
@@ -1322,13 +1540,22 @@ def main():
         phase(tag, f'lane u_ref {u_refs[-1]:.2f}: {powers[-1]:.6f} W / {periods[-1]:.6f} s; the JAX '
               f'package (CPU) reaches {ref_p[1]:.6f} W / {ref_t[1]:.6f} s in this mode, '
               f'{JAX_CONVERGED["auglu_10.5"]:.3f} W with auglu')
-        require(conv.all(), f'{tag}: unconverged lanes {np.where(~conv)[0]} (err {err}, eq {eq})')
         dp = abs(powers[0] / ref_p[0] - 1.)
         dt_ = abs(periods[0] / ref_t[0] - 1.)
-        require(dp <= 1e-6 and dt_ <= 1e-6, f'{tag}: the 9.5 m/s lane at {powers[0]} W / '
-                f'{periods[0]} s, the JAX package at {ref_p[0]} / {ref_t[0]}')
+        if converge:
+            require(conv.all(), f'{tag}: unconverged lanes {np.where(~conv)[0]} (err {err}, '
+                    f'eq {eq})')
+            require(dp <= 1e-6 and dt_ <= 1e-6, f'{tag}: the 9.5 m/s lane at {powers[0]} W / '
+                    f'{periods[0]} s, the JAX package at {ref_p[0]} / {ref_t[0]}')
         phase(tag, f'lane u_ref {u_refs[0]:.2f}: power and period within {dp:.2e} and {dt_:.2e} of '
-              f'the JAX package\'s')
+              f'the JAX package\'s{"" if converge else " (not gated: the run is cut)"}')
+        if sweep is not None:
+            cases = sweep.sweep_dict.values()
+            phase('slice-sweep', f'Sweep.run_batched: {sum(c["success"] for c in cases)}/{B} cases '
+                  f'succeed by its own test (finite, max |eq| < 1e-4); power '
+                  f'{min(c["global_outputs"]["avg_power_watts"] for c in cases) / 1e3:.3f}..'
+                  f'{max(c["global_outputs"]["avg_power_watts"] for c in cases) / 1e3:.3f} kW')
+            require(all(c['success'] for c in cases), f'{tag}: a Sweep case failed its own test')
         # the path
         if mode == 'block':
             fac, sol = 'block_factor', 'block_solve'
@@ -1382,15 +1609,45 @@ def main():
             times.setdefault('direction', []).append(1e3 * (t2 - t1))
         return {k: sorted(v)[1] for k, v in times.items()}
 
+    # [slice-sweep]: the same 16 lanes through the reference's Sweep API, from
+    # the anchor installed as a solved trial: where Sweep.batched_problem
+    # gives [slice-block]'s start, bounds and P bit for bit, [slice-block]
+    # runs through Sweep.run_batched with its gates as they are; else
+    # [slice-block] runs as before and run_batched three iterations as a
+    # path check
+    anchor_trial = Trial(bench_options(), 'chip_smoke_anchor').build()
+    require(install_anchor(anchor_trial, ANCHOR), 'the anchor does not install as a solution')
+    sweep = Sweep(bench_options(), [{'user_options.wind.u_ref': float(u)} for u in u_refs],
+                  'chip_smoke')
+    lbf_s, ubf_s, P_s, state_s = sweep.batched_problem(anchor_trial, dev)
+    P_s = batch.p_from_numpy(P_s, dev)
+    diff = [name for name, same in (
+        ('lower bounds', np.array_equal(lbf_s, lbf)), ('upper bounds', np.array_equal(ubf_s, ubf)),
+        ('P', same_tree(P_s, P64)),
+        ('start', all(torch.equal(state_s[k], state[k]) for k in state)))
+        if not same]
+    phase('slice-sweep', f'Sweep.batched_problem against [slice-block]\'s set-up: '
+          f'{"the same start, bounds and P bit for bit: [slice-block] runs through Sweep.run_batched" if not diff else "differs in " + ", ".join(diff)}')
+
     solver_runs = {}
-    for tag, kkt, kw, cap in (('slice-block', 'auto', {}, 200),
-                              ('slice-dense', 'dense', dict(solve_dtype=torch.float64), 100)):
+    for tag, kkt, kw, cap, conv_, cut_ in (
+            ('slice-block', 'auto', {}, 200, True, ''),
+            ('slice-dense', 'dense', dict(solve_dtype=torch.float64), DENSE_ITERS, False,
+             f'CUT: at most {DENSE_ITERS} iterations (34 to convergence before the cut), for the '
+             f'time of [slice-trial]; convergence of this path is gated on the CPU')):
         mode = batch.resolve_kkt(ocp, kkt)
         require(mode == ('block' if kkt == 'auto' else kkt), f'{tag}: kkt resolves to {mode}')
         pc = pieces_ms(mode, kw)
         phase(tag, f'one iteration\'s pieces at B={B}, median of 3 (host clock, synchronized): '
               f'derivatives {pc["derivs"]:.1f} ms, direction {pc["direction"]:.1f} ms')
-        solver_runs[mode] = run_solver(tag, kkt, mode, kw, cap)
+        solver_runs[mode] = run_solver(tag, kkt, mode, kw, cap, conv_, cut_,
+                                       sweep if mode == 'block' and not diff else None)
+    if diff:
+        sweep.run_batched(anchor_trial=anchor_trial, n_iter=3, tol=1e-5, device=dev)
+        require(sweep.n_iter == 3 and all(bool(torch.isfinite(v).all())
+                                          for v in sweep.batched_state.values()),
+                'slice-sweep: three iterations of Sweep.run_batched')
+        phase('slice-sweep', 'Sweep.run_batched, 3 iterations as a path check: finite iterates')
     launches_block, launches_dense = solver_runs['block'][0], solver_runs['dense'][0]
 
     # --- 7. the n_k=8 slices ----------------------------------------------
@@ -1454,13 +1711,116 @@ def main():
                     f'n_k=8: one lu iteration: |w diff| {dw_gap:.3e}, step {step:.3e}')
         phase('slice-nk8', f'one {fac} iteration at n_k=8 card vs cpu plain: max |w diff| '
               f'{dw_gap:.3e} (step {step:.3e}{"; not gated" if fac == "qr" else ""})')
+    cut8 = f'CUT: {NK8_ITERS} iterations (12 before), for the time of [slice-trial]'
     launches_lu8, _, powers_lu8 = run_slice('slice-nk8', 'lu', cell8, 'blocked', NK8_ITERS,
-                                            converge=False)
+                                            converge=False, cut=cut8)
     launches_qr8, _, powers_qr8 = run_slice('slice-nk8-qr', 'qr', cell8, 'blocked', NK8_ITERS,
-                                            converge=False)
+                                            converge=False, cut=cut8)
     phase('slice-nk8-qr', f'per-lane average power after {NK8_ITERS} iterations, QR against LU: '
           f'max relative gap {float(np.abs(powers_qr8 / powers_lu8 - 1.).max()):.3e} (the '
           f'lanes have not converged: not gated)')
+
+    # --- 8. the host solver behind Trial.optimize: [slice-trial] ----------
+    # Trial(bench_options()).build().optimize() on the card: the cold
+    # homotopy of the bench configuration at its published size, through
+    # the reference's own linear-solver choice ('auto' is 'dense' here: 280
+    # variables), so every direction is kkt_solve's: K10's inertia test (its
+    # cluster variant), K12 and K13 twice. The solver is the one
+    # solve_homotopy builds, made here so that its first kkt_solve call can
+    # be kept and held, after the run, to the plain path on the CPU at the
+    # same state (TOL_FIRST_KKT). Gates: solve_succeeded; the average power
+    # and period within 1e-6 relative of the anchor's; the final step's KKT
+    # error within its tol; K10, K12 and K13 launched, once, once and twice a
+    # direction, and no other kernel; no plain version called. Each step's
+    # iterations are printed beside the JAX package's (JAX_TRIAL_ITERS).
+    cold = Trial(bench_options(), 'chip_smoke_trial').build()
+    require(linear_solver_choice(cold.ocp) == 'dense', 'slice-trial: auto is not dense')
+    solver = InteriorPointSolver(cold.ocp.f_fn, cold.ocp.eq_fn, cold.ocp.ineq_fn,
+                                 n=cold.ocp.vstruct.total, n_eq=cold.ocp.n_eq,
+                                 n_ineq=cold.ocp.n_ineq, device=dev)
+    kkt_inner, first = solver._kkt_solve, {}
+
+    def kkt_kept(*args):
+        out = kkt_inner(*args)
+        if not first:
+            first['args'] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            first['out'] = [o.clone() for o in out[:7]]
+        return out
+    solver._kkt_solve = kkt_kept
+    cold._solver_cache['solver'] = solver
+    trial_plain = {k: 0 for k in solver_plain + ('lu_factor_f64_plain', 'lu_solve_f64_plain')}
+    saved = {k: getattr(kernels, k) for k in trial_plain}
+
+    def counted_plain(name):
+        def call(*args, **kwargs):
+            trial_plain[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+    for k in trial_plain:
+        setattr(kernels, k, counted_plain(k))
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        cold.optimize(verbose=False)
+        torch.cuda.synchronize()
+        trial_s = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(kernels, k, fn)
+    launches_trial = dict(kernels.LAUNCHES)
+    stats = cold.solution.stats
+    n_it = sum(stats['iterations'].values())
+    for key in stats['iterations']:
+        res_ = cold.solution.step_results[key]
+        phase('slice-trial', f'{key}: {res_["status"]}, {stats["iterations"][key]} iterations '
+              f'(the JAX package: {JAX_TRIAL_ITERS.get(key)}), {stats["t_wall"][key]:.1f} s, '
+              f'{1e3 * stats["t_wall"][key] / max(stats["iterations"][key], 1):.0f} ms/iter, KKT '
+              f'error {res_["kkt_error"]:.2e}')
+    go = cold.global_outputs()
+    dp = abs(go['avg_power_watts'] / float(anchor['avg_power_watts']) - 1.)
+    dt_ = abs(go['time_period'] / float(anchor['time_period']) - 1.)
+    tol_final = cold.options['solver']['tol']
+    kkt_final = cold.solution.step_results['final_0']['kkt_error']
+    phase('slice-trial', f'Trial(bench_options()).build().optimize() on the card: '
+          f'solve_succeeded {cold.solve_succeeded}, {n_it} iterations (the JAX package: '
+          f'{sum(JAX_TRIAL_ITERS.values())}) in {trial_s:.1f} s, {1e3 * trial_s / n_it:.0f} '
+          f'ms/iter; power {go["avg_power_watts"]:.6f} W ({dp:.2e} from the anchor\'s '
+          f'{float(anchor["avg_power_watts"]):.6f}), period {go["time_period"]:.6f} s ({dt_:.2e} '
+          f'from {float(anchor["time_period"]):.6f}); final KKT error {kkt_final:.2e} (tol '
+          f'{tol_final:g})')
+    require(cold.solve_succeeded, 'slice-trial: the solve did not succeed')
+    require(dp <= 1e-6 and dt_ <= 1e-6, f'slice-trial: power {go["avg_power_watts"]} W, period '
+            f'{go["time_period"]} s, the anchor\'s {float(anchor["avg_power_watts"])} / '
+            f'{float(anchor["time_period"])}')
+    require(kkt_final <= tol_final, f'slice-trial: final KKT error {kkt_final} > {tol_final}')
+    n_dir = launches_trial['lu_factor_f64']
+    require(n_dir > 0 and launches_trial['lu_solve_f64'] == 2 * n_dir
+            and launches_trial['chol_factor_batched'] == n_dir
+            and launches_trial['chol_factor_cluster'] == n_dir,
+            f'slice-trial: not K10 (cluster), K12 and two K13 a direction: {launches_trial}')
+    others = [k for k, v in launches_trial.items() if v and k not in (
+        'lu_factor_f64', 'lu_solve_f64', 'chol_factor_batched', 'chol_factor_cluster')]
+    require(not others, f'slice-trial: other kernels ran: {others}')
+    require(not any(trial_plain.values()), f'slice-trial: plain versions ran: {trial_plain}')
+    # the first direction of the run, on the CPU's plain path at the same state
+    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in first['args']]
+    out_h = kkt_inner(*cpu_args)
+    gaps_first = {name: float((u.cpu() - v).abs().max() / max(float(v.abs().max()), 1e-300))
+                  for name, u, v in zip(('dw', 'dy', 'dlam', 'ds', 'dzl', 'dzu'),
+                                        first['out'][:6], out_h[:6])}
+    require(bool(first['out'][6]) == bool(out_h[6]), 'slice-trial: the first inertia test differs')
+    require(max(gaps_first.values()) <= TOL_FIRST_KKT,
+            f'slice-trial: the first kkt_solve differs from the CPU\'s: {gaps_first}')
+    cond_first = float(torch.linalg.cond(solver._augmented(*cpu_args)['K']))
+    phase('slice-trial', f'the first kkt_solve on the card against the plain path on the CPU at '
+          f'the same state (cond(K) {cond_first:.2e}): inertia ok {bool(out_h[6])} in both; max '
+          f'gaps over max |.|: '
+          + ', '.join(f'{k} {v:.2e}' for k, v in gaps_first.items())
+          + f' (tolerance {TOL_FIRST_KKT})')
+    phase('path', f'slice-trial: kernel launches in the solve: '
+          f'{ {k: v for k, v in launches_trial.items() if v} }; {n_dir} directions, each K10 '
+          f'(cluster variant), K12 and two K13; plain versions called: 0; '
+          f'{len(stats["iterations"])} homotopy steps')
 
     # each kernel's launches are those of the slice whose path holds it: the
     # QR slice, the port's default path, for its own kernels and for K1 and
@@ -1482,13 +1842,16 @@ def main():
                'chol_factor_global': 'awebox_tpu/parallel/batch.py:215',
                'chol_solve_batched': 'awebox_tpu/parallel/batch.py:234',
                'block_factor': 'awebox_tpu/ocp/blockkkt.py:539',
-               'block_solve': 'awebox_tpu/ocp/blockkkt.py:646'}
+               'block_solve': 'awebox_tpu/ocp/blockkkt.py:646',
+               'lu_factor_f64': 'awebox_tpu/opti/ipsolver.py:194',
+               'lu_solve_f64': 'awebox_tpu/opti/ipsolver.py:195'}
     own = {'kkt_assemble_scaled': launches_lu, 'lu_factor_cluster': launches_lu,
            'lu_solve_batched': launches_lu, 'lu_factor_blocked': launches_lu8,
            'qr_factor_blocked': launches_qr8, 'advance_state': launches_block,
            'block_factor': launches_block, 'block_solve': launches_block,
            'chol_factor_cluster': launches_dense, 'chol_factor_global': launches_dense,
-           'chol_solve_batched': launches_dense}
+           'chol_solve_batched': launches_dense, 'lu_factor_f64': launches_trial,
+           'lu_solve_f64': launches_trial}
     phase('done', f'chip_smoke.py ran {time.time() - t_start:.1f} s')
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', source='awebox_tpu_torch/csrc/auglu.cu',
@@ -1496,13 +1859,21 @@ def main():
              launches_lu_slice=launches_lu[k], launches_qr_slice=launches_qr[k],
              launches_nk8_lu_slice=launches_lu8[k], launches_nk8_qr_slice=launches_qr8[k],
              launches_block_slice=launches_block[k], launches_dense_slice=launches_dense[k],
-             **report[k])
+             launches_trial_slice=launches_trial[k], **report[k])
         for k in sources]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def same_tree(a, b):
+    """Two trees of tensors with the same keys and equal leaves."""
+    import torch
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same_tree(a[k], b[k]) for k in a)
+    return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
 
 
 def _take_lanes(tree, sel):

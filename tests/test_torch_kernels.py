@@ -2682,3 +2682,227 @@ def test_chol_kernels_match_plain_on_card(cuda):
         assert bool(torch.isnan(L[[1, 2]]).all()) and torch.equal(L[good], L_c[good])
         assert bool(torch.isnan(x[[1, 2]]).all()) and torch.equal(x[good], x_c[good])
         assert torch.equal(L.view(torch.int64), L_2.view(torch.int64)) and torch.equal(ok, ok_2)
+
+
+# --- K12, K13: the host solver's f64 LU factor and solve ---------------------
+
+def k13_upper_walk(T, warp):
+    """K13Ring's walk: KsRing's forward tiles, then its backward tiles
+    transposed (U's tile (tj, ti) for ks_step_tile's (ti, tj))."""
+    for s in range(2 * T):
+        idx = 0
+        while (tile := ks_step_tile(s, idx, T, warp)) is not None:
+            yield tile if s < T else tile[::-1]
+            idx += 1
+
+
+def k13_schedule_mirror(lu, piv, b, nb=32):
+    """K13 step by step as the CTA runs it: the interchanges in order, then
+    ks_forward with a unit diagonal on the factor's strictly lower tiles, then
+    k13_backward on U's tiles taken as rows, each tile from its warp's walk
+    (which must be the tile the step asks for), on the vector padded with
+    zeros to 32 T."""
+    m = len(b); T = -(-m // nb); P = T * nb
+    F = np.zeros((P, P)); F[:m, :m] = lu
+    y = np.zeros(P); y[:m] = b
+    for k in range(m):
+        p = int(piv[k]) - 1
+        y[k], y[p] = y[p], y[k]
+    rinv = np.ones(P); rinv[:m] = 1. / np.diag(lu)
+    walks = [k13_upper_walk(T, w) for w in range(8)]
+
+    def take(w, ti, tj):
+        assert next(walks[w]) == (ti, tj), (w, ti, tj)
+        return F[ti * nb:ti * nb + nb, tj * nb:tj * nb + nb]
+
+    acc = np.zeros(nb)
+    for s in range(T):
+        r0, h = s * nb, min(nb, m - s * nb)
+        D = take(0, s, s)
+        E = take(0, s + 1, s) if s + 1 < T else None
+        u, an = y[r0:r0 + nb] + acc, np.zeros(nb)
+        for j in range(h):
+            u[j + 1:h] -= D[j + 1:h, j] * u[j]
+            if E is not None:
+                an = an - E[:, j] * u[j]
+        y[r0:r0 + h] = u[:h]
+        acc = an
+        for w in range(1, 8):
+            for i in range(s + w, T, 7) if s > 0 else ():
+                rows = slice(i * nb, min(i * nb + nb, m))
+                tile = take(w, i, s - 1)[:rows.stop - rows.start]
+                y[rows] -= ks_tile_sum(tile, y[r0 - nb:r0])
+    acc = np.zeros(nb)
+    for t in range(T - 1, -1, -1):
+        r0, h = t * nb, min(nb, m - t * nb)
+        D = take(0, t, t)
+        E = take(0, t - 1, t) if t > 0 else None
+        u, an = y[r0:r0 + nb] + acc, np.zeros(nb)
+        for j in range(h - 1, -1, -1):
+            u[j] = u[j] * rinv[r0 + j]
+            u[:j] -= D[:j, j] * u[j]
+            if E is not None:
+                an = an - E[:, j] * u[j]
+        y[r0:r0 + h] = u[:h]
+        acc = an
+        for w in range(1, 8):
+            for i in range(t - w, -1, -7) if t + 1 < T else ():
+                y[i * nb:i * nb + nb] -= ks_tile_sum(take(w, i, t + 1), y[r0 + nb:r0 + 2 * nb])
+    assert all(next(wk, None) is None for wk in walks)   # every copied tile was taken
+    return y[:m]
+
+
+def host_kkt_matrices(N, B, seed=0, n=None):
+    """(B, N, N) f64 saddle matrices [[W, A^T], [A, -D]] shaped like the host
+    solver's augmented K (n primal rows, D of 1e-8 and small entries), with
+    its right-hand sides."""
+    rng = np.random.default_rng(seed)
+    n = n or (N * 280) // 543
+    m = N - n
+    K = np.zeros((B, N, N))
+    for lane in range(B):
+        Wh = rng.standard_normal((n, n))
+        W = (Wh + Wh.T) / 2 + np.diag(10.0 ** rng.uniform(-2, 4, n))
+        A = rng.standard_normal((m, n)) * 10.0 ** rng.uniform(-1, 1, (m, 1))
+        D = np.concatenate([1e-8 * np.ones(m - m // 16), np.abs(rng.standard_normal(m // 16))])
+        K[lane] = np.block([[W, A.T], [A, -np.diag(D)]])
+    return K, rng.standard_normal((B, N))
+
+
+@pytest.mark.parametrize('N', [37, 130, 543])
+def test_k12_blocked_mirror_matches_lapack(N):
+    """K12's algorithm (K2's blocked LU, panels of 16, f64: the panel's
+    columns one by one with the first largest |a|, the interchanges reaching
+    the other columns as panel_row_moves, U12 = L11^-1 A12, A22 -= L21 U12)
+    gives LAPACK getrf's pivots and its factor within 1e-12 of max |lu| on
+    the host solver's saddle matrices."""
+    from awebox_tpu_torch.parallel import kernels
+    K, _ = host_kkt_matrices(N, 1, seed=N)
+    Kt = torch.as_tensor(K)
+    lu, piv = blocked_lu_mirror(Kt[0], nb=kernels.LU64_NB)
+    lu_p, piv_p = kernels.lu_factor_f64_plain(Kt)
+    assert torch.equal(piv, piv_p[0])
+    assert float((lu - lu_p[0]).abs().max()) <= 1e-12 * float(lu_p[0].abs().max())
+
+
+@pytest.mark.parametrize('N', [37, 64, 130, 543, 1055])
+def test_k13_schedule_mirror_matches_lapack(N):
+    """K13's schedule (the interchanges, ks_forward with a unit diagonal, the
+    upper pass over U's tiles as rows, each warp's ring walking its tiles in
+    the order it takes them) solves the system as LAPACK's getrs does, to
+    1e-10 relative; every lower tile is taken once forward and every upper
+    tile once backward."""
+    from awebox_tpu_torch.parallel import kernels
+    K, b = host_kkt_matrices(N, 1, seed=N + 1)
+    lu, piv = kernels.lu_factor_f64_plain(torch.as_tensor(K))
+    want = kernels.lu_solve_f64_plain(lu, piv, torch.as_tensor(b))[0].numpy()
+    got = k13_schedule_mirror(lu[0].numpy(), piv[0].numpy(), b[0])
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+    T = -(-N // 32)
+    walked = [t for w in range(8) for t in k13_upper_walk(T, w)]
+    lower = [(i, j) for i in range(T) for j in range(i + 1)]
+    assert sorted(walked) == sorted(lower + [(j, i) for (i, j) in lower])
+
+
+@pytest.mark.parametrize('N', [37, 543, 1055, 1807, 1808])
+def test_lu_f64_geometry(N):
+    """K12 holds a panel of 16 columns of N rows at an odd leading dimension
+    in one block's shared memory (69,504 B at N = 543), and raises by name
+    from N = 1808; K13's layout is K11's ring beside four N-long vectors and
+    fits every N K12 takes."""
+    from awebox_tpu_torch.parallel import kernels
+    if N > 1807:
+        with pytest.raises(ValueError, match='lu_factor_f64'):
+            kernels.lu_factor_f64_geometry(N)
+        return
+    g = kernels.lu_factor_f64_geometry(N)
+    assert g.ld >= N and g.ld % 2 == 1 and g.smem_bytes == 8 * 16 * g.ld
+    assert g.smem_bytes + kernels.LU64_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+    if N == 543:
+        assert g.smem_bytes == 69_504
+    assert kernels.lu_solve_f64_geometry(N) <= kernels.SMEM_PER_BLOCK
+
+
+def test_lu_f64_wrappers_take_the_plain_version_on_cpu():
+    """On CPU tensors K12 and K13 run their plain versions, count nothing and
+    build nothing; a singular and a NaN lane give a non-finite solution, not
+    an exception, and leave the other lanes as they are alone."""
+    from awebox_tpu_torch.parallel import kernels
+    K, b = host_kkt_matrices(37, 3, seed=3)
+    K[1, :, 5] = 0.                         # singular
+    K[2, 4, 7] = np.nan
+    before = dict(kernels.LAUNCHES)
+    Kt, bt = torch.as_tensor(K), torch.as_tensor(b)
+    lu, piv = kernels.lu_factor_f64(Kt)
+    x = kernels.lu_solve_f64(lu, piv, bt)
+    assert kernels.LAUNCHES == before and kernels._lib is None
+    assert not bool(torch.isfinite(x[1]).all()) and not bool(torch.isfinite(x[2]).all())
+    lu0, piv0 = kernels.lu_factor_f64(Kt[:1])
+    assert torch.equal(x[0], kernels.lu_solve_f64(lu0, piv0, bt[:1])[0])
+    assert float((Kt[0] @ x[0] - bt[0]).abs().max()) <= 1e-8 * float(bt[0].abs().max())
+
+
+def lu_f64_residuals(K, lu, piv, x, b):
+    """Per lane: ||P L U - K|| / ||K|| (max norms) and the solve's relative
+    residual max |K x - b| / (max |K| max |x| + max |b|)."""
+    L = torch.tril(lu, -1) + torch.eye(lu.shape[-1], dtype=lu.dtype, device=lu.device)
+    U = torch.triu(lu)
+    perm = torch.arange(lu.shape[-1], device=lu.device).repeat(lu.shape[0], 1)
+    for k in range(lu.shape[-1]):
+        p = (piv[:, k] - 1).long()
+        a, c = perm[:, k].clone(), perm.gather(1, p[:, None])[:, 0].clone()
+        perm[:, k] = c
+        perm.scatter_(1, p[:, None], a[:, None])
+    LU = L @ U
+    fac = (LU - K.gather(1, perm[:, :, None].expand_as(K))).abs().flatten(1).amax(1) \
+        / K.abs().flatten(1).amax(1)
+    res = (K @ x[:, :, None])[:, :, 0] - b
+    sol = res.abs().amax(1) / (K.abs().flatten(1).amax(1) * x.abs().amax(1) + b.abs().amax(1))
+    return fac, sol
+
+
+@pytest.mark.cuda
+def test_lu_f64_kernels_match_plain_on_card(cuda):
+    """K12 (lu_factor_f64) and K13 (lu_solve_f64) against their plain
+    versions at N = 37, 543 (B = 1 and 16) and 1055 (B = 1), and B = 4 with a
+    singular and a NaN lane: ||P L U - K|| / ||K|| <= 1e-13 and the solve's
+    relative residual <= 1e-13 on every finite lane, x within 1e-8 of the
+    plain version's relative to max |x|, the pivots equal; the singular and
+    the NaN lane give a non-finite x and change no other lane's bits; K is
+    not changed; two calls give the same bits; one launch counted each."""
+    from awebox_tpu_torch.parallel import kernels
+    for N, B in ((37, 4), (543, 1), (543, 16), (1055, 1)):
+        K, b = host_kkt_matrices(N, B, seed=N + B)
+        bad = []
+        if B >= 3:
+            K[1, :, 5] = 0.
+            K[2, 4, 7] = np.nan
+            bad = [1, 2]
+        Kt, bt = torch.as_tensor(K, device=cuda), torch.as_tensor(b, device=cuda)
+        K0 = Kt.clone()
+        before = dict(kernels.LAUNCHES)
+        lu, piv = kernels.lu_factor_f64(Kt)
+        x = kernels.lu_solve_f64(lu, piv, bt)
+        lu2, piv2 = kernels.lu_factor_f64(Kt)
+        x2 = kernels.lu_solve_f64(lu2, piv2, bt)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['lu_factor_f64'] == before['lu_factor_f64'] + 2
+        assert kernels.LAUNCHES['lu_solve_f64'] == before['lu_solve_f64'] + 2
+        assert torch.equal(Kt.view(torch.int64), K0.view(torch.int64))
+        assert torch.equal(lu.view(torch.int64), lu2.view(torch.int64))
+        assert torch.equal(x.view(torch.int64), x2.view(torch.int64)) and torch.equal(piv, piv2)
+        lu_p, piv_p = kernels.lu_factor_f64_plain(Kt)
+        x_p = kernels.lu_solve_f64_plain(lu_p, piv_p, bt)
+        good = [i for i in range(B) if i not in bad]
+        fac, sol = lu_f64_residuals(Kt[good], lu[good], piv[good], x[good], bt[good])
+        assert float(fac.max()) <= 1e-13 and float(sol.max()) <= 1e-13, (N, B, fac, sol)
+        assert torch.equal(piv[good], piv_p[good])
+        gap = (x[good] - x_p[good]).abs().amax(1) / x_p[good].abs().amax(1)
+        assert float(gap.max()) <= 1e-8, (N, B, gap)
+        for i in bad:
+            assert not bool(torch.isfinite(x[i]).all())
+        if bad:
+            lu_c, piv_c = kernels.lu_factor_f64(Kt[good].contiguous())
+            assert torch.equal(lu_c.view(torch.int64), lu[good].view(torch.int64))
+            x_c = kernels.lu_solve_f64(lu_c, piv_c, bt[good].contiguous())
+            assert torch.equal(x_c.view(torch.int64), x[good].view(torch.int64))
