@@ -58,8 +58,9 @@
 //                            two variants chosen by n: chol_factor_cluster
 //                            (a lane per thread-block cluster, the lower
 //                            triangle in shared memory, the trailing update
-//                            by f64 MMAs) and chol_factor_global (a CTA a
-//                            lane, the lane in global memory)
+//                            by f64 MMAs) and chol_factor_stream (the same
+//                            design with the lane in the L2 and a rank's
+//                            last panels in its shared memory)
 //   K11 chol_solve_batched   batch.py:234-236  the two triangular solves
 //
 // and, f64, those of the host solver's dense direction (opti/ipsolver.py
@@ -68,7 +69,9 @@
 //   K12 lu_factor_f64        ipsolver.py:194  partial-pivot LU of the
 //                            augmented KKT matrix (K2's blocked design)
 //   K13 lu_solve_f64         ipsolver.py:195, 197  the interchanges, the
-//                            unit-lower and the upper substitution
+//                            unit-lower and the upper substitution (a
+//                            thread-block cluster a lane, the row tiles
+//                            dealt over its ranks)
 //
 // Layout follows the JAX package: lanes first, row-major. Every entry point
 // is a plain C function that returns a CUDA error code; a launch goes to the
@@ -3934,16 +3937,26 @@ __device__ __forceinline__ bool ks_step_tile(int s, int idx, int T, int warp, in
   return ti < T && tj >= 0;
 }
 
+// ks_step_tile's walk of a warp: KsRing's
+struct KsWalk {
+  int warp;
+  __device__ __forceinline__ bool operator()(int s, int idx, int T, int& ti, int& tj) const {
+    return ks_step_tile(s, idx, T, warp, ti, tj);
+  }
+};
+
 // A warp's ring of sw (<= 4) slots over the tiles it takes in both passes
-// (ks_step_tile's order), as K3's: tile q lands in slot q % sw; giving a
+// (its Walk's order), as K3's: tile q lands in slot q % sw; giving a
 // tile back issues the copy of the tile sw further on into its slot, so
 // the copies run a step or more ahead of use and none is issued on the
 // chain. One cp.async group a copy (empty once the walk is over): tile q
 // has landed once at most sw - 1 - (tiles held) groups are pending.
+template <class Walk = KsWalk>
 struct KsRing {
   double* slots;
   const double* L;
-  int m, T, sw, warp, wl;
+  int m, T, sw, wl;
+  Walk walk;
   bool pairs;
   int s, idx;           // the next tile to copy (s == 2T: none left)
   int taken, freed;
@@ -3951,7 +3964,7 @@ struct KsRing {
   __device__ void advance() {
     int ti, tj;
     ++idx;
-    while (s < 2 * T && !ks_step_tile(s, idx, T, warp, ti, tj)) {
+    while (s < 2 * T && !walk(s, idx, T, ti, tj)) {
       ++s;
       idx = 0;
     }
@@ -3960,7 +3973,7 @@ struct KsRing {
   __device__ void issue(double* slot) {
     if (s < 2 * T) {
       int ti, tj;
-      ks_step_tile(s, idx, T, warp, ti, tj);
+      walk(s, idx, T, ti, tj);
       ks_copy_tile(slot, L, m, m, ti, tj, pairs, wl, 32);
       advance();
     }
@@ -3975,7 +3988,7 @@ struct KsRing {
     for (int i = 0; i < sw; ++i) issue(slots + i * KS_TILE);
   }
 
-  __device__ const double* take(int, int) {
+  __device__ const double* take(int = 0, int = 0) {
     ks_wait_group(sw - 1 - (taken - freed));
     __syncwarp();
     return slots + (taken++ % sw) * KS_TILE;
@@ -3986,7 +3999,6 @@ struct KsRing {
     while (freed < taken) issue(slots + (freed++ % sw) * KS_TILE);
   }
 };
-
 
 // one column step j of warp 0's forward chain (d = L[row][j] of the
 // diagonal tile, e = L[next row][j] of the tile below, r = 1 / L_rowrow)
@@ -4288,96 +4300,18 @@ cudaLaunchConfig_t kb9_config(int B, int n_k, int smem, void* stream, cudaLaunch
 
 // ---------------------------------------------------------------------------
 // K10 chol_factor_batched: the Cholesky factor of the condensed M of each
-// lane, replacing jnp.linalg.cholesky at awebox_tpu/parallel/batch.py:215-231,
+// lane, replacing jnp.linalg.cholesky at awebox_tpu/parallel/batch.py:215-231
+// (and the host solver's inertia test at awebox_tpu/opti/ipsolver.py:183),
 // f64, lower with zeros above, as kernels.chol_factor_batched_plain. Two
 // variants, chosen by n alone (kernels.chol_factor_geometry): the cluster
-// variant below (chol_factor_cluster_kernel, n <= 554) and this one-CTA
-// variant (global) for the lanes no cluster holds, up to n = 876.
-// Global variant. What bounds it: the chain of pivots and one SM's
-// shared-memory rate. A CTA per lane factors it right-looking in panels of
-// K10_NB columns in its own output:
-// it copies M's lower triangle there, then for each panel loads the panel's
-// rows into shared memory (odd leading dimension, so a warp's column reads
-// spread over the banks), factors it column by column (two block barriers a
-// column), writes it back and subtracts the panel's product from the
-// trailing lower triangle (each entry's 32 products summed from zero, then
-// subtracted once), which stays in the L2. A pivot <= 0 or not finite, or a
-// non-finite entry of L, fails the lane: ok = 0 and L is NaN.
+// variant (chol_factor_cluster_kernel, n <= 554: the lane's lower triangle
+// in the cluster's shared memory) and the stream variant
+// (chol_factor_stream_kernel, 555 <= n <= 1536: the same cluster design
+// with the lane in the L2 and a rank's last panels in its shared memory).
 // ---------------------------------------------------------------------------
-constexpr int K10_NB = 32;
-constexpr int K10_LD = K10_NB + 1;
-constexpr int K10_THREADS = 256;
-
-__global__ void __launch_bounds__(K10_THREADS, 1)
-chol_factor_kernel(const double* __restrict__ M, double* __restrict__ L, uint8_t* __restrict__ ok,
-                   int n) {
-  extern __shared__ double P[];   // [n][K10_LD]: the panel's rows j0.. in rows 0..
-  const int lane = blockIdx.x, tid = threadIdx.x;
-  const double* A = M + (size_t)lane * n * n;
-  double* Lw = L + (size_t)lane * n * n;
-  for (int t = tid; t < n * n; t += K10_THREADS) {
-    const int i = t / n, j = t - i * n;
-    Lw[t] = j <= i ? A[t] : 0.0;
-  }
-  __syncthreads();
-  bool failed = false;
-  for (int j0 = 0; j0 < n && !failed; j0 += K10_NB) {
-    const int w = min(K10_NB, n - j0), rows = n - j0;
-    for (int t = tid; t < rows * K10_NB; t += K10_THREADS) {
-      const int r = t / K10_NB, cc = t - r * K10_NB;
-      P[r * K10_LD + cc] = cc < w ? Lw[(size_t)(j0 + r) * n + j0 + cc] : 0.0;
-    }
-    __syncthreads();
-    for (int cc = 0; cc < w; ++cc) {
-      const double d2 = P[cc * K10_LD + cc];
-      if (!(d2 > 0.0) || !isfinite(d2)) {   // every thread reads the same pivot
-        failed = true;
-        break;
-      }
-      const double dp = sqrt(d2);
-      for (int r = cc + 1 + tid; r < rows; r += K10_THREADS) P[r * K10_LD + cc] /= dp;
-      __syncthreads();
-      if (tid == 0) P[cc * K10_LD + cc] = dp;
-      const int nc = w - cc - 1;   // panel columns right of cc
-      for (int t = tid; t < (rows - cc - 1) * nc; t += K10_THREADS) {
-        const int r = cc + 1 + t / nc, c2 = cc + 1 + t % nc;
-        if (r >= c2) P[r * K10_LD + c2] = fma(-P[r * K10_LD + cc], P[c2 * K10_LD + cc],
-                                              P[r * K10_LD + c2]);
-      }
-      __syncthreads();
-    }
-    if (failed) break;
-    for (int t = tid; t < rows * w; t += K10_THREADS) {
-      const int r = t / w, cc = t - r * w;
-      if (r >= cc) Lw[(size_t)(j0 + r) * n + j0 + cc] = P[r * K10_LD + cc];
-    }
-    const int m2 = rows - w;
-    for (int t = tid; t < m2 * m2; t += K10_THREADS) {
-      const int i = t / m2, j = t - i * m2;
-      if (j > i) continue;
-      const double* pi = P + (w + i) * K10_LD;
-      const double* pj = P + (w + j) * K10_LD;
-      double acc = 0.0;
-#pragma unroll 8
-      for (int cc = 0; cc < K10_NB; ++cc) acc = fma(pi[cc], pj[cc], acc);
-      double* e = Lw + (size_t)(j0 + w + i) * n + j0 + w + j;
-      *e = *e - acc;
-    }
-    __syncthreads();
-  }
-  bool bad = false;
-  if (!failed) {
-    for (int t = tid; t < n * n; t += K10_THREADS) bad |= !isfinite(Lw[t]);
-  }
-  failed = __syncthreads_or(failed || bad) != 0;
-  if (failed) {
-    for (int t = tid; t < n * n; t += K10_THREADS) Lw[t] = __longlong_as_double(0x7ff8000000000000ll);
-  }
-  if (tid == 0) ok[lane] = failed ? 0 : 1;
-}
 
 // ---------------------------------------------------------------------------
-// K10, cluster variant: the same function, a thread-block cluster of C CTAs
+// K10, cluster variant: a thread-block cluster of C CTAs
 // per lane with the lane's lower triangle in the cluster's shared memory
 // (kernels.chol_factor_geometry: the fewest of 4, 8 and 16 CTAs that hold
 // it; 4 at n = 280, 16, a non-portable cluster, at n = 540).
@@ -4449,15 +4383,15 @@ __device__ __forceinline__ int k10c_rows_before(int t, int r, int C, int n) {
 }
 
 // Row tiles I and I2 of T (the panel of columns q0 .. q0 + w - 1, h = n -
-// q0 rows, row r at T + r ld) less the rank-16 product of the panel Pr (row
+// q0 rows, row r at T + r ldT) less the rank-16 product of the panel Pr (row
 // i at Pr + (i - base) ld) on their 8 x 8 tiles on or below the diagonal: J
 // = 0, 1 (tile (0, 1) lies above it); each entry's 16 products summed from
 // zero by four MMAs, k = 0..3, 4..7, 8..11, 12..15 in this order, then
 // subtracted once (an entry rounded once a panel, as LAPACK's blocked
 // update does); entries above the diagonal neither read nor written. b:
 // Pr's rows q0 .. q0 + 15 as B fragments.
-__device__ __forceinline__ void k10c_tile_pair(double* T, const double* Pr, int ld, int h, int q0,
-                                               int w, int base, int I, int I2,
+__device__ __forceinline__ void k10c_tile_pair(double* T, const double* Pr, int ld, int ldT, int h,
+                                               int q0, int w, int base, int I, int I2,
                                                const double (&b)[2][4], int g, int tg) {
   double a[2][4], acc[2][2][2];
   int ri[2];
@@ -4488,7 +4422,7 @@ __device__ __forceinline__ void k10c_tile_pair(double* T, const double* Pr, int 
       for (int e = 0; e < 2; ++e) {
         const int j = 8 * J + 2 * tg + e;
         if (ri[u] < h && j < w && j <= ri[u]) {
-          double* t = T + (size_t)ri[u] * ld + j;
+          double* t = T + (size_t)ri[u] * ldT + j;
           *t = *t - acc[u][J][e];
         }
       }
@@ -4517,15 +4451,15 @@ __device__ void k10c_update(double* T, const double* Pr, int ld, int n, int q0, 
   double b[2][4];
   k10c_bfrag(b, Pr, ld, q0, w, base, g, tg);
   for (int I = warp; I < nt; I += 2 * K10C_WARPS) {
-    k10c_tile_pair(T, Pr, ld, h, q0, w, base, I, I + K10C_WARPS, b, g, tg);
+    k10c_tile_pair(T, Pr, ld, ld, h, q0, w, base, I, I + K10C_WARPS, b, g, tg);
   }
 }
 
 // Rows lo .. hi - 1 of panel k (its 16 columns at k0 = 16 k) from L, which
 // its owner published, into recv (row i at recv + (i - base) ld) by the
-// threads t0 .. t0 + nthr - 1, through the L2 (cp.async.cg where n is even);
-// waits for this thread's copies
-__device__ void k10c_fetch(double* recv, const double* Lw, int ld, int n, int k0, int lo, int hi,
+// threads t0 .. t0 + nthr - 1, through the L2 (cp.async.cg where n is even,
+// issued only: cp.async.wait_all completes them)
+__device__ void k10c_issue(double* recv, const double* Lw, int ld, int n, int k0, int lo, int hi,
                            int base, int t, int nthr) {
   if ((n & 1) == 0) {
     for (int e = t; e < (hi - lo) * (K10C_NB / 2); e += nthr) {
@@ -4534,13 +4468,19 @@ __device__ void k10c_fetch(double* recv, const double* Lw, int ld, int n, int k0
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                    ::"r"(d), "l"(Lw + (size_t)i * n + k0 + c) : "memory");
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
     for (int e = t; e < (hi - lo) * K10C_NB; e += nthr) {
       const int i = lo + (e >> 4), c = e & 15;
       recv[(size_t)(i - base) * ld + c] = __ldcg(Lw + (size_t)i * n + k0 + c);
     }
   }
+}
+
+// k10c_issue, then wait for this thread's copies
+__device__ void k10c_fetch(double* recv, const double* Lw, int ld, int n, int k0, int lo, int hi,
+                           int base, int t, int nthr) {
+  k10c_issue(recv, Lw, ld, n, k0, lo, hi, base, t, nthr);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Row r (entries a[0 .. w - 1], zeros past the diagonal r) of a panel to L
@@ -4690,8 +4630,8 @@ __device__ bool k10c_panel(double* T, double* recv, const double* hsrc, const do
       __syncwarp();
       double b[2][4];
       k10c_bfrag(b, recv, ld, q0, w, q0, g, tg);
-      k10c_tile_pair(T, recv, ld, h, q0, w, q0, 0, 1, b, g, tg);
-      k10c_tile_pair(T, recv, ld, h, q0, w, q0, 2, 3, b, g, tg);
+      k10c_tile_pair(T, recv, ld, ld, h, q0, w, q0, 0, 1, b, g, tg);
+      k10c_tile_pair(T, recv, ld, ld, h, q0, w, q0, 2, 3, b, g, tg);
       __syncwarp();
     }
     double a[K10C_NB];
@@ -4746,8 +4686,8 @@ __device__ bool k10c_panel(double* T, double* recv, const double* hsrc, const do
       for (int grp = 0; grp < 3; ++grp) {
         const int I = 4 * warp + 28 * grp;   // the row tiles of rows 32 warp + 224 grp ..
         if (8 * I < h) {
-          k10c_tile_pair(T, recv, ld, h, q0, w, q0, I, I + 1, b, g, tg);
-          k10c_tile_pair(T, recv, ld, h, q0, w, q0, I + 2, I + 3, b, g, tg);
+          k10c_tile_pair(T, recv, ld, ld, h, q0, w, q0, I, I + 1, b, g, tg);
+          k10c_tile_pair(T, recv, ld, ld, h, q0, w, q0, I + 2, I + 3, b, g, tg);
         }
       }
       __syncwarp();
@@ -4929,6 +4869,386 @@ cudaLaunchConfig_t k10c_config(int B, int C, int smem, void* stream, cudaLaunchA
 }
 
 // ---------------------------------------------------------------------------
+// K10, stream variant: the lanes no cluster holds in its shared memory (n =
+// 555 .. 1536), a thread-block cluster of C = 16 CTAs per lane on the
+// cluster variant's schedule and device functions. It replaces a one-CTA
+// kernel, which ran the whole factor on one SM (6.7 ms at n = 700).
+// What bounds it: the chain of n pivots, as the cluster variant; then, on
+// ranks whose panels live in the L2, the latency of their updates there.
+// What the design does about n:
+// - the panels of 16 are dealt as in the cluster variant (panel p to rank
+//   p % C); a rank keeps its last panels in shared memory, as many as
+//   ``cap`` rows hold (kernels.chol_factor_geometry: 1049 rows at leading
+//   dimension 20), and the others in L itself, which is the lane's working
+//   storage (M's lower triangle copied in first; the L2 holds the lane, 5.7
+//   MB at n = 1190). A panel's updates grow with its index and its rows
+//   shrink, so the panels kept are the ones updated most a row; at n = 700
+//   only ranks 0 .. 5 keep their first panel (at most 5 updates) in the L2;
+//   the MMA update reads and writes such a panel's entries there
+//   (k10c_tile_pair with the leading dimension n);
+// - the applied panel reaches a rank through the L2 in chunks: the cluster
+//   variant's receive buffer of n - 16 rows, which stops it at n = 554,
+//   becomes K10S_CHUNK = 256 rows; a rank applies panel k to its trailing
+//   panels a chunk of rows at a time, each panel's B fragments from its
+//   first 16 rows of panel k (dbuf, fetched ahead);
+// - the look-ahead is the cluster variant's: o(p) hands panel p's rows 16
+//   .. 47 to o(p + 1) through distributed shared memory, from a buffer of
+//   its own (hbuf; rewritten only C - 1 phases after its reader read it),
+//   before it stores anything to L; o(p + 1)'s warp 0 updates its first 32
+//   rows by them and starts the chain, while warps 1 .. 7 fetch their own
+//   rows of panel p from the L2 (a warp its 32 rows a chunk of 224), update
+//   and factor them; a thread's rows past the two it holds during the chain
+//   are updated and factored after it, a chunk at a time.
+// The order of every sum is the cluster variant's, so both variants give
+// the same bits where both apply. A lane fails (ok = 0, L NaN) as there.
+// ---------------------------------------------------------------------------
+constexpr int K10S_CHUNK = 256;         // rows of the applied panel a rank receives at a time
+constexpr int K10S_HEAD = 32;           // rows of the look-ahead's handoff
+constexpr int K10S_MAX_LOCAL = 6;       // panels a rank owns at most (dbuf's slots)
+constexpr int K10S_ROWSTEP = K10C_THREADS - 32;   // rows between a thread's rows of a panel
+
+// Where a rank's local panel t lies: from t_res on in shared memory one after
+// another from S (leading dimension ld), before it in L (leading dimension n)
+struct K10sPanel {
+  double* T;
+  int ldT;
+  bool pairs;   // rows 16-byte aligned: 16-byte loads
+};
+
+__device__ __forceinline__ K10sPanel k10s_panel_at(double* S, double* Lw, int t, int t_res,
+                                                  int rank, int C, int n, int ld) {
+  if (t >= t_res) {
+    const int r = k10c_rows_before(t, rank, C, n) - k10c_rows_before(t_res, rank, C, n);
+    return {S + (size_t)r * ld, ld, true};
+  }
+  return {Lw + (size_t)(rank + t * C) * K10C_NB * (n + 1), n, (n & 1) == 0};
+}
+
+// The first local panel shared memory holds: the last panels of the rank, as
+// many as cap rows hold (kernels.chol_stream_layout's rule)
+__device__ __forceinline__ int k10s_first_resident(int rank, int C, int n, int n_local, int cap) {
+  const int end = k10c_rows_before(n_local, rank, C, n);
+  int t = n_local;
+  while (t > 0 && end - k10c_rows_before(t - 1, rank, C, n) <= cap) --t;
+  return t;
+}
+
+// a panel's row of w <= 16 entries (zeros past w, or where not in)
+__device__ __forceinline__ void k10s_load_row(double (&a)[K10C_NB], const double* row, bool in,
+                                              int w, bool pairs) {
+  if (pairs && w == K10C_NB) {
+    k10c_load_row(a, row, in);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < K10C_NB; ++j) a[j] = in && j < w ? row[j] : 0.0;
+}
+
+// The look-ahead's update of a warp's own rows 32 warp + 224 cc .. + 31 of the
+// panel at q0 by panel k (rows from Lk + i n): the warp fetches them into its
+// rows 32 warp .. of recv and updates their two tile pairs
+__device__ __forceinline__ void k10s_own_update(K10sPanel pt, double* recv, const double* Lk,
+                                                int ld, int n, int q0, int w, int warp, int cc,
+                                                const double (&b)[2][4], int wl) {
+  const int base = q0 + K10S_ROWSTEP * cc, lo = base + 32 * warp, hi = min(n, lo + 32);
+  if (lo < hi) k10c_fetch(recv, Lk, ld, n, 0, lo, hi, base, wl, 32);
+  __syncwarp();
+  const int I = 4 * warp + (K10S_ROWSTEP / 8) * cc, h = n - q0, g = wl >> 2, tg = wl & 3;
+  if (8 * I < h) {
+    k10c_tile_pair(pt.T, recv, ld, pt.ldT, h, q0, w, base, I, I + 1, b, g, tg);
+    k10c_tile_pair(pt.T, recv, ld, pt.ldT, h, q0, w, base, I + 2, I + 3, b, g, tg);
+  }
+  __syncwarp();
+}
+
+// k10c_panel on a panel that lies in shared memory or in L (pt), for any h:
+// with hsrc (the look-ahead) warp 0 takes panel k's rows q0 .. q0 + 31 from
+// the previous owner's hbuf and warps 1 .. 7 their own rows of it from L (Lk)
+// a chunk at a time (k10s_own_update); each thread of warps 1 .. 7 holds
+// rows tid and tid + 224 during the chain and sweeps its rows tid + 224 cc,
+// cc >= 2, after it. Where a panel follows, rows 16 .. 47 go to this rank's
+// hbuf. Every row goes to L from registers after the handoff.
+__device__ bool k10s_panel(K10sPanel pt, double* recv, double* hbuf, const double* hsrc,
+                           const double* Lk, uint64_t* hbar, int parity, int next, int ld, int n,
+                           int q0, int w, double* rs, double* lt, double* __restrict__ Lp,
+                           bool& bad, int tid) {
+  const int warp = tid >> 5, wl = tid & 31, g = wl >> 2, tg = wl & 3;
+  const int h = n - q0;
+  const bool pairs = (n & 1) == 0;
+  double* T = pt.T;
+  const int ldT = pt.ldT;
+  bool fail = false;
+  if (warp == 0) {
+    if (hsrc != nullptr) {
+      k10c_hbar_wait(hbar, parity);
+      if (wl < h) {
+        const double2* src = reinterpret_cast<const double2*>(hsrc + (size_t)wl * ld);
+        double2 v[K10C_NB / 2];
+#pragma unroll
+        for (int j = 0; j < K10C_NB / 2; ++j) v[j] = src[j];
+        double2* dst = reinterpret_cast<double2*>(recv + (size_t)wl * ld);
+#pragma unroll
+        for (int j = 0; j < K10C_NB / 2; ++j) dst[j] = v[j];
+      }
+      k10c_bar_arrive(9);   // panel k's rows q0 .. q0 + 31 are in recv
+      __syncwarp();
+      double b[2][4];
+      k10c_bfrag(b, recv, ld, q0, w, q0, g, tg);
+      k10c_tile_pair(T, recv, ld, ldT, h, q0, w, q0, 0, 1, b, g, tg);
+      k10c_tile_pair(T, recv, ld, ldT, h, q0, w, q0, 2, 3, b, g, tg);
+      __syncwarp();
+    }
+    double a[K10C_NB];
+    k10s_load_row(a, T + (size_t)wl * ldT, wl < h, w, pt.pairs);
+    double dg = 0.0;   // lane j < w: pivot j's square
+    double d2 = __shfl_sync(FULL_MASK, a[0], 0);
+#pragma unroll
+    for (int j = 0; j < K10C_NB; ++j) {
+      if (j < w) {
+        if (wl == j) dg = d2;
+        const double r = rsqrt(d2);
+        a[j] *= r;
+        double d2n = 0.0;   // the next pivot first: lane j + 1's update below
+        if (j + 1 < K10C_NB) d2n = __shfl_sync(FULL_MASK, fma(-a[j], a[j], a[j + 1]), j + 1);
+        if (wl == 0) rs[j] = r;
+        if (wl > j && wl < K10C_NB) lt[j * K10C_NB + wl] = a[j];
+        __syncwarp();
+#pragma unroll
+        for (int jj = j + 1; jj < K10C_NB; ++jj) a[jj] = fma(-a[j], lt[j * K10C_NB + jj], a[jj]);
+        d2 = d2n;
+      }
+      if (j & 1) k10c_bar_arrive(1 + (j >> 1));   // columns j - 1 and j are out
+    }
+    if (wl < K10C_NB) {
+      const double ljj = dg * rsqrt(dg);
+#pragma unroll
+      for (int j = 0; j < K10C_NB; ++j) {
+        if (j == wl) a[j] = ljj;
+      }
+    }
+    if (next >= 0) {
+      if (wl >= K10C_NB && wl < h) k10c_store_row(hbuf + (size_t)(wl - K10C_NB) * ld, a);
+      k10c_bar_sync(10, 64);
+      if (wl == 0) k10c_hbar_arrive_remote(hbar, next);
+    }
+    if (wl < h) bad |= k10c_put_row(Lp + (size_t)wl * n, a, w, wl, pairs);
+    fail = __any_sync(FULL_MASK, wl < w && (!(dg > 0.0) || !isfinite(dg)));
+    if (hsrc != nullptr) k6_cluster_wait();   // panel k's phase
+  } else {
+    double b[2][4];
+    if (hsrc != nullptr) {
+      k6_cluster_wait();                // panel k's phase: its rows are in L
+      const int lo = q0 + 32 * warp, hi = min(n, lo + 32);
+      if (lo < hi) k10c_fetch(recv, Lk, ld, n, 0, lo, hi, q0, wl, 32);
+      k10c_bar_sync(9, K10C_THREADS);   // and warp 0's rows 0 .. 31
+      k10c_bfrag(b, recv, ld, q0, w, q0, g, tg);
+      const int I = 4 * warp;
+      if (8 * I < h) {
+        k10c_tile_pair(T, recv, ld, ldT, h, q0, w, q0, I, I + 1, b, g, tg);
+        k10c_tile_pair(T, recv, ld, ldT, h, q0, w, q0, I + 2, I + 3, b, g, tg);
+      }
+      __syncwarp();
+      k10s_own_update(pt, recv, Lk, ld, n, q0, w, warp, 1, b, wl);
+    }
+    const int i0 = tid, i1 = tid + K10S_ROWSTEP;   // the rows held during the chain
+    double a[K10C_NB], c[K10C_NB];
+    k10s_load_row(a, T + (size_t)i0 * ldT, i0 < h, w, pt.pairs);
+    k10s_load_row(c, T + (size_t)i1 * ldT, i1 < h, w, pt.pairs);
+    k10c_bar_sync(1, K10C_THREADS); k10c_apply_cols<0, 2>(a, rs, lt); k10c_apply_cols<0, 2>(c, rs, lt);
+    k10c_bar_sync(2, K10C_THREADS); k10c_apply_cols<2, 4>(a, rs, lt); k10c_apply_cols<2, 4>(c, rs, lt);
+    k10c_bar_sync(3, K10C_THREADS); k10c_apply_cols<4, 6>(a, rs, lt); k10c_apply_cols<4, 6>(c, rs, lt);
+    k10c_bar_sync(4, K10C_THREADS); k10c_apply_cols<6, 8>(a, rs, lt); k10c_apply_cols<6, 8>(c, rs, lt);
+    k10c_bar_sync(5, K10C_THREADS); k10c_apply_cols<8, 10>(a, rs, lt); k10c_apply_cols<8, 10>(c, rs, lt);
+    k10c_bar_sync(6, K10C_THREADS); k10c_apply_cols<10, 12>(a, rs, lt); k10c_apply_cols<10, 12>(c, rs, lt);
+    k10c_bar_sync(7, K10C_THREADS); k10c_apply_cols<12, 14>(a, rs, lt); k10c_apply_cols<12, 14>(c, rs, lt);
+    k10c_bar_sync(8, K10C_THREADS); k10c_apply_cols<14, 16>(a, rs, lt); k10c_apply_cols<14, 16>(c, rs, lt);
+    if (next >= 0 && warp == 1) {
+      if (wl < K10C_NB && i0 < h) k10c_store_row(hbuf + (size_t)(i0 - K10C_NB) * ld, a);
+      k10c_bar_sync(10, 64);
+    }
+    if (i0 < h) bad |= k10c_put_row(Lp + (size_t)i0 * n, a, K10C_NB, i0, pairs);
+    if (i1 < h) bad |= k10c_put_row(Lp + (size_t)i1 * n, c, K10C_NB, i1, pairs);
+    for (int cc = 2; 32 * warp + K10S_ROWSTEP * cc < h; ++cc) {   // uniform over the warp
+      if (hsrc != nullptr) k10s_own_update(pt, recv, Lk, ld, n, q0, w, warp, cc, b, wl);
+      const int i = tid + K10S_ROWSTEP * cc;
+      if (i < h) {
+        k10s_load_row(a, T + (size_t)i * ldT, true, K10C_NB, pt.pairs);
+        k10c_apply_cols<0, K10C_NB>(a, rs, lt);
+        bad |= k10c_put_row(Lp + (size_t)i * n, a, K10C_NB, i, pairs);
+      }
+    }
+  }
+  return __syncthreads_or(fail) != 0;
+}
+
+// Panel k (columns k0 = 16 k .., in L) applied to the rank's local panels
+// t_rest .. n_local - 1, through recv a chunk of K10S_CHUNK rows at a time
+// from the first of them; each panel's B fragments from its rows q0 .. q0 +
+// 15 of panel k, fetched with the first chunk into dbuf (slot t). A warp
+// takes a chunk's tile pairs 2 warp, 2 warp + 16, .. of each panel.
+__device__ void k10s_apply(double* S, double* Lw, double* recv, double* dbuf, int k, int t_rest,
+                           int t_res, int n_local, int rank, int C, int n, int ld, int tid) {
+  const int warp = tid >> 5, wl = tid & 31, g = wl >> 2, tg = wl & 3;
+  const int k0 = k * K10C_NB;
+  const int lo0 = (rank + t_rest * C) * K10C_NB;
+  for (int t = t_rest; t < n_local; ++t) {
+    const int q0 = (rank + t * C) * K10C_NB;
+    k10c_issue(dbuf + (size_t)t * K10C_NB * ld, Lw, ld, n, k0, q0, min(n, q0 + K10C_NB), q0, tid,
+               K10C_THREADS);
+  }
+  for (int lo = lo0; lo < n; lo += K10S_CHUNK) {
+    const int hi = min(n, lo + K10S_CHUNK);
+    k10c_fetch(recv, Lw, ld, n, k0, lo, hi, lo, tid, K10C_THREADS);
+    __syncthreads();
+    for (int t = t_rest; t < n_local; ++t) {
+      const int q0 = (rank + t * C) * K10C_NB;
+      if (q0 >= hi) break;
+      const K10sPanel pt = k10s_panel_at(S, Lw, t, t_res, rank, C, n, ld);
+      const int w = min(K10C_NB, n - q0), h = n - q0;
+      const int I0 = (max(lo, q0) - q0) >> 3, I1 = (hi - q0 + 7) >> 3;
+      double b[2][4];
+      k10c_bfrag(b, dbuf + (size_t)t * K10C_NB * ld, ld, q0, w, q0, g, tg);
+      for (int I = I0 + 2 * warp; I < I1; I += 2 * K10C_WARPS) {
+        k10c_tile_pair(pt.T, recv, ld, pt.ldT, h, q0, w, lo, I, I + 1, b, g, tg);
+      }
+    }
+    __syncthreads();                    // recv is free for the next chunk
+  }
+}
+
+__global__ void __launch_bounds__(K10C_THREADS, 1)
+chol_factor_stream_kernel(const double* __restrict__ M, double* __restrict__ L,
+                          uint8_t* __restrict__ ok, int n, int ld, int cap) {
+  extern __shared__ double2 k10s_dyn[];
+  __shared__ double k10s_rs[K10C_NB];   // the pivots' 1 / sqrt of the panel factored last
+  __shared__ __align__(16) double k10s_lt[K10C_NB * K10C_NB];   // its diagonal block's L^T
+  __shared__ int k10s_fail;             // a panel of this rank failed (read after its phase)
+  __shared__ int k10s_bad;              // this rank failed or published a non-finite entry
+  __shared__ uint64_t k10s_hbar;        // the handoff barrier of this rank's panels
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x, rank = (int)cluster.block_rank();
+  const int lane = (int)blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int P = (n + K10C_NB - 1) / K10C_NB;
+  const int n_local = (P - rank + C - 1) / C;
+  const int t_res = k10s_first_resident(rank, C, n, n_local, cap);
+  double* S = reinterpret_cast<double*>(k10s_dyn);   // this rank's resident panels
+  double* recv = S + (size_t)cap * ld;               // a chunk of the applied panel
+  double* hbuf = recv + (size_t)K10S_CHUNK * ld;     // rows 16 .. 47 of the panel factored last
+  double* dbuf = hbuf + (size_t)K10S_HEAD * ld;      // each local panel's rows of the applied one
+  const double* A = M + (size_t)lane * n * n;
+  double* Lw = L + (size_t)lane * n * n;
+
+  // 1. the lower triangle of this rank's panels in (resident: as the cluster
+  // variant; the others into L); zeros above the diagonal
+  for (int t = 0; t < n_local; ++t) {
+    const int q0 = (rank + t * C) * K10C_NB, w = min(K10C_NB, n - q0), h = n - q0;
+    if (t < t_res) {
+      for (int e = tid; e < h * K10C_NB; e += K10C_THREADS) {
+        const int r = e >> 4, c = e & 15;
+        if (c < w) Lw[(size_t)(q0 + r) * n + q0 + c] = c <= r ? A[(size_t)(q0 + r) * n + q0 + c] : 0.0;
+      }
+      continue;
+    }
+    double* T = k10s_panel_at(S, Lw, t, t_res, rank, C, n, ld).T;
+    if ((n & 1) == 0) {
+      for (int e = tid; e < h * (K10C_NB / 2); e += K10C_THREADS) {
+        const int r = e >> 3, c = 2 * (e & 7);
+        double* dst = T + (size_t)r * ld + c;
+        const double* src = A + (size_t)(q0 + r) * n + q0 + c;
+        if (c + 1 < w && c + 1 <= r) {
+          cp_async16(dst, src);
+        } else {
+          dst[0] = (c < w && c <= r) ? src[0] : 0.0;
+          dst[1] = 0.0;
+        }
+      }
+    } else {
+      for (int e = tid; e < h * K10C_NB; e += K10C_THREADS) {
+        const int r = e >> 4, c = e & 15;
+        double* dst = T + (size_t)r * ld + c;
+        if (c < w && c <= r) {
+          cp_async8(dst, A + (size_t)(q0 + r) * n + q0 + c);
+        } else {
+          *dst = 0.0;
+        }
+      }
+    }
+  }
+  if (tid == 0) {
+    k10s_fail = 0;
+    k10s_bad = 0;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 ::"r"((unsigned)__cvta_generic_to_shared(&k10s_hbar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  cluster.sync();                       // every rank's handoff barrier is ready
+
+  // 2. panel 0 by rank 0 before the first phase; then a phase a panel
+  bool bad = false;   // this thread published a non-finite entry
+  if (rank == 0 && k10s_panel(k10s_panel_at(S, Lw, 0, t_res, rank, C, n, ld), recv, hbuf, nullptr,
+                              nullptr, &k10s_hbar, 0, P > 1 ? 1 : -1, ld, n, 0, min(K10C_NB, n),
+                              k10s_rs, k10s_lt, Lw, bad, tid) && tid == 0) {
+    k10s_fail = 1;
+  }
+  k6_cluster_arrive();
+  bool failed = false;
+  for (int k = 0; k < P; ++k) {
+    const int owner = k % C;
+    const int t0 = k < rank ? 0 : (k - rank) / C + 1;   // this rank's first panel after k
+    int t_rest = t0;
+    if (k + 1 < P && rank == (k + 1) % C) {   // the look-ahead: panel k + 1 is local panel t0
+      const int q0 = (k + 1) * K10C_NB;
+      if (k10s_panel(k10s_panel_at(S, Lw, t0, t_res, rank, C, n, ld), recv, hbuf,
+                     cluster.map_shared_rank(hbuf, owner), Lw + (size_t)k * K10C_NB, &k10s_hbar,
+                     (rank > 0 ? t0 : t0 - 1) & 1, k + 2 < P ? (k + 2) % C : -1, ld, n, q0,
+                     min(K10C_NB, n - q0), k10s_rs, k10s_lt, Lw + (size_t)q0 * (n + 1), bad, tid)
+          && tid == 0) {
+        k10s_fail = 1;
+      }
+      // every thread has waited for panel k's phase
+      if (*cluster.map_shared_rank(&k10s_fail, owner)) {
+        failed = true;
+        break;
+      }
+      t_rest = t0 + 1;
+    } else {
+      k6_cluster_wait();                // panel k is published
+      if (*cluster.map_shared_rank(&k10s_fail, owner)) {
+        failed = true;
+        break;
+      }
+      if (k == P - 1) break;
+    }
+    k6_cluster_arrive();                // panel k read; panel k + 1 published if ours
+    if (t_rest < n_local) {             // uniform over the block
+      k10s_apply(S, Lw, recv, dbuf, k, t_rest, t_res, n_local, rank, C, n, ld, tid);
+    }
+  }
+
+  // 3. zeros above the panels; the flags exchanged
+  if (!failed) k10c_fill(Lw, n, rank, C, n_local, false, tid);
+  bad = __syncthreads_or(failed || bad) != 0;
+  if (tid == 0) k10s_bad = bad ? 1 : 0;
+  cluster.sync();                       // every rank's flag is published
+  bool any = false;
+  for (int q = 0; q < C; ++q) any |= *cluster.map_shared_rank(&k10s_bad, q) != 0;
+  cluster.sync();                       // no rank reads another's shared memory any more
+  if (any) k10c_fill(Lw, n, rank, C, n_local, true, tid);
+  if (rank == 0 && tid == 0) ok[lane] = any ? 0 : 1;
+}
+
+// the stream variant's launch attributes (always a non-portable cluster size)
+cudaError_t k10s_attributes(int smem) {
+  const void* fn = (const void*)chol_factor_stream_kernel;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// ---------------------------------------------------------------------------
 // K11 chol_solve_batched: x = L^-T L^-1 b through K10's factor, replacing
 // msolve at awebox_tpu/parallel/batch.py:234-236 (two solve_triangular), f64,
 // as kernels.chol_solve_batched_plain. What bounds it: the substitution
@@ -4956,13 +5276,13 @@ chol_solve_kernel(const double* __restrict__ L, const double* __restrict__ b,
   double* y = slots + (size_t)K11_RING * KS_TILE;   // [32 T], zeros past n
   double* rinv = y + T * KS_NB;                     // [32 T], ones past n
   const double* Ll = L + (size_t)lane * n * n;
-  KsRing ring;
+  KsRing<> ring;
   ring.slots = slots + (warp == 0 ? 0 : K11_SLOTS0 + (warp - 1) * K11_SLOTS) * KS_TILE;
   ring.L = Ll;
   ring.m = n;
   ring.T = T;
   ring.sw = warp == 0 ? K11_SLOTS0 : K11_SLOTS;
-  ring.warp = warp;
+  ring.walk = KsWalk{warp};
   ring.wl = wl;
   ring.pairs = (n & 1) == 0 && ((uintptr_t)L & 15) == 0;
   ring.start();
@@ -5011,171 +5331,300 @@ constexpr int K12_NB = 16;                    // panel width: 16 warps in the pa
 // ---------------------------------------------------------------------------
 // K13 lu_solve_f64: x = lu_solve((lu, piv), b), replacing
 // jax.scipy.linalg.lu_solve at awebox_tpu/opti/ipsolver.py:195 and :197,
-// f64, as kernels.lu_solve_f64_plain. One CTA of KS_WARPS warps a lane, in
-// K11's layout (kernels.lu_solve_f64_geometry): the vector, the pivots and
-// the reciprocals of U's diagonal in shared memory, the factor streamed
-// through K11_RING tile slots by cp.async. The row interchanges are applied
-// to the vector in order by one thread, from shared memory; then the
-// unit-lower forward pass is K9's and K11's ks_forward on the factor's
-// strictly lower tiles with a diagonal of ones, and the upper backward pass
-// is its mirror on U's tiles read as rows (k13_backward), each warp's ring
-// (K13Ring) walking the lower tiles of the forward pass and the upper ones
-// of the backward pass. What bounds it: the two chains of ceil(N / 32) tile
-// steps, then the serial interchanges (N shared-memory swaps), then the
-// factor's bytes (2.36 MB at N = 543, read once).
+// f64, as kernels.lu_solve_f64_plain. A one-CTA solve read the whole
+// factor through one SM (2.36 MB at ~14 GB/s at N = 543); this one is a
+// thread-block cluster of C CTAs a lane (kernels.lu_solve_f64_geometry: C
+// follows B, 16 at B <= 7, 8 at B <= 15, ..), whose ranks share out the
+// factor's tiles, so that C SMs read it at once:
+// - the row tiles are dealt over the ranks (row tile i to rank i % C): a
+//   rank's warps 1 .. 7 apply every solved column tile to the rank's own
+//   row tiles only (forward: tile (i, s - 1) once x_{s - 1} is there, i >=
+//   s + 1; backward: tile (i, t + 1), i <= t - 1), each warp streaming its
+//   tiles through a ring of its own, as K11's;
+// - the chain of row tile s runs on its owner's warp 0 (ks_forward's chain
+//   with a unit diagonal; backward, K13's on U's tiles read as rows) with
+//   the diagonal tile and the fold tile, (s + 1, s) forward or (t - 1, t)
+//   backward, in its ring: the fold tile is the next row tile's, so its
+//   products reach the next chain's owner with x_s. The owner's lane q
+//   writes x_s into rank q's vector (and the fold into the next owner's
+//   buffer) through distributed shared memory and arrives at step s's
+//   mbarrier there (one barrier a step and pass, used once); a warp that
+//   needs x_s waits there. The sum of a row tile is ready when
+//   its chain comes (the look-ahead: all but the fold's products were added
+//   by its own rank in the steps before);
+// - LAPACK's interchanges are composed per chunk of 32 (K3's tracing, every
+//   rank the whole vector, in the slots before the rings start), then
+//   applied as gathers: T steps instead of N serial swaps.
+// Every row's sums keep the one-CTA solve's order (its columns two or more tiles away
+// in step order as four interleaved partial sums, the fold, the chain), so
+// x is the same bits. What bounds it: the two chains of ceil(N / 32) tile
+// steps, each behind a handoff between SMs; then the factor's bytes
+// (N^2 8 B), now over C SMs. A singular or non-finite lane gives a
+// non-finite x, as the plain version.
 // ---------------------------------------------------------------------------
+constexpr int K13_MAX_CLUSTER = 16;
 
-// KsRing's walk with the backward pass's tiles transposed: tile (ti, tj) of
-// ks_step_tile's backward half is U's tile (tj, ti)
-struct K13Ring {
-  double* slots;
-  const double* L;
-  int m, T, sw, warp, wl;
-  bool pairs;
-  int s, idx;
-  int taken, freed;
+__device__ __forceinline__ int k13_mod(int a, int C) { return ((a % C) + C) % C; }
 
-  __device__ void advance() {
-    int ti, tj;
-    ++idx;
-    while (s < 2 * T && !ks_step_tile(s, idx, T, warp, ti, tj)) {
-      ++s;
-      idx = 0;
+// The idx-th tile (ti, tj) that warp of rank (of C) takes in step s (s < T:
+// forward step s; then backward, row tile t = 2T - 1 - s), or false: warp 0
+// the diagonal and fold tiles of the steps whose row tile is the rank's,
+// warp w > 0 every (KS_WARPS - 1)-th of the rank's other tiles of the step,
+// from the (w - 1)-th, in the order of its row tiles (backward from the
+// last).
+__device__ __forceinline__ bool k13_step_tile(int s, int idx, int T, int rank, int C, int warp,
+                                              int& ti, int& tj) {
+  if (s < T) {
+    if (warp == 0) {
+      ti = s + idx;
+      tj = s;
+      return s % C == rank && (idx == 0 || (idx == 1 && s + 1 < T));
     }
+    ti = s + 1 + k13_mod(rank - s - 1, C) + C * (warp - 1 + (KS_WARPS - 1) * idx);
+    tj = s - 1;
+    return s > 0 && ti < T;
   }
-
-  __device__ void fetch(double* slot) {
-    if (s < 2 * T) {
-      int ti, tj;
-      ks_step_tile(s, idx, T, warp, ti, tj);
-      if (s >= T) {
-        const int t = ti;
-        ti = tj;
-        tj = t;
-      }
-      ks_copy_tile(slot, L, m, m, ti, tj, pairs, wl, 32);
-      advance();
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const int t = 2 * T - 1 - s;
+  if (warp == 0) {
+    ti = t - idx;
+    tj = t;
+    return t % C == rank && (idx == 0 || (idx == 1 && t > 0));
   }
+  ti = t - 1 - k13_mod(t - 1 - rank, C) - C * (warp - 1 + (KS_WARPS - 1) * idx);
+  tj = t + 1;
+  return t + 1 < T && ti >= 0;
+}
 
-  __device__ void start() {
-    s = 0;
-    idx = -1;
-    advance();
-    taken = freed = 0;
-    for (int i = 0; i < sw; ++i) fetch(slots + i * KS_TILE);
-  }
-
-  __device__ const double* take(int, int) {
-    ks_wait_group(sw - 1 - (taken - freed));
-    __syncwarp();
-    return slots + (taken++ % sw) * KS_TILE;
-  }
-
-  __device__ void done() {
-    __syncwarp();
-    while (freed < taken) fetch(slots + (freed++ % sw) * KS_TILE);
+// k13_step_tile's walk of a warp of a rank: K13's KsRing
+struct K13Walk {
+  int rank, C, warp;
+  __device__ __forceinline__ bool operator()(int s, int idx, int T, int& ti, int& tj) const {
+    return k13_step_tile(s, idx, T, rank, C, warp, ti, tj);
   }
 };
 
-// U y = b in place, U the upper triangle of the factor (tiles (i, j), i <= j,
-// taken as rows), rinv[i] = 1 / U_ii (1 past m): ks_backward's steps, its
-// products read along U's rows instead of L's columns
-template <class Src>
-__device__ void k13_backward(Src& src, double* y, const double* rinv, int m, int warp, int wl) {
-  const int T = ks_tiles(m);
-  double acc = 0.0;
-  for (int t = T - 1; t >= 0; --t) {
-    const int r0 = t * KS_NB;
-    if (warp == 0) {
-      const bool fold = t > 0;
-      const double* D = src.take(t, t) + wl * KS_LDT;
-      const double* E = fold ? src.take(t - 1, t) + wl * KS_LDT : D;
-      const int h = min(KS_NB, m - r0);
-      const double r = rinv[r0 + wl];
-      double b = y[r0 + wl] + acc, an = 0.0;
+// A chain's result out: lane wl's entry v of row tile r0 (where in) into this
+// rank's vector and its fold an into fo; then lane q < C copies the tile's
+// 32 entries (16-byte stores) into rank q's vector, and the fold into rank
+// q's buffer where q is the next chain's owner (fold_rank), and arrives at
+// bar in rank q (release: its stores come first). One release a lane: a
+// lane that released to every rank in turn waited a round trip between SMs
+// for each (6.4 us a tile step at N = 543 against the one-CTA solve's 5.0).
+__device__ __forceinline__ void k13_publish(cg::cluster_group& cluster, double* y, double* fold,
+                                            double* fo, uint64_t* bar, int r0, bool in, double v,
+                                            int fold_rank, double an, int rank, int C, int wl) {
+  if (in) y[r0 + wl] = v;
+  fo[wl] = an;
+  __syncwarp();
+  if (wl < C) {
+    const double2* src = reinterpret_cast<const double2*>(y + r0);
+    if (wl != rank) {
+      double2* dst = reinterpret_cast<double2*>(cluster.map_shared_rank(y + r0, wl));
 #pragma unroll
-      for (int j = KS_NB - 1; j >= 0; --j) {
-        if (j < h) {
-          if (wl == j) b *= r;
-          const double xj = __shfl_sync(FULL_MASK, b, j);
-          if (wl < j) b = fma(-D[j], xj, b);
-          if (fold) an = fma(-E[j], xj, an);
-        }
-      }
-      if (wl < h) y[r0 + wl] = b;
-      acc = an;
-      src.done();
-    } else if (t + 1 < T) {
-      const double2* xs = reinterpret_cast<const double2*>(y + r0 + KS_NB);
-      for (int i = t - warp; i >= 0; i -= KS_WARPS - 1) {
-        const double* M = src.take(i, t + 1) + wl * KS_LDT;
-        double a[4] = {0.0, 0.0, 0.0, 0.0};
-#pragma unroll
-        for (int p = 0; p < KS_NB / 2; ++p) {
-          const double2 v = *reinterpret_cast<const double2*>(M + 2 * p), x = xs[p];
-          a[(2 * p) & 3] = fma(v.x, x.x, a[(2 * p) & 3]);
-          a[(2 * p + 1) & 3] = fma(v.y, x.y, a[(2 * p + 1) & 3]);
-        }
-        y[i * KS_NB + wl] -= (a[0] + a[1]) + (a[2] + a[3]);
-        src.done();
-      }
+      for (int j = 0; j < KS_NB / 2; ++j) dst[j] = src[j];
     }
-    __syncthreads();
+    if (wl == fold_rank) {
+      const double2* fs = reinterpret_cast<const double2*>(fo);
+      double2* dst = reinterpret_cast<double2*>(cluster.map_shared_rank(fold, wl));
+#pragma unroll
+      for (int j = 0; j < KS_NB / 2; ++j) dst[j] = fs[j];
+    }
+    k10c_hbar_arrive_remote(bar, wl);
   }
+  __syncwarp();                         // fo is free for the next chain
+}
+
+// a tile's 32 products with x (xs, as pairs) in four interleaved partial
+// sums, (a0 + a1) + (a2 + a3): row M (pairs) of the tile times xs
+__device__ __forceinline__ double k13_row_sum(const double* M, const double2* xs) {
+  double a[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+  for (int p = 0; p < KS_NB / 2; ++p) {
+    const double2 v = *reinterpret_cast<const double2*>(M + 2 * p), x = xs[p];
+    a[(2 * p) & 3] = fma(v.x, x.x, a[(2 * p) & 3]);
+    a[(2 * p + 1) & 3] = fma(v.y, x.y, a[(2 * p + 1) & 3]);
+  }
+  return (a[0] + a[1]) + (a[2] + a[3]);
 }
 
 __global__ void __launch_bounds__(KS_THREADS, 1)
 lu_solve_f64_kernel(const double* __restrict__ LU, const int32_t* __restrict__ piv,
                     const double* __restrict__ b, double* __restrict__ x, int n) {
   extern __shared__ double2 k13_dyn[];
-  const int T = ks_tiles(n), lane = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x, rank = (int)cluster.block_rank();
+  const int lane = (int)blockIdx.x / C;
+  const int T = ks_tiles(n), Np = T * KS_NB;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
   double* slots = reinterpret_cast<double*>(k13_dyn);
-  double* y = slots + (size_t)K11_RING * KS_TILE;   // [32 T], zeros past n
-  double* ones = y + T * KS_NB;                     // [32 T], L's unit diagonal
-  double* rinv = ones + T * KS_NB;                  // [32 T], ones past n
-  int* sp = reinterpret_cast<int*>(rinv + T * KS_NB);   // [32 T], 0-based pivots
+  double* y = slots + (size_t)K11_RING * KS_TILE;   // [Np], zeros past n
+  double* rinv = y + Np;                            // [Np], 1 / U_ii, ones past n
+  double* fold = rinv + Np;                         // [32]: the fold from the previous chain
+  double* fo = fold + KS_NB;                        // [32]: this rank's fold for the next one
+  uint64_t* bars = reinterpret_cast<uint64_t*>(fo + KS_NB);   // [2T]: step s's x is out
+  int* src_a = reinterpret_cast<int*>(slots);       // [Np] row k takes row src_a[k] ...
+  int* src_b = src_a + Np;                          // ... and its pivot row dst_b[k]
+  int* dst_b = src_b + Np;                          //     row src_b[k] (in the slots, before
+                                                    //     the rings start)
   const double* F = LU + (size_t)lane * n * n;
-  K13Ring ring;
+  const int32_t* pv = piv + (size_t)lane * n;
+
+  // 1. y = P b: per chunk of 32 interchanges, lane q traces row c0 + q and its
+  // pivot row back through the chunk's swaps (rows past n swap with
+  // themselves); then warp 0 applies the chunks in order as gathers
+  for (int i = tid; i < Np; i += KS_THREADS) {
+    y[i] = i < n ? b[(size_t)lane * n + i] : 0.0;
+    rinv[i] = i < n ? 1.0 / F[(size_t)i * (n + 1)] : 1.0;
+  }
+  for (int c = warp; c < T; c += KS_WARPS) {
+    const int k = c * KS_NB + wl;
+    const int p = k < n && pv[k] > k && pv[k] <= n ? pv[k] - 1 : k;   // no swap past n
+    int ra = k, rb = p;
+#pragma unroll
+    for (int q = KS_NB - 1; q >= 0; --q) {
+      const int pq = __shfl_sync(FULL_MASK, p, q);
+      const int kq = c * KS_NB + q;
+      ra = ra == kq ? pq : (ra == pq ? kq : ra);
+      rb = rb == kq ? pq : (rb == pq ? kq : rb);
+    }
+    src_a[k] = ra;
+    src_b[k] = rb;
+    dst_b[k] = p;
+  }
+  for (int i = tid; i < 2 * T; i += KS_THREADS) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 ::"r"((unsigned)__cvta_generic_to_shared(bars + i)) : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  if (warp == 0) {
+    for (int c = 0; c < T; ++c) {
+      const int k = c * KS_NB + wl;
+      const double va = y[src_a[k]], vb = y[src_b[k]];
+      __syncwarp();
+      if (k < n) {
+        y[k] = va;
+        y[dst_b[k]] = vb;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();                      // the slots are free
+  KsRing<K13Walk> ring;
   ring.slots = slots + (warp == 0 ? 0 : K11_SLOTS0 + (warp - 1) * K11_SLOTS) * KS_TILE;
   ring.L = F;
   ring.m = n;
   ring.T = T;
   ring.sw = warp == 0 ? K11_SLOTS0 : K11_SLOTS;
-  ring.warp = warp;
+  ring.walk = K13Walk{rank, C, warp};
   ring.wl = wl;
   ring.pairs = (n & 1) == 0 && ((uintptr_t)LU & 15) == 0;
   ring.start();
-  for (int i = tid; i < T * KS_NB; i += KS_THREADS) {
-    y[i] = i < n ? b[(size_t)lane * n + i] : 0.0;
-    ones[i] = 1.0;
-    rinv[i] = i < n ? 1.0 / F[(size_t)i * (n + 1)] : 1.0;
-    sp[i] = i < n ? piv[(size_t)lane * n + i] - 1 : i;
-  }
-  __syncthreads();
-  if (tid == 0) {                       // LAPACK's interchanges, in order
-    for (int k = 0; k < n; ++k) {
-      const int p = sp[k];
-      if (p != k && p >= 0 && p < n) {
-        const double t = y[k];
-        y[k] = y[p];
-        y[p] = t;
+  cluster.sync();                       // every rank's barriers and y are ready for x
+
+  // 2. L y = P b, unit diagonal: step s on row tile s
+  for (int s = 0; s < T; ++s) {
+    const int r0 = s * KS_NB;
+    if (warp == 0) {
+      if (s % C == rank) {
+        if (s > 0) k10c_hbar_wait(bars + s - 1, 0);   // x_{s-1} and the fold
+        const bool nxt = s + 1 < T;
+        const double* D = ring.take() + wl * KS_LDT;
+        const double* E = nxt ? ring.take() + wl * KS_LDT : D;
+        const int h = min(KS_NB, n - r0);
+        double v = y[r0 + wl] + (s > 0 ? fold[wl] : 0.0), an = 0.0;
+#pragma unroll
+        for (int p = 0; p < KS_NB / 2; ++p) {
+          const double2 d = *reinterpret_cast<const double2*>(D + 2 * p);
+          const double2 e = nxt ? *reinterpret_cast<const double2*>(E + 2 * p)
+                                : make_double2(0.0, 0.0);
+          ks_fwd_col(v, an, d.x, e.x, 1.0, 2 * p, h, wl);
+          ks_fwd_col(v, an, d.y, e.y, 1.0, 2 * p + 1, h, wl);
+        }
+        ring.done();
+        k13_publish(cluster, y, fold, fo, bars + s, r0, wl < h, v, nxt ? (s + 1) % C : -1, an,
+                    rank, C, wl);
+      }
+    } else if (s > 0) {
+      const double2* xs = reinterpret_cast<const double2*>(y + r0 - KS_NB);
+      bool waited = false;
+      for (int i = s + 1 + k13_mod(rank - s - 1, C) + C * (warp - 1); i < T;
+           i += C * (KS_WARPS - 1)) {
+        if (!waited) k10c_hbar_wait(bars + s - 1, 0);
+        waited = true;
+        const double* M = ring.take() + wl * KS_LDT;
+        const double sum = k13_row_sum(M, xs);
+        if (i * KS_NB + wl < n) y[i * KS_NB + wl] -= sum;
+        ring.done();
       }
     }
+    __syncthreads();
   }
-  __syncthreads();
-  ks_forward(ring, y, ones, n, 2, warp, wl);
-  k13_backward(ring, y, rinv, n, warp, wl);
-  for (int i = tid; i < n; i += KS_THREADS) x[(size_t)lane * n + i] = y[i];
+
+  // 3. U x = y: step t on row tile t, from the last
+  for (int t = T - 1; t >= 0; --t) {
+    const int r0 = t * KS_NB;
+    if (warp == 0) {
+      if (t % C == rank) {
+        const bool after = t + 1 < T, nxt = t > 0;
+        if (after) k10c_hbar_wait(bars + T + t + 1, 0);
+        const double* D = ring.take() + wl * KS_LDT;
+        const double* E = nxt ? ring.take() + wl * KS_LDT : D;
+        const int h = min(KS_NB, n - r0);
+        const double r = rinv[r0 + wl];
+        double v = y[r0 + wl] + (after ? fold[wl] : 0.0), an = 0.0;
+#pragma unroll
+        for (int j = KS_NB - 1; j >= 0; --j) {
+          if (j < h) {
+            if (wl == j) v *= r;
+            const double xj = __shfl_sync(FULL_MASK, v, j);
+            if (wl < j) v = fma(-D[j], xj, v);
+            if (nxt) an = fma(-E[j], xj, an);
+          }
+        }
+        ring.done();
+        k13_publish(cluster, y, fold, fo, bars + T + t, r0, wl < h, v, nxt ? (t - 1) % C : -1,
+                    an, rank, C, wl);
+      }
+    } else if (t + 1 < T) {
+      const double2* xs = reinterpret_cast<const double2*>(y + r0 + KS_NB);
+      bool waited = false;
+      for (int i = t - 1 - k13_mod(t - 1 - rank, C) - C * (warp - 1); i >= 0;
+           i -= C * (KS_WARPS - 1)) {
+        if (!waited) k10c_hbar_wait(bars + T + t + 1, 0);
+        waited = true;
+        const double* M = ring.take() + wl * KS_LDT;
+        y[i * KS_NB + wl] -= k13_row_sum(M, xs);
+        ring.done();
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < n; i += KS_THREADS) {
+    if ((i / KS_NB) % C == rank) x[(size_t)lane * n + i] = y[i];
+  }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cluster.sync();                       // no rank writes into one that has left
 }
 
 // bytes of K13's dynamic shared memory at n, as kernels.lu_solve_f64_geometry
 size_t k13_smem_bytes(int n) {
-  const size_t rows = (size_t)KS_NB * ((n + KS_NB - 1) / KS_NB);
-  return sizeof(double) * ((size_t)K11_RING * KS_TILE + 3 * rows) + sizeof(int) * rows;
+  const size_t T = (n + KS_NB - 1) / KS_NB;
+  return sizeof(double) * ((size_t)K11_RING * KS_TILE + 2 * KS_NB * T + 2 * KS_NB)
+      + sizeof(uint64_t) * 2 * T;
+}
+
+cudaError_t k13_attributes(int C, int smem) {
+  const void* fn = (const void*)lu_solve_f64_kernel;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess || C <= 8) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t k13_config(int B, int C, int smem, void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = k2c_config(B, C, smem, stream, attr);
+  cfg.blockDim = dim3(KS_THREADS);
+  return cfg;
 }
 
 // The launch floor: an empty kernel, timed by chip_smoke.py beside K1-K7.
@@ -5402,17 +5851,6 @@ int advance_state(const void* const* ptrs, int B, int n, int n_eq, int n_ineq, d
   return (int)cudaGetLastError();
 }
 
-// K10's global variant, for the n that kernels.chol_factor_geometry gives it
-int chol_factor_global(const void* M, void* L, void* ok, int B, int n, void* stream) {
-  const size_t smem = sizeof(double) * (size_t)n * K10_LD;
-  cudaError_t err = cudaFuncSetAttribute((const void*)chol_factor_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  chol_factor_kernel<<<B, K10_THREADS, smem, (cudaStream_t)stream>>>(
-      (const double*)M, (double*)L, (uint8_t*)ok, n);
-  return (int)cudaGetLastError();
-}
-
 // How many clusters of C CTAs with smem bytes of dynamic shared memory each
 // the card runs at once; written to *max_clusters (int).
 int chol_factor_cluster_occupancy(int C, int smem, void* max_clusters) {
@@ -5441,6 +5879,41 @@ int chol_factor_cluster(const void* M, void* L, void* ok, int B, int n, int C, i
   const cudaLaunchConfig_t cfg = k10c_config(B, C, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, chol_factor_cluster_kernel, (const double*)M, (double*)L,
                            (uint8_t*)ok, n, ld, recv_off);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of C CTAs of K10's stream variant with smem bytes of
+// dynamic shared memory each the card runs at once; written to *max_clusters.
+int chol_factor_stream_occupancy(int C, int smem, void* max_clusters) {
+  cudaError_t err = k10s_attributes(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k10c_config(1, C, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      (int*)max_clusters, (const void*)chol_factor_stream_kernel, &cfg);
+}
+
+// The layout (C CTAs a lane, the leading dimension ld, cap rows of resident
+// panels a rank, smem bytes of dynamic shared memory a rank) comes from
+// kernels.chol_factor_geometry; only the limits compiled into the kernel are
+// checked here (C >= 3: a rank's hbuf is rewritten C - 1 phases after its
+// reader took it).
+int chol_factor_stream(const void* M, void* L, void* ok, int B, int n, int C, int ld, int cap,
+                       int smem, void* stream) {
+  const int P = (n + K10C_NB - 1) / K10C_NB;
+  if (C < 3 || C > K10C_MAX_CLUSTER || C > P || (P + C - 1) / C > K10S_MAX_LOCAL
+      || ld < K10C_NB || ld % 2 != 0 || cap < 0
+      || (size_t)smem < sizeof(double) * (size_t)ld
+                            * (cap + K10S_CHUNK + K10S_HEAD + K10C_NB * K10S_MAX_LOCAL)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = k10s_attributes(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k10c_config(B, C, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, chol_factor_stream_kernel, (const double*)M, (double*)L,
+                           (uint8_t*)ok, n, ld, cap);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -5527,16 +6000,35 @@ int lu_factor_f64(void* Ks, void* piv, int B, int N, int lds, int smem, void* st
                                            (cudaStream_t)stream);
 }
 
-// smem, the dynamic shared memory, comes from kernels.lu_solve_f64_geometry;
-// only that it covers the ring and the vectors at n is checked.
-int lu_solve_f64(const void* lu, const void* piv, const void* b, void* x, int B, int n, int smem,
-                 void* stream) {
-  if (n < 1 || (size_t)smem < k13_smem_bytes(n)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute((const void*)lu_solve_f64_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// How many clusters of C CTAs of K13 with smem bytes of dynamic shared memory
+// each the card runs at once; written to *max_clusters (int).
+int lu_solve_f64_occupancy(int C, int smem, void* max_clusters) {
+  cudaError_t err = k13_attributes(C, smem);
   if (err != cudaSuccess) return (int)err;
-  lu_solve_f64_kernel<<<B, KS_THREADS, smem, (cudaStream_t)stream>>>(
-      (const double*)lu, (const int32_t*)piv, (const double*)b, (double*)x, n);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k13_config(1, C, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters((int*)max_clusters,
+                                             (const void*)lu_solve_f64_kernel, &cfg);
+}
+
+// C (CTAs a lane) and smem (the dynamic shared memory) come from
+// kernels.lu_solve_f64_geometry; only that smem covers the rings and the
+// vectors at n, and that the slots hold the interchanges' three int arrays,
+// are checked. B clusters of C CTAs.
+int lu_solve_f64(const void* lu, const void* piv, const void* b, void* x, int B, int n, int C,
+                 int smem, void* stream) {
+  const size_t rows = (size_t)KS_NB * ((n + KS_NB - 1) / KS_NB);
+  if (n < 1 || C < 1 || C > K13_MAX_CLUSTER || (size_t)smem < k13_smem_bytes(n)
+      || 3 * sizeof(int) * rows > sizeof(double) * K11_RING * KS_TILE) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = k13_attributes(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k13_config(B, C, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, lu_solve_f64_kernel, (const double*)lu, (const int32_t*)piv,
+                           (const double*)b, (double*)x, n);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

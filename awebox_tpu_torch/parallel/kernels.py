@@ -25,7 +25,7 @@ qr_solve_batched       msolve = R^-1 Q^T v, :344-346                 f32
 advance_state          _advance_state, :449-512, from a direction    f64
                        (the step half of ip_step's kernel)
 chol_factor_batched    jnp.linalg.cholesky of the condensed M,       f64
-                       :215-231 (cluster or global variant, by n)
+                       :215-231 (cluster or stream variant, by n)
 chol_solve_batched     msolve = two solve_triangular, :234-236       f64
 block_factor           the two-level factor of ocp/blockkkt.py,      f64
                        :539-588 (interior Cholesky, coupling solve,
@@ -45,6 +45,7 @@ wrapper                replaces (awebox_tpu/opti/ipsolver.py)       dtype
 lu_factor_f64          jax.scipy.linalg.lu_factor of the augmented  f64
                        KKT matrix, :194 (K2's blocked design)
 lu_solve_f64           jax.scipy.linalg.lu_solve, :195, :197         f64
+                       (a thread-block cluster a lane)
 =====================  ===========================================  ==========
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
@@ -72,14 +73,14 @@ import torch
 # factor, lu_factor_cluster and lu_factor_blocked say which of K2's two
 # variants ran (a blocked factor's launches a panel are counted once);
 # likewise qr_factor_batched with qr_factor_cluster and qr_factor_blocked,
-# and chol_factor_batched with chol_factor_cluster and chol_factor_global
+# and chol_factor_batched with chol_factor_cluster and chol_factor_stream
 LAUNCHES = {'newton_kkt': 0, 'kkt_assemble_scaled': 0, 'lu_factor_batched': 0,
             'lu_factor_cluster': 0, 'lu_factor_blocked': 0,
             'lu_solve_batched': 0, 'ip_step': 0,
             'kkt_assemble': 0, 'ruiz_scale': 0, 'qr_factor_batched': 0,
             'qr_factor_cluster': 0, 'qr_factor_blocked': 0, 'qr_solve_batched': 0,
             'advance_state': 0, 'chol_factor_batched': 0, 'chol_factor_cluster': 0,
-            'chol_factor_global': 0, 'chol_solve_batched': 0,
+            'chol_factor_stream': 0, 'chol_solve_batched': 0,
             'block_factor': 0, 'block_solve': 0, 'lu_factor_f64': 0, 'lu_solve_f64': 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -108,15 +109,17 @@ SIGNATURES = {
     'qr_factor_blocked': [_P] * 5 + [_I] * 4 + [_P],
     'qr_solve_batched': [_P] * 4 + [_I] * 5 + [_P],
     'advance_state': [_P] + [_I] * 4 + [_D] * 3 + [_P],
-    'chol_factor_global': [_P] * 3 + [_I] * 2 + [_P],
     'chol_factor_cluster_occupancy': [_I, _I, _P],
     'chol_factor_cluster': [_P] * 3 + [_I] * 6 + [_P],
+    'chol_factor_stream_occupancy': [_I, _I, _P],
+    'chol_factor_stream': [_P] * 3 + [_I] * 6 + [_P],
     'chol_solve_batched': [_P] * 3 + [_I] * 3 + [_P],
     'block_factor': [_P] * 7 + [_I] * 9 + [_P],
     'block_solve_occupancy': [_I, _I, _P],
     'block_solve': [_P] * 8 + [_I] * 8 + [_P],
     'lu_factor_f64': [_P, _P] + [_I] * 4 + [_P],
-    'lu_solve_f64': [_P] * 4 + [_I] * 3 + [_P],
+    'lu_solve_f64_occupancy': [_I, _I, _P],
+    'lu_solve_f64': [_P] * 4 + [_I] * 4 + [_P],
     'noop': [_I, _P],
 }
 
@@ -1341,23 +1344,31 @@ def chol_factor_batched_plain(M):
     return L, torch.isfinite(L).flatten(1).all(dim=1)
 
 
-CHOL_NB = 32                # panel width of K10's global variant (K10_NB)
-CHOL_CLUSTER_NB = 16        # panel width of K10's cluster variant (K10C_NB)
+CHOL_CLUSTER_NB = 16        # panel width of K10's variants (K10C_NB)
 CHOL_CLUSTER_MAX = 16       # CTAs a lane (K10C_MAX_CLUSTER; non-portable past 8)
-CHOL_STATIC_SMEM = 3_072    # room for the cluster variant's static shared arrays (2192 B)
+CHOL_STATIC_SMEM = 3_072    # room for either variant's static shared arrays (2192 B)
+CHOL_STREAM_CHUNK = 256     # rows of the stream variant's receive buffer (K10S_CHUNK): a
+                            # chunk of the trailing update, or the look-ahead's 32 handed-over
+                            # rows and a chunk of 224
+CHOL_STREAM_HEAD = 32       # rows of its look-ahead's handoff buffer (K10S_HEAD)
+CHOL_STREAM_ROWSTEP = 224   # rows a chunk of its look-ahead (K10S_ROWSTEP: warps 1 .. 7)
+CHOL_STREAM_LOCAL = 6       # panels a rank of it owns at most (K10S_MAX_LOCAL)
+CHOL_STREAM_MAX = CHOL_CLUSTER_NB * CHOL_CLUSTER_MAX * CHOL_STREAM_LOCAL   # 1536
 
 
 class CholGeometry(NamedTuple):
-    """How K10 lays one lane out. 'cluster': a thread-block cluster of ``C``
-    CTAs, panels of ``nb`` columns dealt block-cyclically (rank r holds
-    ``panels[r]``, panel p's rows p nb .. n - 1 from row ``offsets[r][i]`` of
-    its shared memory, at leading dimension ``ld``), then a receive buffer of
-    ``recv_rows`` rows from row ``recv_off`` for the panel being applied, in
-    ``smem_bytes`` of dynamic shared memory a rank (a launch gives every rank
-    the same). 'global': one CTA a lane, the lane in global memory and a
-    panel of ``nb`` columns (n rows at leading dimension ``ld``) in
-    ``smem_bytes`` (C = 1). This is the one place that computes the layout:
-    the kernels take it as it is."""
+    """How K10 lays one lane out: a thread-block cluster of ``C`` CTAs,
+    panels of ``nb`` columns dealt block-cyclically (rank r holds
+    ``panels[r]``, panel p's rows p nb .. n - 1 at leading dimension ``ld``).
+    'cluster': each panel from row ``offsets[r][i]`` of its rank's shared
+    memory, then a receive buffer of ``recv_rows`` rows from double
+    ``recv_off`` for the panel being applied. 'stream': the panels whose
+    offset is None lie in L itself, the others from that row of shared
+    memory (at most ``recv_off / ld`` rows a rank), then a receive buffer of
+    ``recv_rows`` (a chunk), the look-ahead's handoff buffer and each local
+    panel's 16 rows of the applied one. ``smem_bytes`` of dynamic shared
+    memory a rank (a launch gives every rank the same). This is the one
+    place that computes the layout: the kernels take it as it is."""
     variant: str
     C: int
     nb: int
@@ -1372,6 +1383,13 @@ class CholGeometry(NamedTuple):
 CHOL_CLUSTER_SIZES = (4, 8, 16)   # the cluster sizes K10's geometry tries, in order
 
 
+def chol_deal(n: int, C: int, nb: int = CHOL_CLUSTER_NB):
+    """K10's deal of an n x n lane over C ranks: panel p of nb columns to
+    rank p % C (rank r's panels r, r + C, ..)."""
+    P = -(-n // nb)
+    return tuple(tuple(range(r, P, C)) for r in range(C))
+
+
 def chol_cluster_layout(n: int, C: int) -> Optional[CholGeometry]:
     """K10's cluster layout of an n x n lane over min(C, panels) CTAs, or None
     where a rank's panels and the receive buffer do not fit one block's
@@ -1380,7 +1398,7 @@ def chol_cluster_layout(n: int, C: int) -> Optional[CholGeometry]:
     P = -(-n // nb)
     C = min(C, P)
     ld = block_ld(nb)
-    panels = tuple(tuple(range(r, P, C)) for r in range(C))
+    panels = chol_deal(n, C)
     offsets = tuple(tuple(itertools.accumulate([n - p * nb for p in ps[:-1]], initial=0))
                     for ps in panels)
     rows = max(sum(n - p * nb for p in ps) for ps in panels)
@@ -1391,37 +1409,60 @@ def chol_cluster_layout(n: int, C: int) -> Optional[CholGeometry]:
     return CholGeometry('cluster', C, nb, ld, panels, offsets, rows * ld, recv, smem)
 
 
+def chol_stream_layout(n: int) -> Optional[CholGeometry]:
+    """K10's stream layout of an n x n lane over 16 CTAs, or None where a rank
+    would own more than CHOL_STREAM_LOCAL panels (n > 1536). Each rank keeps
+    its last panels in shared memory, as many as ``cap`` rows hold (the
+    kernel's k10s_first_resident), and the others in L."""
+    nb, C, ld = CHOL_CLUSTER_NB, CHOL_CLUSTER_MAX, block_ld(CHOL_CLUSTER_NB)
+    P = -(-n // nb)
+    if P > C * CHOL_STREAM_LOCAL:
+        return None
+    fixed = CHOL_STREAM_CHUNK + CHOL_STREAM_HEAD + nb * CHOL_STREAM_LOCAL
+    cap = (SMEM_PER_BLOCK - CHOL_STATIC_SMEM) // (8 * ld) - fixed
+    panels = chol_deal(n, C)
+    offsets = []
+    for ps in panels:
+        rows = [n - p * nb for p in ps]
+        t_res = len(ps)
+        while t_res > 0 and sum(rows[t_res - 1:]) <= cap:
+            t_res -= 1
+        offs = list(itertools.accumulate(rows[t_res:-1], initial=0)) if t_res < len(ps) else []
+        offsets.append(tuple([None] * t_res + offs))
+    return CholGeometry('stream', C, nb, ld, panels, tuple(offsets), cap * ld, CHOL_STREAM_CHUNK,
+                        8 * ld * (cap + fixed))
+
+
 def chol_factor_geometry(n: int) -> CholGeometry:
     """K10's variant and layout for n x n lanes: the cluster variant with the
     fewest CTAs of CHOL_CLUSTER_SIZES (4, 8, 16; never more than the lane has
     panels of 16) whose ranks hold the lower triangle and a receive buffer in
     one block's shared memory (n <= 344: 4; <= 443: 8; <= 554: 16): the
     factor is bound by its chain of pivots, which more CTAs a lane do not
-    shorten, while fewer let more lanes run at once; else the global variant
-    while its panel of 32 columns fits (n <= 876); beyond that it raises by
-    name."""
+    shorten, while fewer let more lanes run at once; else the stream variant
+    (16 CTAs, the lane in the L2) while a rank owns at most 6 panels (n <=
+    1536); beyond that it raises by name."""
     for C in CHOL_CLUSTER_SIZES:
         geom = chol_cluster_layout(n, C)
         if geom is not None:
             return geom
-    smem = 8 * n * (CHOL_NB + 1)   # the panel's rows at leading dimension K10_LD
-    if smem + BLOCK_STATIC_SMEM > SMEM_PER_BLOCK:
-        raise ValueError(f'chol_factor_batched: n={n} fits no variant of K10 (the global '
-                         f'variant\'s panel of {CHOL_NB} columns needs {smem} B of shared '
-                         f'memory)')
-    return CholGeometry('global', 1, CHOL_NB, CHOL_NB + 1, (), (), 0, 0, smem)
+    geom = chol_stream_layout(n)
+    if geom is None:
+        raise ValueError(f'chol_factor_batched: n={n} fits no variant of K10 (the stream '
+                         f'variant takes n <= {CHOL_STREAM_MAX})')
+    return geom
 
 
 def chol_cluster_max_active(geom: CholGeometry) -> int:
-    """Clusters of K10's cluster geometry the card runs at once (asked once
-    per geometry); raises if it cannot run one."""
-    key = ('chol', geom.C, geom.smem_bytes)
+    """Clusters of K10's geometry the card runs at once (asked once per
+    geometry); raises if it cannot run one."""
+    key = ('chol', geom.variant, geom.C, geom.smem_bytes)
     if key not in _max_clusters:
         count = ctypes.c_int(0)
-        _check('chol_factor_cluster_occupancy', library().chol_factor_cluster_occupancy(
-            geom.C, geom.smem_bytes, ctypes.byref(count)))
+        name = f'chol_factor_{geom.variant}_occupancy'
+        _check(name, getattr(library(), name)(geom.C, geom.smem_bytes, ctypes.byref(count)))
         if count.value < 1:
-            raise RuntimeError(f'chol_factor_cluster: a cluster of {geom.C} CTAs with '
+            raise RuntimeError(f'chol_factor_{geom.variant}: a cluster of {geom.C} CTAs with '
                                f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
         _max_clusters[key] = count.value
     return _max_clusters[key]
@@ -1433,11 +1474,11 @@ def chol_factor_batched(M):
     finite, or whose L has a non-finite entry, gets ok False and an L of
     NaN, and the other lanes' bits do not depend on it. Only M's lower
     triangle is read. On the card one launch of the variant
-    chol_factor_geometry(n) gives: a thread-block cluster per lane with the
-    lower triangle in its shared memory, panels of 16 and the trailing
-    update by f64 tensor-core MMAs; or, for lanes no cluster holds, a CTA per
-    lane, panels of 32 in shared memory and the trailing update in global
-    memory (the lane stays in the L2)."""
+    chol_factor_geometry(n) gives, a thread-block cluster per lane, panels
+    of 16 and the trailing update by f64 tensor-core MMAs: the lower
+    triangle in the cluster's shared memory; or, for lanes no cluster
+    holds, the lane in the L2 with each rank's last panels in its shared
+    memory."""
     if not M.is_cuda:
         return chol_factor_batched_plain(M)
     name = 'chol_factor_batched'
@@ -1448,13 +1489,15 @@ def chol_factor_batched(M):
     geom = chol_factor_geometry(n)
     L = torch.empty_like(M)
     ok = torch.empty(B, dtype=torch.bool, device=M.device)
+    chol_cluster_max_active(geom)
     if geom.variant == 'cluster':
-        chol_cluster_max_active(geom)
         _check(name, library().chol_factor_cluster(_ptr(M), _ptr(L), _ptr(ok), B, n, geom.C,
                                                    geom.ld, geom.recv_off, geom.smem_bytes,
                                                    _stream()))
     else:
-        _check(name, library().chol_factor_global(_ptr(M), _ptr(L), _ptr(ok), B, n, _stream()))
+        _check(name, library().chol_factor_stream(_ptr(M), _ptr(L), _ptr(ok), B, n, geom.C,
+                                                  geom.ld, geom.recv_off // geom.ld,
+                                                  geom.smem_bytes, _stream()))
     LAUNCHES[name] += 1
     LAUNCHES[f'chol_factor_{geom.variant}'] += 1
     return L, ok
@@ -1561,24 +1604,60 @@ def lu_solve_f64_plain(lu, piv, b):
     return torch.linalg.lu_solve(lu, piv, b[:, :, None])[:, :, 0]
 
 
-def lu_solve_f64_geometry(N: int) -> int:
-    """K13's dynamic shared memory at N, bytes: K11's ring of CHOL_SOLVE_SLOTS
-    tiles, the vector, the unit diagonal, the reciprocals of U's diagonal
-    and the pivots (171,904 B at N = 543); raises by name where that does
-    not fit one block (N > 2,656)."""
-    rows = SUBST_NB * -(-N // SUBST_NB)
-    smem = CHOL_SOLVE_SLOTS * SUBST_TILE_BYTES + 3 * 8 * rows + 4 * rows
-    if smem + SUBST_STATIC_SMEM > SMEM_PER_BLOCK:
+# (B at most, C): K13's CTAs a lane follow the batch, so that B clusters run in
+# one wave (an H100 runs 7 clusters of 16 at once and 15 of 8, one CTA an SM)
+LU64_SOLVE_CLUSTERS = ((7, 16), (15, 8), (30, 4), (66, 2))
+
+
+class LUSolve64Geometry(NamedTuple):
+    """How K13 lays a lane out: a thread-block cluster of ``C`` CTAs, row
+    tile i (32 rows) to rank i % C, each rank with K11's ring of
+    CHOL_SOLVE_SLOTS tile slots (which hold the interchanges' three int
+    arrays before the rings start), the vector, the reciprocals of U's
+    diagonal, the fold buffers (in and out) and 2 ceil(N / 32) mbarriers in
+    ``smem_bytes`` of dynamic shared memory."""
+    C: int
+    smem_bytes: int
+
+
+def lu_solve_f64_geometry(N: int, B: int = 1) -> LUSolve64Geometry:
+    """K13's layout at N for B lanes (166,160 B a rank at N = 543: C = 16 up
+    to B = 7, 8 up to 15, 4 up to 30, 2 up to 66, else 1, never more than
+    the lane has row tiles); raises by name where it does not fit one block
+    (N > ~4,500)."""
+    T = -(-N // SUBST_NB)
+    rows = SUBST_NB * T
+    ring = CHOL_SOLVE_SLOTS * SUBST_TILE_BYTES
+    smem = ring + 16 * rows + 16 * SUBST_NB + 16 * T
+    if smem + SUBST_STATIC_SMEM > SMEM_PER_BLOCK or 12 * rows > ring:
         raise ValueError(f'lu_solve_f64: N={N} needs {smem} B of shared memory, more than one '
                          f'block has')
-    return smem
+    C = next((c for most, c in LU64_SOLVE_CLUSTERS if B <= most), 1)
+    return LUSolve64Geometry(min(C, T), smem)
+
+
+def lu_solve_max_active(geom: LUSolve64Geometry) -> int:
+    """Clusters of K13's geometry the card runs at once (asked once per
+    geometry); raises if it cannot run one."""
+    key = ('lu_solve_f64', geom.C, geom.smem_bytes)
+    if key not in _max_clusters:
+        count = ctypes.c_int(0)
+        _check('lu_solve_f64_occupancy', library().lu_solve_f64_occupancy(
+            geom.C, geom.smem_bytes, ctypes.byref(count)))
+        if count.value < 1:
+            raise RuntimeError(f'lu_solve_f64: a cluster of {geom.C} CTAs with '
+                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
+        _max_clusters[key] = count.value
+    return _max_clusters[key]
 
 
 def lu_solve_f64(lu, piv, b):
     """(B, N, N) f64, (B, N) int32, (B, N) f64 -> (B, N) f64, as
-    lu_solve_f64_plain. On the card one launch, a CTA per lane: the
-    interchanges, then the unit-lower and the upper substitution in tiles of
-    32, the factor streamed through K11's rings of tile slots."""
+    lu_solve_f64_plain. On the card one launch, a thread-block cluster per
+    lane (lu_solve_f64_geometry): the interchanges composed 32 at a time,
+    then the unit-lower and the upper substitution in tiles of 32, the row
+    tiles dealt over the ranks, each chain on its row tile's owner and its
+    result handed on through distributed shared memory."""
     if not lu.is_cuda:
         return lu_solve_f64_plain(lu, piv, b)
     name = 'lu_solve_f64'
@@ -1586,10 +1665,11 @@ def lu_solve_f64(lu, piv, b):
     B, N, _ = lu.shape
     if lu.shape != (B, N, N) or piv.shape != (B, N) or b.shape != (B, N):
         raise ValueError(f'{name}: inconsistent shapes')
-    smem = lu_solve_f64_geometry(N)
+    geom = lu_solve_f64_geometry(N, B)
+    lu_solve_max_active(geom)
     x = torch.empty_like(b)
-    _check(name, library().lu_solve_f64(_ptr(lu), _ptr(piv), _ptr(b), _ptr(x), B, N, smem,
-                                        _stream()))
+    _check(name, library().lu_solve_f64(_ptr(lu), _ptr(piv), _ptr(b), _ptr(x), B, N, geom.C,
+                                        geom.smem_bytes, _stream()))
     LAUNCHES[name] += 1
     return x
 

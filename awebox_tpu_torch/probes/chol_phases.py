@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Where K10 (awebox_tpu_torch/csrc/auglu.cu: chol_factor_cluster_kernel)
-spends its time on the card, and how it compares with a parent tree's kernel
-and with torch.linalg.cholesky_ex.
+"""Where K10 (awebox_tpu_torch/csrc/auglu.cu: chol_factor_cluster_kernel and
+chol_factor_stream_kernel) spends its time on the card, and how it compares
+with a parent tree's kernel and with torch.linalg.cholesky_ex.
 
 Random SPD matrices M = G G^T / n + I (cond ~ 1e3), f64, at the condensed
 system's sizes: n = 280 (n_k=4) at B = 1, 2, 16, 128 and n = 540 (n_k=8) at
 B = 1, 16 through the cluster variant (a delta-ladder retry factors 1 to a
-few lanes), and n = 700 at B = 2 through the global (one-CTA) variant. At
-each shape:
+few lanes), and through the stream variant n = 555, 670 (the inertia test of
+Trial.optimize at n_k=10), 876 and 1190 (n_k=18) at B = 1 and n = 700 at B
+= 1, 2 and 4. At each shape:
 
 - the variant and layout kernels.chol_factor_geometry gives, the clusters
   of it that the card runs at once and the waves B lanes take;
 - max |L - L_plain| over max |L_plain| (and to the parent's kernel with
   --parent);
 - queued CUDA-event medians (behind a device sleep) of this tree's kernel, of
-  the parent's in turns (parent, this, this, parent), of cholesky_ex and the
-  bound (probes/yardstick.py, as chip_smoke.py reports them);
+  the parent's in turns (parent, this, this, parent) where the parent takes
+  the shape (its one-CTA global variant stops at n = 876), of cholesky_ex
+  and the bound (probes/yardstick.py, as chip_smoke.py reports them);
+- with --parent, at n = 700 B = 2 and 4, phase cuts of the parent's one-CTA
+  global variant from clock64 stamps of thread 0 (copy of M into L, the
+  panels' loads into shared memory, their column chains, their stores, the
+  trailing updates in global memory, the final scan for finite values) in
+  microseconds, the median over lanes: what held it back;
 - for the cluster variant, phase cuts from clock64 stamps of a copy of the
   source compiled beside it: thread 0 of every CTA adds the cycles of each
   piece up (copy-in, warp 0's chains with the stores of their rows, the
@@ -65,7 +72,8 @@ from awebox_tpu_torch.probes.block_phases import finish_build, start_build, vari
 from awebox_tpu_torch.probes.qr_phases import load_parent, queued_ms  # noqa: E402
 from awebox_tpu_torch.probes.yardstick import chol_factor_bound  # noqa: E402
 
-SHAPES = ((280, 1), (280, 2), (280, 16), (280, 128), (540, 1), (540, 16), (700, 2))
+SHAPES = ((280, 1), (280, 2), (280, 16), (280, 128), (540, 1), (540, 16), (555, 1), (670, 1),
+          (700, 1), (700, 2), (700, 4), (876, 1), (1190, 1))
 LAYOUT_SIZES = (3, 4, 8, 16)   # cluster sizes timed side by side at n = 280
 STAMP_CTAS = 2048
 PHASES = ('copy-in', 'chains', 'row sweeps', 'cluster waits', 'L2 fetches',
@@ -114,8 +122,8 @@ STAMPS = [
      '  cluster.sync();                       // every rank\'s handoff barrier is ready\n'
      '  K10C_T(0);\n'),
     ('      k10c_hbar_wait(hbar, parity);\n', '      k10c_hbar_wait(hbar, parity);\n      K10C_T(8);\n'),
-    ('      k10c_tile_pair(T, recv, ld, h, q0, w, q0, 2, 3, b, g, tg);\n      __syncwarp();\n    }\n',
-     '      k10c_tile_pair(T, recv, ld, h, q0, w, q0, 2, 3, b, g, tg);\n      __syncwarp();\n    }\n'
+    ('      k10c_tile_pair(T, recv, ld, ld, h, q0, w, q0, 2, 3, b, g, tg);\n      __syncwarp();\n    }\n',
+     '      k10c_tile_pair(T, recv, ld, ld, h, q0, w, q0, 2, 3, b, g, tg);\n      __syncwarp();\n    }\n'
      '    K10C_T(5);\n'),
     ('    fail = __any_sync(FULL_MASK, wl < w && (!(dg > 0.0) || !isfinite(dg)));\n'
      "    if (hsrc != nullptr) k6_cluster_wait();   // panel k's phase\n",
@@ -157,6 +165,114 @@ CUTS = {
 }
 
 
+# the edits above apply to the cluster variant's part of the source alone
+CLUSTER_SCOPE = ('// K10, cluster variant', '// K10, stream variant')
+
+
+def cluster_source(edits):
+    """The source with the edits made in the cluster variant's part (each text
+    must occur once there)."""
+    src = variant_source([])
+    a, b = (src.index(m) for m in CLUSTER_SCOPE)
+    part = src[a:b]
+    for old, new in edits:
+        if part.count(old) != 1:
+            raise RuntimeError(f'the text {old!r} does not occur once in K10\'s cluster variant')
+        part = part.replace(old, new)
+    return src[:a] + part + src[b:]
+
+
+# The parent's one-CTA global variant (its chol_factor_kernel), stamped:
+# thread 0 adds the cycles of each piece up; the pieces follow its block
+# barriers, so thread 0's clock is the block's
+PARENT_PHASES = ('copy of M into L', 'panel loads', 'column chains', 'panel stores',
+                 'trailing updates', 'finite scan')
+NPP = len(PARENT_PHASES)
+PARENT_STAMPS = [
+    ('__global__ void __launch_bounds__(K10_THREADS, 1)\nchol_factor_kernel(',
+     '__device__ long long k10g_stamps[%d][%d];\n'
+     '#define K10G_T(i) do { if (tid == 0) { const long long c_ = clock64(); '
+     'acc_[i] += c_ - last_; last_ = c_; } } while (0)\n'
+     '__global__ void __launch_bounds__(K10_THREADS, 1)\nchol_factor_kernel(' % (STAMP_CTAS, NPP + 2)),
+    ('  double* Lw = L + (size_t)lane * n * n;\n  for (int t = tid; t < n * n; t += K10_THREADS) {',
+     '  double* Lw = L + (size_t)lane * n * n;\n'
+     '  long long acc_[%d] = {0}, last_ = clock64(), g0_ = 0;\n'
+     '  asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(g0_));\n'
+     '  for (int t = tid; t < n * n; t += K10_THREADS) {' % NPP),
+    ('  __syncthreads();\n  bool failed = false;\n',
+     '  __syncthreads();\n  bool failed = false;\n  K10G_T(0);\n'),
+    ('      P[r * K10_LD + cc] = cc < w ? Lw[(size_t)(j0 + r) * n + j0 + cc] : 0.0;\n    }\n'
+     '    __syncthreads();\n',
+     '      P[r * K10_LD + cc] = cc < w ? Lw[(size_t)(j0 + r) * n + j0 + cc] : 0.0;\n    }\n'
+     '    __syncthreads();\n    K10G_T(1);\n'),
+    ('    if (failed) break;\n    for (int t = tid; t < rows * w; t += K10_THREADS) {',
+     '    K10G_T(2);\n    if (failed) break;\n    for (int t = tid; t < rows * w; t += K10_THREADS) {'),
+    ('      if (r >= cc) Lw[(size_t)(j0 + r) * n + j0 + cc] = P[r * K10_LD + cc];\n    }\n',
+     '      if (r >= cc) Lw[(size_t)(j0 + r) * n + j0 + cc] = P[r * K10_LD + cc];\n    }\n'
+     '    K10G_T(3);\n'),
+    ('      *e = *e - acc;\n    }\n    __syncthreads();\n',
+     '      *e = *e - acc;\n    }\n    __syncthreads();\n    K10G_T(4);\n'),
+    ('bad |= !isfinite(Lw[t]);\n  }\n  failed = __syncthreads_or(failed || bad) != 0;\n',
+     'bad |= !isfinite(Lw[t]);\n  }\n  failed = __syncthreads_or(failed || bad) != 0;\n'
+     '  K10G_T(5);\n'
+     '  if (tid == 0 && blockIdx.x < %d) {\n'
+     '    long long g1_, sum_ = 0;\n'
+     '    asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(g1_));\n'
+     '    for (int i_ = 0; i_ < %d; ++i_) { k10g_stamps[blockIdx.x][i_] = acc_[i_]; sum_ += acc_[i_]; }\n'
+     '    k10g_stamps[blockIdx.x][%d] = sum_;\n'
+     '    k10g_stamps[blockIdx.x][%d] = g1_ - g0_;\n'
+     '  }\n' % (STAMP_CTAS, NPP, NPP, NPP + 1)),
+]
+PARENT_READER = r'''
+extern "C" int k10g_stamps_read(void* dst, int bytes) {
+  return (int)cudaMemcpyFromSymbol(dst, k10g_stamps, (size_t)bytes);
+}
+'''
+
+
+def parent_stamped(root):
+    """The parent tree's source with its global variant stamped."""
+    with open(os.path.join(root, 'awebox_tpu_torch', 'csrc', 'auglu.cu')) as fh:
+        src = fh.read()
+    for old, new in PARENT_STAMPS:
+        if src.count(old) != 1:
+            raise RuntimeError(f'the text {old!r} does not occur once in the parent\'s source')
+        src = src.replace(old, new)
+    return src + PARENT_READER
+
+
+def parent_phases(lib, M):
+    """Microseconds of each piece of the parent's global variant on M (thread
+    0 of each lane's CTA, median over lanes) and in all, at the clock the
+    stamps measured, from the last of five calls."""
+    B, n = M.shape[0], M.shape[1]
+    L, ok = torch.empty_like(M), torch.empty(B, dtype=torch.bool, device='cuda')
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for _ in range(5):
+        err = lib.chol_factor_global(ptr(M), ptr(L), ptr(ok), B, n, stream)
+        if err:
+            raise RuntimeError(f'chol_factor_global (parent, stamped): CUDA error {err}')
+    torch.cuda.synchronize()
+    buf = np.zeros((STAMP_CTAS, NPP + 2), dtype=np.int64)
+    err = lib.k10g_stamps_read(buf.ctypes.data_as(ctypes.c_void_p), buf.nbytes)
+    if err:
+        raise RuntimeError(f'k10g_stamps_read: CUDA error {err}')
+    st = buf[:B].astype(np.float64)
+    ghz = float(np.median(st[:, NPP] / np.maximum(st[:, NPP + 1], 1)))
+    return ghz, [float(np.median(st[:, i])) / ghz / 1e3 for i in range(NPP)], \
+        float(np.median(st[:, NPP])) / ghz / 1e3
+
+
+def takes(mod, n):
+    """Whether the kernels module mod has a K10 variant for n."""
+    try:
+        mod.chol_factor_geometry(n)
+    except ValueError:
+        return False
+    return True
+
+
 def bind(lib):
     for name in ('chol_factor_cluster', 'chol_factor_cluster_occupancy'):
         getattr(lib, name).argtypes = kernels.SIGNATURES[name]
@@ -168,7 +284,7 @@ def chol_ptxas(log):
     out, keep = [], None
     for line in log.splitlines():
         if 'Compiling entry function' in line:
-            keep = next((k for k in ('chol_factor_cluster_kernel', 'chol_factor_kernel')
+            keep = next((k for k in ('chol_factor_cluster_kernel', 'chol_factor_stream_kernel')
                          if k in line), None)
         elif keep and re.search(r'registers|stack frame', line):
             out.append(f'{keep}: ' + line.replace('ptxas info    :', '').strip())
@@ -230,9 +346,12 @@ def main():
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     builds = {'whole': start_build('chol_whole', variant_source([])),
-              'stamps': start_build('chol_stamps', variant_source(STAMPS) + STAMP_READER)}
+              'stamps': start_build('chol_stamps', cluster_source(STAMPS) + STAMP_READER)}
     for name, edits in CUTS.items():
-        builds[name] = start_build('chol_' + re.sub(r'\W', '_', name), variant_source(edits))
+        builds[name] = start_build('chol_' + re.sub(r'\W', '_', name), cluster_source(edits))
+    if args.parent and 'chol_factor_kernel(' in open(
+            os.path.join(args.parent, 'awebox_tpu_torch', 'csrc', 'auglu.cu')).read():
+        builds['parent stamps'] = start_build('chol_parent_stamps', parent_stamped(args.parent))
     parent = load_parent(args.parent) if args.parent else None
     threads = [threading.Thread(target=m.library) for m in (kernels, parent) if m is not None]
     for t in threads:
@@ -242,6 +361,14 @@ def main():
     libs = {}
     for name, (so, proc) in builds.items():
         libs[name], log = finish_build(name, so, proc)
+        if name == 'parent stamps':
+            lib = libs[name]
+            lib.chol_factor_global.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+                + [ctypes.c_void_p]
+            lib.chol_factor_global.restype = ctypes.c_int
+            lib.k10g_stamps_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            lib.k10g_stamps_read.restype = ctypes.c_int
+            continue
         bind(libs[name])
         if name == 'whole':
             for line in chol_ptxas(log):
@@ -262,16 +389,25 @@ def main():
         failed += [] if good else [tag]
         line = (f'{tag} {geom.variant} C={geom.C} nb={geom.nb} ld={geom.ld} smem '
                 f'{geom.smem_bytes} B: L gap to plain {gap:.2e}, ok {int(ok.sum())}/{B}')
-        if geom.variant == 'cluster':
-            mc = max_active(libs['whole'], geom)
-            line += f'; {mc} clusters at once, {-(-B // mc)} wave(s)'
-        if parent is not None:
+        mc = kernels.chol_cluster_max_active(geom)
+        line += f'; {mc} clusters at once, {-(-B // mc)} wave(s)'
+        if geom.variant == 'stream':
+            line += ('; panels in L a rank ' + ','.join(str(sum(o is None for o in offs))
+                                                         for offs in geom.offsets))
+        in_parent = parent is not None and takes(parent, n)
+        if in_parent:
             L_o, _ = parent.chol_factor_batched(M)
             torch.cuda.synchronize()
             line += f'; to the parent {float((L - L_o).abs().max() / L_o.abs().max()):.2e}'
         print(line, flush=True)
         this = lambda: kernels.chol_factor_batched(M)
-        if parent is not None:
+        if in_parent and n == 700 and B > 1 and 'parent stamps' in libs:
+            ghz, parts, total = parent_phases(libs['parent stamps'], M)
+            print(f'{tag} parent global variant phases (thread 0, median over lanes, us at '
+                  f'{ghz:.3f} GHz): ' + ', '.join(f'{p} {t:.1f}' for p, t in
+                                                  zip(PARENT_PHASES, parts))
+                  + f'; total {total:.1f}', flush=True)
+        if in_parent:
             before = lambda: parent.chol_factor_batched(M)
             times = [queued_ms(call) for call in (before, this, this, before)]
             print(f'{tag} K10 parent, this tree, this tree, parent: '

@@ -3,8 +3,12 @@
 (``opti/ipsolver.py``) at the bench configuration, and optionally a cold
 solve of it.
 
-At the committed anchor's state (tests/artifacts/bench_anchor_nk4_d3.npz,
-mu = 1e-3, the final cost weights) on --device (default the card), each
+At n_k=4 (the default) at the committed anchor's state
+(tests/artifacts/bench_anchor_nk4_d3.npz, mu = 1e-3, the final cost
+weights); with --nk N at another grid (no anchor there) at the cold solve's
+first iterate, the arguments of the first kkt_solve of the 'initial'
+homotopy step (bench_options(n_k=N): at N = 10, n = 670 variables, an
+augmented K of 1311). On --device (default the card), each
 piece on the host clock around the call and a device synchronize, median of
 --runs: the dense derivatives as the solver builds them (reverse mode:
 jacrev for the Jacobians, jacrev(jacrev) for the Hessian) and by forward
@@ -17,7 +21,7 @@ bench configuration on the same device, printing each homotopy step's
 iterations and seconds, and the power and period against the anchor's.
 Prints one JSON line at the end.
 
-    python3 awebox_tpu_torch/probes/host_solver.py [--solve] [--device cpu]
+    python3 awebox_tpu_torch/probes/host_solver.py [--nk N] [--solve] [--device cpu]
 """
 import argparse
 import json
@@ -54,6 +58,7 @@ def main():
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--runs', type=int, default=3)
     ap.add_argument('--solve', action='store_true')
+    ap.add_argument('--nk', type=int, default=4)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     from awebox_tpu_torch.api.trial import Trial
@@ -65,21 +70,48 @@ def main():
     from awebox_tpu_torch.probes.direction_ops import OpCount
 
     dev = torch.device(args.device)
-    trial = Trial(bench_options(), 'host_solver').build()
-    ocp = trial.ocp
     anchor = dict(np.load(ANCHOR))
-    P = build_p_fix(ocp, build_reference(ocp, anchor['V_init']))
-    P['cost'] = {k: np.asarray(v) for k, v in final_cost_values(ocp).items()}
+    options = bench_options(n_k=args.nk)
+    if args.nk != 4:
+        options['solver.max_iter'] = 1
+    trial = Trial(options, 'host_solver').build()
+    ocp = trial.ocp
     solver = InteriorPointSolver(ocp.f_fn, ocp.eq_fn, ocp.ineq_fn, n=ocp.vstruct.total,
                                  n_eq=ocp.n_eq, n_ineq=ocp.n_ineq, options=IPOptions(),
                                  device=dev)
-    lbw, ubw, free, _ = InteriorPointSolver.split_pins(trial.lb_nominal, trial.ub_nominal)
     t = solver._t
-    lbw, ubw, free = t(lbw), t(ubw), t(free)
+    kkt_args = None
+    if args.nk == 4:
+        P = build_p_fix(ocp, build_reference(ocp, anchor['V_init']))
+        P['cost'] = {k: np.asarray(v) for k, v in final_cost_values(ocp).items()}
+        lbw, ubw, free, _ = InteriorPointSolver.split_pins(trial.lb_nominal, trial.ub_nominal)
+        lbw, ubw, free = t(lbw), t(ubw), t(free)
+        st = {k: t(anchor[k]) for k in ('w', 's', 'y', 'lam', 'zl', 'zu')}
+        w, s, y, lam, zl, zu = (st[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu'))
+        mu = 1e-3
+    else:
+        # the cold solve's first iterate: its first kkt_solve's arguments
+        kept, inner_kkt, inner_solve = {}, solver._kkt_solve, solver.solve
+
+        def kkt_kept(*a):
+            kept.setdefault('args', a)
+            return inner_kkt(*a)
+
+        def solve_kept(w0, p, *a, **kw):
+            kept.setdefault('P', p)
+            return inner_solve(w0, p, *a, **kw)
+        solver._kkt_solve, solver.solve = kkt_kept, solve_kept
+        trial._solver_cache['solver'] = solver
+        trial.optimize(final_homotopy_step='initial', verbose=False, device=dev)
+        solver._kkt_solve, solver.solve = inner_kkt, inner_solve
+        kkt_args = kept['args']
+        w, s, y, lam, zl, zu = kkt_args[6:12]
+        lbw, ubw, free = kkt_args[12:15]
+        mu, P = float(kkt_args[15]), kept['P']
     Pd = solver._p(P)
-    st = {k: t(anchor[k]) for k in ('w', 's', 'y', 'lam', 'zl', 'zu')}
-    w, s, y, lam, zl, zu = (st[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu'))
-    mu = 1e-3
+    where = 'the anchor' if args.nk == 4 else "the cold solve's first iterate"
+    print(f'[host_solver] n_k={args.nk}: n={ocp.vstruct.total}, m={ocp.n_eq + ocp.n_ineq}, '
+          f'at {where}, mu {mu:g}', flush=True)
     f, eq, ineq = ocp.f_fn, ocp.eq_fn, ocp.ineq_fn
 
     def lagrangian(w_, y_, lam_, p_):
@@ -107,15 +139,16 @@ def main():
     piece('kkt_parts', lambda: solver._kkt_parts(w, s, y, lam, zl, zu, Pd, lbw, ubw, free,
                                                  (gradf, cE, cI, JE, JI)))
     kernels.reset_launch_counts()
-    piece('kkt_solve', lambda: solver._kkt_solve(gradf, cE, cI, JE, JI, H, w, s, y, lam, zl, zu,
-                                                 lbw, ubw, free, mu, 0.0, 1e-7, 0.0))
+    kkt_args = kkt_args or (gradf, cE, cI, JE, JI, H, w, s, y, lam, zl, zu, lbw, ubw, free, mu,
+                            0.0, 1e-7, 0.0)
+    piece('kkt_solve', lambda: solver._kkt_solve(*kkt_args))
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     piece('barrier_phi_theta', lambda: solver._barrier_phi_theta(w, s, Pd, mu, lbw, ubw))
     for name, ms in pieces.items():
         print(f'[host_solver] {name}: {ms:.1f} ms, {ops[name]} aten ops', flush=True)
     print(f'[host_solver] reverse against forward mode: JE, JI, H gaps {gaps} (relative to '
           f'max |.|); kkt_solve launches over {args.runs + 2} calls: {launches}', flush=True)
-    out = dict(device=str(dev), pieces_ms=pieces, aten_ops=ops, reverse_gaps=gaps,
+    out = dict(device=str(dev), n_k=args.nk, pieces_ms=pieces, aten_ops=ops, reverse_gaps=gaps,
                launches=launches)
     if dev.type == 'cuda':
         out['card'] = torch.cuda.get_device_name(0)

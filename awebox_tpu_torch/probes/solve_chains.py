@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Where K9 (block_solve_kernel) and K11 (chol_solve_kernel) of
-awebox_tpu_torch/csrc/auglu.cu spend their time on the card, and how they
-compare with a parent tree's kernels and with PyTorch's compositions of the
-same functions.
+awebox_tpu_torch/csrc/auglu.cu spend their time on the card, and how they and
+K13 (lu_solve_f64_kernel) compare with a parent tree's kernels and with
+PyTorch's calls for the same functions.
 
 K9 on the factor (kernels.block_factor) of random SPD frames in the n_k=4
 and n_k=8 layouts of the bench configuration (nx=11, ni=54, nb=20, nloc=96)
 at n_k=4 B = 1, 2, 16, 128 and n_k=8 B=16; K11 on the Cholesky factor of
 random SPD M = G G^T / n + I at n = 280 B = 1, 2, 16, 128 and n = 540 B=16,
-f64 (a delta-ladder retry solves 1 to a few lanes). At each shape:
+f64 (a delta-ladder retry solves 1 to a few lanes); K13 on cuSOLVER's LU
+factor of random saddle matrices shaped like the host solver's augmented K
+at N = 543 (n_k=4) B = 1 and 16, 1055 (n_k=8), 1311 (n_k=10) and 2335
+(n_k=18) B = 1: its cluster (C, shared memory a rank, the clusters the card
+runs at once), max |x - x_plain| / max |x_plain|, whether x is the parent's
+bits, and queued medians of this tree's and the parent's in turns beside
+torch.linalg.lu_solve and the bound. At each shape of K9 and K11:
 
 - the layout (K9: the cluster, its shared memory a rank, the clusters the
   card runs at once and the waves; K11: its shared memory);
@@ -46,7 +52,7 @@ directory that .gitignore lists):
 
 Prints the card, ptxas's registers and spills of K9 and K11, then lines per
 shape. Exits non-zero if this tree's kernel differs from the plain version
-by more than 1e-10 of max |x|. Needs a CUDA card and nvcc; about three
+by more than 1e-10 of max |x| (K13: 1e-8, on K's condition number). Needs a CUDA card and nvcc; about three
 minutes.
 """
 import argparse
@@ -67,10 +73,11 @@ from awebox_tpu_torch.probes.block_phases import frames, start_build, variant_so
 from awebox_tpu_torch.probes.chol_phases import spd  # noqa: E402
 from awebox_tpu_torch.probes.qr_phases import load_parent, queued_ms  # noqa: E402
 from awebox_tpu_torch.probes.yardstick import (block_solve_bound, block_solve_library,  # noqa: E402
-                                               chol_solve_bound)
+                                               chol_solve_bound, lu_solve_f64_bound)
 
 K9_SHAPES = ((4, 1), (4, 2), (4, 16), (4, 128), (8, 16))
 K11_SHAPES = ((280, 1), (280, 2), (280, 16), (280, 128), (540, 16))
+K13_SHAPES = ((543, 1), (543, 16), (1055, 1), (1311, 1), (2335, 1))
 STAMP_CTAS = 1024
 PHASES = ('copy-in', 'ring waits', 'chains', 'step barriers', 'reduced chains',
           'reduced step barriers', 'coupling products', 'cluster waits', 'scatter',
@@ -233,6 +240,23 @@ def gap(x, ref):
     return float((x - ref).abs().max() / ref.abs().max())
 
 
+def saddle(N, B, rng):
+    """(B, N, N) saddle matrices [[W, A^T], [A, -D]] shaped like the host
+    solver's augmented K (n = 280 N / 543 primal rows, D of 1e-8 and small
+    entries) and right-hand sides, on the card."""
+    n = N * 280 // 543
+    m = N - n
+    K = np.zeros((B, N, N))
+    for lane in range(B):
+        Wh = rng.standard_normal((n, n))
+        W = (Wh + Wh.T) / 2 + np.diag(10.0 ** rng.uniform(-2, 4, n))
+        A = rng.standard_normal((m, n)) * 10.0 ** rng.uniform(-1, 1, (m, 1))
+        D = np.concatenate([1e-8 * np.ones(m - m // 16), np.abs(rng.standard_normal(m // 16))])
+        K[lane] = np.block([[W, A.T], [A, -np.diag(D)]])
+    return (torch.as_tensor(K, device='cuda'),
+            torch.as_tensor(rng.standard_normal((B, N)), device='cuda'))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--parent', default=None)
@@ -340,9 +364,36 @@ def main():
                 st, _ = stamps(libs[name], cut, 1, B)
                 print(f'{tag} cut {name}: {queued_ms(cut):.4f} ms, chain '
                       f'{float(np.median(st[:, 0, 0, 2])) / (2 * n):.1f} cycles a column', flush=True)
+    for N, B in K13_SHAPES:
+        K, b = saddle(N, B, rng)
+        lu, piv = (t.contiguous() for t in torch.linalg.lu_factor(K))
+        tag = f'K13 N={N} B={B:3d}'
+        g = kernels.lu_solve_f64_geometry(N, B)
+        active = kernels.lu_solve_max_active(g)
+        x = kernels.lu_solve_f64(lu, piv, b)
+        xp = kernels.lu_solve_f64_plain(lu, piv, b)
+        torch.cuda.synchronize()
+        line = (f'{tag}: clusters of C={g.C}, {g.smem_bytes} B of shared memory a rank, {active} '
+                f'clusters at once, {-(-B // active)} wave(s); x gap to plain {gap(x, xp):.2e}')
+        failed += [] if gap(x, xp) <= 1e-8 else [tag]
+        before = None
+        if parent is not None:
+            before = lambda: parent.lu_solve_f64(lu, piv, b)
+            x_o = before()
+            torch.cuda.synchronize()
+            line += (f'; the parent\'s bits: {torch.equal(x.view(torch.int64), x_o.view(torch.int64))}'
+                     f' (gap {gap(x, x_o):.2e})')
+        print(line, flush=True)
+        turns(tag, 'K13', lambda: kernels.lu_solve_f64(lu, piv, b), before)
+        b_col = b[..., None].contiguous()
+        lib_ms = queued_ms(lambda: torch.linalg.lu_solve(lu, piv, b_col))
+        b_ms, b_by = lu_solve_f64_bound(N, B)
+        print(f'{tag} torch.linalg.lu_solve {lib_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})',
+              flush=True)
     if parent is not None:
         print(f'parent launches: K9 {parent.LAUNCHES["block_solve"]}, '
-              f'K11 {parent.LAUNCHES["chol_solve_batched"]}', flush=True)
+              f'K11 {parent.LAUNCHES["chol_solve_batched"]}, '
+              f'K13 {parent.LAUNCHES["lu_solve_f64"]}', flush=True)
     if failed:
         print(f'solve_chains: differs from the plain version at {failed}', file=sys.stderr)
         return 1

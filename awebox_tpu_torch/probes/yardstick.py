@@ -1,7 +1,8 @@
 """The yardsticks a kernel is held against, shared by chip_smoke.py and the
 phase probes so that both report the same numbers: the least time the card
-could take for a piece of work, for K8-K11 (block_factor, block_solve,
-chol_factor_batched, chol_solve_batched) the work each function must do,
+could take for a piece of work, for K8-K13 (block_factor, block_solve,
+chol_factor_batched, chol_solve_batched, lu_factor_f64, lu_solve_f64) the
+work each function must do,
 for K8 and K9 the library composition of the same function, and the gaps
 of a factor to a reference.
 """
@@ -43,6 +44,18 @@ def chol_factor_bound(n, B):
     (the cluster variant's updates run there)."""
     nbytes = 8 * B * (n * (n + 1) // 2 + n * n) + B
     return bound(nbytes, B * n ** 3 / 3)
+
+
+def lu_factor_f64_bound(N, B):
+    """K12's bound at B lanes of N x N: K read once, the factor written once,
+    the pivots (int32) written once; 2/3 N^3 operations a lane."""
+    return bound(16 * B * N * N + 4 * B * N, 2 / 3 * B * N ** 3)
+
+
+def lu_solve_f64_bound(N, B):
+    """K13's bound at B lanes of N x N: the factor and the pivots read once,
+    b read and x written once; 2 N^2 operations a lane."""
+    return bound(8 * B * N * N + 4 * B * N + 16 * B * N, 2 * B * N * N)
 
 
 def block_solve_bound(lay, B):

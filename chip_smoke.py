@@ -5,7 +5,8 @@ Drives the port's main path, the batched wind-sweep refinement of the
 Ampyx AP2 3-DOF power cycle (n_k=4, d=3: n=280 variables, m=263
 constraints, a 543x543 augmented KKT system per lane), the same sweep on
 the n_k=8 grid (n=540, m=515, 1055x1055), and the cold homotopy solve of
-the configuration through Trial.optimize, through its public entry points,
+the configuration through Trial.optimize (at n_k=4, and capped at n_k=10:
+n=670, m=641, 1311x1311), through its public entry points,
 and checks the hand-written CUDA kernels on the way:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA
@@ -13,7 +14,7 @@ and checks the hand-written CUDA kernels on the way:
   2. build    compile awebox_tpu_torch/csrc/auglu.cu with nvcc (sm_90a)
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes, on anchor-derived and random systems, with the
-              times of both (median of N_TIMED = 11 runs, CUDA events): K1 newton_kkt
+              times of both (median of N_TIMED = 7 runs, CUDA events): K1 newton_kkt
               (the Newton system and K(delta_w), Jacobi-scaled for the LU
               factor and unscaled for the QR factor) bit for bit and K4 ip_step
               (the direction from the solution and the step) at its stated
@@ -48,13 +49,17 @@ and checks the hand-written CUDA kernels on the way:
               variant (its geometry and the clusters that run at once
               printed) and K11 chol_solve_batched on the anchor's condensed
               M (n=280, B = 1, 2 and 16; n=540, B=16 in phase 7) and K10's
-              global variant with K11 on random SPD matrices at n=700 (B = 4
-              and 2), each with an indefinite and a NaN lane where B > 2, and K4's
-              advance_state bit for bit; K12 lu_factor_f64 and K13
+              stream variant (a cluster of 16 a lane, the lane in the L2)
+              with K11 on random SPD matrices at n=700 (B = 4, 2 and 1) and
+              n = 555, 876 and 1190 (B=1; the n_k=10 path's own M, n=670, in
+              phase 9), each with an indefinite and a NaN lane where B > 2,
+              and K4's advance_state bit for bit; K12 lu_factor_f64 and K13
               lu_solve_f64, the host solver's f64 LU, on its augmented K at
               the anchor (N=543, B = 1 and 16) and on random saddle systems
-              (N=37, B=4; N=1055, B=1), with a singular and a NaN lane; each
-              beside its bound, its plain version and a library yardstick
+              (N=37, B=4; N=1055, B=1; K13 alone on cuSOLVER's factor at
+              N=2335, beyond K12; the n_k=10 path's own K, N=1311, in phase
+              9), with a singular and a NaN lane; each beside its bound, its
+              plain version and a library yardstick
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
               9.5..10.5 m/s from tests/artifacts/bench_anchor_nk4_d3.npz,
               with the QR factor, the port's default ([slice-qr]), to
@@ -97,6 +102,14 @@ and checks the hand-written CUDA kernels on the way:
               error within its tol, each step's iterations beside the JAX
               package's, the first direction held to the CPU's plain path,
               then its [path]
+  9. n_k=10   Trial(bench_options(n_k=10)).build().optimize() on the card
+              ([slice-trial-nk10], n=670, N=1311, 'auto' still 'dense'),
+              each homotopy step capped at NK10_ITERS iterations (the
+              homotopy advances despite the cap): every direction through
+              K10's stream variant, K12 and K13 twice and no other kernel or
+              plain version, the first direction held to the CPU's plain
+              path; then K10 on the first M of the path that it factors and
+              K12/K13 on that direction's K in [kernels] rows
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -115,12 +128,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ANCHOR = os.path.join(HERE, 'tests', 'artifacts', 'bench_anchor_nk4_d3.npz')
 ANCHOR8 = os.path.join(HERE, 'tests', 'artifacts', 'bench_anchor_nk8_d3.npz')
 B = 16
-# timed runs a median is taken over (25 before [slice-trial] came). A queued run
-# waits behind a ~0.1 s device sleep, so each queued median costs ~1.2 s
-# whatever it times, and the queued medians set most of the [kernels]
-# phase's length; with [slice-trial] added the script has to fit 1200 s on a
-# slow host (1230.6 s with 25 in one run on an H100 at 700 W)
-N_TIMED = 11
+# timed runs a median is taken over (25 before [slice-trial] came, 11 before
+# [slice-trial-nk10]). A queued run waits behind a ~0.1 s device sleep, so
+# each queued median costs ~0.8 s whatever it times, and the queued medians
+# set most of the [kernels] phase's length; the script has to fit 1200 s on
+# a slow host (1230.6 s with 25 in one run on an H100 at 700 W; 1045 s with
+# 11 and [slice-trial-nk10] in another, host-bound phases ~25% slower than
+# the same tree's 859 s)
+N_TIMED = 7
 # The time the script's limit leaves for [slice-trial] is given back from
 # earlier paths, in this order: the n_k=8 slices (12 -> NK8_ITERS
 # iterations; they gate no convergence), the LU slice (to convergence, 22
@@ -128,6 +143,10 @@ N_TIMED = 11
 # tests/test_torch_refine.py) and the condensed solver's slice (to
 # convergence, 34 iterations -> DENSE_ITERS)
 NK8_ITERS = 3     # iterations of each n_k=8 slice (its lanes do not converge; see main)
+# iterations a homotopy step of [slice-trial-nk10] (solver.max_iter; the
+# homotopy advances despite it), set from its ms/iter so that the script
+# keeps within 1100 s
+NK10_ITERS = 3
 LU_ITERS = 6
 DENSE_ITERS = 8
 # The JAX package's converged B=2 sweep (u_ref 9.5, 10.5 m/s) through
@@ -245,7 +264,8 @@ def main():
     from awebox_tpu_torch.probes.yardstick import (block_factor_bound, block_factor_gaps,
                                                    block_factor_library, block_solve_bound,
                                                    block_solve_library, bound, chol_factor_bound,
-                                                   chol_solve_bound)
+                                                   chol_solve_bound, lu_factor_f64_bound,
+                                                   lu_solve_f64_bound)
 
     dev = torch.device('cuda')
     f32, f64 = torch.float32, torch.float64
@@ -1069,12 +1089,14 @@ def main():
                              plain_ms=cuda_median_ms(plain), library_ms=cuda_median_ms(lib),
                              library_queued_ms=cuda_median_ms(lib, queued=True),
                              bound_ms=b_, bound_by=by_))
-        if variant == 'cluster':
-            active = kernels.chol_cluster_max_active(geom)
-            phase('kernels', f'K10 chol_factor_cluster {tag}: clusters of C={geom.C} CTAs, panels of '
-                  f'{geom.nb} at leading dimension {geom.ld}, {geom.smem_bytes} B of shared memory a '
-                  f'rank; {active} clusters at once: {-(-B_ // active)} wave(s) at B={B_}, '
-                  f'{-(-B // active)} at B={B}, {-(-8 * B // active)} at B={8 * B}')
+        active = kernels.chol_cluster_max_active(geom)
+        in_l2 = '' if variant == 'cluster' else (
+            '; panels in the L2 a rank: ' + ','.join(str(sum(o is None for o in offs))
+                                                     for offs in geom.offsets))
+        phase('kernels', f'K10 chol_factor_{variant} {tag}: clusters of C={geom.C} CTAs, panels of '
+              f'{geom.nb} at leading dimension {geom.ld}, {geom.smem_bytes} B of shared memory a '
+              f'rank{in_l2}; {active} clusters at once: {-(-B_ // active)} wave(s) at B={B_}, '
+              f'{-(-B // active)} at B={B}, {-(-8 * B // active)} at B={8 * B}')
         phase('kernels', f'K10 chol_factor_{variant} {tag}: ok {int(ok_k.sum())}/{B_} as plain, '
               f'max |L L^T - M| {float(rec_k.max()):.2e} vs plain {float(rec_p.max()):.2e} (max |M| '
               f'{float(scale.max()):.2e}); {recs[0]["ms"]:.4f} ms, queued {recs[0]["queued_ms"]:.4f} '
@@ -1103,17 +1125,19 @@ def main():
     for Bk in (1, 2, B):   # B = 1, 2: a delta-ladder retry's size
         chol_at[f'n={n} B={Bk}'], csolve_at[f'n={n} B={Bk}'] = hold_chol(
             f'n={n} B={Bk} delta {d4:.0e}', M4[:Bk], rhs4[:Bk], 'cluster')
-    # the global variant, for lanes no cluster holds, on random SPD matrices
-    # (cond ~ 1e3) at n = 700: B = 4 with an indefinite and a NaN lane, B = 2
-    n_g = 700
-    rng_g = np.random.default_rng(n_g)
-    G_g = rng_g.standard_normal((4, n_g, n_g))
-    M_g = torch.as_tensor(G_g @ G_g.transpose(0, 2, 1) / n_g + np.eye(n_g), device=dev)
-    b_g = torch.as_tensor(rng_g.standard_normal((4, n_g)), device=dev)
-    global_at, gsolve_at = {}, {}
-    for Bk in (4, 2):
-        global_at[f'n={n_g} B={Bk}'], gsolve_at[f'n={n_g} B={Bk}'] = hold_chol(
-            f'n={n_g} B={Bk} random SPD', M_g[:Bk], b_g[:Bk], 'global')
+    # the stream variant, for lanes no cluster holds, on random SPD matrices
+    # (cond ~ 1e3): n = 700 at B = 4 with an indefinite and a NaN lane and at
+    # B = 2 and 1, n = 555 (the first it takes), 876 and 1190 (n_k=18's, the
+    # largest 'auto' sends to the dense direction) at B = 1
+    stream_at, ssolve_at = {}, {}
+    for n_s, Bs in ((700, 4), (555, 1), (876, 1), (1190, 1)):
+        rng_s = np.random.default_rng(n_s)
+        G_s = rng_s.standard_normal((Bs, n_s, n_s))
+        M_s = torch.as_tensor(G_s @ G_s.transpose(0, 2, 1) / n_s + np.eye(n_s), device=dev)
+        b_s = torch.as_tensor(rng_s.standard_normal((Bs, n_s)), device=dev)
+        for Bk in ((4, 2, 1) if Bs == 4 else (1,)):
+            stream_at[f'n={n_s} B={Bk}'], ssolve_at[f'n={n_s} B={Bk}'] = hold_chol(
+                f'n={n_s} B={Bk} random SPD', M_s[:Bk], b_s[:Bk], 'stream')
     # K4's advance_state bit for bit on the block direction at the anchor
     direction4 = kkt_solve4(blocks4, *[state[k] for k in ('w', 's', 'y', 'lam', 'zl', 'zu')],
                             lbw, ubw, free, state['mu'], 1e-8, 1e-8, 1e-8)
@@ -1173,20 +1197,21 @@ def main():
     rhs_anchor = host._augmented(*d_anchor[1:], *st1, lbw, ubw, free, 1e-3, 0., 1e-7, 0.)['rhs']
     rhs_lanes = rhs_anchor.expand(B, -1).contiguous()
 
-    def hold_lu64(tag, K, b, bad=()):
+    def hold_lu64(tag, K, b, bad=(), with_k12=True):
         """K12 and K13 on (K, b) against their plain versions, with the
-        gates above; returns their records."""
+        gates above; returns their records. Without K12 (N beyond its reach)
+        K13 solves on the plain factor, and K12's record is None."""
         B_, N_ = K.shape[0], K.shape[1]
         good = [i for i in range(B_) if i not in bad]
         K0 = K.clone()
         before = dict(kernels.LAUNCHES)
-        lu_k, piv_k = kernels.lu_factor_f64(K)
-        x_k = kernels.lu_solve_f64(lu_k, piv_k, b)
         lu_p, piv_p = kernels.lu_factor_f64_plain(K)
         lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()   # cuSOLVER's is column-major
+        lu_k, piv_k = kernels.lu_factor_f64(K) if with_k12 else (lu_p, piv_p)
+        x_k = kernels.lu_solve_f64(lu_k, piv_k, b)
         x_p = kernels.lu_solve_f64_plain(lu_p, piv_p, b)
         torch.cuda.synchronize()
-        require(kernels.LAUNCHES['lu_factor_f64'] == before['lu_factor_f64'] + 1
+        require(kernels.LAUNCHES['lu_factor_f64'] == before['lu_factor_f64'] + int(with_k12)
                 and kernels.LAUNCHES['lu_solve_f64'] == before['lu_solve_f64'] + 1,
                 f'K12/K13 {tag}: launches')
         require(torch.equal(K.view(torch.int64), K0.view(torch.int64)), f'K12 {tag}: K changed')
@@ -1246,26 +1271,36 @@ def main():
         solve = lambda: kernels.lu_solve_f64(lu_k, piv_k, b)
         b_col = b[..., None].contiguous()
         plain_s = lambda: torch.linalg.lu_solve(lu_p, piv_p, b_col)
-        b12 = bound(16 * B_ * N_ * N_ + 4 * B_ * N_, 2 / 3 * B_ * N_ ** 3)
-        b13 = bound(8 * B_ * N_ * N_ + 4 * B_ * N_ + 16 * B_ * N_, 2 * B_ * N_ * N_)
-        k12 = dict(max_abs_err=float(fac_k.max()), ms=cuda_median_ms(factor),
-                   queued_ms=cuda_median_ms(factor, queued=True), plain_ms=cuda_median_ms(plain_f),
-                   bound_ms=b12[0], bound_by=b12[1], pivot_ties=ties)
-        k12['library_ms'] = k12['plain_ms']
-        k12['library_queued_ms'] = cuda_median_ms(plain_f, queued=True)
+        b12 = lu_factor_f64_bound(N_, B_)
+        b13 = lu_solve_f64_bound(N_, B_)
+        k12 = None
+        if with_k12:
+            k12 = dict(max_abs_err=float(fac_k.max()), ms=cuda_median_ms(factor),
+                       queued_ms=cuda_median_ms(factor, queued=True),
+                       plain_ms=cuda_median_ms(plain_f), bound_ms=b12[0], bound_by=b12[1],
+                       pivot_ties=ties)
+            k12['library_ms'] = k12['plain_ms']
+            k12['library_queued_ms'] = cuda_median_ms(plain_f, queued=True)
         k13 = dict(max_abs_err=x_gap, gap_limit=float(gap_limit.min()),
                    backward_error=float(res_k.max()), ms=cuda_median_ms(solve),
                    queued_ms=cuda_median_ms(solve, queued=True), plain_ms=cuda_median_ms(plain_s),
                    bound_ms=b13[0], bound_by=b13[1])
         k13['library_ms'] = k13['plain_ms']
         k13['library_queued_ms'] = cuda_median_ms(plain_s, queued=True)
-        phase('kernels', f'K12 lu_factor_f64 {tag}: max |P L U - K| / (P |L| |U|) '
-              f'{float(fac_k.max()):.2e} vs '
-              f'plain {float(fac_p.max()):.2e}; pivots as plain on {len(good) - ties}/{len(good)} '
-              f'lanes{f", the others parting at a tie" if ties else ""}{"; failed lanes " + str(list(bad)) + " not finite, the others unchanged" if bad else ""}; '
-              f'{k12["ms"]:.3f} ms, queued {k12["queued_ms"]:.3f} ms; torch.linalg.lu_factor_ex '
-              f'{k12["library_ms"]:.3f} ms, queued {k12["library_queued_ms"]:.3f} ms; bound '
-              f'{b12[0]:.5f} ms ({b12[1]})')
+        if with_k12:
+            phase('kernels', f'K12 lu_factor_f64 {tag}: max |P L U - K| / (P |L| |U|) '
+                  f'{float(fac_k.max()):.2e} vs '
+                  f'plain {float(fac_p.max()):.2e}; pivots as plain on {len(good) - ties}/{len(good)} '
+                  f'lanes{f", the others parting at a tie" if ties else ""}{"; failed lanes " + str(list(bad)) + " not finite, the others unchanged" if bad else ""}; '
+                  f'{k12["ms"]:.3f} ms, queued {k12["queued_ms"]:.3f} ms; torch.linalg.lu_factor_ex '
+                  f'{k12["library_ms"]:.3f} ms, queued {k12["library_queued_ms"]:.3f} ms; bound '
+                  f'{b12[0]:.5f} ms ({b12[1]})')
+        on_plain = "; on cuSOLVER's factor (beyond K12)"
+        g13 = kernels.lu_solve_f64_geometry(N_, B_)
+        a13 = kernels.lu_solve_max_active(g13)
+        phase('kernels', f'K13 lu_solve_f64 {tag}: clusters of C={g13.C} CTAs (row tile i to rank '
+              f'i % C), {g13.smem_bytes} B of shared memory a rank; {a13} clusters at once: '
+              f'{-(-B_ // a13)} wave(s){"" if with_k12 else on_plain}')
         phase('kernels', f'K13 lu_solve_f64 {tag}: row-wise backward error max |K x - b|_i / '
               f'(max |K_i.| max |x| + |b_i|) {float(res_k.max()):.2e} vs plain '
               f'{float(res_p.max()):.2e}; max |x - x_plain| / max |x_plain| '
@@ -1292,8 +1327,14 @@ def main():
                     for a in ktests.host_kkt_matrices(N8, 1, seed=N8, n=540))
     lu64_at[f'N={N8} B=1'], solve64_at[f'N={N8} B=1'] = hold_lu64(f'N={N8} B=1 random', K1055,
                                                                   b1055)
+    # K13 at n_k=18's N (2335, the largest the dense direction takes), beyond
+    # K12's reach, on cuSOLVER's factor
+    N18 = 2335
+    K18, b18 = (torch.as_tensor(a, device=dev)
+                for a in ktests.host_kkt_matrices(N18, 1, seed=N18, n=1190))
+    _, solve64_at[f'N={N18} B=1'] = hold_lu64(f'N={N18} B=1 random', K18, b18, with_k12=False)
     report['lu_factor_f64'] = dict(lu64_at[f'N={N} B=1'], at=lu64_at)
-    report['lu_solve_f64'] = dict(solve64_at[f'N={N} B=1'], at=solve64_at)
+    report['lu_solve_f64'] = dict(solve64_at[f'N={N} B=1'], at=solve64_at)   # phase 9 adds rows
 
     # aten operations one direction call dispatches on the card, and its
     # time, with each factor
@@ -1569,7 +1610,7 @@ def main():
         if mode == 'dense':   # every K10 launch takes the cluster variant at n = 280
             variants = ('chol_factor_cluster',)
             require(launches['chol_factor_cluster'] == launches[fac]
-                    and launches['chol_factor_global'] == 0,
+                    and launches['chol_factor_stream'] == 0,
                     f'{tag}: K10 launches not all in the cluster variant: {launches}')
         others = [k for k in launches
                   if k not in (fac, sol, 'advance_state') + variants and launches[k]]
@@ -1696,7 +1737,6 @@ def main():
     report['block_factor'] = dict(block_at[f'n_k=4 B={B}'], at=block_at)
     report['block_solve'] = dict(bsolve_at[f'n_k=4 B={B}'], at=bsolve_at)
     report['chol_factor_cluster'] = dict(chol_at[f'n={n} B={B}'], at=chol_at)
-    report['chol_factor_global'] = dict(global_at[f'n={n_g} B=2'], at=global_at)
     report['chol_solve_batched'] = dict(csolve_at[f'n={n} B={B}'], at=csolve_at)
     cell8_h = wind_sweep_problem(trial8, anchor8, 2, device='cpu')
     for fac in ('lu', 'qr'):
@@ -1733,49 +1773,97 @@ def main():
     # error within its tol; K10, K12 and K13 launched, once, once and twice a
     # direction, and no other kernel; no plain version called. Each step's
     # iterations are printed beside the JAX package's (JAX_TRIAL_ITERS).
-    cold = Trial(bench_options(), 'chip_smoke_trial').build()
-    require(linear_solver_choice(cold.ocp) == 'dense', 'slice-trial: auto is not dense')
-    solver = InteriorPointSolver(cold.ocp.f_fn, cold.ocp.eq_fn, cold.ocp.ineq_fn,
-                                 n=cold.ocp.vstruct.total, n_eq=cold.ocp.n_eq,
-                                 n_ineq=cold.ocp.n_ineq, device=dev)
-    kkt_inner, first = solver._kkt_solve, {}
+    def cold_trial(tag, options):
+        """Trial(options).build().optimize() on the card, with the first
+        kkt_solve's arguments and outputs kept (and the arguments of the
+        first whose inertia test passed), every plain version counted and
+        the launches of the run; the steps' lines printed."""
+        cold = Trial(options, f'chip_smoke_{tag}').build()
+        require(linear_solver_choice(cold.ocp) == 'dense', f'{tag}: auto is not dense')
+        solver = InteriorPointSolver(cold.ocp.f_fn, cold.ocp.eq_fn, cold.ocp.ineq_fn,
+                                     n=cold.ocp.vstruct.total, n_eq=cold.ocp.n_eq,
+                                     n_ineq=cold.ocp.n_ineq, device=dev)
+        kkt_inner, first = solver._kkt_solve, {}
 
-    def kkt_kept(*args):
-        out = kkt_inner(*args)
-        if not first:
-            first['args'] = [a.clone() if torch.is_tensor(a) else a for a in args]
-            first['out'] = [o.clone() for o in out[:7]]
-        return out
-    solver._kkt_solve = kkt_kept
-    cold._solver_cache['solver'] = solver
-    trial_plain = {k: 0 for k in solver_plain + ('lu_factor_f64_plain', 'lu_solve_f64_plain')}
-    saved = {k: getattr(kernels, k) for k in trial_plain}
+        def kkt_kept(*args):
+            out = kkt_inner(*args)
+            if not first:
+                first['args'] = [a.clone() if torch.is_tensor(a) else a for a in args]
+                first['out'] = [o.clone() for o in out[:7]]
+            if 'args_ok' not in first and bool(out[6]):   # the first M K10 factors
+                first['args_ok'] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            return out
+        solver._kkt_solve = kkt_kept
+        cold._solver_cache['solver'] = solver
+        plain = {k: 0 for k in solver_plain + ('lu_factor_f64_plain', 'lu_solve_f64_plain')}
+        saved = {k: getattr(kernels, k) for k in plain}
 
-    def counted_plain(name):
-        def call(*args, **kwargs):
-            trial_plain[name] += 1
-            return saved[name](*args, **kwargs)
-        return call
-    for k in trial_plain:
-        setattr(kernels, k, counted_plain(k))
-    kernels.reset_launch_counts()
-    try:
-        t0 = time.perf_counter()
-        cold.optimize(verbose=False)
-        torch.cuda.synchronize()
-        trial_s = time.perf_counter() - t0
-    finally:
-        for k, fn in saved.items():
-            setattr(kernels, k, fn)
-    launches_trial = dict(kernels.LAUNCHES)
-    stats = cold.solution.stats
+        def counted_plain(name):
+            def call(*args, **kwargs):
+                plain[name] += 1
+                return saved[name](*args, **kwargs)
+            return call
+        for k in plain:
+            setattr(kernels, k, counted_plain(k))
+        kernels.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            cold.optimize(verbose=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            for k, fn in saved.items():
+                setattr(kernels, k, fn)
+        launches = dict(kernels.LAUNCHES)
+        stats = cold.solution.stats
+        for key in stats['iterations']:
+            res_ = cold.solution.step_results[key]
+            phase(tag, f'{key}: {res_["status"]}, {stats["iterations"][key]} iterations '
+                  f'(the JAX package at n_k=4: {JAX_TRIAL_ITERS.get(key)}), '
+                  f'{stats["t_wall"][key]:.1f} s, '
+                  f'{1e3 * stats["t_wall"][key] / max(stats["iterations"][key], 1):.0f} ms/iter, '
+                  f'KKT error {res_["kkt_error"]:.2e}')
+        return dict(cold=cold, solver=solver, first=first, kkt_inner=kkt_inner,
+                    launches=launches, plain=plain, seconds=seconds, stats=stats)
+
+    def hold_path(tag, run, variant):
+        """A cold run's [path]: K10 (in ``variant``), K12 and two K13 a
+        direction, no other kernel and no plain version; and its first
+        kkt_solve on the CPU's plain path at the same state, within
+        TOL_FIRST_KKT."""
+        launches, first, solver = run['launches'], run['first'], run['solver']
+        n_dir = launches['lu_factor_f64']
+        kernels_of = ('lu_factor_f64', 'lu_solve_f64', 'chol_factor_batched',
+                      f'chol_factor_{variant}')
+        require(n_dir > 0 and launches['lu_solve_f64'] == 2 * n_dir
+                and launches['chol_factor_batched'] == n_dir
+                and launches[f'chol_factor_{variant}'] == n_dir,
+                f'{tag}: not K10 ({variant}), K12 and two K13 a direction: {launches}')
+        others = [k for k, v in launches.items() if v and k not in kernels_of]
+        require(not others, f'{tag}: other kernels ran: {others}')
+        require(not any(run['plain'].values()), f'{tag}: plain versions ran: {run["plain"]}')
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in first['args']]
+        out_h = run['kkt_inner'](*cpu_args)
+        gaps = {name: float((u.cpu() - v).abs().max() / max(float(v.abs().max()), 1e-300))
+                for name, u, v in zip(('dw', 'dy', 'dlam', 'ds', 'dzl', 'dzu'),
+                                      first['out'][:6], out_h[:6])}
+        require(bool(first['out'][6]) == bool(out_h[6]), f'{tag}: the first inertia test differs')
+        require(max(gaps.values()) <= TOL_FIRST_KKT,
+                f'{tag}: the first kkt_solve differs from the CPU\'s: {gaps}')
+        cond = float(torch.linalg.cond(solver._augmented(*cpu_args)['K']))
+        phase(tag, f'the first kkt_solve on the card against the plain path on the CPU at the '
+              f'same state (cond(K) {cond:.2e}): inertia ok {bool(out_h[6])} in both; max gaps '
+              f'over max |.|: ' + ', '.join(f'{k} {v:.2e}' for k, v in gaps.items())
+              + f' (tolerance {TOL_FIRST_KKT})')
+        phase('path', f'{tag}: kernel launches in the solve: '
+              f'{ {k: v for k, v in launches.items() if v} }; {n_dir} directions, each K10 '
+              f'({variant} variant), K12 and two K13; plain versions called: 0; '
+              f'{len(run["stats"]["iterations"])} homotopy steps')
+
+    trial_run = cold_trial('slice-trial', bench_options())
+    cold, stats, trial_s = trial_run['cold'], trial_run['stats'], trial_run['seconds']
+    launches_trial = trial_run['launches']
     n_it = sum(stats['iterations'].values())
-    for key in stats['iterations']:
-        res_ = cold.solution.step_results[key]
-        phase('slice-trial', f'{key}: {res_["status"]}, {stats["iterations"][key]} iterations '
-              f'(the JAX package: {JAX_TRIAL_ITERS.get(key)}), {stats["t_wall"][key]:.1f} s, '
-              f'{1e3 * stats["t_wall"][key] / max(stats["iterations"][key], 1):.0f} ms/iter, KKT '
-              f'error {res_["kkt_error"]:.2e}')
     go = cold.global_outputs()
     dp = abs(go['avg_power_watts'] / float(anchor['avg_power_watts']) - 1.)
     dt_ = abs(go['time_period'] / float(anchor['time_period']) - 1.)
@@ -1793,39 +1881,54 @@ def main():
             f'{go["time_period"]} s, the anchor\'s {float(anchor["avg_power_watts"])} / '
             f'{float(anchor["time_period"])}')
     require(kkt_final <= tol_final, f'slice-trial: final KKT error {kkt_final} > {tol_final}')
-    n_dir = launches_trial['lu_factor_f64']
-    require(n_dir > 0 and launches_trial['lu_solve_f64'] == 2 * n_dir
-            and launches_trial['chol_factor_batched'] == n_dir
-            and launches_trial['chol_factor_cluster'] == n_dir,
-            f'slice-trial: not K10 (cluster), K12 and two K13 a direction: {launches_trial}')
-    others = [k for k, v in launches_trial.items() if v and k not in (
-        'lu_factor_f64', 'lu_solve_f64', 'chol_factor_batched', 'chol_factor_cluster')]
-    require(not others, f'slice-trial: other kernels ran: {others}')
-    require(not any(trial_plain.values()), f'slice-trial: plain versions ran: {trial_plain}')
-    # the first direction of the run, on the CPU's plain path at the same state
-    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in first['args']]
-    out_h = kkt_inner(*cpu_args)
-    gaps_first = {name: float((u.cpu() - v).abs().max() / max(float(v.abs().max()), 1e-300))
-                  for name, u, v in zip(('dw', 'dy', 'dlam', 'ds', 'dzl', 'dzu'),
-                                        first['out'][:6], out_h[:6])}
-    require(bool(first['out'][6]) == bool(out_h[6]), 'slice-trial: the first inertia test differs')
-    require(max(gaps_first.values()) <= TOL_FIRST_KKT,
-            f'slice-trial: the first kkt_solve differs from the CPU\'s: {gaps_first}')
-    cond_first = float(torch.linalg.cond(solver._augmented(*cpu_args)['K']))
-    phase('slice-trial', f'the first kkt_solve on the card against the plain path on the CPU at '
-          f'the same state (cond(K) {cond_first:.2e}): inertia ok {bool(out_h[6])} in both; max '
-          f'gaps over max |.|: '
-          + ', '.join(f'{k} {v:.2e}' for k, v in gaps_first.items())
-          + f' (tolerance {TOL_FIRST_KKT})')
-    phase('path', f'slice-trial: kernel launches in the solve: '
-          f'{ {k: v for k, v in launches_trial.items() if v} }; {n_dir} directions, each K10 '
-          f'(cluster variant), K12 and two K13; plain versions called: 0; '
-          f'{len(stats["iterations"])} homotopy steps')
+    require(stats['iterations'] == JAX_TRIAL_ITERS,
+            f'slice-trial: iterations a step {stats["iterations"]}, the JAX package '
+            f'{JAX_TRIAL_ITERS}')
+    hold_path('slice-trial', trial_run, 'cluster')
+
+    # --- 9. Trial.optimize at n_k=10: [slice-trial-nk10] ------------------
+    # The same entry point on bench_options(n_k=10): n=670 variables, m=641
+    # constraints, N=1311; 'auto' still takes the dense direction (below
+    # 1200 variables), whose inertia test is K10's stream variant here. Each
+    # homotopy step is capped at NK10_ITERS iterations (solver.max_iter; the
+    # homotopy advances despite the cap), so every step of the entry point
+    # runs. Gates: the [path] of hold_path (K10 stream, K12, two K13 a
+    # direction, nothing else; the first direction against the CPU's plain
+    # path). Then K10 on the first M of the path that it factors (the first
+    # iterate's fails the inertia test: the delta_w ladder follows) and
+    # K12/K13 on that direction's K, as [kernels] rows.
+    o10 = bench_options(n_k=10)
+    o10['solver.max_iter'] = NK10_ITERS
+    nk10_run = cold_trial('slice-trial-nk10', o10)
+    stats10, launches_nk10 = nk10_run['stats'], nk10_run['launches']
+    n_it10 = sum(stats10['iterations'].values())
+    ocp10 = nk10_run['cold'].ocp
+    phase('slice-trial-nk10', f'Trial(bench_options(n_k=10)).build().optimize() on the card, '
+          f'n={ocp10.vstruct.total}, m={ocp10.n_eq + ocp10.n_ineq} (CUT: solver.max_iter = '
+          f'{NK10_ITERS} a step): {len(stats10["iterations"])} homotopy steps, {n_it10} '
+          f'iterations in {nk10_run["seconds"]:.1f} s, '
+          f'{1e3 * nk10_run["seconds"] / max(n_it10, 1):.0f} ms/iter, '
+          f'{launches_nk10["lu_factor_f64"]} directions; not gated on convergence')
+    require(len(stats10['iterations']) == len(JAX_TRIAL_ITERS)
+            and all(0 < v <= NK10_ITERS for v in stats10['iterations'].values()),
+            f'slice-trial-nk10: steps and iterations {stats10["iterations"]}')
+    hold_path('slice-trial-nk10', nk10_run, 'stream')
+    require('args_ok' in nk10_run['first'], 'slice-trial-nk10: no inertia test passed')
+    sys10 = nk10_run['solver']._augmented(*nk10_run['first']['args_ok'])
+    M10, K10_, rhs10 = (sys10[k][None].contiguous() for k in ('M', 'K', 'rhs'))
+    n10, N10 = M10.shape[1], K10_.shape[1]
+    b10 = torch.as_tensor(np.random.default_rng(n10).standard_normal((1, n10)), device=dev)
+    stream_at[f'n={n10} B=1 path'], ssolve_at[f'n={n10} B=1 path'] = hold_chol(
+        f'n={n10} B=1 the path\'s M', M10, b10, 'stream')
+    lu64_at[f'N={N10} B=1 path'], solve64_at[f'N={N10} B=1 path'] = hold_lu64(
+        f'N={N10} B=1 the path\'s K', K10_, rhs10)
+    report['chol_factor_stream'] = dict(stream_at[f'n={n10} B=1 path'], at=stream_at)
 
     # each kernel's launches are those of the slice whose path holds it: the
     # QR slice, the port's default path, for its own kernels and for K1 and
     # K4, which both paths share; the LU slice for the LU kernels; the n_k=8
-    # slices for the blocked variants
+    # slices for the blocked variants; [slice-trial-nk10] for K10's stream
+    # variant
     sources = {'newton_kkt': 'awebox_tpu/parallel/batch.py:154',
                'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
                'lu_factor_cluster': 'awebox_tpu/parallel/batch.py:414',
@@ -1839,7 +1942,7 @@ def main():
                'qr_solve_batched': 'awebox_tpu/parallel/batch.py:344',
                'advance_state': 'awebox_tpu/parallel/batch.py:449',
                'chol_factor_cluster': 'awebox_tpu/parallel/batch.py:215',
-               'chol_factor_global': 'awebox_tpu/parallel/batch.py:215',
+               'chol_factor_stream': 'awebox_tpu/opti/ipsolver.py:183',
                'chol_solve_batched': 'awebox_tpu/parallel/batch.py:234',
                'block_factor': 'awebox_tpu/ocp/blockkkt.py:539',
                'block_solve': 'awebox_tpu/ocp/blockkkt.py:646',
@@ -1849,7 +1952,7 @@ def main():
            'lu_solve_batched': launches_lu, 'lu_factor_blocked': launches_lu8,
            'qr_factor_blocked': launches_qr8, 'advance_state': launches_block,
            'block_factor': launches_block, 'block_solve': launches_block,
-           'chol_factor_cluster': launches_dense, 'chol_factor_global': launches_dense,
+           'chol_factor_cluster': launches_dense, 'chol_factor_stream': launches_nk10,
            'chol_solve_batched': launches_dense, 'lu_factor_f64': launches_trial,
            'lu_solve_f64': launches_trial}
     phase('done', f'chip_smoke.py ran {time.time() - t_start:.1f} s')
@@ -1859,7 +1962,8 @@ def main():
              launches_lu_slice=launches_lu[k], launches_qr_slice=launches_qr[k],
              launches_nk8_lu_slice=launches_lu8[k], launches_nk8_qr_slice=launches_qr8[k],
              launches_block_slice=launches_block[k], launches_dense_slice=launches_dense[k],
-             launches_trial_slice=launches_trial[k], **report[k])
+             launches_trial_slice=launches_trial[k], launches_trial_nk10_slice=launches_nk10[k],
+             **report[k])
         for k in sources]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

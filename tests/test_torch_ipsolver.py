@@ -249,9 +249,10 @@ def initial_step(package, max_iter, linear_solver='auto'):
     return trial, trial.solution.stats['iterates']['initial_0']
 
 
-def counted_initial_step(package, max_iter):
-    """initial_step with the solver's kkt_solve wrapped by a counter; the
-    callback closes each iteration's count."""
+def counted_initial_step(package, max_iter, n_k=4, kept=None):
+    """initial_step (at n_k) with the solver's kkt_solve wrapped by a counter;
+    the callback closes each iteration's count. With ``kept`` (a dict), the
+    first kkt_solve call's arguments and outputs land there."""
     if package == 'jax':
         from awebox_tpu.api.trial import Trial
         from awebox_tpu.opti.ipsolver import InteriorPointSolver, IPOptions
@@ -262,7 +263,7 @@ def counted_initial_step(package, max_iter):
         from awebox_tpu_torch.configs import bench_options as options_of
         from awebox_tpu_torch.opti.ipsolver import InteriorPointSolver, IPOptions
         kw, skw = dict(device='cpu'), dict(device='cpu')
-    o = options_of()
+    o = options_of(n_k=n_k)
     o['solver.max_iter'] = max_iter
     o['solver.callback'] = True
     trial = Trial(o, f'{package}_initial').build()
@@ -274,7 +275,10 @@ def counted_initial_step(package, max_iter):
 
     def counting(*args):
         calls[0] += 1
-        return inner(*args)
+        out = inner(*args)
+        if kept is not None and not kept:
+            kept['args'], kept['out'] = args, out
+        return out
     solver._kkt_solve = counting
     inner_solve = solver.solve
 

@@ -10,6 +10,7 @@ This file imports no JAX, so the card's machine, which has none, runs it:
 callers rely on there.
 """
 import ctypes
+import itertools
 import re
 
 import numpy as np
@@ -1818,26 +1819,10 @@ def k10c_panel_mirror(T, w):
 
 
 def k10c_update_mirror(T, Pr, q0, base, w):
-    """k10c_tile_pair: T (rows q0.., w columns) less the rank-16 product of
-    the applied panel Pr (rows base..) on T's 8 x 8 tiles on or below the
-    diagonal: each entry's products summed from zero in four k-steps of 4,
-    in order, then subtracted once; entries above the diagonal of a diagonal
-    tile neither read nor written (row tiles are independent, so each tile
-    column J is taken for all row tiles at once)."""
-    h = T.shape[0]
-    for J in range(2):
-        cols = np.arange(8 * J, min(8 * J + 8, w))
-        if len(cols) == 0:
-            continue
-        rows = np.arange(8 if J else 0, h)            # tile (0, 1) lies above the diagonal
-        A = Pr[q0 - base + rows]
-        Bm = Pr[q0 - base + cols]
-        upd = np.zeros((len(rows), len(cols)))
-        for s in range(4):
-            k = slice(4 * s, 4 * s + 4)
-            upd = upd + A[:, k] @ Bm[:, k].T
-        blk = T[np.ix_(rows, cols)]
-        T[np.ix_(rows, cols)] = np.where(cols[None, :] <= rows[:, None], blk - upd, blk)
+    """k10c_tile_pair over all of T's row tiles: T (rows q0.., w columns) less
+    the rank-16 product of the applied panel Pr (rows base..), as
+    k10s_tiles_mirror takes it."""
+    k10s_tiles_mirror(T, Pr[q0 - base:], Pr[q0 - base:q0 - base + 16], 0, -(-T.shape[0] // 8), w)
 
 
 def chol_factor_cluster_mirror(M, geom=None):
@@ -1899,6 +1884,123 @@ def chol_factor_cluster_mirror(M, geom=None):
     return L, ok
 
 
+def k10s_tiles_mirror(T, A_rows, B_rows, I_lo, I_hi, w):
+    """k10c_tile_pair on row tiles I_lo .. I_hi - 1 of the panel T (its rows
+    from the panel's diagonal, w columns): A_rows, the applied panel's rows
+    of those tiles; B_rows, its 16 rows of T's diagonal block. Each entry's
+    products summed from zero in four k-steps of 4, then subtracted once;
+    tile (0, 1) and the entries above the diagonal left alone."""
+    h = T.shape[0]
+    r_lo, r_hi = 8 * I_lo, min(8 * I_hi, h)
+    if r_lo >= r_hi:
+        return
+    rows = np.arange(r_lo, r_hi)
+    A = A_rows[:r_hi - r_lo]
+    for J in range(2):
+        cols = np.arange(8 * J, min(8 * J + 8, w))
+        sel = rows >= 8 * J if J else np.ones(len(rows), bool)
+        if len(cols) == 0 or not sel.any():
+            continue
+        upd = np.zeros((int(sel.sum()), len(cols)))
+        for s in range(4):
+            k = slice(4 * s, 4 * s + 4)
+            upd = upd + A[sel][:, k] @ B_rows[cols][:, k].T
+        r = rows[sel]
+        blk = T[np.ix_(r, cols)]
+        T[np.ix_(r, cols)] = np.where(cols[None, :] <= r[:, None], blk - upd, blk)
+
+
+def k10s_pairs(I0, I1, warps=8):
+    """The row tiles k10s_apply's warps take of a chunk's tiles I0 .. I1 - 1
+    of a panel: warp w the pairs (I, I + 1), I = I0 + 2 w, I0 + 2 w + 16, .."""
+    return sorted(t for w in range(warps) for I in range(I0 + 2 * w, I1, 2 * warps)
+                  for t in (I, I + 1))
+
+
+def chol_factor_stream_mirror(M, geom=None):
+    """K10's stream variant on one lane at a time, in numpy f64, step by step
+    as its ranks run it: the panels of chol_factor_geometry's deal copied in
+    from M's lower triangle alone (M may hold NaN above the diagonal); panel 0
+    factored by rank 0; then a phase a panel: the owner's flag stops every
+    rank; o(p + 1) updates panel p + 1 by panel p (warp 0 its rows 0 .. 31
+    from the 32 rows o(p) handed over, warp w its rows 32 w + 224 c .. + 31 of
+    chunk c, fetched by itself) and factors it; every rank applies panel p to
+    its other trailing panels a chunk of rows at a time, each warp the
+    pairs of row tiles k10s_pairs gives, with each panel's B rows from its own
+    first 16 rows of panel p (256 rows a chunk). Every buffer a step reads
+    is NaN outside what
+    the step fetched, so a tile taken outside its chunk shows up as NaN in L;
+    the tiles the pairs cover are checked to be the chunk's. L gathered from
+    the panels, NaN where the lane failed."""
+    from awebox_tpu_torch.parallel import kernels
+    B, n, _ = M.shape
+    g = geom or kernels.chol_factor_geometry(n)
+    nb, C, CH, ROWSTEP = g.nb, g.C, g.recv_rows, kernels.CHOL_STREAM_ROWSTEP
+    P = -(-n // nb)
+    L = np.zeros_like(M); ok = np.ones(B, bool)
+    for lane in range(B):
+        A = M[lane]
+        pan = {}
+        for ps in g.panels:
+            for p in ps:
+                q0, w = p * nb, min(nb, n - p * nb)
+                T = np.zeros((n - q0, nb))
+                for i in range(q0, n):
+                    cols = range(q0, min(q0 + w, i + 1))
+                    T[i - q0, :len(cols)] = [A[i, j] for j in cols]
+                pan[p] = T
+
+        def rows_of(k, lo, hi):
+            """panel k's rows lo .. hi - 1 (global row numbers) as L holds them"""
+            return pan[k][lo - k * nb:hi - k * nb]
+
+        failed = not k10c_panel_mirror(pan[0], min(nb, n))
+        for k in range(P - 1):
+            if failed:
+                break
+            q0, w = (k + 1) * nb, min(nb, n - (k + 1) * nb)
+            T, h = pan[k + 1], n - (k + 1) * nb
+            head = np.full((32, nb), np.nan)
+            head[:min(32, h)] = rows_of(k, q0, min(n, q0 + 32))   # o(k)'s hbuf
+            k10s_tiles_mirror(T, head, head[:16], 0, 4, w)
+            for warp in range(1, 8):
+                for c in range(-(-max(h - 32 * warp, 0) // ROWSTEP)):
+                    lo = q0 + 32 * warp + ROWSTEP * c
+                    own = np.full((32, nb), np.nan)
+                    own[:min(32, n - lo)] = rows_of(k, lo, min(n, lo + 32))
+                    I = (lo - q0) // 8
+                    k10s_tiles_mirror(T, own, head[:16], I, I + 4, w)
+            failed = not k10c_panel_mirror(T, w)
+            for r, ps in enumerate(g.panels):
+                trail = [p for p in ps if p > k + (1 if r == (k + 1) % C else 0)]
+                if not trail:
+                    continue
+                dbuf = {p: rows_of(k, p * nb, min(n, p * nb + 16)) for p in trail}
+                for lo in range(trail[0] * nb, n, CH):
+                    hi = min(n, lo + CH)
+                    recv = np.full((CH, nb), np.nan)
+                    recv[:hi - lo] = rows_of(k, lo, hi)
+                    for p in trail:
+                        pq0 = p * nb
+                        if pq0 >= hi:
+                            break
+                        ph = n - pq0
+                        I0, I1 = (max(lo, pq0) - pq0) // 8, (hi - pq0 + 7) // 8
+                        covered = [t for t in k10s_pairs(I0, I1) if 8 * t < ph]
+                        assert covered == list(range(I0, min(I1, -(-ph // 8)))), (k, r, p, lo)
+                        Bm = np.full((16, nb), np.nan)
+                        Bm[:len(dbuf[p])] = dbuf[p]
+                        k10s_tiles_mirror(pan[p], recv[8 * I0 + pq0 - lo:], Bm, I0, I1,
+                                          min(nb, ph))
+        Lw = L[lane]
+        for p, T in pan.items():
+            q0, w = p * nb, min(nb, n - p * nb)
+            Lw[q0:, q0:q0 + w] = np.tril(T[:, :w])
+        if failed or not np.isfinite(Lw).all():
+            Lw[:] = np.nan; ok[lane] = False
+    return L, ok
+
+
 def chol_test_matrices(n, B=4, seed=None):
     """SPD lanes (cond ~ 1e3) with lane 1 made indefinite and lane 2 given a
     NaN in both triangles, as test_chol_mirrors_match_plain builds them."""
@@ -1932,39 +2034,61 @@ def test_chol_cluster_mirror_matches_plain(n):
 
 
 CHOL_CLUSTER_LAST = 554     # the largest n the cluster variant holds
+CHOL_STREAM_LAST = 1536     # the largest n the stream variant holds
 
 
-@pytest.mark.parametrize('n', [37, 280, 540, CHOL_CLUSTER_LAST, CHOL_CLUSTER_LAST + 1, 876, 877])
+@pytest.mark.parametrize('n', [37, 280, 540, CHOL_CLUSTER_LAST, CHOL_CLUSTER_LAST + 1, 876, 877,
+                               1190, CHOL_STREAM_LAST, CHOL_STREAM_LAST + 1])
 def test_chol_factor_geometry(n):
     """K10 takes its cluster variant up to n = 554, with the fewest CTAs of 4,
     8 and 16 (a non-portable cluster) that hold the lane (never more than it
-    has panels: 3 at n = 37, 4 at 280, 16 at 540), the one-CTA global
-    variant up to 876, and raises by name at 877. In the cluster layout
-    every panel of 16 is dealt to exactly one rank (panel p to rank p % C),
-    each rank stores each of its panels' lower-triangle rows (p 16 .. n - 1)
-    once, one after another and then the receive buffer (n - 16 rows), at
-    leading dimension 20 (4 mod 8 doubles), within one block's shared
-    memory."""
+    has panels: 3 at n = 37, 4 at 280, 16 at 540), the stream variant (16
+    CTAs) from 555 to 1536, and raises by name at 1537. In both layouts every
+    panel of 16 is dealt to exactly one rank (panel p to rank p % C). In the
+    cluster layout each rank stores each of its panels' lower-triangle rows
+    (p 16 .. n - 1) once, one after another and then the receive buffer (n -
+    16 rows), at leading dimension 20 (4 mod 8 doubles), within one block's
+    shared memory; in the stream layout a rank keeps the longest run of its
+    last panels that fits its resident rows, one after another, the others
+    in L, beside a receive buffer of 256 rows, the handoff buffer's 32 and
+    16 rows for each of 6 panels, within one block's shared memory."""
     from awebox_tpu_torch.parallel import kernels
-    if n > 876:
+    if n > CHOL_STREAM_LAST:
         with pytest.raises(ValueError, match='chol_factor_batched'):
             kernels.chol_factor_geometry(n)
         return
     g = kernels.chol_factor_geometry(n)
-    if n > CHOL_CLUSTER_LAST:
-        assert g.smem_bytes + kernels.BLOCK_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
-        assert (g.variant, g.C, g.nb, g.ld) == ('global', 1, 32, 33)
-        assert g.smem_bytes == 8 * n * 33
-        return
     assert g.smem_bytes + kernels.CHOL_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
-    assert g.variant == 'cluster' and g.nb == 16 and g.ld == 20 and g.ld % 8 == 4
+    assert g.nb == 16 and g.ld == 20 and g.ld % 8 == 4
     P = -(-n // 16)
-    assert g.C == {37: 3, 280: 4, 540: 16, CHOL_CLUSTER_LAST: 16}[n]
-    assert all(kernels.chol_cluster_layout(n, c) is None
-               for c in kernels.CHOL_CLUSTER_SIZES if c < g.C)
     dealt = sorted(p for ps in g.panels for p in ps)
     assert dealt == list(range(P))
     assert all(p % g.C == r for r, ps in enumerate(g.panels) for p in ps)
+    if n > CHOL_CLUSTER_LAST:
+        assert (g.variant, g.C) == ('stream', 16)
+        cap = g.recv_off // g.ld
+        assert g.recv_off == cap * g.ld and g.recv_rows == kernels.CHOL_STREAM_CHUNK
+        assert g.smem_bytes == 8 * g.ld * (cap + kernels.CHOL_STREAM_CHUNK + 32 + 16 * 6)
+        assert kernels.SMEM_PER_BLOCK - kernels.CHOL_STATIC_SMEM - g.smem_bytes < 8 * g.ld
+        assert max(len(ps) for ps in g.panels) <= kernels.CHOL_STREAM_LOCAL
+        for ps, offs in zip(g.panels, g.offsets):
+            rows = [n - 16 * p for p in ps]
+            t_res = sum(o is None for o in offs)
+            assert all(o is None for o in offs[:t_res])   # the first panels in L
+            assert list(offs[t_res:]) == list(itertools.accumulate(rows[t_res:-1], initial=0))[
+                :len(ps) - t_res]
+            assert sum(rows[t_res:]) <= cap                       # the rest fits ...
+            assert t_res == 0 or sum(rows[t_res - 1:]) > cap      # ... and no more does
+        in_l2 = [sum(o is None for o in offs) for offs in g.offsets]
+        if n == CHOL_CLUSTER_LAST + 1:
+            assert in_l2 == [0] * 16                    # the whole lane fits at 555
+        if n == 1190:
+            assert in_l2 == [3] * 5 + [2] * 11
+        return
+    assert g.variant == 'cluster'
+    assert g.C == {37: 3, 280: 4, 540: 16, CHOL_CLUSTER_LAST: 16}[n]
+    assert all(kernels.chol_cluster_layout(n, c) is None
+               for c in kernels.CHOL_CLUSTER_SIZES if c < g.C)
     stored = set()
     for r, (ps, offs) in enumerate(zip(g.panels, g.offsets)):
         end = 0
@@ -1980,7 +2104,49 @@ def test_chol_factor_geometry(n):
     assert g.smem_bytes == 8 * (g.recv_off + g.recv_rows * g.ld)
     if n == CHOL_CLUSTER_LAST:
         nxt = kernels.chol_factor_geometry(n + 1)
-        assert nxt.variant == 'global'
+        assert nxt.variant == 'stream'
+
+
+@pytest.mark.parametrize('n', [555, 700, 876, 1190])
+def test_chol_stream_mirror_matches_plain(n):
+    """K10's stream schedule (chol_factor_stream_mirror: the deal of
+    chol_factor_geometry, the look-ahead's handoff of 32 rows and the warps'
+    own chunks, the chunked handoff of 256 rows with each panel's B rows
+    fetched ahead, tiles of 8 on or below the diagonal with their k-steps in
+    order, every buffer NaN outside what its step fetched), fed M with NaN
+    above the diagonal, against chol_factor_batched_plain on the symmetric M:
+    L to 1e-13 of its max on SPD lanes, the indefinite and the NaN lane
+    failing alone (ok False, L NaN throughout)."""
+    from awebox_tpu_torch.parallel import kernels
+    M = chol_test_matrices(n)
+    Lp, okp = kernels.chol_factor_batched_plain(torch.as_tensor(M))
+    Mu = M.copy()
+    Mu[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
+    Lm, okm = chol_factor_stream_mirror(Mu)
+    assert okp.tolist() == okm.tolist() == [True, False, False, True]
+    good = [0, 3]
+    assert np.abs(Lp.numpy()[good] - Lm[good]).max() <= 1e-13 * np.abs(Lm[good]).max()
+    assert np.isnan(Lp.numpy()[[1, 2]]).all() and np.isnan(Lm[[1, 2]]).all()
+    assert (Lm[good][:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] == 0).all()
+
+
+def test_chol_stream_mirror_is_the_cluster_schedule():
+    """Where both variants apply, the stream schedule gives the cluster
+    schedule's bits: the chunks change where a sum's terms come from, not
+    its order (n = 540 dealt over 16 ranks as the stream variant deals it,
+    every panel of it in shared memory)."""
+    from awebox_tpu_torch.parallel import kernels
+    n = 540
+    M = chol_test_matrices(n, seed=3)
+    g = kernels.chol_factor_geometry(n)
+    assert g.variant == 'cluster' and g.C == 16
+    stream = kernels.CholGeometry('stream', 16, 16, 20, kernels.chol_deal(n, 16),
+                                  tuple((0,) * len(ps) for ps in kernels.chol_deal(n, 16)),
+                                  1049 * 20, kernels.CHOL_STREAM_CHUNK, 0)
+    L_c, ok_c = chol_factor_cluster_mirror(M, g)
+    L_s, ok_s = chol_factor_stream_mirror(M, stream)
+    assert ok_c.tolist() == ok_s.tolist() == [True, False, False, True]
+    assert np.array_equal(L_c, L_s, equal_nan=True)
 
 
 @pytest.mark.parametrize('name', list(BLOCK_LAYOUTS))
@@ -2643,23 +2809,24 @@ def test_block_kernels_match_plain_on_card(cuda):
 @pytest.mark.cuda
 def test_chol_kernels_match_plain_on_card(cuda):
     """K10 (chol_factor_batched) and K11 (chol_solve_batched) against their
-    plain versions at n = 37, 280 and 540 (K10's cluster variant) and 700
-    (its global variant), B = 16: L within 1e-12 of its max and x within
-    1e-10 of max |x| on SPD lanes (cond ~ 1e3; only the order of the sums
-    differs); a negative pivot and a NaN entry fail their lane alone (ok
-    False, L NaN, x NaN) and change no other lane's bits; two calls of each
-    give the same bits; each launch counted (K10's under the variant
-    chol_factor_geometry gives); K11 at every n, 700 included."""
+    plain versions at n = 37, 280 and 540 (K10's cluster variant) and 555,
+    700, 876 and 1190 (its stream variant), B = 16 (B = 4 from 876 on): L
+    within 1e-12 of its max and x within 1e-10 of max |x| on SPD lanes (cond
+    ~ 1e3; only the order of the sums differs); a negative pivot and a NaN
+    entry fail their lane alone (ok False, L NaN, x NaN) and change no other
+    lane's bits; two calls of each give the same bits; each launch counted
+    (K10's under the variant chol_factor_geometry gives); K11 at every n."""
     from awebox_tpu_torch.parallel import kernels
-    for n in (37, 280, 540, 700):
+    for n in (37, 280, 540, 555, 700, 876, 1190):
         variant = kernels.chol_factor_geometry(n).variant
-        assert variant == ('global' if n == 700 else 'cluster')
-        M = chol_test_matrices(n, B=16)
+        assert variant == ('stream' if n > 554 else 'cluster')
+        nB = 16 if n < 876 else 4
+        M = chol_test_matrices(n, B=nB)
         M_clean = M.copy()
         M_clean[[1, 2]] = M[0]
         M_clean = torch.as_tensor(M_clean, device=cuda)
         Mt = torch.as_tensor(M, device=cuda)
-        b = torch.as_tensor(np.random.default_rng(n).standard_normal((16, n)), device=cuda)
+        b = torch.as_tensor(np.random.default_rng(n).standard_normal((nB, n)), device=cuda)
         before = dict(kernels.LAUNCHES)
         L, ok = kernels.chol_factor_batched(Mt)
         x = kernels.chol_solve_batched(L, b)
@@ -2675,8 +2842,8 @@ def test_chol_kernels_match_plain_on_card(cuda):
             == before[f'chol_factor_{variant}'] + 3
         assert kernels.LAUNCHES['chol_solve_batched'] == before['chol_solve_batched'] + 3
         assert torch.equal(x.view(torch.int64), x_2.view(torch.int64))
-        assert ok.tolist() == okp.tolist() == [b_ not in (1, 2) for b_ in range(16)]
-        good = [b_ for b_ in range(16) if b_ not in (1, 2)]
+        assert ok.tolist() == okp.tolist() == [b_ not in (1, 2) for b_ in range(nB)]
+        good = [b_ for b_ in range(nB) if b_ not in (1, 2)]
         assert float((L[good] - Lp[good]).abs().max()) <= 1e-12 * float(Lp[good].abs().max())
         assert float((x[good] - xp[good]).abs().max()) <= 1e-10 * float(xp[good].abs().max())
         assert bool(torch.isnan(L[[1, 2]]).all()) and torch.equal(L[good], L_c[good])
@@ -2686,70 +2853,103 @@ def test_chol_kernels_match_plain_on_card(cuda):
 
 # --- K12, K13: the host solver's f64 LU factor and solve ---------------------
 
-def k13_upper_walk(T, warp):
-    """K13Ring's walk: KsRing's forward tiles, then its backward tiles
-    transposed (U's tile (tj, ti) for ks_step_tile's (ti, tj))."""
+def k13_step_tile(s, idx, T, rank, C, warp):
+    """k13_step_tile of csrc/auglu.cu: the idx-th tile (ti, tj) warp of rank
+    (of C) takes in step s (s < T forward, then backward, row tile 2T - 1 -
+    s), or None: warp 0 the diagonal and fold tiles of its rank's row tiles'
+    steps, warps 1 .. 7 the rank's own row tiles' other tiles of the step."""
+    if s < T:
+        if warp == 0:
+            ok = s % C == rank and (idx == 0 or (idx == 1 and s + 1 < T))
+            return (s + idx, s) if ok else None
+        ti = s + 1 + (rank - s - 1) % C + C * (warp - 1 + 7 * idx)
+        return (ti, s - 1) if s > 0 and ti < T else None
+    t = 2 * T - 1 - s
+    if warp == 0:
+        ok = t % C == rank and (idx == 0 or (idx == 1 and t > 0))
+        return (t - idx, t) if ok else None
+    ti = t - 1 - (t - 1 - rank) % C - C * (warp - 1 + 7 * idx)
+    return (ti, t + 1) if t + 1 < T and ti >= 0 else None
+
+
+def k13_walk(T, rank, C, warp):
+    """The tiles a warp's ring copies, in order (KsRing<K13Walk>'s walk)."""
     for s in range(2 * T):
         idx = 0
-        while (tile := ks_step_tile(s, idx, T, warp)) is not None:
-            yield tile if s < T else tile[::-1]
+        while (tile := k13_step_tile(s, idx, T, rank, C, warp)) is not None:
+            yield tile
             idx += 1
 
 
-def k13_schedule_mirror(lu, piv, b, nb=32):
-    """K13 step by step as the CTA runs it: the interchanges in order, then
-    ks_forward with a unit diagonal on the factor's strictly lower tiles, then
-    k13_backward on U's tiles taken as rows, each tile from its warp's walk
-    (which must be the tile the step asks for), on the vector padded with
-    zeros to 32 T."""
+def k13_schedule_mirror(lu, piv, b, C=1, nb=32):
+    """K13 step by step as its cluster of C ranks runs it: y = P b by
+    chunk_permutation (the interchanges composed 32 at a time); each rank a
+    vector of its own holding its own row tiles (row tile i is rank i % C's)
+    and NaN elsewhere until a chain publishes x there (rows past N zeros);
+    the chain of row tile s on its owner's warp 0 from the diagonal tile
+    and the fold its predecessor handed over (ks_forward's chain with a unit
+    diagonal; backward K13's on U's tiles as rows), its x written into every
+    rank's vector and its fold into the next owner's buffer; warps 1 .. 7 of
+    every rank applying the column just solved to the rank's own row tiles.
+    Each tile comes from its warp's walk, which must be the tile the step asks
+    for. Returns x from the owners' vectors."""
     m = len(b); T = -(-m // nb); P = T * nb
     F = np.zeros((P, P)); F[:m, :m] = lu
-    y = np.zeros(P); y[:m] = b
-    for k in range(m):
-        p = int(piv[k]) - 1
-        y[k], y[p] = y[p], y[k]
+    yb = np.zeros(P); yb[:m] = np.asarray(b)[chunk_permutation(piv, m, nb).numpy()]
     rinv = np.ones(P); rinv[:m] = 1. / np.diag(lu)
-    walks = [k13_upper_walk(T, w) for w in range(8)]
+    own = np.arange(P) // nb % C
+    Y = [np.where((own == r) | (np.arange(P) >= m), yb, np.nan) for r in range(C)]
+    fold = [np.full(nb, np.nan) for _ in range(C)]
+    walks = {(r, w): k13_walk(T, r, C, w) for r in range(C) for w in range(8)}
 
-    def take(w, ti, tj):
-        assert next(walks[w]) == (ti, tj), (w, ti, tj)
+    def take(r, w, ti, tj):
+        assert next(walks[r, w]) == (ti, tj), (r, w, ti, tj)
         return F[ti * nb:ti * nb + nb, tj * nb:tj * nb + nb]
 
-    acc = np.zeros(nb)
+    def publish(r0, h, u, to, an):
+        for Yr in Y:
+            Yr[r0:r0 + h] = u[:h]
+        if to is not None:
+            fold[to] = an
+
     for s in range(T):
-        r0, h = s * nb, min(nb, m - s * nb)
-        D = take(0, s, s)
-        E = take(0, s + 1, s) if s + 1 < T else None
-        u, an = y[r0:r0 + nb] + acc, np.zeros(nb)
+        r0, h, o = s * nb, min(nb, m - s * nb), s % C
+        D = take(o, 0, s, s)
+        E = take(o, 0, s + 1, s) if s + 1 < T else None
+        u, an = Y[o][r0:r0 + nb] + (fold[o] if s > 0 else 0.), np.zeros(nb)
         for j in range(h):
             u[j + 1:h] -= D[j + 1:h, j] * u[j]
             if E is not None:
                 an = an - E[:, j] * u[j]
-        y[r0:r0 + h] = u[:h]
-        acc = an
-        for w in range(1, 8):
-            for i in range(s + w, T, 7) if s > 0 else ():
-                rows = slice(i * nb, min(i * nb + nb, m))
-                tile = take(w, i, s - 1)[:rows.stop - rows.start]
-                y[rows] -= ks_tile_sum(tile, y[r0 - nb:r0])
-    acc = np.zeros(nb)
+        publish(r0, h, u, (s + 1) % C if E is not None else None, an)
+        for r in range(C):
+            for w in range(1, 8):
+                i = s + 1 + (r - s - 1) % C + C * (w - 1)
+                while s > 0 and i < T:
+                    rows = slice(i * nb, min(i * nb + nb, m))
+                    tile = take(r, w, i, s - 1)[:rows.stop - rows.start]
+                    Y[r][rows] -= ks_tile_sum(tile, Y[r][r0 - nb:r0])
+                    i += 7 * C
     for t in range(T - 1, -1, -1):
-        r0, h = t * nb, min(nb, m - t * nb)
-        D = take(0, t, t)
-        E = take(0, t - 1, t) if t > 0 else None
-        u, an = y[r0:r0 + nb] + acc, np.zeros(nb)
+        r0, h, o = t * nb, min(nb, m - t * nb), t % C
+        D = take(o, 0, t, t)
+        E = take(o, 0, t - 1, t) if t > 0 else None
+        u, an = Y[o][r0:r0 + nb] + (fold[o] if t + 1 < T else 0.), np.zeros(nb)
         for j in range(h - 1, -1, -1):
             u[j] = u[j] * rinv[r0 + j]
             u[:j] -= D[:j, j] * u[j]
             if E is not None:
                 an = an - E[:, j] * u[j]
-        y[r0:r0 + h] = u[:h]
-        acc = an
-        for w in range(1, 8):
-            for i in range(t - w, -1, -7) if t + 1 < T else ():
-                y[i * nb:i * nb + nb] -= ks_tile_sum(take(w, i, t + 1), y[r0 + nb:r0 + 2 * nb])
-    assert all(next(wk, None) is None for wk in walks)   # every copied tile was taken
-    return y[:m]
+        publish(r0, h, u, (t - 1) % C if E is not None else None, an)
+        for r in range(C):
+            for w in range(1, 8):
+                i = t - 1 - (t - 1 - r) % C - C * (w - 1)
+                while t + 1 < T and i >= 0:
+                    Y[r][i * nb:i * nb + nb] -= ks_tile_sum(take(r, w, i, t + 1),
+                                                            Y[r][r0 + nb:r0 + 2 * nb])
+                    i -= 7 * C
+    assert all(next(wk, None) is None for wk in walks.values())   # every copied tile was taken
+    return np.concatenate([Y[i % C][i * nb:i * nb + nb] for i in range(T)])[:m]
 
 
 def host_kkt_matrices(N, B, seed=0, n=None):
@@ -2787,29 +2987,71 @@ def test_k12_blocked_mirror_matches_lapack(N):
 
 @pytest.mark.parametrize('N', [37, 64, 130, 543, 1055])
 def test_k13_schedule_mirror_matches_lapack(N):
-    """K13's schedule (the interchanges, ks_forward with a unit diagonal, the
-    upper pass over U's tiles as rows, each warp's ring walking its tiles in
-    the order it takes them) solves the system as LAPACK's getrs does, to
-    1e-10 relative; every lower tile is taken once forward and every upper
-    tile once backward."""
+    """K13's schedule at the cluster size lu_solve_f64_geometry gives a lane
+    at B = 1 (the composed interchanges, the row tiles dealt over the ranks,
+    each chain on its owner with the fold handed over, every tile from its
+    warp's walk in the order it takes them) solves the system as LAPACK's
+    getrs does, to 1e-10 relative; every lower tile is taken once forward and
+    every upper tile once backward, each by the rank that owns its row tile
+    or, for a diagonal or fold tile, by the rank whose chain takes it (its
+    column tile's)."""
     from awebox_tpu_torch.parallel import kernels
     K, b = host_kkt_matrices(N, 1, seed=N + 1)
     lu, piv = kernels.lu_factor_f64_plain(torch.as_tensor(K))
     want = kernels.lu_solve_f64_plain(lu, piv, torch.as_tensor(b))[0].numpy()
-    got = k13_schedule_mirror(lu[0].numpy(), piv[0].numpy(), b[0])
+    C = kernels.lu_solve_f64_geometry(N).C
+    got = k13_schedule_mirror(lu[0].numpy(), piv[0].numpy(), b[0], C)
     assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
     T = -(-N // 32)
-    walked = [t for w in range(8) for t in k13_upper_walk(T, w)]
+    walked = {(r, w): list(k13_walk(T, r, C, w)) for r in range(C) for w in range(8)}
+    tiles = [t for ts in walked.values() for t in ts]
     lower = [(i, j) for i in range(T) for j in range(i + 1)]
-    assert sorted(walked) == sorted(lower + [(j, i) for (i, j) in lower])
+    assert sorted(tiles) == sorted(lower + [(j, i) for (i, j) in lower])
+    for (r, w), ts in walked.items():   # warps 1 .. 7: the rank's row tiles; warp 0: its chains'
+        assert all((tj if w == 0 else ti) % C == r for ti, tj in ts)
+
+
+@pytest.mark.parametrize('N, C', [(37, 1), (37, 2), (543, 8), (543, 16), (1055, 16), (1311, 4),
+                                  (1311, 16)])
+def test_k13_cluster_mirror_matches_plain(N, C):
+    """K13's cluster schedule at C ranks against lu_solve_f64_plain to 1e-10
+    relative, and bit for bit the schedule of one rank (the one-CTA
+    solve's order): dealing the row tiles changes which SM sums a row, not the order
+    of its sums. A rank that read an entry of x before its chain published
+    it would read NaN."""
+    from awebox_tpu_torch.parallel import kernels
+    K, b = host_kkt_matrices(N, 1, seed=N + 2)
+    lu, piv = kernels.lu_factor_f64_plain(torch.as_tensor(K))
+    want = kernels.lu_solve_f64_plain(lu, piv, torch.as_tensor(b))[0].numpy()
+    got = k13_schedule_mirror(lu[0].numpy(), piv[0].numpy(), b[0], C)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+    if N <= 543:
+        assert np.array_equal(got, k13_schedule_mirror(lu[0].numpy(), piv[0].numpy(), b[0], 1))
+
+
+@pytest.mark.parametrize('B', [1, 7, 8, 15, 16, 30, 31, 66, 67, 128])
+def test_lu_solve_f64_geometry_follows_the_batch(B):
+    """K13's cluster size follows B so that the B clusters run in one wave
+    (an H100 runs 7 clusters of 16 at once and 15 of 8): 16 up to B = 7, 8
+    up to 15, 4 up to 30, 2 up to 66, then 1; never more than the lane's row
+    tiles (2 at N = 37); the shared memory does not depend on B."""
+    from awebox_tpu_torch.parallel import kernels
+    want = 16 if B <= 7 else 8 if B <= 15 else 4 if B <= 30 else 2 if B <= 66 else 1
+    g = kernels.lu_solve_f64_geometry(543, B)
+    assert g.C == want and g.smem_bytes == kernels.lu_solve_f64_geometry(543).smem_bytes
+    assert B * g.C <= 132 or g.C == 1
+    assert kernels.lu_solve_f64_geometry(37, B).C == min(want, 2)
 
 
 @pytest.mark.parametrize('N', [37, 543, 1055, 1807, 1808])
 def test_lu_f64_geometry(N):
     """K12 holds a panel of 16 columns of N rows at an odd leading dimension
     in one block's shared memory (69,504 B at N = 543), and raises by name
-    from N = 1808; K13's layout is K11's ring beside four N-long vectors and
-    fits every N K12 takes."""
+    from N = 1808; K13's layout a rank is K11's ring (which holds the
+    interchanges' three int arrays first) beside two N-long vectors, the two
+    fold buffers and two mbarriers a tile step, 166,160 B at N = 543, and fits every N K12
+    takes and N = 2656 (the one-CTA solve's reach); it raises by name at N = 4600."""
     from awebox_tpu_torch.parallel import kernels
     if N > 1807:
         with pytest.raises(ValueError, match='lu_factor_f64'):
@@ -2820,7 +3062,12 @@ def test_lu_f64_geometry(N):
     assert g.smem_bytes + kernels.LU64_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
     if N == 543:
         assert g.smem_bytes == 69_504
-    assert kernels.lu_solve_f64_geometry(N) <= kernels.SMEM_PER_BLOCK
+    assert kernels.lu_solve_f64_geometry(N).smem_bytes <= kernels.SMEM_PER_BLOCK
+    if N == 543:
+        assert kernels.lu_solve_f64_geometry(N).smem_bytes == 166_160
+    assert kernels.lu_solve_f64_geometry(2656).smem_bytes + 1024 <= kernels.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match='lu_solve_f64'):
+        kernels.lu_solve_f64_geometry(4600)
 
 
 def test_lu_f64_wrappers_take_the_plain_version_on_cpu():
@@ -2864,14 +3111,24 @@ def lu_f64_residuals(K, lu, piv, x, b):
 @pytest.mark.cuda
 def test_lu_f64_kernels_match_plain_on_card(cuda):
     """K12 (lu_factor_f64) and K13 (lu_solve_f64) against their plain
-    versions at N = 37, 543 (B = 1 and 16) and 1055 (B = 1), and B = 4 with a
-    singular and a NaN lane: ||P L U - K|| / ||K|| <= 1e-13 and the solve's
-    relative residual <= 1e-13 on every finite lane, x within 1e-8 of the
-    plain version's relative to max |x|, the pivots equal; the singular and
-    the NaN lane give a non-finite x and change no other lane's bits; K is
-    not changed; two calls give the same bits; one launch counted each."""
+    versions at N = 37, 543 (B = 1 and 16), 1055, 1311 (B = 1) and 2335 (K13
+    alone, on the plain factor: K12 stops at 1807), and B = 4 with a singular
+    and a NaN lane: ||P L U - K|| / ||K|| <= 1e-13 and the solve's relative
+    residual <= 1e-13 on every finite lane, x within 1e-8 of the plain
+    version's relative to max |x|, the pivots equal; the singular and the NaN
+    lane give a non-finite x and change no other lane's bits; K is not
+    changed; two calls give the same bits; one launch counted each."""
     from awebox_tpu_torch.parallel import kernels
-    for N, B in ((37, 4), (543, 1), (543, 16), (1055, 1)):
+    K, b = host_kkt_matrices(2335, 1, seed=2335)
+    Kt, bt = torch.as_tensor(K, device=cuda), torch.as_tensor(b, device=cuda)
+    lu, piv = kernels.lu_factor_f64_plain(Kt)
+    lu, piv = lu.contiguous(), piv.contiguous()
+    x, x2 = kernels.lu_solve_f64(lu, piv, bt), kernels.lu_solve_f64(lu, piv, bt)
+    x_p = kernels.lu_solve_f64_plain(lu, piv, bt)
+    _, sol = lu_f64_residuals(Kt, lu, piv, x, bt)
+    assert float(sol.max()) <= 1e-13 and torch.equal(x.view(torch.int64), x2.view(torch.int64))
+    assert float((x - x_p).abs().max() / x_p.abs().max()) <= 1e-8
+    for N, B in ((37, 4), (543, 1), (543, 16), (1055, 1), (1311, 1)):
         K, b = host_kkt_matrices(N, B, seed=N + B)
         bad = []
         if B >= 3:
