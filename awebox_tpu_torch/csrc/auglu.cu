@@ -67,7 +67,9 @@
 // kkt_solve, behind Trial.optimize):
 //
 //   K12 lu_factor_f64        ipsolver.py:194  partial-pivot LU of the
-//                            augmented KKT matrix (K2's blocked design)
+//                            augmented KKT matrix (one launch, a
+//                            thread-block cluster a lane, the panels dealt
+//                            over its ranks, the lane in the L2)
 //   K13 lu_solve_f64         ipsolver.py:195, 197  the interchanges, the
 //                            unit-lower and the upper substitution (a
 //                            thread-block cluster a lane, the row tiles
@@ -89,6 +91,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <float.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -578,23 +582,10 @@ __device__ __forceinline__ void argmax_redux(unsigned& key, int& row) {
   key = m;
 }
 
-// the same in f64 (K12): a 64-bit key, reduced by xor shuffles since
-// redux.sync takes 32 bits
+// the same in f64 (K12): a 64-bit key, reduced by k12_argmax
 __device__ __forceinline__ unsigned long long amax_key(double x) {
   const double a = fabs(x);
   return (a == a) ? (unsigned long long)__double_as_longlong(a) + 1ull : 0ull;
-}
-
-__device__ __forceinline__ void argmax_redux(unsigned long long& key, int& row) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long k2 = __shfl_xor_sync(FULL_MASK, key, off);
-    const int r2 = __shfl_xor_sync(FULL_MASK, row, off);
-    if (k2 > key || (k2 == key && r2 < row)) {
-      key = k2;
-      row = r2;
-    }
-  }
 }
 
 // Unblocked LU of the owner's panel: columns P + k*ld (k < w), global rows
@@ -899,13 +890,6 @@ constexpr int KB_UTHREADS = 256;              // update kernels: 32 columns x 8 
 static_assert(KB_WARPS == KB_NB, "a warp per panel column, an argmax slot per warp");
 static_assert(KB_UTHREADS == 32 * 8 && KB_TR == 8 * 8 && KB_TC == 2 * 32, "8 x 2 register tiles");
 
-// The blocked trio is a template on the element type T and the panel width
-// NB (its panel kernel has NB warps): K2 instantiates it at (float, 32), K12
-// at (double, 16). What differs by type is below: the FMA, the pivot key
-// (amax_key and argmax_redux have a double overload) and the 8-wide load.
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
-
 // l[0..7] = p[0..7] from 16-byte aligned shared memory
 __device__ __forceinline__ void load8(const float* __restrict__ p, float (&l)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -914,47 +898,37 @@ __device__ __forceinline__ void load8(const float* __restrict__ p, float (&l)[8]
   l[4] = b.x; l[5] = b.y; l[6] = b.z; l[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const double* __restrict__ p, double (&l)[8]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const double2 v = *reinterpret_cast<const double2*>(p + 2 * q);
-    l[2 * q] = v.x;
-    l[2 * q + 1] = v.y;
-  }
-}
-
 // A[r0 + i][c0 + j] -= sum_k Ls[k][i] Us[k][j] for the tile's rows i < nr and
-// columns j < nc, k = 0 .. NB - 1 in order (the k past a narrower last
+// columns j < nc, k = 0 .. KB_NB - 1 in order (the k past a narrower last
 // panel hold zeros on both sides, so they add 0 * 0): thread (tx, ty) of
 // 32 x 8 updates rows 8 ty .. 8 ty + 7 and columns tx, tx + 32 in registers;
 // its rows of Ls are 16-byte broadcasts, its columns of Us two
 // conflict-free loads a step. The sum is taken from 0 and subtracted once,
 // as a GEMM does: accumulated into A itself, a diagonal entry of U would
 // take one rounding per column of L (N of them) instead of one per panel.
-template <typename T, int NB>
-__device__ __forceinline__ void kb_rank_update(T* __restrict__ a, int N, int r0, int c0, int nr,
-                                               int nc, const T* __restrict__ Ls,
-                                               const T* __restrict__ Us) {
+__device__ __forceinline__ void kb_rank_update(float* __restrict__ a, int N, int r0, int c0,
+                                               int nr, int nc, const float* __restrict__ Ls,
+                                               const float* __restrict__ Us) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  T old[8][2], acc[8][2];
+  float old[8][2], acc[8][2];
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int i = 8 * ty + p, j = tx + 32 * q;
-      old[p][q] = (i < nr && j < nc) ? a[(size_t)(r0 + i) * N + c0 + j] : T(0);
-      acc[p][q] = T(0);
+      old[p][q] = (i < nr && j < nc) ? a[(size_t)(r0 + i) * N + c0 + j] : 0.0f;
+      acc[p][q] = 0.0f;
     }
   }
-#pragma unroll (NB / 4)
-  for (int k = 0; k < NB; ++k) {
-    T l[8];
+#pragma unroll (KB_NB / 4)
+  for (int k = 0; k < KB_NB; ++k) {
+    float l[8];
     load8(Ls + k * KB_LDL + 8 * ty, l);
-    const T u[2] = {Us[k * KB_TC + tx], Us[k * KB_TC + tx + 32]};
+    const float u[2] = {Us[k * KB_TC + tx], Us[k * KB_TC + tx + 32]};
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) acc[p][q] = fma_t(l[p], u[q], acc[p][q]);
+      for (int q = 0; q < 2; ++q) acc[p][q] = fmaf(l[p], u[q], acc[p][q]);
     }
   }
 #pragma unroll
@@ -967,76 +941,71 @@ __device__ __forceinline__ void kb_rank_update(T* __restrict__ a, int N, int r0,
   }
 }
 
-// rows k0..N-1 of the panel's NB columns into P (column c, row k0 + r at
-// c * lds + r; columns past the panel's w hold zeros), NB consecutive
+// rows k0..N-1 of the panel's KB_NB columns into P (column c, row k0 + r at
+// c * lds + r; columns past the panel's w hold zeros), KB_NB consecutive
 // threads a row
-template <typename T, int NB, int THREADS>
-__device__ __forceinline__ void kb_load_panel(T* __restrict__ P, const T* __restrict__ a, int N,
-                                              int k0, int w, int lds) {
-  for (int e = threadIdx.x; e < (N - k0) * NB; e += THREADS) {
-    const int r = e / NB, c = e % NB;
-    P[c * lds + r] = c < w ? a[(size_t)(k0 + r) * N + k0 + c] : T(0);
+__device__ __forceinline__ void kb_load_panel(float* __restrict__ P, const float* __restrict__ a,
+                                              int N, int k0, int w, int lds) {
+  for (int e = threadIdx.x; e < (N - k0) * KB_NB; e += KB_THREADS) {
+    const int r = e / KB_NB, c = e % KB_NB;
+    P[c * lds + r] = c < w ? a[(size_t)(k0 + r) * N + k0 + c] : 0.0f;
   }
 }
 
-template <typename T, int NB, int THREADS>
-__device__ __forceinline__ void kb_store_panel(const T* __restrict__ P, T* __restrict__ a, int N,
-                                               int k0, int w, int lds) {
-  for (int e = threadIdx.x; e < (N - k0) * NB; e += THREADS) {
-    const int r = e / NB, c = e % NB;
+__device__ __forceinline__ void kb_store_panel(const float* __restrict__ P, float* __restrict__ a,
+                                               int N, int k0, int w, int lds) {
+  for (int e = threadIdx.x; e < (N - k0) * KB_NB; e += KB_THREADS) {
+    const int r = e / KB_NB, c = e % KB_NB;
     if (c < w) a[(size_t)(k0 + r) * N + k0 + c] = P[c * lds + r];
   }
 }
 
-template <typename T, int NB>
-__global__ void __launch_bounds__(NB * 32, 1)
-lu_panel_kernel(T* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0, int lds) {
-  constexpr int THREADS = NB * 32;            // a warp per panel column, an argmax slot each
-  using Key = decltype(amax_key(T(0)));
+__global__ void __launch_bounds__(KB_THREADS, 1)
+lu_panel_kernel(float* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0, int lds) {
   extern __shared__ __align__(16) unsigned char lu_dyn[];
-  T* P = reinterpret_cast<T*>(lu_dyn);        // [NB][lds] the panel's rows k0..N-1
-  __shared__ Key s_key[NB];
-  __shared__ int s_row[NB];
-  __shared__ T s_prow[NB];                    // the pivot row of the current column
-  T* a = Ks + (size_t)blockIdx.x * N * N;
+  float* P = reinterpret_cast<float*>(lu_dyn);   // [KB_NB][lds] the panel's rows k0..N-1
+  __shared__ unsigned s_key[KB_WARPS];
+  __shared__ int s_row[KB_WARPS];
+  __shared__ float s_prow[KB_NB];             // the pivot row of the current column
+  float* a = Ks + (size_t)blockIdx.x * N * N;
   int32_t* pv = piv + (size_t)blockIdx.x * N;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const int w = min(NB, N - k0), rows = N - k0;
-  kb_load_panel<T, NB, THREADS>(P, a, N, k0, w, lds);
+  const int w = min(KB_NB, N - k0), rows = N - k0;
+  kb_load_panel(P, a, N, k0, w, lds);
   __syncthreads();
   // rows are local (k0 + r global); a thread visits its rows in increasing
   // order and keeps the first of equal keys, the reduction keeps the lowest row
-  Key key = 0;
+  unsigned key = 0;
   int brow = N;
-  for (int r = tid; r < rows; r += THREADS) {
-    const Key kk = amax_key(P[r]);
+  for (int r = tid; r < rows; r += KB_THREADS) {
+    const unsigned kk = amax_key(P[r]);
     if (kk > key) { key = kk; brow = r; }
   }
   argmax_redux(key, brow);
   if (wl == 0) { s_key[warp] = key; s_row[warp] = brow; }
   for (int k = 0; k < w; ++k) {
     __syncthreads();                          // the slots of column k are in
-    key = wl < NB ? s_key[wl] : Key(0);
-    brow = wl < NB ? s_row[wl] : N;
+    key = s_key[wl];
+    brow = s_row[wl];
     argmax_redux(key, brow);
     const int p = key ? brow : k;             // a column of NaNs keeps the diagonal
-    if (warp == 0 && wl < NB) {               // rows k and p swap across the panel
-      const T vp = P[wl * lds + p], vk = P[wl * lds + k];
+    if (warp == 0) {                          // rows k and p swap across the panel
+      const float vp = P[wl * lds + p], vk = P[wl * lds + k];
       s_prow[wl] = vp;
       P[wl * lds + k] = vp;
       P[wl * lds + p] = vk;
       if (wl == 0) pv[k0 + k] = k0 + p + 1;   // LAPACK's 1-based convention
     }
     __syncthreads();                          // the pivot row is published
-    const T pivot = s_prow[k];
+    const float pivot = s_prow[k];
     key = 0;
     brow = N;
-    for (int r = k + 1 + tid; r < rows; r += THREADS) {
-      const T l = P[k * lds + r] / pivot;
+    for (int r = k + 1 + tid; r < rows; r += KB_THREADS) {
+      const float l = P[k * lds + r] / pivot;
       P[k * lds + r] = l;
-      for (int c = k + 1; c < w; ++c) P[c * lds + r] = fma_t(-l, s_prow[c], P[c * lds + r]);
+      for (int c = k + 1; c < w; ++c) P[c * lds + r] = fmaf(-l, s_prow[c], P[c * lds + r]);
       if (k + 1 < w) {
-        const Key kk = amax_key(P[(k + 1) * lds + r]);
+        const unsigned kk = amax_key(P[(k + 1) * lds + r]);
         if (kk > key) { key = kk; brow = r; }
       }
     }
@@ -1046,7 +1015,7 @@ lu_panel_kernel(T* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0, in
     }
   }
   __syncthreads();
-  kb_store_panel<T, NB, THREADS>(P, a, N, k0, w, lds);
+  kb_store_panel(P, a, N, k0, w, lds);
 }
 
 // The panel's interchanges on every column outside it (columns j < k0 and
@@ -1054,19 +1023,18 @@ lu_panel_kernel(T* __restrict__ Ks, int32_t* __restrict__ piv, int N, int k0, in
 // LAPACK's w sequential swaps of rows k0 + q and p_q move at most 2 w rows:
 // destination d takes the row found by tracing d back through the swaps,
 // from the last one, so every source is loaded before any row is stored.
-template <typename T, int NB>
 __global__ void __launch_bounds__(KB_SCOLS)
-lu_swap_kernel(T* __restrict__ Ks, const int32_t* __restrict__ piv, int N, int k0) {
-  __shared__ int s_piv[NB];                   // the panel's pivots, 0-based
-  __shared__ int s_dst[2 * NB], s_src[2 * NB];
-  __shared__ T L11[NB][NB + 1];               // strictly lower, zeros elsewhere
-  T* a = Ks + (size_t)blockIdx.y * N * N;
+lu_swap_kernel(float* __restrict__ Ks, const int32_t* __restrict__ piv, int N, int k0) {
+  __shared__ int s_piv[KB_NB];                // the panel's pivots, 0-based
+  __shared__ int s_dst[2 * KB_NB], s_src[2 * KB_NB];
+  __shared__ float L11[KB_NB][KB_NB + 1];     // strictly lower, zeros elsewhere
+  float* a = Ks + (size_t)blockIdx.y * N * N;
   const int tid = threadIdx.x;
-  const int w = min(NB, N - k0);
+  const int w = min(KB_NB, N - k0);
   if (tid < w) s_piv[tid] = piv[(size_t)blockIdx.y * N + k0 + tid] - 1;
-  for (int e = tid; e < NB * NB; e += KB_SCOLS) {
-    const int i = e / NB, t = e % NB;
-    L11[i][t] = (i < w && t < i) ? a[(size_t)(k0 + i) * N + k0 + t] : T(0);
+  for (int e = tid; e < KB_NB * KB_NB; e += KB_SCOLS) {
+    const int i = e / KB_NB, t = e % KB_NB;
+    L11[i][t] = (i < w && t < i) ? a[(size_t)(k0 + i) * N + k0 + t] : 0.0f;
   }
   __syncthreads();
   if (tid < 2 * w) {
@@ -1083,72 +1051,70 @@ lu_swap_kernel(T* __restrict__ Ks, const int32_t* __restrict__ piv, int N, int k
   const int c = blockIdx.x * KB_SCOLS + tid;
   if (c >= N - w) return;
   const int j = c < k0 ? c : c + w;
-  T v[2 * NB];
+  float v[2 * KB_NB];
 #pragma unroll
-  for (int d = 0; d < 2 * NB; ++d) v[d] = d < 2 * w ? a[(size_t)s_src[d] * N + j] : T(0);
+  for (int d = 0; d < 2 * KB_NB; ++d) v[d] = d < 2 * w ? a[(size_t)s_src[d] * N + j] : 0.0f;
 #pragma unroll
-  for (int d = 0; d < 2 * NB; ++d) {
+  for (int d = 0; d < 2 * KB_NB; ++d) {
     if (d < 2 * w) a[(size_t)s_dst[d] * N + j] = v[d];
   }
   if (j < k0) return;
   // rows k0..k0+w-1 of the column after the interchanges are v[0..w-1]
 #pragma unroll
-  for (int k = 1; k < NB; ++k) {
+  for (int k = 1; k < KB_NB; ++k) {
 #pragma unroll
-    for (int t = 0; t < k; ++t) v[k] = fma_t(-L11[k][t], v[t], v[k]);
+    for (int t = 0; t < k; ++t) v[k] = fmaf(-L11[k][t], v[t], v[k]);
   }
 #pragma unroll
-  for (int k = 0; k < NB; ++k) {
+  for (int k = 0; k < KB_NB; ++k) {
     if (k < w) a[(size_t)(k0 + k) * N + j] = v[k];
   }
 }
 
 // A22 -= L21 U12 on the trailing rows and columns k0 + w .. N-1
-template <typename T, int NB>
 __global__ void __launch_bounds__(KB_UTHREADS)
-lu_update_kernel(T* __restrict__ Ks, int N, int k0) {
-  __shared__ __align__(16) T Ls[NB * KB_LDL];   // [k][i] L21 of the tile's rows
-  __shared__ __align__(16) T Us[NB * KB_TC];    // [k][j] U12 of the tile's columns
-  T* a = Ks + (size_t)blockIdx.y * N * N;
+lu_update_kernel(float* __restrict__ Ks, int N, int k0) {
+  __shared__ __align__(16) float Ls[KB_NB * KB_LDL];   // [k][i] L21 of the tile's rows
+  __shared__ __align__(16) float Us[KB_NB * KB_TC];    // [k][j] U12 of the tile's columns
+  float* a = Ks + (size_t)blockIdx.y * N * N;
   const int tid = threadIdx.x;
-  const int w = min(NB, N - k0), t0 = k0 + w;
+  const int w = min(KB_NB, N - k0), t0 = k0 + w;
   const int tiles_c = (N - t0 + KB_TC - 1) / KB_TC;
   const int r0 = t0 + (blockIdx.x / tiles_c) * KB_TR, c0 = t0 + (blockIdx.x % tiles_c) * KB_TC;
   const int nr = min(KB_TR, N - r0), nc = min(KB_TC, N - c0);
-  for (int e = tid; e < NB * KB_TR; e += KB_UTHREADS) {   // consecutive threads read a row
-    const int i = e / NB, k = e % NB;
-    Ls[k * KB_LDL + i] = (i < nr && k < w) ? a[(size_t)(r0 + i) * N + k0 + k] : T(0);
+  for (int e = tid; e < KB_NB * KB_TR; e += KB_UTHREADS) {   // consecutive threads read a row
+    const int i = e / KB_NB, k = e % KB_NB;
+    Ls[k * KB_LDL + i] = (i < nr && k < w) ? a[(size_t)(r0 + i) * N + k0 + k] : 0.0f;
   }
-  for (int e = tid; e < NB * KB_TC; e += KB_UTHREADS) {
+  for (int e = tid; e < KB_NB * KB_TC; e += KB_UTHREADS) {
     const int k = e / KB_TC, j = e % KB_TC;
-    Us[e] = (k < w && j < nc) ? a[(size_t)(k0 + k) * N + c0 + j] : T(0);
+    Us[e] = (k < w && j < nc) ? a[(size_t)(k0 + k) * N + c0 + j] : 0.0f;
   }
   __syncthreads();
-  kb_rank_update<T, NB>(a, N, r0, c0, nr, nc, Ls, Us);
+  kb_rank_update(a, N, r0, c0, nr, nc, Ls, Us);
 }
 
-// The host side of the trio: ceil(N / NB) panels, each its three launches
+// The host side of the trio: ceil(N / KB_NB) panels, each its three launches
 // on the stream. lds (the panel's odd leading dimension, >= N) and smem (the
 // panel kernel's dynamic shared memory) come from kernels.py; only that
 // they cover the panel is checked.
-template <typename T, int NB>
-int lu_blocked_launch(T* a, int32_t* pv, int B, int N, int lds, int smem, cudaStream_t st) {
-  if (lds < N || lds % 2 == 0 || (size_t)smem < sizeof(T) * NB * (size_t)lds) {
+int lu_blocked_launch(float* a, int32_t* pv, int B, int N, int lds, int smem, cudaStream_t st) {
+  if (lds < N || lds % 2 == 0 || (size_t)smem < sizeof(float) * KB_NB * (size_t)lds) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute((const void*)lu_panel_kernel<T, NB>,
+  cudaError_t err = cudaFuncSetAttribute((const void*)lu_panel_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  for (int k0 = 0; k0 < N; k0 += NB) {
-    const int w = min(NB, N - k0), nt = N - k0 - w;
-    lu_panel_kernel<T, NB><<<B, NB * 32, smem, st>>>(a, pv, N, k0, lds);
+  for (int k0 = 0; k0 < N; k0 += KB_NB) {
+    const int w = min(KB_NB, N - k0), nt = N - k0 - w;
+    lu_panel_kernel<<<B, KB_THREADS, smem, st>>>(a, pv, N, k0, lds);
     if (N > w) {
-      lu_swap_kernel<T, NB><<<dim3((N - w + KB_SCOLS - 1) / KB_SCOLS, B), KB_SCOLS, 0, st>>>(
+      lu_swap_kernel<<<dim3((N - w + KB_SCOLS - 1) / KB_SCOLS, B), KB_SCOLS, 0, st>>>(
           a, pv, N, k0);
     }
     if (nt > 0) {
       const int tiles = ((nt + KB_TR - 1) / KB_TR) * ((nt + KB_TC - 1) / KB_TC);
-      lu_update_kernel<T, NB><<<dim3(tiles, B), KB_UTHREADS, 0, st>>>(a, N, k0);
+      lu_update_kernel<<<dim3(tiles, B), KB_UTHREADS, 0, st>>>(a, N, k0);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -2666,7 +2632,7 @@ qr_panel_kernel(float* __restrict__ qr, float* __restrict__ tau, float* __restri
   float* a = qr + (size_t)blockIdx.x * N * N;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
   const int w = min(KB_NB, N - k0), rows = N - k0;
-  kb_load_panel<float, KB_NB, KB_THREADS>(P, a, N, k0, w, lds);
+  kb_load_panel(P, a, N, k0, w, lds);
   for (int e = tid; e < KB_NB * (KB_NB + 1); e += KB_THREADS) (&T[0][0])[e] = 0.0f;
   __syncthreads();
   float* col = P + warp * lds;                // this warp's column
@@ -2733,7 +2699,7 @@ qr_panel_kernel(float* __restrict__ qr, float* __restrict__ tau, float* __restri
   if (tid < w) tl[tid] = s_tau[tid];
   float* Tl = Tg + (size_t)blockIdx.x * KB_NB * KB_NB;
   for (int e = tid; e < KB_NB * KB_NB; e += KB_THREADS) Tl[e] = T[e / KB_NB][e % KB_NB];
-  kb_store_panel<float, KB_NB, KB_THREADS>(P, a, N, k0, w, lds);
+  kb_store_panel(P, a, N, k0, w, lds);
 }
 
 // entry (r, k0 + k) of V: the factor's below the diagonal, an implied 1 on
@@ -2830,7 +2796,7 @@ qr_update_kernel(float* __restrict__ qr, const float* __restrict__ Tg,
     Us[e] = y;
   }
   __syncthreads();
-  kb_rank_update<float, KB_NB>(a, N, r0, c0, nr, nc, Ls, Us);
+  kb_rank_update(a, N, r0, c0, nr, nc, Ls, Us);
 }
 
 // ---------------------------------------------------------------------------
@@ -5310,23 +5276,720 @@ size_t k11_smem_doubles(int n) {
 // solver's augmented KKT matrix at awebox_tpu/opti/ipsolver.py:194, f64, as
 // kernels.lu_factor_f64_plain (LAPACK getrf: partial pivoting, the first
 // maximum |a| of a column, 1-based int32 pivots, L unit lower and U in
-// place). It is K2's blocked trio (lu_panel_kernel, lu_swap_kernel,
-// lu_update_kernel, lu_blocked_launch) instantiated at T = double and
-// panels of K12_NB = 16 columns: the lane stays in global memory and the
-// panel kernel, one CTA of 16 warps per lane, holds the panel's rows
-// k0..N-1 in shared memory (69 KB at N = 543, 135 KB at N = 1055); the
-// pivot key is |a|'s 64 bits plus one (0 for a NaN, so a NaN is never
-// chosen; ties to the lowest row), reduced by xor shuffles since redux.sync
-// takes 32 bits.
-// A zero pivot is divided by, so a singular lane's factor holds inf or NaN
-// below it and its solve is not finite; a NaN lane stays NaN. Nothing is
-// atomic and every sum runs in a fixed order: a lane's bits do not depend on
-// the batch. What bounds it on the host solver's path (B = 1): the chain of
-// N pivot steps of the panels, each two block barriers on one SM, and
-// 3 ceil(N / 16) launches; the update's 2/3 N^3 operations spread over the
-// card.
+// place). K is read, not written; the factor goes to lu.
+// What bounds it on the host solver's path (B = 1, N = 543 .. 2335): the
+// chain of N pivot steps, each a search over the column's rows on one SM,
+// and the trailing updates' 2/3 N^3 operations (7.4 GFLOP at N = 2335),
+// whose operands are re-read from the L2 at every panel: a rank-16 update
+// reads and writes each entry for 16 products. One launch a factor, a
+// thread-block cluster of C CTAs a lane (kernels.lu_factor_f64_geometry: C
+// follows the batch as K13's does, 16 at B <= 7). What the design does:
+// - the lane is copied into a work buffer in panels of K12_NB = 16 columns
+//   (panel p: N rows of 16 doubles, 128-byte rows whatever N's parity),
+//   panel p dealt to rank p % C; the work buffer is the medium the ranks
+//   read a published panel from (through the L2, .cg loads), and each rank
+//   copies its panels out to lu at the end;
+// - a panel's chain runs on its owner alone, the panel's rows in registers
+//   (a row a thread, rows tid + 512 q), one block barrier a column: each
+//   warp's first largest |a| (amax_key's 64-bit key, reduced by 32-bit
+//   redux.sync) publishes its row, every warp reduces the 16 slots, the
+//   interchange swaps two rows' logical indices (each row is stored at its
+//   logical place at the end), and the rows below are scaled by the
+//   pivot's reciprocal (LAPACK getf2's: by a division below DBL_MIN) and
+//   updated by a rank-1 FMA, by selects: no call runs in lane-divergent
+//   code before a barrier;
+// - a panel of more than K12_WHOLE = 1024 rows, which 512 threads' registers
+//   do not hold at 16 columns, is factored in two halves of 8 (5 rows a
+//   thread, to K12_LAST = 2560 rows: K12's reach): the right half waits in
+//   shared memory (at its rows' first places: the interchanges moved only
+//   indices), takes U12 = L11^-1 A12 and its update by the left half
+//   (summed from zero, subtracted once), then its own chain; the right
+//   half's interchanges reach the left half in the work buffer before the
+//   panel is published;
+// - the look-ahead: the owner of panel k + 1 waits for panel k alone (a
+//   split cluster barrier, one phase a panel, completes when o(k + 1) has
+//   published panel k + 1), applies panel k's interchanges, U12 and update
+//   to panel k + 1 (the update's tile pairs, with their rows of L21,
+//   streamed through a ring of cp.async slots a warp), factors it and
+//   publishes it; only then does it apply panel k to its other panels, as
+//   every other rank does as soon as panel k is out;
+// - a rank applies panel k to its trailing panels (up to K12_GROUP at a
+//   time): the interchanges as at most 32 row moves (every source loaded
+//   before any row is stored), U12 = L11^-1 A12 a thread a column, then
+//   A22 -= L21 U12 on the f64 tensor cores: L21 staged in chunks of
+//   K12_CHUNK rows (cp.async.cg), each warp streaming pairs of 8-row tiles
+//   through its ring, K12_RING in flight (k12_stream), each entry's 16
+//   products summed from zero by four m8n8k4 MMAs (k = 0..3, 4..7, 8..11,
+//   12..15) and subtracted once;
+// - the interchanges of panel k reach a rank's panels left of it one step
+//   late (at step k + 1, once every rank has read those panels' L21 for
+//   the last time), the last panel's after a cluster barrier; they only
+//   move rows, so L's bits are those of an eager interchange.
+// Every panel update is the same MMA routine wherever it runs, and nothing
+// is atomic, so a lane's bits depend neither on the batch nor on C. A zero
+// pivot is divided by, so a singular lane's factor holds inf or NaN below
+// it and its solve is not finite; a NaN lane stays NaN.
 // ---------------------------------------------------------------------------
-constexpr int K12_NB = 16;                    // panel width: 16 warps in the panel kernel
+constexpr int K12_NB = 16;
+constexpr int K12_THREADS = 512;
+constexpr int K12_WARPS = K12_THREADS / 32;
+constexpr int K12_ROWS16 = 2;                          // rows a thread holds, whole panel
+constexpr int K12_ROWS8 = 5;                           // rows a thread holds, half panel
+constexpr int K12_WHOLE = K12_ROWS16 * K12_THREADS;    // panel rows of one chain of 16
+constexpr int K12_LAST = K12_ROWS8 * K12_THREADS;      // panel rows of the halves: N <= 2560
+constexpr int K12_CHUNK = 256;                         // rows of L21 staged at a time
+constexpr int K12_LDC = 20;                            // their leading dimension (4 mod 8)
+constexpr int K12_GROUP = 10;                          // panels a pass takes (n_local at C = 16)
+constexpr int K12_MAX_CLUSTER = 16;
+constexpr int K12_TILE = K12_NB * K12_NB;              // doubles of a 16 x 16 block
+constexpr int K12_RING = 2;                            // a warp's tile pairs in flight, a pass
+constexpr int K12_RING_AHEAD = 2;                      // and in the look-ahead (with L21)
+constexpr int K12_OLD = 4 * 32 * 2;                    // doubles of a pair's A22 pieces, a warp
+constexpr int K12_LROWS = 16 * K12_LDC;                // doubles of a pair's L21 rows
+
+// K12's block barriers are __syncthreads (bar.sync, which counts a warp
+// whole), and every lane-divergent stretch before one is made of selects and
+// stores alone: a call (a division's or a reciprocal's slow path) inside a
+// divergent branch let a split warp reach a barrier twice, a barrier apart,
+// and the block stalled (N > 512 on an H100); a barrier without .aligned
+// avoided that but made the compiler emulate the warp-wide reductions after
+// it for a split warp (WARPSYNC.COLLECTIVE sequences; the chain ~18% slower).
+
+// Phase stamps for probes/lu64_phases.py, which builds the source with
+// K12_STAMPS defined and its own stamps (thread 0 of every CTA adds up the
+// cycles since its last stamp); nothing here otherwise.
+#ifndef K12_STAMPS
+#define K12_STAMP_BEGIN()
+#define K12_STAMP(i)
+#define K12_STAMP_END()
+#endif
+
+struct K12Shared {
+  unsigned long long key[2][K12_WARPS];          // the warps' candidates, by column parity
+  int row[2][K12_WARPS];                         // their rows (logical)
+  double cand[2][K12_WARPS][K12_NB];             // their entries
+  int pv[K12_NB];                      // the factored panel's pivots, local rows
+  int phys[8];                         // a left half's rows 0 .. 7: the threads' rows that hold them
+  double u8[8 * 8];                    // a right half's U12
+  int pk[2][K12_NB];                   // applied panels' pivots, 0-based rows: k, k - 1
+  int mv_dst[2][2 * K12_NB], mv_src[2][2 * K12_NB];   // their row moves
+  int grp[K12_GROUP], kind[K12_GROUP]; // a pass's panels: 1 trailing, 2 left, 0 none
+  int trl[K12_GROUP], ntrl;            // the trailing ones' slots
+  double l11h[8 * 8];                  // a left half's unit-lower diagonal block
+};
+
+// The warp's first largest key and its row, by 32-bit redux.sync: the high
+// words' maximum, then the low words' among the lanes that hold it, then the
+// lowest row among the lanes that hold both (the 64-bit key of amax_key)
+__device__ __forceinline__ void k12_argmax(unsigned long long& key, int& row) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mhi = __reduce_max_sync(FULL_MASK, hi);
+  const unsigned mlo = __reduce_max_sync(FULL_MASK, hi == mhi ? lo : 0u);
+  row = (int)__reduce_min_sync(FULL_MASK, (hi == mhi && lo == mlo) ? (unsigned)row : 0xffffffffu);
+  key = ((unsigned long long)mhi << 32) | mlo;
+}
+
+// The chain of a W-wide block of a panel (columns d0 .. d0 + w - 1 of it):
+// the thread's rows rr = tid + 512 q < h (from the panel's diagonal) hold
+// v[q][0 .. W - 1] of the logical rows ri[q]; an interchange swaps the two
+// rows' logical indices, not their entries, and the caller stores each row
+// at its logical place. Column d0 + j pivots at the first largest |a| of
+// logical rows d0 + j .. h - 1 (ties to the lowest logical row). One block
+// barrier a column: before it each warp's winning lane publishes its row
+// into the column's parity of the slots; after it every warp reduces the
+// slots, every thread takes the pivot's reciprocal (a column of NaNs keeps
+// the diagonal and a NaN pivot) and scales (dividing where |pivot| <
+// DBL_MIN, as LAPACK's getf2) and updates its rows below by selects, and
+// finds its candidate for the next column. Pivots go to s.pv (local rows)
+// and pv (1-based, global).
+template <int W, int ROWS>
+__device__ __forceinline__ void k12_chain(double (&v)[ROWS][W], int (&ri)[ROWS], int d0, int w,
+                                          int h, int k0, int32_t* __restrict__ pv, K12Shared& s) {
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  K12_STAMP(4);
+  unsigned long long key = 0ull;
+  int brow = INT_MAX, bq = 0;
+#pragma unroll
+  for (int q = 0; q < ROWS; ++q) {
+    const bool in = tid + q * K12_THREADS < h && ri[q] >= d0;
+    const unsigned long long kk = in ? amax_key(v[q][0]) : 0ull;
+    const bool better = kk > key || (kk && kk == key && ri[q] < brow);
+    key = better ? kk : key;
+    brow = better ? ri[q] : brow;
+    bq = better ? q : bq;
+  }
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if (j < w) {
+      K12_STAMP(12);
+      const int d = d0 + j, par = j & 1;
+      unsigned long long wkey = key;
+      int wrow = brow;
+      k12_argmax(wkey, wrow);
+      if (wkey && key == wkey && brow == wrow) {   // this warp's winner: stores alone
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+          if (q == bq) {
+#pragma unroll
+            for (int c = 0; c < W; ++c) s.cand[par][warp][c] = v[q][c];
+          }
+        }
+      }
+      if (wl == 0) { s.key[par][warp] = wkey; s.row[par][warp] = wrow; }
+      K12_STAMP(9);
+      __syncthreads();                  // the slots of column j are in
+      K12_STAMP(10);
+      unsigned long long gkey = wl < K12_WARPS ? s.key[par][wl] : 0ull;
+      int p = wl < K12_WARPS ? s.row[par][wl] : INT_MAX;
+      const unsigned long long mine = gkey;
+      const int mrow = p;
+      k12_argmax(gkey, p);
+      const unsigned won = __ballot_sync(FULL_MASK, gkey && mine == gkey && mrow == p);
+      const double* src = s.cand[par][won ? __ffs(won) - 1 : 0];
+      p = gkey ? p : d;                 // a column of NaNs keeps the diagonal
+      const double pivot = gkey ? src[j] : __longlong_as_double(0x7ff8000000000000ll);
+      const double inv = __drcp_rn(pivot);   // the same value in every thread: no divergence
+      const bool tiny = !(fabs(pivot) >= DBL_MIN);
+      K12_STAMP(11);
+      if (tid == 0) { s.pv[d] = p; pv[k0 + d] = k0 + p + 1; }
+#pragma unroll
+      for (int q = 0; q < ROWS; ++q) ri[q] = ri[q] == p ? d : ri[q] == d ? p : ri[q];
+      bool below[ROWS];
+#pragma unroll
+      for (int q = 0; q < ROWS; ++q) below[q] = tid + q * K12_THREADS < h && ri[q] > d;
+      if (tiny) {                       // uniform over the block
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) v[q][j] = below[q] ? v[q][j] / pivot : v[q][j];
+      } else {
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) v[q][j] = below[q] ? v[q][j] * inv : v[q][j];
+      }
+      __syncwarp();                     // a division's slow path may have split the warp
+      key = 0ull;
+      brow = INT_MAX;
+#pragma unroll
+      for (int q = 0; q < ROWS; ++q) {
+        if (32 * warp + q * K12_THREADS >= h) break;   // the warp's rows past the panel
+        const double l = v[q][j];
+#pragma unroll
+        for (int c = j + 1; c < W; ++c) v[q][c] = below[q] ? fma(-l, src[c], v[q][c]) : v[q][c];
+        if (j + 1 < w) {
+          const unsigned long long kk = below[q] ? amax_key(v[q][j + 1]) : 0ull;
+          const bool better = kk > key || (kk && kk == key && ri[q] < brow);
+          key = better ? kk : key;
+          brow = better ? ri[q] : brow;
+          bq = better ? q : bq;
+        }
+      }
+    }
+  }
+  K12_STAMP(12);
+}
+
+// Interchanges as row moves (lu_swap_kernel's composition): swaps of rows
+// base + q and piv[q], q < w, applied in order, as 2 w moves; destination d
+// takes the row found by tracing d back through the swaps from the last one.
+// Run by threads t0 .. t0 + 2 w - 1.
+__device__ __forceinline__ void k12_compose(const int* piv, int base, int w, int* dst, int* src,
+                                            int t0) {
+  const int q = threadIdx.x - t0;
+  if (q < 0 || q >= 2 * w) return;
+  const int d = q < w ? base + q : piv[q - w];
+  int r = d;
+  for (int qq = w - 1; qq >= 0; --qq) {
+    const int pq = piv[qq];
+    r = (r == base + qq) ? pq : (r == pq ? base + qq : r);
+  }
+  dst[q] = d;
+  src[q] = r;
+}
+
+// Panel q (its rows k0 = 16 q .. N - 1 at P, row r at P + 16 r) factored by
+// the whole block and written back; rh: room for a right half (8 h doubles).
+__device__ __noinline__ void k12_factor(double* __restrict__ P, int N, int k0,
+                                        int32_t* __restrict__ pv, double* __restrict__ rh,
+                                        K12Shared& s) {
+  const int tid = threadIdx.x;
+  const int h = N - k0, w = min(K12_NB, h);
+  if (h <= K12_WHOLE) {
+    double v[K12_ROWS16][K12_NB];
+#pragma unroll
+    for (int q = 0; q < K12_ROWS16; ++q) {
+      const int rr = tid + q * K12_THREADS;
+      const double2* src = reinterpret_cast<const double2*>(P + (size_t)rr * K12_NB);
+#pragma unroll
+      for (int c = 0; c < K12_NB / 2; ++c) {
+        const double2 x = rr < h ? __ldcg(src + c) : make_double2(0.0, 0.0);
+        v[q][2 * c] = x.x;
+        v[q][2 * c + 1] = x.y;
+      }
+    }
+    int ri[K12_ROWS16];
+#pragma unroll
+    for (int q = 0; q < K12_ROWS16; ++q) ri[q] = tid + q * K12_THREADS;
+    k12_chain<K12_NB, K12_ROWS16>(v, ri, 0, w, h, k0, pv, s);
+#pragma unroll
+    for (int q = 0; q < K12_ROWS16; ++q) {
+      const int rr = tid + q * K12_THREADS;
+      double2* dst = reinterpret_cast<double2*>(P + (size_t)ri[q] * K12_NB);
+      if (rr < h) {
+#pragma unroll
+        for (int c = 0; c < K12_NB / 2; ++c) {
+          __stcg(dst + c, make_double2(v[q][2 * c], v[q][2 * c + 1]));
+        }
+      }
+    }
+    __syncthreads();
+    return;
+  }
+  // two halves of 8 (h > 1024, so w = 16), one chain compiled for both
+  double v[K12_ROWS8][8];
+#pragma unroll
+  for (int q = 0; q < K12_ROWS8; ++q) {
+    const int rr = tid + q * K12_THREADS;
+    const double2* src = reinterpret_cast<const double2*>(P + (size_t)rr * K12_NB);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const double2 x = rr < h ? __ldcg(src + c) : make_double2(0.0, 0.0);
+      v[q][2 * c] = x.x;
+      v[q][2 * c + 1] = x.y;
+      if (rr < h) reinterpret_cast<double2*>(rh + (size_t)rr * 8)[c] = __ldcg(src + 4 + c);
+    }
+  }
+  int ri[K12_ROWS8];
+#pragma unroll
+  for (int q = 0; q < K12_ROWS8; ++q) ri[q] = tid + q * K12_THREADS;
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    if (half == 1) {
+      __syncthreads();                  // the left half's L11 and its rows 0 .. 7 are in
+      if (tid < 8) {                    // U12 = L11^-1 A12 on the right half's rows 0 .. 7
+        double u[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) u[i] = rh[s.phys[i] * 8 + tid];
+#pragma unroll
+        for (int i = 1; i < 8; ++i) {
+#pragma unroll
+          for (int t = 0; t < i; ++t) u[i] = fma(-s.l11h[i * 8 + t], u[t], u[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s.u8[i * 8 + tid] = u[i];
+      }
+      __syncthreads();
+      // its rows 8 .. h - 1 less L21 U12 (summed from zero), in place of the left's
+#pragma unroll
+      for (int q = 0; q < K12_ROWS8; ++q) {
+        const int rr = tid + q * K12_THREADS;
+        if (rr < h) {
+          double acc[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[c] = 0.0;
+          if (ri[q] >= 8) {
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+#pragma unroll
+              for (int c = 0; c < 8; ++c) acc[c] = fma(v[q][t], s.u8[t * 8 + c], acc[c]);
+            }
+#pragma unroll
+            for (int c = 0; c < 8; ++c) v[q][c] = rh[(size_t)rr * 8 + c] - acc[c];
+          } else {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) v[q][c] = s.u8[ri[q] * 8 + c];
+          }
+        }
+      }
+    }
+    k12_chain<8, K12_ROWS8>(v, ri, 8 * half, 8, h, k0, pv, s);
+#pragma unroll
+    for (int q = 0; q < K12_ROWS8; ++q) {
+      const int rr = tid + q * K12_THREADS;
+      if (rr < h) {
+        double2* dst = reinterpret_cast<double2*>(P + (size_t)ri[q] * K12_NB + 8 * half);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) __stcg(dst + c, make_double2(v[q][2 * c], v[q][2 * c + 1]));
+        if (half == 0 && ri[q] < 8) {
+          s.phys[ri[q]] = rr;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) s.l11h[ri[q] * 8 + c] = v[q][c];
+        }
+      }
+    }
+  }
+  // the right half's interchanges on the left half: 16 row moves of 8
+  __syncthreads();
+  k12_compose(s.pv + 8, 8, 8, s.mv_dst[0], s.mv_src[0], 0);
+  __syncthreads();
+  double x = 0.0;
+  const int d = tid >> 3, c = tid & 7;
+  if (tid < 16 * 8) x = __ldcg(P + (size_t)s.mv_src[0][d] * K12_NB + c);
+  __syncthreads();
+  if (tid < 16 * 8) __stcg(P + (size_t)s.mv_dst[0][d] * K12_NB + c, x);
+  __syncthreads();
+}
+
+// A tile pair job: A22 rows r0 .. r0 + 15 of the panel T (row r at T + 16 r)
+// and the U12 it takes (16 x 16 row-major)
+struct K12Job {
+  double* T;
+  int r0;
+  const double* Ub;
+};
+
+__device__ __forceinline__ void k12_cp16(double* dst, const double* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void k12_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(R) : "memory");
+}
+
+// The warp's jobs warp, warp + 16, .. of job(0 .. n_jobs - 1), R in flight
+// through its ring of shared memory (cp.async.cg, rows past N zero-filled):
+// each lane copies its own pieces of the pair's A22 entries (the MMA's
+// accumulator layout: row 8 u + g, columns 8 J + 2 tg, + 1) and, with
+// STAGE_A, the pair's 16 rows of L21 from A (row r at A + r lda, global),
+// else reads them from A in shared memory (row r at A + (r - abase) lda).
+// Each entry's 16 products are summed from zero by four m8n8k4 MMAs, k =
+// 0..3, 4..7, 8..11, 12..15 in this order, and subtracted once.
+template <int R, bool STAGE_A, class JobOf>
+__device__ __forceinline__ void k12_stream(int n_jobs, const JobOf& job_of, int N,
+                                           const double* __restrict__ A, int lda, int abase,
+                                           double* __restrict__ ring) {
+  constexpr int SLOT = K12_OLD + (STAGE_A ? K12_LROWS : 0);
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31, g = wl >> 2, tg = wl & 3;
+  double* my = ring + (size_t)warp * R * SLOT;
+  const int mine = warp < n_jobs ? (n_jobs - warp + K12_WARPS - 1) / K12_WARPS : 0;
+  auto issue = [&](int i) {
+    const K12Job jb = job_of(warp + i * K12_WARPS);
+    double* slot = my + (i % R) * SLOT;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = jb.r0 + 8 * u + g;
+      const bool in = row < N;
+#pragma unroll
+      for (int J = 0; J < 2; ++J) {
+        k12_cp16(slot + ((u * 2 + J) * 32 + wl) * 2,
+                 jb.T + (size_t)(in ? row : 0) * K12_NB + 8 * J + 2 * tg, in);
+      }
+    }
+    if (STAGE_A) {
+      const int row = jb.r0 + (wl >> 1);
+      const bool in = row < N;
+#pragma unroll
+      for (int i4 = 0; i4 < 4; ++i4) {
+        const int c = 8 * (wl & 1) + 2 * i4;
+        k12_cp16(slot + K12_OLD + (wl >> 1) * K12_LDC + c,
+                 A + (size_t)(in ? row : 0) * lda + c, in);
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < R - 1; ++i) {
+    if (i < mine) issue(i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int i = 0; i < mine; ++i) {
+    if (i + R - 1 < mine) issue(i + R - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    k12_wait_group<R - 1>();
+    __syncwarp();                       // the lanes' copies are in; the MMAs take the warp
+    const K12Job jb = job_of(warp + i * K12_WARPS);
+    const double* slot = my + (i % R) * SLOT;
+    const double* As = STAGE_A ? slot + K12_OLD : A;
+    const int ab = STAGE_A ? jb.r0 : abase, ld = STAGE_A ? K12_LDC : lda;
+    double b[2][4], a[2][4], acc[2][2][2];
+#pragma unroll
+    for (int J = 0; J < 2; ++J) {
+#pragma unroll
+      for (int s4 = 0; s4 < 4; ++s4) b[J][s4] = jb.Ub[(4 * s4 + tg) * K12_NB + 8 * J + g];
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = jb.r0 + 8 * u + g;
+#pragma unroll
+      for (int s4 = 0; s4 < 4; ++s4) {
+        a[u][s4] = row < N ? As[(size_t)(row - ab) * ld + 4 * s4 + tg] : 0.0;
+      }
+#pragma unroll
+      for (int J = 0; J < 2; ++J) {
+        acc[u][J][0] = acc[u][J][1] = 0.0;
+#pragma unroll
+        for (int s4 = 0; s4 < 4; ++s4) kb8_dmma(acc[u][J][0], acc[u][J][1], a[u][s4], b[J][s4]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = jb.r0 + 8 * u + g;
+#pragma unroll
+      for (int J = 0; J < 2; ++J) {
+        const double2 o = reinterpret_cast<const double2*>(slot)[(u * 2 + J) * 32 + wl];
+        if (row < N) {
+          __stcg(reinterpret_cast<double2*>(jb.T + (size_t)row * K12_NB + 8 * J + 2 * tg),
+                 make_double2(o.x - acc[u][J][0], o.y - acc[u][J][1]));
+        }
+      }
+    }
+    __syncwarp();                       // every lane is through the slot before it is refilled
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The moves and U12 of a pass over the panels s.grp / s.kind (set by thread
+// 0 before the call): kind 1 (trailing) takes panel k's interchanges, then
+// U12 = L11^-1 A12 into its slot of Ub and the work buffer; kind 2 (left of
+// panel k - 1) takes panel k - 1's interchanges. Returns the kinds present
+// (bit 1 trailing, bit 2 left), uniformly over the block.
+__device__ __noinline__ int k12_prep(double* __restrict__ Wl, int N, int k,
+                                     const int32_t* __restrict__ pv, double* __restrict__ Ub,
+                                     double* __restrict__ L11, K12Shared& s) {
+  const int tid = threadIdx.x;
+  __syncthreads();                      // the pass's panels are in; its buffers are free
+  int kinds = 0;
+#pragma unroll
+  for (int m = 0; m < K12_GROUP; ++m) kinds |= s.kind[m];
+  if (!kinds) return 0;
+  const int k0 = k * K12_NB, w = min(K12_NB, N - k0);
+  const int k1 = k0 - K12_NB, w1 = min(K12_NB, N - k1);   // panel k - 1 (kind 2 only)
+  if ((kinds & 1) && tid < w) s.pk[0][tid] = __ldcg(pv + k0 + tid) - 1;
+  if ((kinds & 2) && tid >= 32 && tid < 32 + w1) s.pk[1][tid - 32] = __ldcg(pv + k1 + tid - 32) - 1;
+  if ((kinds & 1) && tid >= K12_THREADS - K12_TILE) {   // L11, strictly lower, zeros elsewhere
+    const int e = tid - (K12_THREADS - K12_TILE), i = e >> 4, t = e & 15;
+    L11[e] = (i < w && t < i) ? __ldcg(Wl + ((size_t)k * N + k0 + i) * K12_NB + t) : 0.0;
+  }
+  __syncthreads();
+  if (kinds & 1) k12_compose(s.pk[0], k0, w, s.mv_dst[0], s.mv_src[0], 0);
+  if (kinds & 2) k12_compose(s.pk[1], k1, w1, s.mv_dst[1], s.mv_src[1], 64);
+  __syncthreads();
+  const int d = tid >> 4, c = tid & 15;
+  double x[K12_GROUP];
+#pragma unroll
+  for (int m = 0; m < K12_GROUP; ++m) {   // every source loaded before any row is stored
+    const int kd = s.kind[m], li = kd == 2, n2 = 2 * (li ? w1 : w);
+    x[m] = (kd && d < n2) ? __ldcg(Wl + ((size_t)s.grp[m] * N + s.mv_src[li][d]) * K12_NB + c)
+                          : 0.0;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < K12_GROUP; ++m) {
+    const int kd = s.kind[m], li = kd == 2, n2 = 2 * (li ? w1 : w);
+    if (kd && d < n2) {
+      const int r = s.mv_dst[li][d];
+      if (kd == 1 && r < k0 + w) {
+        Ub[m * K12_TILE + (r - k0) * K12_NB + c] = x[m];
+      } else {
+        __stcg(Wl + ((size_t)s.grp[m] * N + r) * K12_NB + c, x[m]);
+      }
+    }
+  }
+  __syncthreads();
+  const int m = tid >> 4;               // U12 = L11^-1 A12, a thread a column
+  if ((kinds & 1) && m < K12_GROUP && s.kind[m] == 1) {
+    double u[K12_NB];
+    double* Um = Ub + m * K12_TILE;
+#pragma unroll
+    for (int i = 0; i < K12_NB; ++i) u[i] = Um[i * K12_NB + c];
+#pragma unroll
+    for (int i = 1; i < K12_NB; ++i) {
+#pragma unroll
+      for (int t = 0; t < i; ++t) u[i] = fma(-L11[i * K12_NB + t], u[t], u[i]);
+    }
+    double* Tm = Wl + ((size_t)s.grp[m] * N + k0) * K12_NB + c;
+#pragma unroll
+    for (int i = 0; i < K12_NB; ++i) {
+      Um[i * K12_NB + c] = u[i];
+      __stcg(Tm + (size_t)i * K12_NB, u[i]);   // w = 16 where a trailing panel exists
+    }
+  }
+  __syncthreads();
+  return kinds;
+}
+
+// Panel k applied to the trailing panels of the pass (kind 1, U12 in Ub):
+// A22 -= L21 U12 on rows 16 (k + 1) .. N - 1, L21 staged in Lc a chunk of
+// K12_CHUNK rows at a time; warp w takes the (panel, tile pair) jobs w, w +
+// 16, .. of a chunk, K12_RING of them in flight (k12_stream).
+__device__ __noinline__ void k12_update(double* __restrict__ Wl, int N, int k,
+                                        const double* __restrict__ Ub, double* __restrict__ Lc,
+                                        K12Shared& s) {
+  const int tid = threadIdx.x;
+  double* ring = Lc + K12_CHUNK * K12_LDC;
+  const int nt = s.ntrl;
+  const double* Ak = Wl + (size_t)k * N * K12_NB;
+  for (int lo = (k + 1) * K12_NB; lo < N; lo += K12_CHUNK) {
+    const int hi = min(N, lo + K12_CHUNK), pairs = (hi - lo + 15) >> 4;
+    for (int e = tid; e < (hi - lo) * (K12_NB / 2); e += K12_THREADS) {
+      const int r = e >> 3, c = 2 * (e & 7);
+      const unsigned dd = (unsigned)__cvta_generic_to_shared(Lc + (size_t)r * K12_LDC + c);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   ::"r"(dd), "l"(Ak + (size_t)(lo + r) * K12_NB + c) : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    K12_STAMP(6);
+    const auto job_of = [&](int job) {
+      const int m = s.trl[job / pairs];
+      return K12Job{Wl + (size_t)s.grp[m] * N * K12_NB, lo + K12_NB * (job % pairs),
+                    Ub + m * K12_TILE};
+    };
+    k12_stream<K12_RING, false>(nt * pairs, job_of, N, Lc, K12_LDC, lo, ring);
+    __syncthreads();                    // Lc is free for the next chunk
+    K12_STAMP(7);
+  }
+}
+
+// The look-ahead's update of panel k + 1 (Wn) by panel k (Ak): A22 -= L21
+// U12 on rows lo .. N - 1, L21's rows staged with each tile pair (k12_stream)
+__device__ __noinline__ void k12_ahead(double* __restrict__ Wn, const double* __restrict__ Ak,
+                                       int N, int lo, const double* __restrict__ Ub,
+                                       double* __restrict__ ring) {
+  const auto job_of = [&](int job) { return K12Job{Wn, lo + K12_NB * job, Ub}; };
+  k12_stream<K12_RING_AHEAD, true>((N - lo + 15) / 16, job_of, N, Ak, K12_NB, 0, ring);
+  __syncthreads();
+}
+
+// The passes of step k over this rank's panels (all but skip), K12_GROUP at a
+// time: trailing panels (p > k) take panel k, panels left of k - 1 take panel
+// k - 1's interchanges (late: every rank has read their L21 by now).
+__device__ __noinline__ void k12_passes(double* __restrict__ Wl, int N, int k, int rank, int C,
+                                        int n_local, int skip, const int32_t* __restrict__ pv,
+                                        double* __restrict__ Ub, double* __restrict__ L11,
+                                        double* __restrict__ Lc, K12Shared& s) {
+  for (int t0 = 0; t0 < n_local; t0 += K12_GROUP) {
+    __syncthreads();                    // every warp is through the last pass's lists
+    if (threadIdx.x == 0) {
+      s.ntrl = 0;
+      for (int m = 0; m < K12_GROUP; ++m) {
+        const int t = t0 + m, p = rank + t * C;
+        s.grp[m] = p;
+        s.kind[m] = (t >= n_local || p == skip) ? 0 : p > k ? 1 : (k >= 1 && p <= k - 2) ? 2 : 0;
+        if (s.kind[m] == 1) s.trl[s.ntrl++] = m;
+      }
+    }
+    const int kinds = k12_prep(Wl, N, k, pv, Ub, L11, s);
+    K12_STAMP(5);
+    if (kinds & 1) k12_update(Wl, N, k, Ub, Lc, s);
+  }
+}
+
+__global__ void __launch_bounds__(K12_THREADS, 1)
+lu_factor_f64_kernel(const double* __restrict__ K, double* __restrict__ lu,
+                     int32_t* __restrict__ piv, double* __restrict__ work, int N) {
+  extern __shared__ double2 k12_dyn[];
+  __shared__ K12Shared s;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x, rank = (int)cluster.block_rank();
+  const int lane = (int)blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int P = (N + K12_NB - 1) / K12_NB;
+  const int n_local = (P - rank + C - 1) / C;
+  const double* A = K + (size_t)lane * N * N;
+  double* O = lu + (size_t)lane * N * N;
+  int32_t* pv = piv + (size_t)lane * N;
+  double* Wl = work + (size_t)lane * P * N * K12_NB;   // panel p: N rows of 16 at Wl + 16 N p
+  double* Ub = reinterpret_cast<double*>(k12_dyn);    // [K12_GROUP][16][16] U12 of a pass
+  double* L11 = Ub + K12_GROUP * K12_TILE;            // [16][16] the applied diagonal block
+  double* Lc = L11 + K12_TILE;                        // [K12_CHUNK][K12_LDC] L21, or a right half
+  K12_STAMP_BEGIN();
+
+  // 1. this rank's panels into the work buffer, zeros past column N
+  for (int t = 0; t < n_local; ++t) {
+    const int p = rank + t * C, w = min(K12_NB, N - p * K12_NB);
+    double* Wp = Wl + (size_t)p * N * K12_NB;
+    const double* Ap = A + (size_t)p * K12_NB;
+    for (int e0 = tid; e0 < N * K12_NB; e0 += 8 * K12_THREADS) {
+      double x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * K12_THREADS, r = e >> 4, c = e & 15;
+        x[u] = (e < N * K12_NB && c < w) ? __ldg(Ap + (size_t)r * N + c) : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * K12_THREADS;
+        if (e < N * K12_NB) Wp[e] = x[u];
+      }
+    }
+  }
+  __syncthreads();
+  K12_STAMP(0);
+
+  // 2. panel 0 by rank 0 before the first phase; then a phase a panel
+  if (rank == 0) k12_factor(Wl, N, 0, pv, Lc, s);
+  K12_STAMP(4);
+  k6_cluster_arrive();
+  for (int k = 0; k < P; ++k) {
+    const int nxt = k + 1;
+    const bool ahead = nxt < P && rank == nxt % C;
+    k6_cluster_wait();                  // panel k is published
+    K12_STAMP(1);
+    if (ahead) {                        // the look-ahead: panel k + 1 by panel k, then its chain
+      if (tid == 0) {
+        for (int m = 0; m < K12_GROUP; ++m) { s.grp[m] = nxt; s.kind[m] = m == 0; }
+      }
+      k12_prep(Wl, N, k, pv, Ub, L11, s);
+      K12_STAMP(2);
+      double* Wn = Wl + (size_t)nxt * N * K12_NB;
+      k12_ahead(Wn, Wl + (size_t)k * N * K12_NB, N, nxt * K12_NB, Ub, Lc);
+      K12_STAMP(3);
+      k12_factor(Wn + (size_t)nxt * K12_NB * K12_NB, N, nxt * K12_NB, pv, Lc, s);
+      K12_STAMP(4);
+    }
+    if (nxt < P) k6_cluster_arrive();   // panel k + 1 is published, if ours
+    k12_passes(Wl, N, k, rank, C, n_local, ahead ? nxt : -1, pv, Ub, L11, Lc, s);
+  }
+  cluster.sync();                       // every rank has read every panel
+  K12_STAMP(1);
+  // 3. the last panel's interchanges on the panels left of it; the panels out
+  k12_passes(Wl, N, P, rank, C, n_local, -1, pv, Ub, L11, Lc, s);
+  __syncthreads();
+  for (int t = 0; t < n_local; ++t) {
+    const int p = rank + t * C, w = min(K12_NB, N - p * K12_NB);
+    const double* Wp = Wl + (size_t)p * N * K12_NB;
+    double* Op = O + (size_t)p * K12_NB;
+    for (int e0 = tid; e0 < N * K12_NB; e0 += 8 * K12_THREADS) {
+      double x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * K12_THREADS;
+        x[u] = e < N * K12_NB ? __ldcg(Wp + e) : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * K12_THREADS, r = e >> 4, c = e & 15;
+        if (e < N * K12_NB && c < w) Op[(size_t)r * N + c] = x[u];
+      }
+    }
+  }
+  K12_STAMP(8);
+  K12_STAMP_END();
+}
+
+// K12's launch attributes (a non-portable cluster size past 8) and its
+// configuration, B clusters of C CTAs
+cudaError_t k12_attributes(int C, int smem) {
+  const void* fn = (const void*)lu_factor_f64_kernel;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess || C <= 8) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t k12_config(int B, int C, int smem, void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = k2c_config(B, C, smem, stream, attr);
+  cfg.blockDim = dim3(K12_THREADS);
+  return cfg;
+}
+
+// bytes of K12's dynamic shared memory at N, as kernels.lu_factor_f64_geometry
+size_t k12_smem_bytes(int N) {
+  const size_t rest = N > K12_WHOLE ? (size_t)8 * N : 0;
+  const size_t pass = (size_t)K12_CHUNK * K12_LDC + (size_t)K12_WARPS * K12_RING * K12_OLD;
+  const size_t ahead = (size_t)K12_WARPS * K12_RING_AHEAD * (K12_OLD + K12_LROWS);
+  const size_t u = rest > pass ? rest : pass;
+  return sizeof(double) * ((size_t)K12_GROUP * K12_TILE + K12_TILE + (u > ahead ? u : ahead));
+}
 
 // ---------------------------------------------------------------------------
 // K13 lu_solve_f64: x = lu_solve((lu, piv), b), replacing
@@ -5711,8 +6374,7 @@ int lu_factor_cluster(void* Ks, void* piv, int B, int N, int C, int cols,
 
 // lds and smem come from kernels.lu_factor_geometry
 int lu_factor_blocked(void* Ks, void* piv, int B, int N, int lds, int smem, void* stream) {
-  return lu_blocked_launch<float, KB_NB>((float*)Ks, (int32_t*)piv, B, N, lds, smem,
-                                         (cudaStream_t)stream);
+  return lu_blocked_launch((float*)Ks, (int32_t*)piv, B, N, lds, smem, (cudaStream_t)stream);
 }
 
 // sw, the ring slots per warp, and smem, the dynamic shared memory, come
@@ -5994,10 +6656,34 @@ int block_solve(const void* Li, const void* Xc, const void* L_R, const void* rhs
   return (int)cudaGetLastError();
 }
 
-// lds and smem come from kernels.lu_factor_f64_geometry
-int lu_factor_f64(void* Ks, void* piv, int B, int N, int lds, int smem, void* stream) {
-  return lu_blocked_launch<double, K12_NB>((double*)Ks, (int32_t*)piv, B, N, lds, smem,
-                                           (cudaStream_t)stream);
+// How many clusters of C CTAs of K12 with smem bytes of dynamic shared memory
+// each the card runs at once; written to *max_clusters (int).
+int lu_factor_f64_occupancy(int C, int smem, void* max_clusters) {
+  cudaError_t err = k12_attributes(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k12_config(1, C, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters((int*)max_clusters,
+                                             (const void*)lu_factor_f64_kernel, &cfg);
+}
+
+// C (CTAs a lane) and smem (the dynamic shared memory) come from
+// kernels.lu_factor_f64_geometry; only that N is within K12's reach, that C
+// is a cluster size it takes and that smem covers its buffers at N are
+// checked. B clusters of C CTAs; work holds B ceil(N / 16) N 16 doubles.
+int lu_factor_f64(const void* K, void* lu, void* piv, void* work, int B, int N, int C, int smem,
+                  void* stream) {
+  if (N < 1 || N > K12_LAST || C < 1 || C > K12_MAX_CLUSTER || (size_t)smem < k12_smem_bytes(N)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = k12_attributes(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k12_config(B, C, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, lu_factor_f64_kernel, (const double*)K, (double*)lu,
+                           (int32_t*)piv, (double*)work, N);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // How many clusters of C CTAs of K13 with smem bytes of dynamic shared memory

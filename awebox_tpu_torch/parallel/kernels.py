@@ -43,7 +43,8 @@ inertia test at B = 1):
 wrapper                replaces (awebox_tpu/opti/ipsolver.py)       dtype
 =====================  ===========================================  ==========
 lu_factor_f64          jax.scipy.linalg.lu_factor of the augmented  f64
-                       KKT matrix, :194 (K2's blocked design)
+                       KKT matrix, :194 (a thread-block cluster a
+                       lane)
 lu_solve_f64           jax.scipy.linalg.lu_solve, :195, :197         f64
                        (a thread-block cluster a lane)
 =====================  ===========================================  ==========
@@ -117,7 +118,8 @@ SIGNATURES = {
     'block_factor': [_P] * 7 + [_I] * 9 + [_P],
     'block_solve_occupancy': [_I, _I, _P],
     'block_solve': [_P] * 8 + [_I] * 8 + [_P],
-    'lu_factor_f64': [_P, _P] + [_I] * 4 + [_P],
+    'lu_factor_f64_occupancy': [_I, _I, _P],
+    'lu_factor_f64': [_P] * 4 + [_I] * 4 + [_P],
     'lu_solve_f64_occupancy': [_I, _I, _P],
     'lu_solve_f64': [_P] * 4 + [_I] * 4 + [_P],
     'noop': [_I, _P],
@@ -473,16 +475,18 @@ def lu_factor_geometry(N: int) -> LUGeometry:
 _max_clusters = {}
 
 
-def lu_cluster_max_active(geom: LUGeometry) -> int:
-    """Clusters of this geometry the card runs at once (asked once per
-    geometry); raises if it cannot run one."""
-    key = (geom.C, geom.smem_bytes)
+def cluster_max_active(name: str, geom) -> int:
+    """Clusters of ``geom.C`` CTAs with ``geom.smem_bytes`` of shared memory
+    each that the card runs at once, as ``{name}_occupancy`` of the library
+    gives it (asked once per kernel and geometry); raises if it cannot run
+    one."""
+    key = (name, geom.C, geom.smem_bytes)
     if key not in _max_clusters:
         count = ctypes.c_int(0)
-        _check('lu_factor_cluster_occupancy', library().lu_factor_cluster_occupancy(
+        _check(f'{name}_occupancy', getattr(library(), f'{name}_occupancy')(
             geom.C, geom.smem_bytes, ctypes.byref(count)))
         if count.value < 1:
-            raise RuntimeError(f'lu_factor_cluster: a cluster of {geom.C} CTAs with '
+            raise RuntimeError(f'{name}: a cluster of {geom.C} CTAs with '
                                f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
         _max_clusters[key] = count.value
     return _max_clusters[key]
@@ -502,7 +506,7 @@ def lu_factor_batched(Ks):
     geom = lu_factor_geometry(N)
     piv = torch.empty(B, N, dtype=torch.int32, device=Ks.device)
     if geom.variant == 'cluster':
-        lu_cluster_max_active(geom)
+        cluster_max_active('lu_factor_cluster', geom)
         _check(name, library().lu_factor_cluster(
             _ptr(Ks), _ptr(piv), B, N, geom.C, geom.cols_per_cta, geom.ld,
             geom.smem_bytes, _stream()))
@@ -936,21 +940,6 @@ def qr_factor_geometry(N: int) -> QRGeometry:
     return QRGeometry('blocked', 1, BLOCKED_NB, BLOCKED_NB, lds, smem)
 
 
-def qr_cluster_max_active(geom: QRGeometry) -> int:
-    """Clusters of this geometry the card runs at once (asked once per
-    geometry); raises if it cannot run one."""
-    key = ('qr', geom.C, geom.smem_bytes)
-    if key not in _max_clusters:
-        count = ctypes.c_int(0)
-        _check('qr_factor_cluster_occupancy', library().qr_factor_cluster_occupancy(
-            geom.C, geom.smem_bytes, ctypes.byref(count)))
-        if count.value < 1:
-            raise RuntimeError(f'qr_factor_cluster: a cluster of {geom.C} CTAs with '
-                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
-        _max_clusters[key] = count.value
-    return _max_clusters[key]
-
-
 def qr_factor_batched(M):
     """(B,N,N) f32 -> (qr (B,N,N), tau (B,N)) f32 in geqrf's layout; M is
     kept (the refinement's residual reads it). The variant is
@@ -968,7 +957,7 @@ def qr_factor_batched(M):
     qr = torch.empty_like(M)
     tau = torch.empty(B, N, dtype=torch.float32, device=M.device)
     if geom.variant == 'cluster':
-        qr_cluster_max_active(geom)
+        cluster_max_active('qr_factor_cluster', geom)
         _check(name, library().qr_factor_cluster(
             _ptr(M), _ptr(qr), _ptr(tau), B, N, geom.C, geom.cols_per_cta, geom.ld,
             geom.smem_bytes, _stream()))
@@ -1287,21 +1276,6 @@ def block_solve_geometry(lay: BlockLayout) -> BlockSolveGeometry:
     return BlockSolveGeometry(n_k, ld_x, li_tiles, r_tiles, smem)
 
 
-def block_solve_max_active(geom: BlockSolveGeometry) -> int:
-    """Clusters of K9's geometry the card runs at once (asked once per
-    geometry); raises if it cannot run one."""
-    key = ('block_solve', geom.C, geom.smem_bytes)
-    if key not in _max_clusters:
-        count = ctypes.c_int(0)
-        _check('block_solve_occupancy', library().block_solve_occupancy(
-            geom.C, geom.smem_bytes, ctypes.byref(count)))
-        if count.value < 1:
-            raise RuntimeError(f'block_solve: a cluster of {geom.C} CTAs with '
-                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
-        _max_clusters[key] = count.value
-    return _max_clusters[key]
-
-
 def block_solve(Li, Xc, L_R, rhs, index_maps, lay: BlockLayout):
     """(B, n) f64 right-hand sides -> (B, n) f64, as block_solve_plain; the
     index maps are int64 tensors. On the card one launch, a thread-block
@@ -1324,7 +1298,7 @@ def block_solve(Li, Xc, L_R, rhs, index_maps, lay: BlockLayout):
             or n != n_k * (nx + ni) + nb:
         raise ValueError(f'{name}: inconsistent shapes')
     geom = block_solve_geometry(lay)
-    block_solve_max_active(geom)
+    cluster_max_active('block_solve', geom)
     x = torch.empty_like(rhs)
     _check(name, library().block_solve(_ptr(Li), _ptr(Xc), _ptr(L_R), _ptr(rhs),
                                        _ptr(chain_V), _ptr(intr_V), _ptr(border_V), _ptr(x),
@@ -1453,21 +1427,6 @@ def chol_factor_geometry(n: int) -> CholGeometry:
     return geom
 
 
-def chol_cluster_max_active(geom: CholGeometry) -> int:
-    """Clusters of K10's geometry the card runs at once (asked once per
-    geometry); raises if it cannot run one."""
-    key = ('chol', geom.variant, geom.C, geom.smem_bytes)
-    if key not in _max_clusters:
-        count = ctypes.c_int(0)
-        name = f'chol_factor_{geom.variant}_occupancy'
-        _check(name, getattr(library(), name)(geom.C, geom.smem_bytes, ctypes.byref(count)))
-        if count.value < 1:
-            raise RuntimeError(f'chol_factor_{geom.variant}: a cluster of {geom.C} CTAs with '
-                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
-        _max_clusters[key] = count.value
-    return _max_clusters[key]
-
-
 def chol_factor_batched(M):
     """(B, n, n) f64 -> (L (B, n, n) f64, lower with zeros above, ok (B,)
     bool), as chol_factor_batched_plain; a lane whose pivot is <= 0 or not
@@ -1489,7 +1448,7 @@ def chol_factor_batched(M):
     geom = chol_factor_geometry(n)
     L = torch.empty_like(M)
     ok = torch.empty(B, dtype=torch.bool, device=M.device)
-    chol_cluster_max_active(geom)
+    cluster_max_active(f'chol_factor_{geom.variant}', geom)
     if geom.variant == 'cluster':
         _check(name, library().chol_factor_cluster(_ptr(M), _ptr(L), _ptr(ok), B, n, geom.C,
                                                    geom.ld, geom.recv_off, geom.smem_bytes,
@@ -1554,35 +1513,67 @@ def lu_factor_f64_plain(K):
     return lu, piv
 
 
+# (B at most, C): K12's and K13's CTAs a lane follow the batch, so that B clusters run in
+# one wave (an H100 runs 7 clusters of 16 at once and 15 of 8, one CTA an SM)
+LU64_SOLVE_CLUSTERS = ((7, 16), (15, 8), (30, 4), (66, 2))
+
+
 LU64_NB = 16                # panel width of K12 (K12_NB)
-LU64_STATIC_SMEM = 1_024    # room for the panel kernel's static arrays (320 B)
+LU64_THREADS = 512          # threads of a rank (K12_THREADS)
+LU64_WHOLE = 1024           # panel rows one chain of 16 columns holds (K12_WHOLE)
+LU64_LAST = 2560            # panel rows a chain of 8 holds (K12_LAST): K12's reach
+LU64_CHUNK = 256            # rows of L21 staged at a time (K12_CHUNK)
+LU64_CHUNK_LD = 20          # their leading dimension (K12_LDC)
+LU64_GROUP = 10             # panels a rank's pass takes (K12_GROUP)
+LU64_RING = 2               # a warp's tile pairs in flight in a pass (K12_RING)
+LU64_RING_AHEAD = 2         # and in the look-ahead, with their rows of L21 (K12_RING_AHEAD)
+LU64_STATIC_SMEM = 8_192    # room for the kernel's static shared arrays (K12Shared, ~7 KB)
 
 
 class LU64Geometry(NamedTuple):
-    """How K12 lays one lane out: the lane in global memory, factored in
-    panels of ``nb`` columns, one CTA a lane holding a panel's rows at the odd
-    leading dimension ``ld`` in ``smem_bytes`` of shared memory."""
-    nb: int
-    ld: int
+    """How K12 lays one lane out: a thread-block cluster of ``C`` CTAs, panel
+    p of 16 columns to rank p % C, the lane in a work buffer in the L2; a
+    panel of more than LU64_WHOLE rows factored in two halves of 8;
+    ``smem_bytes`` of dynamic shared memory a rank (the U12 blocks of a
+    pass, the applied diagonal block, and the staged L21 with the warps'
+    rings of tile pairs in flight, or the look-ahead's rings, or a right
+    half)."""
+    C: int
     smem_bytes: int
 
 
-def lu_factor_f64_geometry(N: int) -> LU64Geometry:
-    """K12's layout for N x N lanes; raises by name where a panel's N rows do
-    not fit one block's shared memory (N > 1807)."""
-    ld = blocked_lds(N)
-    smem = 8 * LU64_NB * ld
-    if smem + LU64_STATIC_SMEM > SMEM_PER_BLOCK:
-        raise ValueError(f'lu_factor_f64: N={N} is beyond K12 (its panel of {LU64_NB} '
-                         f'columns needs {smem} B of shared memory)')
-    return LU64Geometry(LU64_NB, ld, smem)
+def lu_factor_f64_geometry(N: int, B: int = 1) -> LU64Geometry:
+    """K12's layout for B lanes of N x N (C follows the batch as K13's:
+    16 up to B = 7, 8 up to 15, .., never more than the lane's panels;
+    169,984 B a rank, the look-ahead's rings of two tile pairs with their
+    L21 rows, to N = 2304, and a right half's 8 N doubles past it: 171,968
+    B at N = 2335); raises by name
+    where a panel's rows exceed what a half-panel chain holds (N > 2560)."""
+    if N > LU64_LAST:
+        raise ValueError(f'lu_factor_f64: N={N} is beyond K12 (a half panel of {N} rows; '
+                         f'its chain holds {LU64_LAST})')
+    P = -(-N // LU64_NB)
+    C = next((c for most, c in LU64_SOLVE_CLUSTERS if B <= most), 1)
+    return LU64Geometry(min(C, P), lu_factor_f64_smem(N))
+
+
+def lu_factor_f64_smem(N: int, ring: int = LU64_RING, ahead: int = LU64_RING_AHEAD) -> int:
+    """K12's dynamic shared memory a rank at N (the launcher's k12_smem_bytes,
+    which refuses less), with ``ring`` tile pairs in flight a warp in a pass
+    and ``ahead`` in the look-ahead."""
+    rest = 8 * N if N > LU64_WHOLE else 0
+    old, lrows = 4 * 32 * 2, 16 * LU64_CHUNK_LD   # a warp's A22 pieces and L21 rows of a pair
+    passes = LU64_CHUNK * LU64_CHUNK_LD + 16 * ring * old
+    return 8 * (LU64_GROUP * 256 + 256 + max(passes, 16 * ahead * (old + lrows), rest))
 
 
 def lu_factor_f64(K):
     """(B, N, N) f64 -> (lu, piv (B, N) int32), as lu_factor_f64_plain. K is
-    not changed: on the card the factor is computed in place in a copy, by
-    3 ceil(N / 16) launches (a panel factor a lane, the interchanges with
-    U12, the trailing update over the card), counted once."""
+    not changed. On the card one launch, a thread-block cluster a lane
+    (lu_factor_f64_geometry): the panels of 16 columns dealt over the ranks
+    in a work buffer, each panel's chain on its owner after the look-ahead
+    update by the panel before, the trailing updates on the f64 tensor
+    cores, the factor copied out to lu."""
     if not K.is_cuda:
         return lu_factor_f64_plain(K)
     name = 'lu_factor_f64'
@@ -1590,11 +1581,13 @@ def lu_factor_f64(K):
     B, N, N2 = K.shape
     if N != N2:
         raise ValueError(f'{name}: square matrices expected')
-    geom = lu_factor_f64_geometry(N)
-    lu = K.clone()
+    geom = lu_factor_f64_geometry(N, B)
+    cluster_max_active('lu_factor_f64', geom)
+    lu = torch.empty_like(K)
     piv = torch.empty(B, N, dtype=torch.int32, device=K.device)
-    _check(name, library().lu_factor_f64(_ptr(lu), _ptr(piv), B, N, geom.ld, geom.smem_bytes,
-                                         _stream()))
+    work = torch.empty(B, -(-N // LU64_NB), N, LU64_NB, dtype=torch.float64, device=K.device)
+    _check(name, library().lu_factor_f64(_ptr(K), _ptr(lu), _ptr(piv), _ptr(work), B, N, geom.C,
+                                         geom.smem_bytes, _stream()))
     LAUNCHES[name] += 1
     return lu, piv
 
@@ -1602,11 +1595,6 @@ def lu_factor_f64(K):
 def lu_solve_f64_plain(lu, piv, b):
     """(B, N, N) f64 factor, (B, N) int32 pivots, (B, N) f64 -> (B, N) f64."""
     return torch.linalg.lu_solve(lu, piv, b[:, :, None])[:, :, 0]
-
-
-# (B at most, C): K13's CTAs a lane follow the batch, so that B clusters run in
-# one wave (an H100 runs 7 clusters of 16 at once and 15 of 8, one CTA an SM)
-LU64_SOLVE_CLUSTERS = ((7, 16), (15, 8), (30, 4), (66, 2))
 
 
 class LUSolve64Geometry(NamedTuple):
@@ -1636,21 +1624,6 @@ def lu_solve_f64_geometry(N: int, B: int = 1) -> LUSolve64Geometry:
     return LUSolve64Geometry(min(C, T), smem)
 
 
-def lu_solve_max_active(geom: LUSolve64Geometry) -> int:
-    """Clusters of K13's geometry the card runs at once (asked once per
-    geometry); raises if it cannot run one."""
-    key = ('lu_solve_f64', geom.C, geom.smem_bytes)
-    if key not in _max_clusters:
-        count = ctypes.c_int(0)
-        _check('lu_solve_f64_occupancy', library().lu_solve_f64_occupancy(
-            geom.C, geom.smem_bytes, ctypes.byref(count)))
-        if count.value < 1:
-            raise RuntimeError(f'lu_solve_f64: a cluster of {geom.C} CTAs with '
-                               f'{geom.smem_bytes} B of shared memory each cannot be scheduled')
-        _max_clusters[key] = count.value
-    return _max_clusters[key]
-
-
 def lu_solve_f64(lu, piv, b):
     """(B, N, N) f64, (B, N) int32, (B, N) f64 -> (B, N) f64, as
     lu_solve_f64_plain. On the card one launch, a thread-block cluster per
@@ -1666,7 +1639,7 @@ def lu_solve_f64(lu, piv, b):
     if lu.shape != (B, N, N) or piv.shape != (B, N) or b.shape != (B, N):
         raise ValueError(f'{name}: inconsistent shapes')
     geom = lu_solve_f64_geometry(N, B)
-    lu_solve_max_active(geom)
+    cluster_max_active('lu_solve_f64', geom)
     x = torch.empty_like(b)
     _check(name, library().lu_solve_f64(_ptr(lu), _ptr(piv), _ptr(b), _ptr(x), B, N, geom.C,
                                         geom.smem_bytes, _stream()))

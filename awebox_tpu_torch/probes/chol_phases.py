@@ -389,7 +389,7 @@ def main():
         failed += [] if good else [tag]
         line = (f'{tag} {geom.variant} C={geom.C} nb={geom.nb} ld={geom.ld} smem '
                 f'{geom.smem_bytes} B: L gap to plain {gap:.2e}, ok {int(ok.sum())}/{B}')
-        mc = kernels.chol_cluster_max_active(geom)
+        mc = kernels.cluster_max_active(f'chol_factor_{geom.variant}', geom)
         line += f'; {mc} clusters at once, {-(-B // mc)} wave(s)'
         if geom.variant == 'stream':
             line += ('; panels in L a rank ' + ','.join(str(sum(o is None for o in offs))

@@ -16,12 +16,18 @@ mode as the JAX package takes them (grad, jacfwd, hessian) with the largest
 difference of the two, the residual pieces of the KKT error (kkt_parts, on
 the dense derivatives as the solve loop passes them), one dense direction
 (kkt_solve: K10's inertia test, K12, K13 twice) and one evaluation of the
-barrier objective, each with its count of aten operations. With --solve, a cold Trial.optimize of the
-bench configuration on the same device, printing each homotopy step's
-iterations and seconds, and the power and period against the anchor's.
-Prints one JSON line at the end.
+barrier objective, each with its count of aten operations. With --solve, a
+cold Trial.optimize of bench_options(n_k=N) on the same device, uncut,
+printing each homotopy step's status, iterations, seconds and KKT error, and
+the power and period (against the anchor's at N = 4); --solve-only runs the
+cold solve alone, --final STEP stops it after that homotopy step (at n_k=14,
+the first grid past the previous K12's reach, the final step runs to its
+2000-iteration cap in the JAX package), --max-iter M caps every step at M
+iterations (solver.max_iter, 2000 by default). Prints one JSON line at the
+end.
 
-    python3 awebox_tpu_torch/probes/host_solver.py [--nk N] [--solve] [--device cpu]
+    python3 awebox_tpu_torch/probes/host_solver.py [--nk N] [--solve | --solve-only]
+        [--final STEP] [--max-iter M] [--device cpu]
 """
 import argparse
 import json
@@ -58,11 +64,23 @@ def main():
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--runs', type=int, default=3)
     ap.add_argument('--solve', action='store_true')
+    ap.add_argument('--solve-only', action='store_true')
+    ap.add_argument('--final', help="the last homotopy step of the cold solve (default: all)")
+    ap.add_argument('--max-iter', type=int, help='solver.max_iter (default: 2000)')
     ap.add_argument('--nk', type=int, default=4)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     from awebox_tpu_torch.api.trial import Trial
     from awebox_tpu_torch.configs import bench_options
+    if args.solve_only:
+        dev = torch.device(args.device)
+        out = dict(device=str(dev), n_k=args.nk,
+                   solve=cold_solve(Trial, bench_options, args.nk, dev, args.final,
+                                    args.max_iter))
+        if dev.type == 'cuda':
+            out['card'] = torch.cuda.get_device_name(0)
+        print(json.dumps(out), flush=True)
+        return
     from awebox_tpu_torch.opti.homotopy import build_p_fix, final_cost_values
     from awebox_tpu_torch.opti.initialization import build_reference
     from awebox_tpu_torch.opti.ipsolver import InteriorPointSolver, IPOptions
@@ -154,25 +172,46 @@ def main():
         out['card'] = torch.cuda.get_device_name(0)
 
     if args.solve:
-        cold = Trial(bench_options(), 'host_solver_cold').build()
-        t0 = time.time()
-        cold.optimize(verbose=False, device=dev)
-        seconds = time.time() - t0
-        go = cold.global_outputs()
-        st_ = cold.solution.stats
-        for key in st_['iterations']:
-            print(f'[host_solver] {key}: {st_["iterations"][key]} iterations, '
-                  f'{st_["t_wall"][key]:.1f} s', flush=True)
-        rel_p = go['avg_power_watts'] / float(anchor['avg_power_watts']) - 1.
-        rel_t = go['time_period'] / float(anchor['time_period']) - 1.
-        print(f'[host_solver] cold solve: {cold.solve_succeeded}, {seconds:.1f} s, '
-              f'{sum(st_["iterations"].values())} iterations; power {go["avg_power_watts"]:.6f} W '
-              f'({rel_p:.2e} relative to the anchor), period {go["time_period"]:.6f} s '
-              f'({rel_t:.2e})', flush=True)
-        out['solve'] = dict(success=cold.solve_succeeded, seconds=seconds,
-                            iterations=st_['iterations'], t_wall=st_['t_wall'],
-                            rel_power=rel_p, rel_period=rel_t)
+        out['solve'] = cold_solve(Trial, bench_options, args.nk, dev, args.final, args.max_iter)
     print(json.dumps(out), flush=True)
+
+
+def cold_solve(Trial, bench_options, n_k, dev, final=None, max_iter=None):
+    """Trial(bench_options(n_k=n_k)).build().optimize() on dev, uncut
+    (through the homotopy step ``final`` if given, each step capped at
+    ``max_iter`` iterations if given): each homotopy step's line and the
+    solve's; returns its record."""
+    options = bench_options(n_k=n_k)
+    if max_iter:
+        options['solver.max_iter'] = max_iter
+    cold = Trial(options, 'host_solver_cold').build()
+    t0 = time.time()
+    cold.optimize(verbose=False, device=dev,
+                  **({'final_homotopy_step': final} if final else {}))
+    seconds = time.time() - t0
+    go = cold.global_outputs()
+    st_ = cold.solution.stats
+    steps = {}
+    for key in st_['iterations']:
+        res = cold.solution.step_results[key]
+        steps[key] = dict(status=res['status'], iterations=st_['iterations'][key],
+                          seconds=st_['t_wall'][key], kkt_error=res['kkt_error'])
+        print(f'[host_solver] {key}: {res["status"]}, {st_["iterations"][key]} iterations, '
+              f'{st_["t_wall"][key]:.1f} s, '
+              f'{1e3 * st_["t_wall"][key] / max(st_["iterations"][key], 1):.0f} ms/iter, '
+              f'KKT error {res["kkt_error"]:.3e}', flush=True)
+    rec = dict(success=cold.solve_succeeded, seconds=seconds, steps=steps,
+               power=go['avg_power_watts'], period=go['time_period'])
+    line = (f'[host_solver] cold solve at n_k={n_k}: {cold.solve_succeeded}, {seconds:.1f} s, '
+            f'{sum(st_["iterations"].values())} iterations; power {go["avg_power_watts"]!r} W, '
+            f'period {go["time_period"]!r} s')
+    if n_k == 4:
+        anchor = dict(np.load(ANCHOR))
+        rec['rel_power'] = go['avg_power_watts'] / float(anchor['avg_power_watts']) - 1.
+        rec['rel_period'] = go['time_period'] / float(anchor['time_period']) - 1.
+        line += f' ({rec["rel_power"]:.2e}, {rec["rel_period"]:.2e} relative to the anchor)'
+    print(line, flush=True)
+    return rec
 
 
 if __name__ == '__main__':

@@ -246,7 +246,7 @@ def k6_rows(libs, parent, g):
         print(f'N={N:5d} B={B:4d} K6 cluster vs geqrf: |diag R| off by {diag:.3e} of its max, '
               f'solve residual {res:.3e} (library {res_lib:.3e}), finite {finite}', flush=True)
         out, tau_o = torch.empty_like(M), torch.empty(B, N, device=M.device)
-        kernels.qr_cluster_max_active(fg)
+        kernels.cluster_max_active('qr_factor_cluster', fg)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         if parent is not None:
             this = lambda: kernels.qr_factor_batched(M)

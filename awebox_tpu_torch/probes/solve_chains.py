@@ -297,7 +297,7 @@ def main():
         rhs = torch.as_tensor(rng.standard_normal((B, n)), device='cuda')
         tag = f'K9 n_k={n_k} B={B:3d}'
         g = kernels.block_solve_geometry(lay)
-        active = kernels.block_solve_max_active(g)
+        active = kernels.cluster_max_active('block_solve', g)
         x = kernels.block_solve(*fac, rhs, maps, lay)
         xp = kernels.block_solve_plain(*fac, rhs, maps, lay)
         torch.cuda.synchronize()
@@ -369,7 +369,7 @@ def main():
         lu, piv = (t.contiguous() for t in torch.linalg.lu_factor(K))
         tag = f'K13 N={N} B={B:3d}'
         g = kernels.lu_solve_f64_geometry(N, B)
-        active = kernels.lu_solve_max_active(g)
+        active = kernels.cluster_max_active('lu_solve_f64', g)
         x = kernels.lu_solve_f64(lu, piv, b)
         xp = kernels.lu_solve_f64_plain(lu, piv, b)
         torch.cuda.synchronize()

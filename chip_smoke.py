@@ -5,8 +5,8 @@ Drives the port's main path, the batched wind-sweep refinement of the
 Ampyx AP2 3-DOF power cycle (n_k=4, d=3: n=280 variables, m=263
 constraints, a 543x543 augmented KKT system per lane), the same sweep on
 the n_k=8 grid (n=540, m=515, 1055x1055), and the cold homotopy solve of
-the configuration through Trial.optimize (at n_k=4, and capped at n_k=10:
-n=670, m=641, 1311x1311), through its public entry points,
+the configuration through Trial.optimize (at n_k=4, and capped at n_k=18:
+n=1190, m=1145, 2335x2335), through its public entry points,
 and checks the hand-written CUDA kernels on the way:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA
@@ -51,14 +51,15 @@ and checks the hand-written CUDA kernels on the way:
               M (n=280, B = 1, 2 and 16; n=540, B=16 in phase 7) and K10's
               stream variant (a cluster of 16 a lane, the lane in the L2)
               with K11 on random SPD matrices at n=700 (B = 4, 2 and 1) and
-              n = 555, 876 and 1190 (B=1; the n_k=10 path's own M, n=670, in
-              phase 9), each with an indefinite and a NaN lane where B > 2,
+              n = 555, 670, 876 and 1190 (B=1; the n_k=18 path's own M,
+              n=1190, in phase 9), each with an indefinite and a NaN lane
+              where B > 2,
               and K4's advance_state bit for bit; K12 lu_factor_f64 and K13
               lu_solve_f64, the host solver's f64 LU, on its augmented K at
               the anchor (N=543, B = 1 and 16) and on random saddle systems
-              (N=37, B=4; N=1055, B=1; K13 alone on cuSOLVER's factor at
-              N=2335, beyond K12; the n_k=10 path's own K, N=1311, in phase
-              9), with a singular and a NaN lane; each beside its bound, its
+              (N=37, B=4; N = 1055, 1311, 1823 and 2335, B=1; the n_k=18
+              path's own K, N=2335, in phase 9), with a singular and a NaN
+              lane; each beside its bound, its
               plain version and a library yardstick
   4. slice    Trial(bench_options()).build(), 16 lanes with u_ref in
               9.5..10.5 m/s from tests/artifacts/bench_anchor_nk4_d3.npz,
@@ -102,9 +103,9 @@ and checks the hand-written CUDA kernels on the way:
               error within its tol, each step's iterations beside the JAX
               package's, the first direction held to the CPU's plain path,
               then its [path]
-  9. n_k=10   Trial(bench_options(n_k=10)).build().optimize() on the card
-              ([slice-trial-nk10], n=670, N=1311, 'auto' still 'dense'),
-              each homotopy step capped at NK10_ITERS iterations (the
+  9. n_k=18   Trial(bench_options(n_k=18)).build().optimize() on the card
+              ([slice-trial-nk18], n=1190, N=2335, 'auto' still 'dense'),
+              each homotopy step capped at NK18_ITERS iterations (the
               homotopy advances despite the cap): every direction through
               K10's stream variant, K12 and K13 twice and no other kernel or
               plain version, the first direction held to the CPU's plain
@@ -143,10 +144,10 @@ N_TIMED = 7
 # tests/test_torch_refine.py) and the condensed solver's slice (to
 # convergence, 34 iterations -> DENSE_ITERS)
 NK8_ITERS = 3     # iterations of each n_k=8 slice (its lanes do not converge; see main)
-# iterations a homotopy step of [slice-trial-nk10] (solver.max_iter; the
+# iterations a homotopy step of [slice-trial-nk18] (solver.max_iter; the
 # homotopy advances despite it), set from its ms/iter so that the script
 # keeps within 1100 s
-NK10_ITERS = 3
+NK18_ITERS = 3
 LU_ITERS = 6
 DENSE_ITERS = 8
 # The JAX package's converged B=2 sweep (u_ref 9.5, 10.5 m/s) through
@@ -425,7 +426,7 @@ def main():
     c = ref16['b'].to(f32).contiguous()
     geom = kernels.lu_factor_geometry(N)
     require(geom.variant == 'cluster', f'N={N} does not take the cluster variant: {geom}')
-    max_clusters = kernels.lu_cluster_max_active(geom)
+    max_clusters = kernels.cluster_max_active('lu_factor_cluster', geom)
     phase('kernels', f'K2 geometry at N={N}: {geom}; {max_clusters} clusters run at once; '
           f'K3 geometry: {kernels.lu_solve_geometry(N)}')
 
@@ -708,7 +709,8 @@ def main():
 
     qgeom = kernels.qr_factor_geometry(N)
     require(qgeom.variant == 'cluster', f'N={N} does not take the QR cluster variant: {qgeom}')
-    at_once = {C: kernels.qr_cluster_max_active(kernels.qr_cluster_layout(N, C)) for C in (7, 8)}
+    at_once = {C: kernels.cluster_max_active('qr_factor_cluster', kernels.qr_cluster_layout(N, C))
+               for C in (7, 8)}
     phase('kernels', f'K6 geometry at N={N}: {qgeom}; clusters that run at once: '
           f'{at_once[7]} of 7 CTAs, {at_once[8]} of 8; C={qgeom.C} taken; K7 geometry: '
           f'{kernels.qr_solve_geometry(N)}')
@@ -1003,7 +1005,7 @@ def main():
               f'{geom.smem_bytes} B of shared memory a CTA, leading dimensions {geom.ld_frame} / '
               f'{geom.ld_r} / {geom.ld_s} (frame / R / S), panels of {kernels.BLOCK_WIDTH}')
         g9 = kernels.block_solve_geometry(lay)
-        a9 = kernels.block_solve_max_active(g9)
+        a9 = kernels.cluster_max_active('block_solve', g9)
         phase('kernels', f'K9 block_solve {tag}: clusters of {g9.C} CTAs, {g9.smem_bytes} B of '
               f'shared memory a rank ({g9.li_tiles} + {g9.r_tiles} tiles of Li / L_R, Xc at '
               f'leading dimension {g9.ld_x}); {a9} clusters at once: {-(-B_ // a9)} wave(s)')
@@ -1089,7 +1091,7 @@ def main():
                              plain_ms=cuda_median_ms(plain), library_ms=cuda_median_ms(lib),
                              library_queued_ms=cuda_median_ms(lib, queued=True),
                              bound_ms=b_, bound_by=by_))
-        active = kernels.chol_cluster_max_active(geom)
+        active = kernels.cluster_max_active(f'chol_factor_{geom.variant}', geom)
         in_l2 = '' if variant == 'cluster' else (
             '; panels in the L2 a rank: ' + ','.join(str(sum(o is None for o in offs))
                                                      for offs in geom.offsets))
@@ -1127,10 +1129,10 @@ def main():
             f'n={n} B={Bk} delta {d4:.0e}', M4[:Bk], rhs4[:Bk], 'cluster')
     # the stream variant, for lanes no cluster holds, on random SPD matrices
     # (cond ~ 1e3): n = 700 at B = 4 with an indefinite and a NaN lane and at
-    # B = 2 and 1, n = 555 (the first it takes), 876 and 1190 (n_k=18's, the
-    # largest 'auto' sends to the dense direction) at B = 1
+    # B = 2 and 1, n = 555 (the first it takes), 670 (n_k=10's), 876 and 1190
+    # (n_k=18's, the largest 'auto' sends to the dense direction) at B = 1
     stream_at, ssolve_at = {}, {}
-    for n_s, Bs in ((700, 4), (555, 1), (876, 1), (1190, 1)):
+    for n_s, Bs in ((700, 4), (555, 1), (670, 1), (876, 1), (1190, 1)):
         rng_s = np.random.default_rng(n_s)
         G_s = rng_s.standard_normal((Bs, n_s, n_s))
         M_s = torch.as_tensor(G_s @ G_s.transpose(0, 2, 1) / n_s + np.eye(n_s), device=dev)
@@ -1197,21 +1199,20 @@ def main():
     rhs_anchor = host._augmented(*d_anchor[1:], *st1, lbw, ubw, free, 1e-3, 0., 1e-7, 0.)['rhs']
     rhs_lanes = rhs_anchor.expand(B, -1).contiguous()
 
-    def hold_lu64(tag, K, b, bad=(), with_k12=True):
+    def hold_lu64(tag, K, b, bad=()):
         """K12 and K13 on (K, b) against their plain versions, with the
-        gates above; returns their records. Without K12 (N beyond its reach)
-        K13 solves on the plain factor, and K12's record is None."""
+        gates above; returns their records."""
         B_, N_ = K.shape[0], K.shape[1]
         good = [i for i in range(B_) if i not in bad]
         K0 = K.clone()
         before = dict(kernels.LAUNCHES)
         lu_p, piv_p = kernels.lu_factor_f64_plain(K)
         lu_p, piv_p = lu_p.contiguous(), piv_p.contiguous()   # cuSOLVER's is column-major
-        lu_k, piv_k = kernels.lu_factor_f64(K) if with_k12 else (lu_p, piv_p)
+        lu_k, piv_k = kernels.lu_factor_f64(K)
         x_k = kernels.lu_solve_f64(lu_k, piv_k, b)
         x_p = kernels.lu_solve_f64_plain(lu_p, piv_p, b)
         torch.cuda.synchronize()
-        require(kernels.LAUNCHES['lu_factor_f64'] == before['lu_factor_f64'] + int(with_k12)
+        require(kernels.LAUNCHES['lu_factor_f64'] == before['lu_factor_f64'] + 1
                 and kernels.LAUNCHES['lu_solve_f64'] == before['lu_solve_f64'] + 1,
                 f'K12/K13 {tag}: launches')
         require(torch.equal(K.view(torch.int64), K0.view(torch.int64)), f'K12 {tag}: K changed')
@@ -1273,34 +1274,35 @@ def main():
         plain_s = lambda: torch.linalg.lu_solve(lu_p, piv_p, b_col)
         b12 = lu_factor_f64_bound(N_, B_)
         b13 = lu_solve_f64_bound(N_, B_)
-        k12 = None
-        if with_k12:
-            k12 = dict(max_abs_err=float(fac_k.max()), ms=cuda_median_ms(factor),
-                       queued_ms=cuda_median_ms(factor, queued=True),
-                       plain_ms=cuda_median_ms(plain_f), bound_ms=b12[0], bound_by=b12[1],
-                       pivot_ties=ties)
-            k12['library_ms'] = k12['plain_ms']
-            k12['library_queued_ms'] = cuda_median_ms(plain_f, queued=True)
+        g12 = kernels.lu_factor_f64_geometry(N_, B_)
+        a12 = kernels.cluster_max_active('lu_factor_f64', g12)
+        k12 = dict(max_abs_err=float(fac_k.max()), ms=cuda_median_ms(factor),
+                   queued_ms=cuda_median_ms(factor, queued=True),
+                   plain_ms=cuda_median_ms(plain_f), bound_ms=b12[0], bound_by=b12[1],
+                   pivot_ties=ties, C=g12.C)
+        k12['library_ms'] = k12['plain_ms']
+        k12['library_queued_ms'] = cuda_median_ms(plain_f, queued=True)
         k13 = dict(max_abs_err=x_gap, gap_limit=float(gap_limit.min()),
                    backward_error=float(res_k.max()), ms=cuda_median_ms(solve),
                    queued_ms=cuda_median_ms(solve, queued=True), plain_ms=cuda_median_ms(plain_s),
                    bound_ms=b13[0], bound_by=b13[1])
         k13['library_ms'] = k13['plain_ms']
         k13['library_queued_ms'] = cuda_median_ms(plain_s, queued=True)
-        if with_k12:
-            phase('kernels', f'K12 lu_factor_f64 {tag}: max |P L U - K| / (P |L| |U|) '
-                  f'{float(fac_k.max()):.2e} vs '
-                  f'plain {float(fac_p.max()):.2e}; pivots as plain on {len(good) - ties}/{len(good)} '
-                  f'lanes{f", the others parting at a tie" if ties else ""}{"; failed lanes " + str(list(bad)) + " not finite, the others unchanged" if bad else ""}; '
-                  f'{k12["ms"]:.3f} ms, queued {k12["queued_ms"]:.3f} ms; torch.linalg.lu_factor_ex '
-                  f'{k12["library_ms"]:.3f} ms, queued {k12["library_queued_ms"]:.3f} ms; bound '
-                  f'{b12[0]:.5f} ms ({b12[1]})')
-        on_plain = "; on cuSOLVER's factor (beyond K12)"
+        phase('kernels', f'K12 lu_factor_f64 {tag}: clusters of C={g12.C} CTAs (panel p to rank '
+              f'p % C), {g12.smem_bytes} B of shared memory a rank; {a12} clusters at once: '
+              f'{-(-B_ // a12)} wave(s)')
+        phase('kernels', f'K12 lu_factor_f64 {tag}: max |P L U - K| / (P |L| |U|) '
+              f'{float(fac_k.max()):.2e} vs '
+              f'plain {float(fac_p.max()):.2e}; pivots as plain on {len(good) - ties}/{len(good)} '
+              f'lanes{f", the others parting at a tie" if ties else ""}{"; failed lanes " + str(list(bad)) + " not finite, the others unchanged" if bad else ""}; '
+              f'{k12["ms"]:.3f} ms, queued {k12["queued_ms"]:.3f} ms; torch.linalg.lu_factor_ex '
+              f'{k12["library_ms"]:.3f} ms, queued {k12["library_queued_ms"]:.3f} ms; bound '
+              f'{b12[0]:.5f} ms ({b12[1]})')
         g13 = kernels.lu_solve_f64_geometry(N_, B_)
-        a13 = kernels.lu_solve_max_active(g13)
+        a13 = kernels.cluster_max_active('lu_solve_f64', g13)
         phase('kernels', f'K13 lu_solve_f64 {tag}: clusters of C={g13.C} CTAs (row tile i to rank '
               f'i % C), {g13.smem_bytes} B of shared memory a rank; {a13} clusters at once: '
-              f'{-(-B_ // a13)} wave(s){"" if with_k12 else on_plain}')
+              f'{-(-B_ // a13)} wave(s)')
         phase('kernels', f'K13 lu_solve_f64 {tag}: row-wise backward error max |K x - b|_i / '
               f'(max |K_i.| max |x| + |b_i|) {float(res_k.max()):.2e} vs plain '
               f'{float(res_p.max()):.2e}; max |x - x_plain| / max |x_plain| '
@@ -1327,12 +1329,14 @@ def main():
                     for a in ktests.host_kkt_matrices(N8, 1, seed=N8, n=540))
     lu64_at[f'N={N8} B=1'], solve64_at[f'N={N8} B=1'] = hold_lu64(f'N={N8} B=1 random', K1055,
                                                                   b1055)
-    # K13 at n_k=18's N (2335, the largest the dense direction takes), beyond
-    # K12's reach, on cuSOLVER's factor
-    N18 = 2335
-    K18, b18 = (torch.as_tensor(a, device=dev)
-                for a in ktests.host_kkt_matrices(N18, 1, seed=N18, n=1190))
-    _, solve64_at[f'N={N18} B=1'] = hold_lu64(f'N={N18} B=1 random', K18, b18, with_k12=False)
+    # n_k=10's N (1311), and n_k=14's and n_k=18's (1823, the first the
+    # previous K12 refused, and 2335, the largest the dense direction takes):
+    # random saddle systems with their n
+    for N_r, n_r in ((1311, 670), (1823, 930), (2335, 1190)):
+        K_r, b_r = (torch.as_tensor(a, device=dev)
+                    for a in ktests.host_kkt_matrices(N_r, 1, seed=N_r, n=n_r))
+        lu64_at[f'N={N_r} B=1'], solve64_at[f'N={N_r} B=1'] = hold_lu64(
+            f'N={N_r} B=1 random', K_r, b_r)
     report['lu_factor_f64'] = dict(lu64_at[f'N={N} B=1'], at=lu64_at)
     report['lu_solve_f64'] = dict(solve64_at[f'N={N} B=1'], at=solve64_at)   # phase 9 adds rows
 
@@ -1886,48 +1890,49 @@ def main():
             f'{JAX_TRIAL_ITERS}')
     hold_path('slice-trial', trial_run, 'cluster')
 
-    # --- 9. Trial.optimize at n_k=10: [slice-trial-nk10] ------------------
-    # The same entry point on bench_options(n_k=10): n=670 variables, m=641
-    # constraints, N=1311; 'auto' still takes the dense direction (below
-    # 1200 variables), whose inertia test is K10's stream variant here. Each
-    # homotopy step is capped at NK10_ITERS iterations (solver.max_iter; the
+    # --- 9. Trial.optimize at n_k=18: [slice-trial-nk18] ------------------
+    # The same entry point on bench_options(n_k=18): n=1190 variables,
+    # m=1145 constraints, N=2335, the largest grid on which 'auto' still
+    # takes the dense direction (below 1200 variables), whose inertia test is
+    # K10's stream variant and whose factor K12 factors in half panels. Each
+    # homotopy step is capped at NK18_ITERS iterations (solver.max_iter; the
     # homotopy advances despite the cap), so every step of the entry point
     # runs. Gates: the [path] of hold_path (K10 stream, K12, two K13 a
     # direction, nothing else; the first direction against the CPU's plain
     # path). Then K10 on the first M of the path that it factors (the first
     # iterate's fails the inertia test: the delta_w ladder follows) and
     # K12/K13 on that direction's K, as [kernels] rows.
-    o10 = bench_options(n_k=10)
-    o10['solver.max_iter'] = NK10_ITERS
-    nk10_run = cold_trial('slice-trial-nk10', o10)
-    stats10, launches_nk10 = nk10_run['stats'], nk10_run['launches']
-    n_it10 = sum(stats10['iterations'].values())
-    ocp10 = nk10_run['cold'].ocp
-    phase('slice-trial-nk10', f'Trial(bench_options(n_k=10)).build().optimize() on the card, '
-          f'n={ocp10.vstruct.total}, m={ocp10.n_eq + ocp10.n_ineq} (CUT: solver.max_iter = '
-          f'{NK10_ITERS} a step): {len(stats10["iterations"])} homotopy steps, {n_it10} '
-          f'iterations in {nk10_run["seconds"]:.1f} s, '
-          f'{1e3 * nk10_run["seconds"] / max(n_it10, 1):.0f} ms/iter, '
-          f'{launches_nk10["lu_factor_f64"]} directions; not gated on convergence')
-    require(len(stats10['iterations']) == len(JAX_TRIAL_ITERS)
-            and all(0 < v <= NK10_ITERS for v in stats10['iterations'].values()),
-            f'slice-trial-nk10: steps and iterations {stats10["iterations"]}')
-    hold_path('slice-trial-nk10', nk10_run, 'stream')
-    require('args_ok' in nk10_run['first'], 'slice-trial-nk10: no inertia test passed')
-    sys10 = nk10_run['solver']._augmented(*nk10_run['first']['args_ok'])
-    M10, K10_, rhs10 = (sys10[k][None].contiguous() for k in ('M', 'K', 'rhs'))
-    n10, N10 = M10.shape[1], K10_.shape[1]
-    b10 = torch.as_tensor(np.random.default_rng(n10).standard_normal((1, n10)), device=dev)
-    stream_at[f'n={n10} B=1 path'], ssolve_at[f'n={n10} B=1 path'] = hold_chol(
-        f'n={n10} B=1 the path\'s M', M10, b10, 'stream')
-    lu64_at[f'N={N10} B=1 path'], solve64_at[f'N={N10} B=1 path'] = hold_lu64(
-        f'N={N10} B=1 the path\'s K', K10_, rhs10)
-    report['chol_factor_stream'] = dict(stream_at[f'n={n10} B=1 path'], at=stream_at)
+    o18 = bench_options(n_k=18)
+    o18['solver.max_iter'] = NK18_ITERS
+    nk18_run = cold_trial('slice-trial-nk18', o18)
+    stats18, launches_nk18 = nk18_run['stats'], nk18_run['launches']
+    n_it18 = sum(stats18['iterations'].values())
+    ocp18 = nk18_run['cold'].ocp
+    phase('slice-trial-nk18', f'Trial(bench_options(n_k=18)).build().optimize() on the card, '
+          f'n={ocp18.vstruct.total}, m={ocp18.n_eq + ocp18.n_ineq} (CUT: solver.max_iter = '
+          f'{NK18_ITERS} a step): {len(stats18["iterations"])} homotopy steps, {n_it18} '
+          f'iterations in {nk18_run["seconds"]:.1f} s, '
+          f'{1e3 * nk18_run["seconds"] / max(n_it18, 1):.0f} ms/iter, '
+          f'{launches_nk18["lu_factor_f64"]} directions; not gated on convergence')
+    require(len(stats18['iterations']) == len(JAX_TRIAL_ITERS)
+            and all(0 < v <= NK18_ITERS for v in stats18['iterations'].values()),
+            f'slice-trial-nk18: steps and iterations {stats18["iterations"]}')
+    hold_path('slice-trial-nk18', nk18_run, 'stream')
+    require('args_ok' in nk18_run['first'], 'slice-trial-nk18: no inertia test passed')
+    sys18 = nk18_run['solver']._augmented(*nk18_run['first']['args_ok'])
+    M18, K18_, rhs18 = (sys18[k][None].contiguous() for k in ('M', 'K', 'rhs'))
+    n18, N18 = M18.shape[1], K18_.shape[1]
+    b18 = torch.as_tensor(np.random.default_rng(n18).standard_normal((1, n18)), device=dev)
+    stream_at[f'n={n18} B=1 path'], ssolve_at[f'n={n18} B=1 path'] = hold_chol(
+        f'n={n18} B=1 the path\'s M', M18, b18, 'stream')
+    lu64_at[f'N={N18} B=1 path'], solve64_at[f'N={N18} B=1 path'] = hold_lu64(
+        f'N={N18} B=1 the path\'s K', K18_, rhs18)
+    report['chol_factor_stream'] = dict(stream_at[f'n={n18} B=1 path'], at=stream_at)
 
     # each kernel's launches are those of the slice whose path holds it: the
     # QR slice, the port's default path, for its own kernels and for K1 and
     # K4, which both paths share; the LU slice for the LU kernels; the n_k=8
-    # slices for the blocked variants; [slice-trial-nk10] for K10's stream
+    # slices for the blocked variants; [slice-trial-nk18] for K10's stream
     # variant
     sources = {'newton_kkt': 'awebox_tpu/parallel/batch.py:154',
                'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
@@ -1952,7 +1957,7 @@ def main():
            'lu_solve_batched': launches_lu, 'lu_factor_blocked': launches_lu8,
            'qr_factor_blocked': launches_qr8, 'advance_state': launches_block,
            'block_factor': launches_block, 'block_solve': launches_block,
-           'chol_factor_cluster': launches_dense, 'chol_factor_stream': launches_nk10,
+           'chol_factor_cluster': launches_dense, 'chol_factor_stream': launches_nk18,
            'chol_solve_batched': launches_dense, 'lu_factor_f64': launches_trial,
            'lu_solve_f64': launches_trial}
     phase('done', f'chip_smoke.py ran {time.time() - t_start:.1f} s')
@@ -1962,7 +1967,7 @@ def main():
              launches_lu_slice=launches_lu[k], launches_qr_slice=launches_qr[k],
              launches_nk8_lu_slice=launches_lu8[k], launches_nk8_qr_slice=launches_qr8[k],
              launches_block_slice=launches_block[k], launches_dense_slice=launches_dense[k],
-             launches_trial_slice=launches_trial[k], launches_trial_nk10_slice=launches_nk10[k],
+             launches_trial_slice=launches_trial[k], launches_trial_nk18_slice=launches_nk18[k],
              **report[k])
         for k in sources]}), flush=True)
     print(smi, flush=True)

@@ -2969,20 +2969,273 @@ def host_kkt_matrices(N, B, seed=0, n=None):
     return K, rng.standard_normal((B, N))
 
 
-@pytest.mark.parametrize('N', [37, 130, 543])
-def test_k12_blocked_mirror_matches_lapack(N):
-    """K12's algorithm (K2's blocked LU, panels of 16, f64: the panel's
-    columns one by one with the first largest |a|, the interchanges reaching
-    the other columns as panel_row_moves, U12 = L11^-1 A12, A22 -= L21 U12)
-    gives LAPACK getrf's pivots and its factor within 1e-12 of max |lu| on
-    the host solver's saddle matrices."""
+def k12_moves(pk, base, w):
+    """k12_compose: the w interchanges of rows base + q and pk[q] (0-based),
+    applied in order, as 2 w row moves; destination d takes the row found by
+    tracing d back through the swaps from the last one."""
+    dst = [base + q for q in range(w)] + [int(r) for r in pk[:w]]
+    src = []
+    for d in dst:
+        r = d
+        for q in reversed(range(w)):
+            r = int(pk[q]) if r == base + q else (base + q if r == pk[q] else r)
+        src.append(r)
+    return np.array(dst), np.array(src)
+
+
+def k12_chain_mirror(V, d0, w, pv):
+    """k12_chain on V (a panel's rows from its diagonal, a block of its
+    columns, in place): column d0 + j pivots at the first largest |a| of rows
+    d0 + j .. (a NaN never; a column of NaNs keeps the diagonal), the two rows
+    swapped, the rows below scaled by the pivot's reciprocal (divided below
+    DBL_MIN, as LAPACK's getf2) and updated; pivots (local rows) to pv."""
+    tiny = np.finfo(np.float64).tiny
+    for j in range(w):
+        d = d0 + j
+        a = np.abs(V[d:, j])
+        a = np.where(np.isnan(a), -1., a)
+        p = d + int(np.argmax(a)) if a.max() >= 0 else d
+        V[[d, p]] = V[[p, d]]
+        pivot = V[d, j]
+        with np.errstate(all='ignore'):
+            col = V[d + 1:, j]
+            V[d + 1:, j] = col / pivot if not abs(pivot) >= tiny else col * (1. / pivot)
+            V[d + 1:, j + 1:] -= np.outer(V[d + 1:, j], V[d, j + 1:])
+        pv[d] = p
+
+
+def k12_pair_mirror(T, A, U, lo, hi):
+    """k12_pair on rows lo .. hi - 1 of the panel T: less A (the applied
+    panel's rows lo .. hi - 1) times U (U12), each entry's 16 products summed
+    from zero in four k-steps of 4 and subtracted once."""
+    upd = np.zeros((hi - lo, T.shape[1]))
+    with np.errstate(all='ignore'):
+        for s4 in range(4):
+            upd = upd + A[:, 4 * s4:4 * s4 + 4] @ U[4 * s4:4 * s4 + 4]
+        T[lo:hi] = T[lo:hi] - upd
+
+
+def k12_u12_mirror(L11, U):
+    """U12 = L11^-1 A12 a column at a time (unit lower L11; U, 16 rows, in
+    place): row i less L11[i, t] U[t] for t = 0 .. i - 1 in order."""
+    with np.errstate(all='ignore'):
+        for i in range(1, U.shape[0]):
+            for t in range(i):
+                U[i] = U[i] - L11[i, t] * U[t]
+
+
+def k12_schedule_mirror(K, C):
+    """K12 (lu_factor_f64_kernel) on one (N, N) f64 matrix, in numpy, step by
+    step as its C ranks run it: panel p of 16 columns (N rows, zeros past
+    column N) to rank p % C; panel 0 factored by rank 0; then a step a panel:
+    o(k + 1) applies panel k's interchanges, U12 and update to panel k + 1
+    (its L21 read whole) and factors it, whole (panel rows <= LU64_WHOLE) or
+    in two halves of 8 (the right half: the left's interchanges, U12 by the
+    left's L11, its update by the left's L21, its chain; then its
+    interchanges on the left half); every rank then takes its panels
+    LU64_GROUP at a time: the trailing ones (p > k) panel k's interchanges,
+    U12 and update (L21 fetched LU64_CHUNK rows at a time, each chunk's
+    (panel, tile pair) jobs dealt to the 16 warps), the ones left of panel k
+    - 1 panel k - 1's interchanges, which a rank may apply only once every
+    rank has read their L21 (two steps after; asserted); after the last
+    step, the last panel's. Every buffer a step reads (the staged L21, the
+    U12 blocks, L11, a right half) is NaN outside what the step fetched, and
+    a panel is read only once published (asserted). Returns (lu, piv) like
+    lu_factor_ex."""
+    from awebox_tpu_torch.parallel import kernels
+    nb, G, CH = kernels.LU64_NB, kernels.LU64_GROUP, kernels.LU64_CHUNK
+    N = K.shape[0]
+    P = -(-N // nb)
+    C = min(C, P)
+    W = np.zeros((P, N, nb))
+    for p in range(P):
+        W[p, :, :min(nb, N - p * nb)] = K[:, p * nb:(p + 1) * nb]
+    piv = np.zeros(N, np.int64)
+    state = {'published': -1}
+    read_at = {}
+
+    def take(k, lo, hi, step):
+        assert k <= state['published'], (k, step)
+        read_at[k] = step
+        return W[k, lo:hi].copy()
+
+    def pivots(k):
+        assert k <= state['published']
+        return piv[k * nb:min(N, (k + 1) * nb)] - 1
+
+    def factor(q):
+        k0 = q * nb
+        h, w = N - k0, min(nb, N - k0)
+        pv = {}
+        if h <= kernels.LU64_WHOLE:
+            V = W[q, k0:].copy()
+            k12_chain_mirror(V, 0, w, pv)
+            W[q, k0:] = V
+        else:
+            V = W[q, k0:, :8].copy()
+            rh = np.full((kernels.LU64_LAST, 8), np.nan)
+            rh[:h] = W[q, k0:, 8:]
+            k12_chain_mirror(V, 0, 8, pv)
+            W[q, k0:, :8] = V
+            for j in range(8):
+                rh[[j, pv[j]]] = rh[[pv[j], j]]
+            k12_u12_mirror(V[:8], rh[:8])
+            acc = np.zeros((h - 8, 8))
+            with np.errstate(all='ignore'):
+                for t in range(8):
+                    acc = acc + np.outer(V[8:, t], rh[t])
+            R = rh[:h].copy()
+            R[8:] = rh[8:h] - acc
+            k12_chain_mirror(R, 8, 8, pv)
+            W[q, k0:, 8:] = R
+            dst, src = k12_moves([pv[8 + j] for j in range(8)], 8, 8)
+            W[q, k0 + dst, :8] = W[q, k0 + src, :8].copy()
+        for d, p in pv.items():
+            piv[k0 + d] = k0 + p + 1
+        state['published'] = q
+
+    def prep(k, group, step):
+        """moves and U12 of a pass; returns the U12 blocks (NaN where unset)"""
+        k0, k1 = k * nb, (k - 1) * nb
+        kinds = {kind for _, kind in group}
+        Ub = np.full((G, nb, nb), np.nan)
+        mv = {}
+        if 1 in kinds:
+            w = min(nb, N - k0)
+            L11 = np.tril(take(k, k0, k0 + w, step), -1)
+            mv[1] = k12_moves(pivots(k), k0, w)
+        if 2 in kinds:
+            mv[2] = k12_moves(pivots(k - 1), k1, min(nb, N - k1))
+        for m, (p, kind) in enumerate(group):
+            if not kind:
+                continue
+            if kind == 2:   # the barrier: at step k every rank is through step k - 2
+                assert read_at.get(p, -1) <= step - 2, (p, step, read_at.get(p))
+            dst, src = mv[kind]
+            vals = W[p, src].copy()
+            for d, r in enumerate(dst):
+                if kind == 1 and r < k0 + nb:
+                    Ub[m, r - k0] = vals[d]
+                else:
+                    W[p, r] = vals[d]
+        for m, (p, kind) in enumerate(group):
+            if kind == 1:
+                k12_u12_mirror(L11, Ub[m])
+                W[p, k0:k0 + nb] = Ub[m]
+        return Ub
+
+    def update(k, group, Ub, step):
+        trl = [m for m, (_, kind) in enumerate(group) if kind == 1]
+        for lo in range((k + 1) * nb, N, CH):
+            hi = min(N, lo + CH)
+            Lc = np.full((CH, nb), np.nan)
+            Lc[:hi - lo] = take(k, lo, hi, step)
+            pairs = -(-(hi - lo) // 16)
+            jobs = sorted(j for warp in range(16) for j in range(warp, len(trl) * pairs, 16))
+            assert jobs == list(range(len(trl) * pairs))
+            for m in trl:
+                k12_pair_mirror(W[group[m][0]], Lc[:hi - lo], Ub[m], lo, hi)
+
+    def passes(k, rank, skip, step):
+        local = list(range(rank, P, C))
+        for t0 in range(0, len(local), G):
+            group = []
+            for p in local[t0:t0 + G]:
+                kind = 0 if p == skip else 1 if p > k else 2 if k >= 1 and p <= k - 2 else 0
+                group.append((p, kind))
+            group += [(-1, 0)] * (G - len(group))
+            if any(kind for _, kind in group):
+                Ub = prep(k, group, step)
+                if any(kind == 1 for _, kind in group):
+                    update(k, group, Ub, step)
+
+    factor(0)
+    for k in range(P):
+        if k + 1 < P:
+            U1 = prep(k, [(k + 1, 1)] + [(-1, 0)] * (G - 1), k)[0]
+            lo = (k + 1) * nb
+            k12_pair_mirror(W[k + 1], take(k, lo, N, k), U1, lo, N)
+            factor(k + 1)
+        for rank in range(C):
+            passes(k, rank, k + 1 if k + 1 < P and rank == (k + 1) % C else -1, k)
+    for rank in range(C):   # after a cluster barrier: every read is done
+        passes(P, rank, -1, P + 1)
+    lu = np.zeros((N, N))
+    for p in range(P):
+        lu[:, p * nb:(p + 1) * nb] = W[p, :, :min(nb, N - p * nb)]
+    return lu, piv.astype(np.int32)
+
+
+def lu_backward_error(K, lu, piv):
+    """max |P L U - K| / (P |L| |U|) entry by entry (an entry whose
+    denominator is 0 counts its error alone), as chip_smoke.py gates K12."""
+    lu_t, piv_t, K_t = (torch.as_tensor(np.asarray(a)) for a in (lu, piv, K))
+    P_, L_, U_ = torch.lu_unpack(lu_t, piv_t)
+    e, d = (P_ @ L_ @ U_ - K_t).abs(), P_ @ (L_.abs() @ U_.abs())
+    return float(torch.where(d > 0, e / d, e).max())
+
+
+@pytest.mark.parametrize('N, C', [(N, C) for N in (37, 130, 543, 1311) for C in (1, 4, 16)]
+                         + [(1823, 16)])
+def test_k12_cluster_mirror_matches_lapack(N, C):
+    """K12's schedule at C ranks (k12_schedule_mirror: the panel deal, the
+    look-ahead, the half panels past LU64_WHOLE rows at N = 1311 and 1823,
+    the staged chunks of L21, the late interchanges) against LAPACK getrf on
+    the host solver's saddle matrices: its backward error max |P L U - K| /
+    (P |L| |U|) within 10x LAPACK's (at least one epsilon), and its pivots
+    LAPACK's but where a tie decides them (the first differing pivot's |U_kk|
+    equal in both to 1e-12)."""
     from awebox_tpu_torch.parallel import kernels
     K, _ = host_kkt_matrices(N, 1, seed=N)
-    Kt = torch.as_tensor(K)
-    lu, piv = blocked_lu_mirror(Kt[0], nb=kernels.LU64_NB)
-    lu_p, piv_p = kernels.lu_factor_f64_plain(Kt)
-    assert torch.equal(piv, piv_p[0])
-    assert float((lu - lu_p[0]).abs().max()) <= 1e-12 * float(lu_p[0].abs().max())
+    lu, piv = k12_schedule_mirror(K[0], C)
+    lu_p, piv_p = (a[0].numpy() for a in kernels.lu_factor_f64_plain(torch.as_tensor(K)))
+    eps = np.finfo(np.float64).eps
+    assert lu_backward_error(K[0], lu, piv) <= 10 * max(lu_backward_error(K[0], lu_p, piv_p), eps)
+    diff = np.nonzero(piv != piv_p)[0]
+    if diff.size:
+        k0 = int(diff[0])
+        assert abs(abs(lu[k0, k0]) - abs(lu_p[k0, k0])) <= 1e-12 * abs(lu_p[k0, k0]), (N, C, k0)
+
+
+def test_k12_mirror_bits_do_not_depend_on_c():
+    """Every panel update is the same routine wherever it runs and the late
+    interchanges only move rows: K12's factor is the same bits at C = 1, 3,
+    7 and 16 (C follows the batch, and a lane's bits must not)."""
+    K, _ = host_kkt_matrices(300, 1, seed=300)
+    lu1, piv1 = k12_schedule_mirror(K[0], 1)
+    for C in (3, 7, 16):
+        lu, piv = k12_schedule_mirror(K[0], C)
+        assert np.array_equal(lu.view(np.int64), lu1.view(np.int64)) and np.array_equal(piv, piv1)
+
+
+def test_k12_mirror_tie_nan_and_singular():
+    """A tie picks the lower row; a column of NaNs keeps the diagonal; a
+    singular matrix (a zero column) gives a non-finite factor, where LAPACK
+    leaves a zero on U's diagonal: either way the solve is not finite and the
+    delta ladder retries."""
+    N = 40
+    A = separated_pivots(N, seed=5).double().numpy()
+    A[:, 0] = 0.
+    A[7, 0] = A[19, 0] = -2.5      # |a| ties at rows 3, 7 and 19: row 3 wins
+    A[3, 0] = 2.5
+    _, piv = k12_schedule_mirror(A, 4)
+    assert int(piv[0]) == 4         # row 3, 1-based
+    A = separated_pivots(N, seed=6).double().numpy()
+    A[:, 21] = np.nan
+    _, piv = k12_schedule_mirror(A, 4)
+    ref = torch.linalg.lu_factor_ex(separated_pivots(N, seed=6).double())[1].numpy()
+    assert np.array_equal(piv[:21], ref[:21])
+    assert np.array_equal(piv[21:], np.arange(22, N + 1))
+    A = separated_pivots(N, seed=7).double().numpy()
+    A[:, 12] = 0.
+    lu, piv = k12_schedule_mirror(A, 4)
+    assert not np.isfinite(lu).all()
+    lu_ref, piv_ref, info = torch.linalg.lu_factor_ex(torch.as_tensor(A))
+    assert int(info) > 0 and float(torch.diagonal(lu_ref).abs().min()) == 0.
+    b = torch.ones(N, 1, dtype=torch.float64)
+    x = torch.linalg.lu_solve(torch.as_tensor(lu), torch.as_tensor(piv), b)
+    assert not bool(torch.isfinite(x).all())
+    assert not bool(torch.isfinite(torch.linalg.lu_solve(lu_ref, piv_ref, b)).all())
 
 
 @pytest.mark.parametrize('N', [37, 64, 130, 543, 1055])
@@ -3044,30 +3297,37 @@ def test_lu_solve_f64_geometry_follows_the_batch(B):
     assert kernels.lu_solve_f64_geometry(37, B).C == min(want, 2)
 
 
-@pytest.mark.parametrize('N', [37, 543, 1055, 1807, 1808])
+@pytest.mark.parametrize('N', [37, 543, 1055, 1807, 1808, 1823, 2335, 2560, 2561])
 def test_lu_f64_geometry(N):
-    """K12 holds a panel of 16 columns of N rows at an odd leading dimension
-    in one block's shared memory (69,504 B at N = 543), and raises by name
-    from N = 1808; K13's layout a rank is K11's ring (which holds the
-    interchanges' three int arrays first) beside two N-long vectors, the two
-    fold buffers and two mbarriers a tile step, 166,160 B at N = 543, and fits every N K12
-    takes and N = 2656 (the one-CTA solve's reach); it raises by name at N = 4600."""
+    """K12 is a cluster a lane at every N to 2560 (a half panel's rows in
+    its chain's registers, 5 a thread), 169,984 B of shared memory a rank to
+    N = 2304 (the U12 blocks of a pass, L11, and the look-ahead's rings of
+    two tile pairs with their L21 rows, which also hold the passes' staged
+    L21 and rings, or a right half) and the right half's 8 N doubles past it
+    (171,968 B at N = 2335), C = 16 at B = 1 but never more than the lane's
+    panels; it raises by name from N = 2561. K13's layout a rank is K11's
+    ring (which holds the interchanges' three int arrays first) beside two
+    N-long vectors, the two fold buffers and two mbarriers a tile step,
+    166,160 B at N = 543, and fits every N K12 takes and N = 2656 (the
+    one-CTA solve's reach); it raises by name at N = 4600."""
     from awebox_tpu_torch.parallel import kernels
-    if N > 1807:
-        with pytest.raises(ValueError, match='lu_factor_f64'):
-            kernels.lu_factor_f64_geometry(N)
-        return
-    g = kernels.lu_factor_f64_geometry(N)
-    assert g.ld >= N and g.ld % 2 == 1 and g.smem_bytes == 8 * 16 * g.ld
-    assert g.smem_bytes + kernels.LU64_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
-    if N == 543:
-        assert g.smem_bytes == 69_504
     assert kernels.lu_solve_f64_geometry(N).smem_bytes <= kernels.SMEM_PER_BLOCK
     if N == 543:
         assert kernels.lu_solve_f64_geometry(N).smem_bytes == 166_160
     assert kernels.lu_solve_f64_geometry(2656).smem_bytes + 1024 <= kernels.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match='lu_solve_f64'):
         kernels.lu_solve_f64_geometry(4600)
+    if N > 2560:
+        with pytest.raises(ValueError, match='lu_factor_f64'):
+            kernels.lu_factor_f64_geometry(N)
+        return
+    g = kernels.lu_factor_f64_geometry(N)
+    P = -(-N // 16)
+    assert g.C == min(16, P) and kernels.lu_factor_f64_geometry(N, 16).C == min(4, P)
+    assert kernels.LU64_WHOLE == 1024 and -(-P // g.C) <= kernels.LU64_GROUP
+    assert g.smem_bytes + kernels.LU64_STATIC_SMEM <= kernels.SMEM_PER_BLOCK
+    assert g.smem_bytes >= 8 * (11 * 256 + max(8 * N, 256 * 20 + 16 * 2 * 256))
+    assert g.smem_bytes == (171_968 if N == 2335 else 169_984 if N <= 2304 else 8 * (11 * 256 + 8 * N))
 
 
 def test_lu_f64_wrappers_take_the_plain_version_on_cpu():
@@ -3111,8 +3371,8 @@ def lu_f64_residuals(K, lu, piv, x, b):
 @pytest.mark.cuda
 def test_lu_f64_kernels_match_plain_on_card(cuda):
     """K12 (lu_factor_f64) and K13 (lu_solve_f64) against their plain
-    versions at N = 37, 543 (B = 1 and 16), 1055, 1311 (B = 1) and 2335 (K13
-    alone, on the plain factor: K12 stops at 1807), and B = 4 with a singular
+    versions at N = 37, 543 (B = 1 and 16), 1055, 1311, 1823 and 2335 (B =
+    1; K13 also alone on the plain factor at 2335), and B = 4 with a singular
     and a NaN lane: ||P L U - K|| / ||K|| <= 1e-13 and the solve's relative
     residual <= 1e-13 on every finite lane, x within 1e-8 of the plain
     version's relative to max |x|, the pivots equal; the singular and the NaN
@@ -3128,7 +3388,7 @@ def test_lu_f64_kernels_match_plain_on_card(cuda):
     _, sol = lu_f64_residuals(Kt, lu, piv, x, bt)
     assert float(sol.max()) <= 1e-13 and torch.equal(x.view(torch.int64), x2.view(torch.int64))
     assert float((x - x_p).abs().max() / x_p.abs().max()) <= 1e-8
-    for N, B in ((37, 4), (543, 1), (543, 16), (1055, 1), (1311, 1)):
+    for N, B in ((37, 4), (543, 1), (543, 16), (1055, 1), (1311, 1), (1823, 1), (2335, 1)):
         K, b = host_kkt_matrices(N, B, seed=N + B)
         bad = []
         if B >= 3:

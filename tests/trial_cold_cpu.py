@@ -3,9 +3,13 @@ the bench configuration (Ampyx AP2 3-DOF, n_k=4, d=3), and both packages'
 Sweep.run_batched from the committed anchor. Not a test: a script that
 prints what chip_smoke.py and PERF.md quote.
 
-    python -m tests.trial_cold_cpu cold PACKAGE      # per homotopy step: status,
-        # iterations, wall seconds; average power and period against the
-        # anchor's (PACKAGE: jax or torch)
+    python -m tests.trial_cold_cpu cold PACKAGE [--nk N] [--final STEP] [--max-iter M]
+        # per homotopy step: status, iterations, wall seconds, KKT error;
+        # average power and period (PACKAGE: jax or torch; at N = 4, the
+        # default, against the anchor's; --nk N solves bench_options(n_k=N)
+        # instead; --final STEP stops the homotopy after that step, as
+        # Trial.optimize's final_homotopy_step; --max-iter M caps every step
+        # at M iterations, solver.max_iter)
     python -m tests.trial_cold_cpu sweep PACKAGE TOL [EPS SEED]
         # Sweep.run_batched over u_ref 9.5 and 10.5 m/s from the anchor
         # (n_iter=200, tol=TOL): per case success, average power, period,
@@ -27,16 +31,21 @@ from tests.test_torch_support import anchor, jax_bench_options
 from tests.test_torch_trial import installed
 
 
-def cold(package):
+def cold(package, n_k=4, final=None, max_iter=None):
     if package == 'jax':
         from awebox_tpu.api.trial import Trial
-        trial = Trial(jax_bench_options(), 'cold_jax').build()
+        options = jax_bench_options(n_k)
         kw = {}
     else:
         from awebox_tpu_torch.api.trial import Trial
         from awebox_tpu_torch.configs import bench_options
-        trial = Trial(bench_options(), 'cold_torch').build()
+        options = bench_options(n_k=n_k)
         kw = dict(device='cpu')
+    if max_iter:
+        options['solver.max_iter'] = max_iter
+    trial = Trial(options, f'cold_{package}').build()
+    if final:
+        kw['final_homotopy_step'] = final
     t0 = time.time()
     trial.optimize(verbose=False, **kw)
     seconds = time.time() - t0
@@ -44,11 +53,16 @@ def cold(package):
     for key, res in trial.solution.step_results.items():
         print(f'{package} {key}: {res["status"]}, {st["iterations"][key]} iterations, '
               f'{st["t_wall"][key]:.1f} s, kkt {res["kkt_error"]:.3e}')
-    go, a = trial.global_outputs(), anchor()
-    print(f'{package} cold solve: success {trial.solve_succeeded}, {seconds:.1f} s, '
-          f'{sum(st["iterations"].values())} iterations; power {go["avg_power_watts"]!r} W '
-          f'({go["avg_power_watts"] / float(a["avg_power_watts"]) - 1.:.2e} from the anchor), '
-          f'period {go["time_period"]!r} s ({go["time_period"] / float(a["time_period"]) - 1.:.2e})')
+    go = trial.global_outputs()
+    line = (f'{package} cold solve at n_k={n_k}: success {trial.solve_succeeded}, {seconds:.1f} s, '
+            f'{sum(st["iterations"].values())} iterations; power {go["avg_power_watts"]!r} W')
+    if n_k == 4:
+        a = anchor()
+        line += f' ({go["avg_power_watts"] / float(a["avg_power_watts"]) - 1.:.2e} from the anchor)'
+    line += f', period {go["time_period"]!r} s'
+    if n_k == 4:
+        line += f' ({go["time_period"] / float(a["time_period"]) - 1.:.2e})'
+    print(line)
 
 
 def perturbed(trial, eps, seed):
@@ -87,7 +101,9 @@ def sweep(package, tol, eps=0., seed=0):
 if __name__ == '__main__':
     torch.set_num_threads(1)
     if sys.argv[1] == 'cold':
-        cold(sys.argv[2])
+        opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))
+        cold(sys.argv[2], int(opts.get('--nk', 4)), opts.get('--final'),
+             int(opts.get('--max-iter', 0)))
     else:
         sweep(sys.argv[2], float(sys.argv[3]),
               *([float(sys.argv[4]), int(sys.argv[5])] if len(sys.argv) > 5 else []))
