@@ -10,6 +10,7 @@ and the quality checks are not ported and raise by name.
 """
 from __future__ import annotations
 
+import pickle
 import time
 from typing import Dict, Optional
 
@@ -27,6 +28,7 @@ from ..options.options import Options
 from ..tree import to_tensors
 from ..utils.logging import awelogger
 
+STATE_KEYS = ('w', 's', 'y', 'lam', 'zl', 'zu')
 NOT_PORTED = ('is not ported (ROADMAP item 17, opti/diagnostics.py, and the '
               'visualization and quality modules)')
 
@@ -102,7 +104,6 @@ class Trial:
             if isinstance(warmstart, str):
                 # a saved solution file, its stored grid remapped onto this
                 # trial's (n_k, d) discretization
-                import pickle
                 with open(warmstart, 'rb') as fh:
                     payload = pickle.load(fh)
                 V_init = ws.remap_to_v(payload['remap'], self.ocp)
@@ -156,7 +157,11 @@ class Trial:
                 'avg_power_watts': e_end / T}
 
     def theta_opt(self) -> Dict[str, np.ndarray]:
-        V = np.asarray(self.solution.V_opt)
+        return self.theta_of(self.solution.V_opt)
+
+    def theta_of(self, V) -> Dict[str, np.ndarray]:
+        """The SI design parameters held in a V of this trial's OCP."""
+        V = np.asarray(V)
         vs = self.ocp.vstruct
         layout = self.model.layout
         out = {}
@@ -228,23 +233,17 @@ class Trial:
         raise NotImplementedError(f'Trial.check_quality {NOT_PORTED}')
 
 
-def install_anchor(trial, path, eq_tol: float = 1e-4) -> bool:
-    """Install a solved primal-dual state saved as an npz (w, s, y, lam, zl,
-    zu, V_init, kkt_error; tests/artifacts/bench_anchor_*.npz) as the built
-    ``trial``'s final-step solution, as if ``optimize`` had left it. The
-    state is accepted only if its f64 dynamics residual under this trial's
-    OCP and the final cost weights is within ``eq_tol``; returns whether it
-    was installed."""
-    anchor = np.load(path)
+def _install(trial, V_opt, V_init, final_state, eq_tol, **record) -> bool:
+    """Install V_opt as the built ``trial``'s final-step solution once its
+    f64 dynamics residual under this trial's OCP and the final cost weights
+    is within ``eq_tol``; ``record`` fills the solution's other fields."""
     ocp = trial.ocp
-    V_opt = np.asarray(anchor['w'])
     if V_opt.shape[0] != ocp.vstruct.total:
         return False
-    V_init = np.asarray(anchor['V_init'])
     V_ref = build_reference(ocp, V_init)
     P = homotopy_mod.build_p_fix(ocp, V_ref)
-    # the anchor is a final-homotopy-step optimum: evaluate it under the
-    # final cost weights, as the solver left it
+    # a final-homotopy-step optimum: evaluate it under the final cost
+    # weights, as the solver left it
     P['cost'] = {k: np.asarray(v) for k, v in homotopy_mod.final_cost_values(ocp).items()}
     eq = ocp.eq_fn(torch.as_tensor(V_opt), to_tensors(P, torch.float64, 'cpu'))
     eq = float(torch.abs(eq).max())
@@ -253,9 +252,51 @@ def install_anchor(trial, path, eq_tol: float = 1e-4) -> bool:
     trial.V_init = V_init
     trial.V_ref = V_ref
     trial._final_homotopy_step = 'final'
-    trial.solution = homotopy_mod.HomotopySolution(
-        V_opt=V_opt, P=P, stats={'iterations': {}, 't_wall': {}}, success=True,
-        step_results={'final_0': {'iterations': 0, 'kkt_error': float(anchor['kkt_error']),
-                                  'loaded_from_artifact': True}},
-        final_state={k: np.asarray(anchor[k]) for k in ('w', 's', 'y', 'lam', 'zl', 'zu')})
+    trial.solution = homotopy_mod.HomotopySolution(V_opt=V_opt, P=P, final_state=final_state,
+                                                   **record)
     return True
+
+
+def install_anchor(trial, path, eq_tol: float = 1e-4) -> bool:
+    """Install a solved primal-dual state saved as an npz (w, s, y, lam, zl,
+    zu, V_init, kkt_error; tests/artifacts/bench_anchor_*.npz) as the built
+    ``trial``'s final-step solution, as if ``optimize`` had left it. The
+    state is accepted only if its f64 dynamics residual under this trial's
+    OCP and the final cost weights is within ``eq_tol``; returns whether it
+    was installed."""
+    anchor = np.load(path)
+    return _install(
+        trial, np.asarray(anchor['w']), np.asarray(anchor['V_init']),
+        {k: np.asarray(anchor[k]) for k in STATE_KEYS}, eq_tol,
+        stats={'iterations': {}, 't_wall': {}}, success=True,
+        step_results={'final_0': {'iterations': 0, 'kkt_error': float(anchor['kkt_error']),
+                                  'loaded_from_artifact': True}})
+
+
+def install_solution(trial, payload, eq_tol: float = 1e-4) -> bool:
+    """Install a solution saved by the JAX package's ``Trial.save`` (a dict
+    of numpy arrays, floats and dicts, or the path of its pickle, as
+    tests/artifacts/flagship_coarse_nk20_d3.pkl) as the built ``trial``'s
+    final-step solution: V_opt, V_init, the primal-dual state ('duals') and
+    the solve's stats. The payload's theta_opt must be the design
+    parameters of its V_opt under this trial's scaling, and the state is
+    accepted only if its f64 dynamics residual under this trial's OCP and
+    the final cost weights is within ``eq_tol``; returns whether it was
+    installed."""
+    if isinstance(payload, str):
+        with open(payload, 'rb') as fh:
+            payload = pickle.load(fh)
+    V_opt = np.asarray(payload['V_opt'], dtype=float)
+    if V_opt.shape[0] != trial.ocp.vstruct.total:
+        return False
+    theta = trial.theta_of(V_opt)
+    if set(payload['theta_opt']) != set(theta) or not all(
+            np.allclose(theta[k], np.asarray(v, dtype=float), rtol=1e-12, atol=0.)
+            for k, v in payload['theta_opt'].items()):
+        return False
+    duals, stats = payload['duals'], payload['stats']
+    return _install(trial, V_opt, np.asarray(payload['V_init'], dtype=float),
+                    {k: np.asarray(duals[k]) for k in STATE_KEYS} if duals else None,
+                    eq_tol, stats=stats, success=bool(payload['success']),
+                    step_results={'final_0': {'iterations': stats['iterations'].get('final_0', 0),
+                                              'loaded_from_artifact': True}})

@@ -1,10 +1,11 @@
-"""Kite aerodynamic forces and indicator outputs (PyTorch), 3-DOF.
+"""Kite aerodynamic forces, moments and indicator outputs (PyTorch).
 
-Counterpart of ``awebox_tpu/model/aero/kite_aero.py`` for the 3-DOF
-roll-control model (coeff = [CL, psi]): per-kite forces in the earth frame,
-plus the outputs the flight-envelope constraints read (airspeed, alpha/beta,
-aero-validity residuals). The 6-DOF stability-derivative branch is not
-ported; ``make_model`` refuses kite_dof=6.
+Counterpart of ``awebox_tpu/model/aero/kite_aero.py``: per-kite forces in
+the earth frame from either the 3-DOF roll-control model (coeff = [CL, psi])
+or the 6-DOF stability-derivative model (moments in the body frame), plus
+the outputs the flight-envelope constraints read (airspeed, alpha/beta,
+aero-validity residuals) and the power-balance bookkeeping. Lifted
+induction is not ported.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from .. import atmosphere, wind
-from . import frames
+from . import frames, stability_derivatives
 
 
 def get_alpha(ua, kite_dcm):
@@ -69,8 +70,7 @@ def forces_and_outputs(cfg, si, theta0, arch):
 
     Returns (f_earth: {kite: (3,)}, m_body: {kite: (3,)}, outputs: dict).
     """
-    if cfg['kite_dof'] != 3:
-        raise NotImplementedError('only the 3-DOF kite model is ported')
+    kite_dof = cfg['kite_dof']
     outputs = {'aerodynamics': {}, 'aero_validity': {}, 'power_balance': {}}
     f_earth = {}
     m_body = {}
@@ -82,22 +82,65 @@ def forces_and_outputs(cfg, si, theta0, arch):
         vec_u = get_u_eff_earth(cfg, si, theta0, arch, kite)
         airspeed = frames.smooth_norm(vec_u)
 
-        kite_dcm = get_kite_dcm_3dof(cfg, si, theta0, arch, kite)
-        coeff = si['x']['coeff' + label]
-        CL = coeff[0]
-        CD = float(cfg['CD0']) + CL ** 2 / float(np.pi * cfg['geometry_static']['ar'])
-        s_ref = theta0['geometry']['s_ref']
-        Lhat = kite_dcm[:, 2]
-        f_lift = CL * 0.5 * rho * (vec_u @ vec_u) * s_ref * Lhat
-        f_drag = CD * 0.5 * rho * airspeed * s_ref * vec_u
-        f_aero_earth = f_lift + f_drag
-        alpha = get_alpha(vec_u, kite_dcm)
-        beta = get_beta(vec_u, kite_dcm)
-        outputs['aerodynamics']['CL' + str(kite)] = CL
-        outputs['aerodynamics']['CD' + str(kite)] = CD
+        if kite_dof == 3:
+            kite_dcm = get_kite_dcm_3dof(cfg, si, theta0, arch, kite)
+            coeff = si['x']['coeff' + label]
+            CL = coeff[0]
+            CD = float(cfg['CD0']) + CL ** 2 / float(np.pi * cfg['geometry_static']['ar'])
+            s_ref = theta0['geometry']['s_ref']
+            Lhat = kite_dcm[:, 2]
+            f_lift = CL * 0.5 * rho * (vec_u @ vec_u) * s_ref * Lhat
+            f_drag = CD * 0.5 * rho * airspeed * s_ref * vec_u
+            f_aero_earth = f_lift + f_drag
+            m_aero_body = torch.zeros_like(f_aero_earth)
+            alpha = get_alpha(vec_u, kite_dcm)
+            beta = get_beta(vec_u, kite_dcm)
+            outputs['aerodynamics']['CL' + str(kite)] = CL
+            outputs['aerodynamics']['CD' + str(kite)] = CD
+            # lift/drag split for the power balance
+            f_lift_earth, f_drag_earth = f_lift, f_drag
+            f_side_earth = torch.zeros_like(f_lift)
+        else:
+            kite_dcm = si['x']['r' + label].reshape(3, 3)
+            omega = si['x']['omega' + label]
+            if cfg['surface_control'] == 0:
+                delta = si['u']['delta' + label]
+            else:
+                delta = si['x']['delta' + label]
+            alpha = get_alpha(vec_u, kite_dcm)
+            beta = get_beta(vec_u, kite_dcm)
+            CF, CM = stability_derivatives.evaluate(
+                cfg['stab_derivs_structure'], alpha, beta, airspeed, omega,
+                delta, theta0, cfg['force_frame'], cfg['moment_frame'])
+            dyn_pressure = 0.5 * rho * (vec_u @ vec_u)
+            s_ref = theta0['geometry']['s_ref']
+            force_found = CF * dyn_pressure * s_ref
+            ref_lengths = torch.stack([theta0['geometry']['b_ref'],
+                                       theta0['geometry']['c_ref'],
+                                       theta0['geometry']['b_ref']])
+            moment_found = dyn_pressure * s_ref * (ref_lengths * CM)
+
+            f_aero_earth = frames.from_named_frame_to_earth(
+                cfg['force_frame'], vec_u, kite_dcm, force_found)
+            m_aero_body = frames.from_named_frame_to_body(
+                cfg['moment_frame'], vec_u, kite_dcm, moment_found)
+
+            # wind-frame coefficients for indicators/quality
+            f_wind = frames.from_earth_to_wind(vec_u, kite_dcm, f_aero_earth)
+            CFw = f_wind / torch.clamp(dyn_pressure * s_ref, min=1e-12)
+            outputs['aerodynamics']['CD' + str(kite)] = CFw[0]
+            outputs['aerodynamics']['CS' + str(kite)] = CFw[1]
+            outputs['aerodynamics']['CL' + str(kite)] = CFw[2]
+
+            Dhat = frames.smooth_normalize(vec_u)
+            Lhat = frames.smooth_normed_cross(vec_u, kite_dcm[:, 1])
+            Shat = frames.smooth_normed_cross(Lhat, Dhat)
+            f_drag_earth = (f_aero_earth @ Dhat) * Dhat
+            f_side_earth = (f_aero_earth @ Shat) * Shat
+            f_lift_earth = (f_aero_earth @ Lhat) * Lhat
 
         f_earth[kite] = f_aero_earth
-        m_body[kite] = torch.zeros_like(f_aero_earth)
+        m_body[kite] = m_aero_body
 
         dq = si['x']['dq' + label]
         outputs['aerodynamics']['air_velocity' + str(kite)] = vec_u
@@ -113,9 +156,11 @@ def forces_and_outputs(cfg, si, theta0, arch):
         outputs['aerodynamics']['ehat_up' + str(kite)] = kite_dcm[:, 2]
         outputs['aerodynamics']['f_aero_earth' + str(kite)] = f_aero_earth
         outputs['aerodynamics']['m_aero_body' + str(kite)] = m_body[kite]
-        outputs['power_balance']['P_lift' + str(kite)] = f_lift @ dq
-        outputs['power_balance']['P_drag' + str(kite)] = f_drag @ dq
-        outputs['power_balance']['P_side' + str(kite)] = torch.zeros_like(CL)
+        outputs['power_balance']['P_lift' + str(kite)] = f_lift_earth @ dq
+        outputs['power_balance']['P_drag' + str(kite)] = f_drag_earth @ dq
+        outputs['power_balance']['P_side' + str(kite)] = f_side_earth @ dq
+        if kite_dof == 6:
+            outputs['power_balance']['P_moment' + str(kite)] = m_body[kite] @ omega
 
         # aero-validity residuals, enforced as inequalities <= 0 when
         # cfg['aero_validity_include']

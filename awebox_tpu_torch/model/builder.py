@@ -8,9 +8,9 @@ homotopy-parameter vector ``phi`` and a parameter dict ``theta0`` of tensors;
 they are written so that ``torch.func.vmap``/``jacfwd``/``hessian`` apply
 (no in-place writes, no Python branches on tensor values).
 
-Ported configurations: single- or multi-node lift mode with 3-DOF kites, no
-cross tethers, no induction model, energy as a state. Everything else raises
-NotImplementedError naming the option.
+Ported configurations: single- or multi-node lift mode with 3-DOF or 6-DOF
+kites, no cross tethers, no induction model, energy as a state. Everything
+else raises NotImplementedError naming the option.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 from ..arch import Architecture
 from . import lagrangian as lagr
 from . import atmosphere, tether, wind
-from .aero import kite_aero
+from .aero import frames, kite_aero
 from .lagrangian import const
 from .system import PHI_NAMES, generate_structure
 from .vars import VarLayout, strip_node_identifier
@@ -68,8 +68,6 @@ def take(vec, idx):
 def check_ported(options):
     """Refuse configurations outside the port's scope, naming the option."""
     user = options['user_options']
-    if int(user['system_model']['kite_dof']) != 3:
-        raise NotImplementedError('user_options.system_model.kite_dof=6 is not ported')
     if user['trajectory']['system_type'] != 'lift_mode':
         raise NotImplementedError(
             f"user_options.trajectory.system_type={user['trajectory']['system_type']!r}"
@@ -256,6 +254,7 @@ def make_model(options, arch: Architecture) -> Model:
 
     n_nodes = arch.number_of_nodes
     kite_nodes = arch.kite_nodes
+    kite_dof = cfg['kite_dof']
 
     # --- index arrays for generalized coordinates -------------------------
     x_off = layout.type_offsets['x']
@@ -330,6 +329,10 @@ def make_model(options, arch: Architecture) -> Model:
 
     add_eq('dynamics_translation', 3 * (n_nodes - 1))
     add_eq('dynamics_constraint', len(holonomic_names))
+    if kite_dof == 6:
+        for kite in kite_nodes:
+            add_eq(f'rotation_dynamics{kite}', 3)
+            add_eq(f'ref_frame_dynamics{kite}', 9)
     # trivial kinematics: an xdot variable whose own name is also an x or u
     # variable (e.g. xdot['dq10'] = x['dq10'])
     trivial_names = []
@@ -352,6 +355,7 @@ def make_model(options, arch: Architecture) -> Model:
                       * _scaling_value(scaling, layout, 'xdot', name))
         for (name, t) in trivial_names}
     e_scale = float(scaling_of('x', 'e'))
+    m_scale = float(scaling_of('z', 'm_aero'))
     de_slice = layout.slices['xdot']['de']
     gamma_i = PHI_NAMES.index('gamma')
 
@@ -391,7 +395,7 @@ def make_model(options, arch: Architecture) -> Model:
 
         # generalized forces
         drag = tether.tether_drag_forces(cfg, si, theta0, arch)
-        f_kite, _, _ = kite_aero.forces_and_outputs(cfg, si, theta0, arch)
+        f_kite, m_kite, _ = kite_aero.forces_and_outputs(cfg, si, theta0, arch)
         rhs_rows = []
         for node in range(1, n_nodes):
             label = arch.node_label(node)
@@ -425,6 +429,23 @@ def make_model(options, arch: Architecture) -> Model:
         res_holonomic = lhs_holonomic / (kappa_b ** 2. * const(h_scaling_np, v))
 
         res = [res_translation, res_holonomic]
+
+        # rotational dynamics and DCM evolution of 6-DOF kites
+        if kite_dof == 6:
+            J = theta0['geometry']['j']
+            kappa_r = theta0['kappa_r']
+            eye = torch.eye(3, dtype=v.dtype, device=v.device)
+            for kite in kite_nodes:
+                label = arch.node_label(kite)
+                moment = gamma * si['u']['m_fict' + label] + m_kite[kite]
+                omega = si['x']['omega' + label]
+                domega = si['xdot']['domega' + label]
+                res.append((moment - (J @ domega + frames.cross(omega, J @ omega)))
+                           / m_scale)
+                R = si['x']['r' + label].reshape(3, 3)
+                dR = si['xdot']['dr' + label].reshape(3, 3)
+                ortho = kappa_r / 2. * (eye - R.T @ R)
+                res.append((dR - R @ (ortho + lagr.skew(omega))).reshape(9))
 
         # trivial kinematics xdot_name = var
         for (name, t) in trivial_names:
@@ -472,6 +493,16 @@ def make_model(options, arch: Architecture) -> Model:
     if cfg['acceleration_include']:
         for node in range(1, n_nodes):
             add_ineq('acceleration' + arch.node_label(node), 1)
+    rotation_type = cfg['rotation_type'] \
+        if cfg['rotation_include'] and kite_dof == 6 else None
+    for kite in kite_nodes:
+        if rotation_type == 'roll_pitch':
+            add_ineq('rotation_max' + arch.node_label(kite), 2)
+            add_ineq('rotation_min' + arch.node_label(kite), 2)
+        elif rotation_type == 'yaw':
+            add_ineq('rotation_max' + arch.node_label(kite), 1)
+    yaw_scales = {kite: float(scaling_of('x', 'l_t')) if kite == 1
+                  else float(scaling_of('theta', 'l_s')) for kite in kite_nodes}
 
     def tension_and_stress(si, theta0, node):
         label = arch.node_label(node)
@@ -524,6 +555,26 @@ def make_model(options, arch: Architecture) -> Model:
             for node in range(1, n_nodes):
                 acc = si['xdot']['ddq' + arch.node_label(node)]
                 res.append((acc @ acc) / acc_max ** 2. - 1.)
+        if rotation_type is not None:
+            rot_angles = theta0['model_bounds']['rot_angles']
+            for kite in kite_nodes:
+                label = arch.node_label(kite)
+                q_hat = si['x']['q' + label]
+                if arch.parent_map[kite] != 0:
+                    q_hat = q_hat - si['x']['q' + arch.parent_label(kite)]
+                R = si['x']['r' + label].reshape(3, 3)
+                if rotation_type == 'roll_pitch':
+                    roll_t = (q_hat @ R[:, 1]) / (q_hat @ R[:, 2])
+                    pitch_s = (q_hat @ R[:, 0]) / torch.sqrt(q_hat @ q_hat + 1e-16)
+                    angles = torch.stack([roll_t, pitch_s])
+                    max_angles = torch.stack([torch.tan(rot_angles[0]),
+                                              torch.sin(rot_angles[1])])
+                    res.append(angles - max_angles)
+                    res.append(-max_angles - angles)
+                else:
+                    norm_q = torch.sqrt(q_hat @ q_hat + 1e-16)
+                    yaw_expr = (q_hat @ R[:, 2]) - torch.cos(rot_angles[2]) * norm_q
+                    res.append(-yaw_expr / yaw_scales[kite])
         if not res:
             return v[:0]
         return torch.cat([torch.atleast_1d(r) for r in res])
@@ -582,6 +633,13 @@ def make_model(options, arch: Architecture) -> Model:
             outputs['invariants'][name] = g[i]
             outputs['invariants']['d' + name] = gdot[i]
             outputs['invariants']['dd' + name] = gddot[i]
+        if kite_dof == 6:
+            eye = torch.eye(3, dtype=v.dtype, device=v.device)
+            for kite in kite_nodes:
+                label = arch.node_label(kite)
+                R = si['x']['r' + label].reshape(3, 3)
+                outputs['invariants']['orthonormality' + label] = \
+                    (R.T @ R - eye).reshape(9)
 
         # local performance: tether forces/stresses
         outputs['local_performance'] = {}

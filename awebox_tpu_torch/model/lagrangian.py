@@ -27,6 +27,15 @@ def const(x, like):
                            device=like.device)
 
 
+def skew(omega):
+    """The cross-product matrix of a 3-vector: skew(w) @ a = w x a."""
+    wx, wy, wz = omega[0], omega[1], omega[2]
+    zero = torch.zeros_like(wx)
+    return torch.stack([torch.stack([zero, -wz, wy]),
+                        torch.stack([wz, zero, -wx]),
+                        torch.stack([-wy, wx, zero])])
+
+
 def make_splitters(layout, scaling):
     """Build (split, to_si) helpers for the flat model-variables vector."""
     offsets = layout.type_offsets
@@ -53,19 +62,37 @@ def make_time_derivative(layout, scaling, arch, kite_dof):
     f in the tangent direction where each scaled state s moves with the rate
     named 'd'+s, taken from the state or control of that name when one exists
     and from the xdot variables otherwise (the reference package's choice,
-    which fixes the Jacobian structure of gddot). All other variables are
-    frozen. The tangent is assembled out of place with ``torch.cat`` so that
-    the outer transforms can trace through it.
+    which fixes the Jacobian structure of gddot). A 6-DOF kite's DCM state r
+    moves with R skew(omega) instead. All other variables are frozen. The
+    tangent is assembled out of place with ``torch.cat`` so that the outer
+    transforms can trace through it.
     """
-    if kite_dof != 3:
-        raise NotImplementedError('kite_dof=6 (DCM tangent) is not ported')
     x_off = layout.type_offsets['x']
     nx = layout.dims['x']
     total = layout.total_dim
+    scale_x = np.asarray(scaling['x'])
 
-    # (absolute source slice in v, scale ratio) per x entry, in x order
+    # DCM states of 6-DOF kites: name -> (absolute slice of omega, omega's
+    # scale, r's scale)
+    dcm = {}
+    if kite_dof == 6:
+        for kite in arch.kite_nodes:
+            label = arch.node_label(kite)
+            om_rel = layout.slices['x']['omega' + label]
+            r_rel = layout.slices['x']['r' + label]
+            dcm['r' + label] = (slice(x_off + om_rel.start, x_off + om_rel.stop),
+                                scale_x[om_rel], scale_x[r_rel])
+
+    # per x entry, in x order: ('rate', absolute source slice in v, scale
+    # ratio) or ('dcm', absolute slice of r, omega's slice, scales)
     routes = []
     for name, dim in layout.entries['x']:
+        dst = layout.slices['x'][name]
+        if name in dcm:
+            om_abs, om_scale, r_scale = dcm[name]
+            routes.append(('dcm', slice(x_off + dst.start, x_off + dst.stop),
+                           om_abs, om_scale, r_scale))
+            continue
         dname = 'd' + name
         if layout.has('x', dname):
             src_type = 'x'
@@ -73,16 +100,24 @@ def make_time_derivative(layout, scaling, arch, kite_dof):
             src_type = 'u'
         else:
             src_type = 'xdot'
-        dst = layout.slices['x'][name]
         src_rel = layout.slices[src_type][dname]
         src_abs = slice(layout.type_offsets[src_type] + src_rel.start,
                         layout.type_offsets[src_type] + src_rel.stop)
-        ratio = np.asarray(scaling[src_type])[src_rel] / np.asarray(scaling['x'])[dst]
-        routes.append((src_abs, ratio))
+        ratio = np.asarray(scaling[src_type])[src_rel] / scale_x[dst]
+        routes.append(('rate', src_abs, ratio))
+
+    def piece(v, route):
+        if route[0] == 'rate':
+            return v[route[1]] * const(route[2], v)
+        _, r_abs, om_abs, om_scale, r_scale = route
+        R = (v[r_abs] * const(r_scale, v)).reshape(3, 3)
+        omega_si = v[om_abs] * const(om_scale, v)
+        dr_si = (R @ skew(omega_si)).reshape(9)
+        return dr_si / const(r_scale, v)
 
     def tangent(v):
         pieces = [torch.zeros(x_off, dtype=v.dtype, device=v.device)]
-        pieces += [v[src_abs] * const(ratio, v) for (src_abs, ratio) in routes]
+        pieces += [piece(v, route) for route in routes]
         pieces.append(torch.zeros(total - x_off - nx, dtype=v.dtype,
                                   device=v.device))
         return torch.cat(pieces)
@@ -123,6 +158,10 @@ def node_kinetic_energies(cfg, si, theta0, arch) -> Dict[str, torch.Tensor]:
         if node in arch.kite_nodes:
             m_k = theta0['geometry']['m_k']
             out['kite_trans' + label] = 0.5 * m_k * (dq_node @ dq_node)
+            if cfg['kite_dof'] == 6:
+                omega = si['x']['omega' + label]
+                J = theta0['geometry']['j']
+                out['kite_rot' + label] = 0.5 * omega @ (J @ omega)
     return out
 
 

@@ -26,7 +26,7 @@ from torch.func import grad_and_value, hessian, jacfwd, vmap
 from ..model.builder import take
 from ..model.lagrangian import const
 from ..model.system import PHI_NAMES
-from .transcription import OCP, REG_CATEGORIES
+from .transcription import OCP, REG_CATEGORIES, kite_betas
 
 
 def _idx(sl: slice) -> np.ndarray:
@@ -148,12 +148,13 @@ def make_local_kit(ocp: OCP) -> SimpleNamespace:
         return model.ineq_fn(mv, local[s_phi], theta0)
 
     # node objective terms: quadratic regularization (power_cycle tracking
-    # blend psi)
+    # blend psi) and, for 6-DOF kites, the beta cost
     cat_mask = np.asarray(ocp.cat_mask_matrix)
     norm = ocp.normalization
     psi_i = PHI_NAMES.index('psi')
+    kite_dof = model.cfg['kite_dof']
 
-    def coll_cost_local(local, c_row, sel_row, phase_w, iw, ref_vec, P):
+    def coll_cost_local(local, c_row, sel_row, phase_w, iw, ref_vec, P, theta0):
         mv = coll_model_vec(local, c_row, sel_row, phase_w)
         diffsq = P['weights'] * (mv - ref_vec) ** 2
         per_cat = const(cat_mask, local) @ diffsq
@@ -161,11 +162,14 @@ def make_local_kit(ocp: OCP) -> SimpleNamespace:
         for i, cat in enumerate(REG_CATEGORIES):
             factor = local[c_phi][psi_i] if cat == 'tracking' else 1.0
             cost = cost + factor * P['cost'][cat] / norm[cat] * per_cat[i]
+        if kite_dof == 6:
+            beta_sq = torch.sum(kite_betas(model, mv, theta0) ** 2)
+            cost = cost + P['cost']['beta'] / norm['beta'] * beta_sq
         return iw * cost
 
     def coll_scalar(local, c_row, sel_row, phase_w, iw, ref_vec, lam_node, P, theta0):
         return lam_node @ coll_eq_local(local, c_row, sel_row, phase_w, theta0) \
-            + coll_cost_local(local, c_row, sel_row, phase_w, iw, ref_vec, P)
+            + coll_cost_local(local, c_row, sel_row, phase_w, iw, ref_vec, P, theta0)
 
     def sh_scalar(local, phase_w, lam_eq_node, lam_ineq_node, theta0):
         val = lam_eq_node @ sh_eq_local(local, phase_w, theta0)

@@ -18,6 +18,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from ..model.aero import kite_aero
 from ..model.builder import Model, take
 from ..model.lagrangian import const
 from ..model.system import PHI_NAMES
@@ -72,6 +73,20 @@ def check_ported(options):
     if traj_type != 'power_cycle':
         raise NotImplementedError(
             f'user_options.trajectory.type={traj_type!r} is not ported')
+
+
+def kite_betas(model: Model, vec, theta0):
+    """Side-slip angle of each 6-DOF kite at one node's model vector, the
+    quantity of the beta cost."""
+    si = model.to_si(vec)
+    arch = model.arch
+    betas = []
+    for kite in arch.kite_nodes:
+        label = arch.node_label(kite)
+        kite_dcm = si['x']['r' + label].reshape(3, 3)
+        vec_u = kite_aero.get_u_eff_earth(model.cfg, si, theta0, arch, kite)
+        betas.append(kite_aero.get_beta(vec_u, kite_dcm))
+    return torch.stack(betas)
 
 
 def keep_rows_of(model: Model) -> np.ndarray:
@@ -314,6 +329,7 @@ def build_ocp(model: Model, options: dict) -> OCP:
         return e_final_scaled(V, P) * e_state_scale
 
     int_w_tiled = np.tile(int_w, n_k)   # (n_k*d,) quadrature weight per node
+    kite_dof = model.cfg['kite_dof']
 
     def cost_components(V, P):
         phi = vstruct.get_phi(V)
@@ -337,7 +353,14 @@ def build_ocp(model: Model, options: dict) -> OCP:
         comp['time_cost'] = P['cost']['t_f'] * (T - T_ref) ** 2
 
         comp['power_cost'] = P['cost']['power'] * (-1.) * e_final_scaled(V, P) / T
-        comp['beta_cost'] = 0.
+        if kite_dof == 6:
+            betas = torch.func.vmap(kite_betas, in_dims=(None, 0, None))(
+                model, coll_vecs, P['theta0'])
+            beta_sq = torch.sum(betas ** 2, dim=1)
+            comp['beta_cost'] = P['cost']['beta'] / normalization['beta'] \
+                * (const(int_w_tiled, V) @ beta_sq)
+        else:
+            comp['beta_cost'] = 0.
 
         comp['tracking_problem_cost'] = comp['tracking_cost']
         comp['power_problem_cost'] = comp['power_cost']

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Times one iteration's pieces of the host solver behind Trial.optimize
-(``opti/ipsolver.py``) at the bench configuration, and optionally a cold
-solve of it.
+(``opti/ipsolver.py``) at the bench configuration (or, with --config sixdof,
+at the 6-DOF flagship configuration, ``configs.flagship_options(N, 3)``:
+at N = 4 the single-kite 6-DOF health configuration, n = 569 variables, an
+augmented K of 1125), and optionally a cold solve of it.
 
-At n_k=4 (the default) at the committed anchor's state
-(tests/artifacts/bench_anchor_nk4_d3.npz, mu = 1e-3, the final cost
-weights); with --nk N at another grid (no anchor there) at the cold solve's
-first iterate, the arguments of the first kkt_solve of the 'initial'
-homotopy step (bench_options(n_k=N): at N = 10, n = 670 variables, an
-augmented K of 1311). On --device (default the card), each
+The bench configuration at n_k=4 (the default) is timed at the committed
+anchor's state (tests/artifacts/bench_anchor_nk4_d3.npz, mu = 1e-3, the
+final cost weights); with --nk N at another grid (no anchor there), and the
+6-DOF configuration at every grid, at the cold solve's first iterate, the
+arguments of the first kkt_solve of the 'initial' homotopy step
+(bench_options(n_k=N): at N = 10, n = 670 variables, an augmented K of
+1311). On --device (default the card), each
 piece on the host clock around the call and a device synchronize, median of
 --runs: the dense derivatives as the solver builds them (reverse mode:
 jacrev for the Jacobians, jacrev(jacrev) for the Hessian) and by forward
@@ -17,17 +20,18 @@ difference of the two, the residual pieces of the KKT error (kkt_parts, on
 the dense derivatives as the solve loop passes them), one dense direction
 (kkt_solve: K10's inertia test, K12, K13 twice) and one evaluation of the
 barrier objective, each with its count of aten operations. With --solve, a
-cold Trial.optimize of bench_options(n_k=N) on the same device, uncut,
+cold Trial.optimize of the configuration at n_k=N on the same device, uncut,
 printing each homotopy step's status, iterations, seconds and KKT error, and
-the power and period (against the anchor's at N = 4); --solve-only runs the
+the power and period (against the anchor's for the bench configuration at
+N = 4); --solve-only runs the
 cold solve alone, --final STEP stops it after that homotopy step (at n_k=14,
 the first grid past the previous K12's reach, the final step runs to its
 2000-iteration cap in the JAX package), --max-iter M caps every step at M
 iterations (solver.max_iter, 2000 by default). Prints one JSON line at the
 end.
 
-    python3 awebox_tpu_torch/probes/host_solver.py [--nk N] [--solve | --solve-only]
-        [--final STEP] [--max-iter M] [--device cpu]
+    python3 awebox_tpu_torch/probes/host_solver.py [--config bench|sixdof] [--nk N]
+        [--solve | --solve-only] [--final STEP] [--max-iter M] [--device cpu]
 """
 import argparse
 import json
@@ -68,15 +72,19 @@ def main():
     ap.add_argument('--final', help="the last homotopy step of the cold solve (default: all)")
     ap.add_argument('--max-iter', type=int, help='solver.max_iter (default: 2000)')
     ap.add_argument('--nk', type=int, default=4)
+    ap.add_argument('--config', choices=('bench', 'sixdof'), default='bench')
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     from awebox_tpu_torch.api.trial import Trial
-    from awebox_tpu_torch.configs import bench_options
+    from awebox_tpu_torch.configs import bench_options, flagship_options
+    options_of = {'bench': lambda n_k: bench_options(n_k=n_k),
+                  'sixdof': lambda n_k: flagship_options(n_k, 3)}[args.config]
+    at_anchor = args.config == 'bench' and args.nk == 4
     if args.solve_only:
         dev = torch.device(args.device)
-        out = dict(device=str(dev), n_k=args.nk,
-                   solve=cold_solve(Trial, bench_options, args.nk, dev, args.final,
-                                    args.max_iter))
+        out = dict(device=str(dev), n_k=args.nk, config=args.config,
+                   solve=cold_solve(Trial, options_of, args.nk, dev, args.final,
+                                    args.max_iter, at_anchor))
         if dev.type == 'cuda':
             out['card'] = torch.cuda.get_device_name(0)
         print(json.dumps(out), flush=True)
@@ -89,8 +97,8 @@ def main():
 
     dev = torch.device(args.device)
     anchor = dict(np.load(ANCHOR))
-    options = bench_options(n_k=args.nk)
-    if args.nk != 4:
+    options = options_of(args.nk)
+    if not at_anchor:
         options['solver.max_iter'] = 1
     trial = Trial(options, 'host_solver').build()
     ocp = trial.ocp
@@ -99,7 +107,7 @@ def main():
                                  device=dev)
     t = solver._t
     kkt_args = None
-    if args.nk == 4:
+    if at_anchor:
         P = build_p_fix(ocp, build_reference(ocp, anchor['V_init']))
         P['cost'] = {k: np.asarray(v) for k, v in final_cost_values(ocp).items()}
         lbw, ubw, free, _ = InteriorPointSolver.split_pins(trial.lb_nominal, trial.ub_nominal)
@@ -127,8 +135,8 @@ def main():
         lbw, ubw, free = kkt_args[12:15]
         mu, P = float(kkt_args[15]), kept['P']
     Pd = solver._p(P)
-    where = 'the anchor' if args.nk == 4 else "the cold solve's first iterate"
-    print(f'[host_solver] n_k={args.nk}: n={ocp.vstruct.total}, m={ocp.n_eq + ocp.n_ineq}, '
+    where = 'the anchor' if at_anchor else "the cold solve's first iterate"
+    print(f'[host_solver] {args.config} n_k={args.nk}: n={ocp.vstruct.total}, m={ocp.n_eq + ocp.n_ineq}, '
           f'at {where}, mu {mu:g}', flush=True)
     f, eq, ineq = ocp.f_fn, ocp.eq_fn, ocp.ineq_fn
 
@@ -166,22 +174,23 @@ def main():
         print(f'[host_solver] {name}: {ms:.1f} ms, {ops[name]} aten ops', flush=True)
     print(f'[host_solver] reverse against forward mode: JE, JI, H gaps {gaps} (relative to '
           f'max |.|); kkt_solve launches over {args.runs + 2} calls: {launches}', flush=True)
-    out = dict(device=str(dev), n_k=args.nk, pieces_ms=pieces, aten_ops=ops, reverse_gaps=gaps,
+    out = dict(device=str(dev), n_k=args.nk, config=args.config, pieces_ms=pieces, aten_ops=ops, reverse_gaps=gaps,
                launches=launches)
     if dev.type == 'cuda':
         out['card'] = torch.cuda.get_device_name(0)
 
     if args.solve:
-        out['solve'] = cold_solve(Trial, bench_options, args.nk, dev, args.final, args.max_iter)
+        out['solve'] = cold_solve(Trial, options_of, args.nk, dev, args.final, args.max_iter,
+                                  at_anchor)
     print(json.dumps(out), flush=True)
 
 
-def cold_solve(Trial, bench_options, n_k, dev, final=None, max_iter=None):
-    """Trial(bench_options(n_k=n_k)).build().optimize() on dev, uncut
-    (through the homotopy step ``final`` if given, each step capped at
-    ``max_iter`` iterations if given): each homotopy step's line and the
-    solve's; returns its record."""
-    options = bench_options(n_k=n_k)
+def cold_solve(Trial, options_of, n_k, dev, final=None, max_iter=None, at_anchor=False):
+    """Trial(options_of(n_k)).build().optimize() on dev, uncut (through the
+    homotopy step ``final`` if given, each step capped at ``max_iter``
+    iterations if given): each homotopy step's line and the solve's, against
+    the anchor's power and period ``at_anchor``; returns its record."""
+    options = options_of(n_k)
     if max_iter:
         options['solver.max_iter'] = max_iter
     cold = Trial(options, 'host_solver_cold').build()
@@ -205,7 +214,7 @@ def cold_solve(Trial, bench_options, n_k, dev, final=None, max_iter=None):
     line = (f'[host_solver] cold solve at n_k={n_k}: {cold.solve_succeeded}, {seconds:.1f} s, '
             f'{sum(st_["iterations"].values())} iterations; power {go["avg_power_watts"]!r} W, '
             f'period {go["time_period"]!r} s')
-    if n_k == 4:
+    if at_anchor:
         anchor = dict(np.load(ANCHOR))
         rec['rel_power'] = go['avg_power_watts'] / float(anchor['avg_power_watts']) - 1.
         rec['rel_period'] = go['time_period'] / float(anchor['time_period']) - 1.

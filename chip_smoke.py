@@ -6,7 +6,8 @@ Ampyx AP2 3-DOF power cycle (n_k=4, d=3: n=280 variables, m=263
 constraints, a 543x543 augmented KKT system per lane), the same sweep on
 the n_k=8 grid (n=540, m=515, 1055x1055), and the cold homotopy solve of
 the configuration through Trial.optimize (at n_k=4, and capped at n_k=18:
-n=1190, m=1145, 2335x2335), through its public entry points,
+n=1190, m=1145, 2335x2335) and of the 6-DOF kite (n_k=4, capped: n=569,
+m=556, 1125x1125), through its public entry points,
 and checks the hand-written CUDA kernels on the way:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA
@@ -111,6 +112,14 @@ and checks the hand-written CUDA kernels on the way:
               plain version, the first direction held to the CPU's plain
               path; then K10 on the first M of the path that it factors and
               K12/K13 on that direction's K in [kernels] rows
+ 10. 6-DOF    Trial(flagship_options(4, 3)).build().optimize() on the card
+              ([slice-trial-6dof]: the JAX package's default 6-DOF kite,
+              n=569, N=1125), each homotopy step capped at SIXDOF_ITERS
+              iterations: every step runs, every direction through K10's
+              stream variant, K12 in half panels and K13 twice and no other
+              kernel or plain version, the first direction held to the
+              CPU's plain path; then K10 and K12/K13 on the path's own M and
+              K in [kernels] rows
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -148,6 +157,13 @@ NK8_ITERS = 3     # iterations of each n_k=8 slice (its lanes do not converge; s
 # homotopy advances despite it), set from its ms/iter so that the script
 # keeps within 1100 s
 NK18_ITERS = 3
+# iterations a homotopy step of [slice-trial-6dof] (solver.max_iter), set
+# from its ms/iter (~2.5 s) so that the script keeps within 1100 s; the uncut
+# 6-DOF solve takes the JAX package 4089 iterations (JAX_SIXDOF_ITERS), ~4.7 h
+# on the card, and the solve capped at 150 a step, which ends where the uncut
+# one does, runs in `probes/host_solver.py --config sixdof --solve-only
+# --max-iter 150`
+SIXDOF_ITERS = 3
 LU_ITERS = 6
 DENSE_ITERS = 8
 # The JAX package's converged B=2 sweep (u_ref 9.5, 10.5 m/s) through
@@ -172,6 +188,12 @@ FIRST_ITER = {'block': 0.3, 'dense': 2e-3}
 # iterations a step (`python -m tests.trial_cold_cpu cold jax`)
 JAX_TRIAL_ITERS = {'initial_0': 23, 'fictitious_0': 5, 'fictitious_1': 2, 'power_0': 30,
                    'power_1': 1, 'final_0': 47}
+# The JAX package's cold homotopy of the 6-DOF health configuration (the
+# same problem as flagship_options(4, 3)) on the CPU, uncut, its iterations a
+# step (`python -m tests.trial_cold_cpu cold jax --dof 6`: its first two steps
+# run to the 2000-iteration cap)
+JAX_SIXDOF_ITERS = {'initial_0': 2000, 'fictitious_0': 2000, 'fictitious_1': 57,
+                    'power_0': 18, 'power_1': 1, 'final_0': 13}
 # the first kkt_solve of [slice-trial] on the card against the CPU's plain
 # path (LAPACK getrf/getrs and potrf there, K12, K13 and K10 here) at the same
 # state and derivatives, over each part's max: K's condition number there is
@@ -251,7 +273,7 @@ def main():
     sys.path.insert(0, HERE)
     from awebox_tpu_torch.api.sweep import Sweep
     from awebox_tpu_torch.api.trial import Trial, install_anchor
-    from awebox_tpu_torch.configs import bench_options
+    from awebox_tpu_torch.configs import bench_options, flagship_options
     from awebox_tpu_torch.opti.homotopy import (build_p_fix, final_cost_values,
                                                 linear_solver_choice)
     from awebox_tpu_torch.opti.initialization import build_reference
@@ -1777,7 +1799,7 @@ def main():
     # error within its tol; K10, K12 and K13 launched, once, once and twice a
     # direction, and no other kernel; no plain version called. Each step's
     # iterations are printed beside the JAX package's (JAX_TRIAL_ITERS).
-    def cold_trial(tag, options):
+    def cold_trial(tag, options, jax_iters=JAX_TRIAL_ITERS, jax_what='at n_k=4'):
         """Trial(options).build().optimize() on the card, with the first
         kkt_solve's arguments and outputs kept (and the arguments of the
         first whose inertia test passed), every plain version counted and
@@ -1823,7 +1845,7 @@ def main():
         for key in stats['iterations']:
             res_ = cold.solution.step_results[key]
             phase(tag, f'{key}: {res_["status"]}, {stats["iterations"][key]} iterations '
-                  f'(the JAX package at n_k=4: {JAX_TRIAL_ITERS.get(key)}), '
+                  f'(the JAX package {jax_what}: {jax_iters.get(key)}), '
                   f'{stats["t_wall"][key]:.1f} s, '
                   f'{1e3 * stats["t_wall"][key] / max(stats["iterations"][key], 1):.0f} ms/iter, '
                   f'KKT error {res_["kkt_error"]:.2e}')
@@ -1927,6 +1949,44 @@ def main():
         f'n={n18} B=1 the path\'s M', M18, b18, 'stream')
     lu64_at[f'N={N18} B=1 path'], solve64_at[f'N={N18} B=1 path'] = hold_lu64(
         f'N={N18} B=1 the path\'s K', K18_, rhs18)
+
+    # --- 10. the 6-DOF kite through Trial.optimize: [slice-trial-6dof] ----
+    # flagship_options(n_k=4, d=3), the single-kite 6-DOF health
+    # configuration (the JAX package's default kite: DCM and body rates as
+    # states, the stability-derivative aerodynamics, the beta cost): n=569,
+    # m=556, N=1125. 'auto' takes the dense direction, whose inertia test
+    # runs K10's stream variant (n=569, past the cluster variant's 554) and
+    # whose K12 factors in half panels (past 1024 rows). Each homotopy step is
+    # capped at SIXDOF_ITERS iterations, so every step runs (the uncut solve
+    # takes 4089 iterations; see SIXDOF_ITERS). Gates: six steps, the [path]
+    # of hold_path, the first direction against the CPU's; then
+    # K10 on the first M of the path that it factors and K12/K13 on that
+    # direction's K as [kernels] rows.
+    o6 = flagship_options(4, 3)
+    o6['solver.max_iter'] = SIXDOF_ITERS
+    six_run = cold_trial('slice-trial-6dof', o6, JAX_SIXDOF_ITERS, '6-DOF uncut')
+    stats6, launches_6dof = six_run['stats'], six_run['launches']
+    n_it6 = sum(stats6['iterations'].values())
+    ocp6 = six_run['cold'].ocp
+    phase('slice-trial-6dof', f'Trial(flagship_options(4, 3)).build().optimize() on the card, '
+          f'6-DOF, n={ocp6.vstruct.total}, m={ocp6.n_eq + ocp6.n_ineq} (CUT: solver.max_iter = '
+          f'{SIXDOF_ITERS} a step, for the script\'s time): {len(stats6["iterations"])} homotopy '
+          f'steps, {n_it6} iterations in {six_run["seconds"]:.1f} s, '
+          f'{1e3 * six_run["seconds"] / max(n_it6, 1):.0f} ms/iter, '
+          f'{launches_6dof["lu_factor_f64"]} directions; not gated on convergence')
+    require(list(stats6['iterations']) == list(JAX_SIXDOF_ITERS)
+            and all(0 < v <= SIXDOF_ITERS for v in stats6['iterations'].values()),
+            f'slice-trial-6dof: steps and iterations {stats6["iterations"]}')
+    hold_path('slice-trial-6dof', six_run, 'stream')
+    require('args_ok' in six_run['first'], 'slice-trial-6dof: no inertia test passed')
+    sys6 = six_run['solver']._augmented(*six_run['first']['args_ok'])
+    M6, K6_, rhs6 = (sys6[k][None].contiguous() for k in ('M', 'K', 'rhs'))
+    n6, N6 = M6.shape[1], K6_.shape[1]
+    b6 = torch.as_tensor(np.random.default_rng(n6).standard_normal((1, n6)), device=dev)
+    stream_at[f'n={n6} B=1 path 6-DOF'], ssolve_at[f'n={n6} B=1 path 6-DOF'] = hold_chol(
+        f'n={n6} B=1 the 6-DOF path\'s M', M6, b6, 'stream')
+    lu64_at[f'N={N6} B=1 path 6-DOF'], solve64_at[f'N={N6} B=1 path 6-DOF'] = hold_lu64(
+        f'N={N6} B=1 the 6-DOF path\'s K', K6_, rhs6)
     report['chol_factor_stream'] = dict(stream_at[f'n={n18} B=1 path'], at=stream_at)
 
     # each kernel's launches are those of the slice whose path holds it: the
@@ -1968,6 +2028,7 @@ def main():
              launches_nk8_lu_slice=launches_lu8[k], launches_nk8_qr_slice=launches_qr8[k],
              launches_block_slice=launches_block[k], launches_dense_slice=launches_dense[k],
              launches_trial_slice=launches_trial[k], launches_trial_nk18_slice=launches_nk18[k],
+             launches_trial_6dof_slice=launches_6dof[k],
              **report[k])
         for k in sources]}), flush=True)
     print(smi, flush=True)

@@ -249,21 +249,21 @@ def initial_step(package, max_iter, linear_solver='auto'):
     return trial, trial.solution.stats['iterates']['initial_0']
 
 
-def counted_initial_step(package, max_iter, n_k=4, kept=None):
-    """initial_step (at n_k) with the solver's kkt_solve wrapped by a counter;
-    the callback closes each iteration's count. With ``kept`` (a dict), the
-    first kkt_solve call's arguments and outputs land there."""
+def counted_initial_step(package, max_iter, n_k=4, kept=None, dof=3):
+    """initial_step (at n_k; of the 6-DOF health configuration with dof=6)
+    with the solver's kkt_solve wrapped by a counter; the callback closes
+    each iteration's count. With ``kept`` (a dict), the first kkt_solve
+    call's arguments and outputs land there."""
+    from tests.test_torch_support import options_of
     if package == 'jax':
         from awebox_tpu.api.trial import Trial
         from awebox_tpu.opti.ipsolver import InteriorPointSolver, IPOptions
-        from tests.test_torch_support import jax_bench_options as options_of
         kw, skw = {}, {}
     else:
         from awebox_tpu_torch.api.trial import Trial
-        from awebox_tpu_torch.configs import bench_options as options_of
         from awebox_tpu_torch.opti.ipsolver import InteriorPointSolver, IPOptions
         kw, skw = dict(device='cpu'), dict(device='cpu')
-    o = options_of(n_k=n_k)
+    o = options_of(package, dof)(n_k)
     o['solver.max_iter'] = max_iter
     o['solver.callback'] = True
     trial = Trial(o, f'{package}_initial').build()

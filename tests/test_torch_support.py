@@ -30,6 +30,28 @@ def jax_bench_options(n_k=4):
     return bench_options(n_k=n_k)
 
 
+def jax_sixdof_options(n_k=4, d=3):
+    """The JAX package's single-kite 6-DOF health configuration at (n_k, d):
+    tests/test_options.py::make_ampyx_options with kite_dof=6, the
+    counterpart of awebox_tpu_torch.configs.flagship_options(n_k, d)."""
+    from tests.test_options import make_ampyx_options
+    options = make_ampyx_options()
+    options['user_options.system_model.kite_dof'] = 6
+    options['nlp.n_k'] = n_k
+    options['nlp.collocation.d'] = d
+    return options
+
+
+def options_of(package, dof=3):
+    """(n_k -> options) of the bench configuration (dof=3) or of the 6-DOF
+    health configuration (dof=6) in ``package`` ('jax' or 'torch')."""
+    if package == 'jax':
+        return jax_bench_options if dof == 3 else jax_sixdof_options
+    from awebox_tpu_torch.configs import bench_options, flagship_options
+    return (lambda n_k=4: bench_options(n_k=n_k)) if dof == 3 \
+        else (lambda n_k=4: flagship_options(n_k, 3))
+
+
 @functools.lru_cache(maxsize=None)
 def jax_trial(n_k=4):
     from awebox_tpu.api.trial import Trial
@@ -136,7 +158,7 @@ def test_state_from_numpy_is_f64():
 
 
 @pytest.mark.parametrize('path, value, what', [
-    ('user_options.system_model.kite_dof', 6, 'kite_dof'),
+    ('model.tether.cd_model', 'piecewise', 'cd model'),
     ('user_options.trajectory.type', 'tracking', 'trajectory.type'),
     ('nlp.collocation.u_param', 'poly', 'u_param'),
     ('user_options.induction_model', 'actuator', 'induction'),

@@ -1,15 +1,20 @@
 """Both packages' Trial.optimize on the CPU in f64: the cold homotopy solve of
-the bench configuration (Ampyx AP2 3-DOF, n_k=4, d=3), and both packages'
-Sweep.run_batched from the committed anchor. Not a test: a script that
+the bench configuration (Ampyx AP2 3-DOF, n_k=4, d=3) or of the 6-DOF
+flagship configuration, and both packages' Sweep.run_batched from the
+committed anchor. Not a test: a script that
 prints what chip_smoke.py and PERF.md quote.
 
-    python -m tests.trial_cold_cpu cold PACKAGE [--nk N] [--final STEP] [--max-iter M]
+    python -m tests.trial_cold_cpu cold PACKAGE [--nk N] [--dof 6] [--final STEP] [--max-iter M]
         # per homotopy step: status, iterations, wall seconds, KKT error;
         # average power and period (PACKAGE: jax or torch; at N = 4, the
         # default, against the anchor's; --nk N solves bench_options(n_k=N)
         # instead; --final STEP stops the homotopy after that step, as
         # Trial.optimize's final_homotopy_step; --max-iter M caps every step
-        # at M iterations, solver.max_iter)
+        # at M iterations, solver.max_iter; --dof 6 solves the 6-DOF
+        # flagship configuration at n_k=N, d=3 instead, the single-kite
+        # 6-DOF health configuration at N = 4: tests/test_options.py::
+        # make_ampyx_options with kite_dof=6 for the JAX package,
+        # configs.flagship_options(N, 3) for the port)
     python -m tests.trial_cold_cpu sweep PACKAGE TOL [EPS SEED]
         # Sweep.run_batched over u_ref 9.5 and 10.5 m/s from the anchor
         # (n_iter=200, tol=TOL): per case success, average power, period,
@@ -27,23 +32,24 @@ import torch
 
 import tests.conftest  # noqa: F401  (JAX on the CPU, x64)
 
-from tests.test_torch_support import anchor, jax_bench_options
+from tests.test_torch_support import anchor, jax_bench_options, options_of
 from tests.test_torch_trial import installed
 
 
-def cold(package, n_k=4, final=None, max_iter=None):
+def cold(package, n_k=4, final=None, max_iter=None, dof=3):
     if package == 'jax':
         from awebox_tpu.api.trial import Trial
-        options = jax_bench_options(n_k)
         kw = {}
     else:
         from awebox_tpu_torch.api.trial import Trial
-        from awebox_tpu_torch.configs import bench_options
-        options = bench_options(n_k=n_k)
         kw = dict(device='cpu')
+    options = options_of(package, dof)(n_k)
     if max_iter:
         options['solver.max_iter'] = max_iter
+    t0 = time.time()
     trial = Trial(options, f'cold_{package}').build()
+    print(f'{package} built {dof}-DOF n_k={n_k}: n={trial.ocp.vstruct.total}, '
+          f'm={trial.ocp.n_eq} + {trial.ocp.n_ineq}, {time.time() - t0:.1f} s', flush=True)
     if final:
         kw['final_homotopy_step'] = final
     t0 = time.time()
@@ -54,13 +60,13 @@ def cold(package, n_k=4, final=None, max_iter=None):
         print(f'{package} {key}: {res["status"]}, {st["iterations"][key]} iterations, '
               f'{st["t_wall"][key]:.1f} s, kkt {res["kkt_error"]:.3e}')
     go = trial.global_outputs()
-    line = (f'{package} cold solve at n_k={n_k}: success {trial.solve_succeeded}, {seconds:.1f} s, '
+    line = (f'{package} cold solve ({dof}-DOF) at n_k={n_k}: success {trial.solve_succeeded}, {seconds:.1f} s, '
             f'{sum(st["iterations"].values())} iterations; power {go["avg_power_watts"]!r} W')
-    if n_k == 4:
+    if n_k == 4 and dof == 3:
         a = anchor()
         line += f' ({go["avg_power_watts"] / float(a["avg_power_watts"]) - 1.:.2e} from the anchor)'
     line += f', period {go["time_period"]!r} s'
-    if n_k == 4:
+    if n_k == 4 and dof == 3:
         line += f' ({go["time_period"] / float(a["time_period"]) - 1.:.2e})'
     print(line)
 
@@ -103,7 +109,7 @@ if __name__ == '__main__':
     if sys.argv[1] == 'cold':
         opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))
         cold(sys.argv[2], int(opts.get('--nk', 4)), opts.get('--final'),
-             int(opts.get('--max-iter', 0)))
+             int(opts.get('--max-iter', 0)), int(opts.get('--dof', 3)))
     else:
         sweep(sys.argv[2], float(sys.argv[3]),
               *([float(sys.argv[4]), int(sys.argv[5])] if len(sys.argv) > 5 else []))
