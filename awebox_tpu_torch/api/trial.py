@@ -148,7 +148,9 @@ class Trial:
         return V, to_tensors(self.solution.P, torch.float64, 'cpu')
 
     def global_outputs(self) -> Dict[str, float]:
-        """time period, final energy, average power (from the e state)."""
+        """time period, final energy, average power (the energy from the e
+        state or, under model.integral_outputs, from the collocation
+        quadrature of the power)."""
         V, P = self._V_P()
         T = float(self.ocp.time_period_fn(V))
         e_end = float(self.ocp.e_final_si_fn(V, P))

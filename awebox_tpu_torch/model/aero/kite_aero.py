@@ -4,8 +4,8 @@ Counterpart of ``awebox_tpu/model/aero/kite_aero.py``: per-kite forces in
 the earth frame from either the 3-DOF roll-control model (coeff = [CL, psi])
 or the 6-DOF stability-derivative model (moments in the body frame), plus
 the outputs the flight-envelope constraints read (airspeed, alpha/beta,
-aero-validity residuals) and the power-balance bookkeeping. Lifted
-induction is not ported.
+aero-validity residuals) and the power-balance bookkeeping, with the lifted
+induced velocity in the apparent velocity when an induction model is on.
 """
 from __future__ import annotations
 
@@ -28,15 +28,17 @@ def get_beta(ua, kite_dcm):
 
 
 def get_u_eff_earth(cfg, si, theta0, arch, kite):
-    """Apparent air velocity at the kite in the earth frame, u_wind(z) - dq.
-    Lifted induction is not ported."""
-    if cfg.get('induction_lifted', False):
-        raise NotImplementedError('lifted induction models are not ported')
+    """Effective air velocity at the kite in the earth frame: the apparent
+    velocity u_wind(z) - dq, plus the lifted induced velocity ui when an
+    induction model is active."""
     label = arch.node_label(kite)
     q = si['x']['q' + label]
     dq = si['x']['dq' + label]
     uw = wind.get_velocity(cfg['wind_model'], theta0['wind'], q[2])
-    return uw - dq
+    u_app = uw - dq
+    if cfg.get('induction_lifted', False):
+        u_app = u_app + si['z']['ui' + label]
+    return u_app
 
 
 def get_kite_dcm_3dof(cfg, si, theta0, arch, kite):

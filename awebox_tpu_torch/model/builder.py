@@ -8,9 +8,11 @@ homotopy-parameter vector ``phi`` and a parameter dict ``theta0`` of tensors;
 they are written so that ``torch.func.vmap``/``jacfwd``/``hessian`` apply
 (no in-place writes, no Python branches on tensor values).
 
-Ported configurations: single- or multi-node lift mode with 3-DOF or 6-DOF
-kites, no cross tethers, no induction model, energy as a state. Everything
-else raises NotImplementedError naming the option.
+Ported configurations: single- or multi-node lift or drag mode with 3-DOF or
+6-DOF kites, no cross tethers, the actuator-disk and trajectory-averaged
+induction models or none, energy as a state or as an integral output. The
+vortex induction model and the measured ('datafile') wind raise
+NotImplementedError naming the option.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..arch import Architecture
 from . import lagrangian as lagr
 from . import atmosphere, tether, wind
 from .aero import frames, kite_aero
+from .aero import induction as induction_mod
 from .lagrangian import const
 from .system import PHI_NAMES, generate_structure
 from .vars import VarLayout, strip_node_identifier
@@ -47,6 +50,7 @@ class Model:
     split: Callable = None
     to_si: Callable = None
     scale_full: np.ndarray = None
+    avg_induction_fn: Callable = None  # (v, phi, theta0) -> (F_sum, WdA_sum)
 
     @property
     def n_eq(self):
@@ -67,16 +71,8 @@ def take(vec, idx):
 
 def check_ported(options):
     """Refuse configurations outside the port's scope, naming the option."""
-    user = options['user_options']
-    if user['trajectory']['system_type'] != 'lift_mode':
-        raise NotImplementedError(
-            f"user_options.trajectory.system_type={user['trajectory']['system_type']!r}"
-            ' is not ported')
-    if options['processed']['induction_model'] != 'not_in_use':
-        raise NotImplementedError(
-            f"induction model {options['processed']['induction_model']!r} is not ported")
-    if options['model']['integral_outputs']:
-        raise NotImplementedError('model.integral_outputs=True is not ported')
+    if options['processed']['induction_model'] == 'vortex':
+        raise NotImplementedError("induction model 'vortex' is not ported")
 
 
 def build_theta0(options) -> dict:
@@ -255,6 +251,8 @@ def make_model(options, arch: Architecture) -> Model:
     n_nodes = arch.number_of_nodes
     kite_nodes = arch.kite_nodes
     kite_dof = cfg['kite_dof']
+    lift_mode = cfg['system_type'] == 'lift_mode'
+    integral_outputs = options['model']['integral_outputs']
 
     # --- index arrays for generalized coordinates -------------------------
     x_off = layout.type_offsets['x']
@@ -287,7 +285,7 @@ def make_model(options, arch: Architecture) -> Model:
         main = arch.parent_map[node] == 0
         secondary = node in kite_nodes
         if main:
-            s_len = scaling_of('x', 'l_t')
+            s_len = scaling_of('x' if lift_mode else 'theta', 'l_t')
             s_diam = scaling_of('theta', 'diam_t')
         elif secondary:
             s_len = scaling_of('theta', 'l_s')
@@ -343,7 +341,29 @@ def make_model(options, arch: Architecture) -> Model:
             trivial_names.append((name, 'u'))
     for (name, t) in trivial_names:
         add_eq('trivial_' + name, layout.dim('xdot', name))
-    add_eq('integral_e', 1)
+    # the actuator model's rows live in the per-node model (the averaged
+    # model's one row integrates over the horizon, in the OCP)
+    induction_in_model = cfg['induction_lifted'] \
+        and cfg['induction_model'] == 'actuator'
+    if induction_in_model:
+        for name, dim in induction_mod.residual_names_and_dims(cfg, arch):
+            add_eq(name, dim)
+    if not integral_outputs:
+        add_eq('integral_e', 1)
+
+    # static references that normalize the actuator residual rows
+    static_refs = {
+        'thrust_ref': float(scaling_of('z', 'f_aero')),
+        'moment_ref': float(scaling_of('z', 'm_aero',
+                                       default=scaling_of('z', 'f_aero')
+                                       * cfg['geometry_static']['b_ref'] / 2.)),
+        'a_ref': cfg['act_a_ref'],
+        'varrho_ref': cfg['act_varrho_ref'],
+        'b_ref': cfg['geometry_static']['b_ref'],
+    }
+
+    def induction_scaling_refs(theta0):
+        return dict(static_refs, u_ref=theta0['wind']['u_ref'])
 
     h_scaling_np = []
     for name in holonomic_names:
@@ -356,12 +376,26 @@ def make_model(options, arch: Architecture) -> Model:
         for (name, t) in trivial_names}
     e_scale = float(scaling_of('x', 'e'))
     m_scale = float(scaling_of('z', 'm_aero'))
-    de_slice = layout.slices['xdot']['de']
     gamma_i = PHI_NAMES.index('gamma')
+    iota_i = PHI_NAMES.index('iota')
+
+    def generator_force(si, theta0, kite):
+        """Drag mode: the on-board turbine's force kappa |u| u and the
+        apparent velocity u at ``kite``."""
+        vec_u = kite_aero.get_u_eff_earth(cfg, si, theta0, arch, kite)
+        airspeed = torch.sqrt(vec_u @ vec_u + 1e-16)
+        kappa = si['x']['kappa' + arch.node_label(kite)][0]
+        return kappa * airspeed * vec_u, vec_u
 
     # --- power ------------------------------------------------------------
     def power_fn(v, phi, theta0):
         si = to_si(v)
+        if not lift_mode:
+            total = 0.
+            for kite in kite_nodes:
+                f_gen, vec_u = generator_force(si, theta0, kite)
+                total = total + theta0['aero']['turbine_efficiency'] * (vec_u @ f_gen)
+            return total
         return si['z']['lambda10'][0] * si['x']['l_t'][0] * si['x']['dl_t'][0]
 
     def g_stack_fn(theta0):
@@ -402,18 +436,21 @@ def make_model(options, arch: Architecture) -> Model:
             f = drag['f' + label]
             if node in kite_nodes:
                 f = f + gamma * si['u']['f_fict' + label] + f_kite[node]
+                if not lift_mode:
+                    f = f + generator_force(si, theta0, node)[0]
             rhs_rows.append(f)
         rhs_translation = torch.cat(rhs_rows)
 
         # open-system momentum correction (lift mode): reeled-out tether
         # mass enters node 1
-        def seg1_mass(vv):
-            sii = to_si(vv)
-            return tether.segment_properties(cfg, sii, theta0, arch, 1)['seg_mass']
-        mass_flow = time_derivative(seg1_mass)(v)
-        rhs_translation = rhs_translation + torch.cat([
-            mass_flow * si['x']['dq10'],
-            torch.zeros(rhs_translation.shape[0] - 3, dtype=v.dtype, device=v.device)])
+        if lift_mode:
+            def seg1_mass(vv):
+                sii = to_si(vv)
+                return tether.segment_properties(cfg, sii, theta0, arch, 1)['seg_mass']
+            mass_flow = time_derivative(seg1_mass)(v)
+            rhs_translation = rhs_translation + torch.cat([
+                mass_flow * si['x']['dq10'],
+                torch.zeros(rhs_translation.shape[0] - 3, dtype=v.dtype, device=v.device)])
 
         force_scaling = node_mass_scaling(theta0, v) * cfg['g_scaling'] * 10.
         res_translation = (lhs_translation - rhs_translation) / force_scaling
@@ -452,9 +489,16 @@ def make_model(options, arch: Architecture) -> Model:
             res.append((si['xdot'][name] - si[t][name])
                        / const(trivial_scales[name], v))
 
+        # induction equalities with the iota blend
+        if induction_in_model:
+            res.append(induction_mod.residuals(
+                cfg, si, theta0, arch, phi[iota_i], f_kite,
+                induction_scaling_refs(theta0)))
+
         # energy quadrature as dynamics
-        de_scaled = parts['xdot'][de_slice]
-        res.append(de_scaled - power_fn(v, phi, theta0) / e_scale)
+        if not integral_outputs:
+            de_scaled = parts['xdot'][layout.slices['xdot']['de']]
+            res.append(de_scaled - power_fn(v, phi, theta0) / e_scale)
 
         return torch.cat([torch.atleast_1d(r) for r in res])
 
@@ -622,6 +666,11 @@ def make_model(options, arch: Architecture) -> Model:
         perf['phf_hubheight'] = current_power / torch.clamp(hub_avail, min=1e-12)
         perf['loyd_factor'] = current_power / torch.sqrt(p_loyd_total ** 2. + 1e-8)
 
+        if cfg['induction_lifted']:
+            f_earth, _, _ = kite_aero.forces_and_outputs(cfg, si, theta0, arch)
+            outputs['actuator'] = induction_mod.collect_outputs(
+                cfg, si, theta0, arch, f_earth)
+
         # invariants
         g_stack = g_stack_fn(theta0)
         gdot_fn = time_derivative(g_stack)
@@ -676,10 +725,30 @@ def make_model(options, arch: Architecture) -> Model:
         pb['P_potential'] = -time_derivative(e_pot_total)(v)
         return outputs
 
+    def avg_induction_integrands(v, phi, theta0):
+        """Integrands of the trajectory-averaged induction model: summed kite
+        tether forces and WdA = sum_kites 0.5 b_ref |dq| rho(z) u_inf(z)^2."""
+        si = to_si(v)
+        b_ref = theta0['geometry']['b_ref']
+        F_sum = 0.
+        WdA = 0.
+        for kite in kite_nodes:
+            label = arch.node_label(kite)
+            tension, _ = tension_and_stress(si, theta0, kite)
+            F_sum = F_sum + tension
+            q = si['x']['q' + label]
+            dq = si['x']['dq' + label]
+            rho = atmosphere.get_density(cfg['atmosphere_model'],
+                                         theta0['atmosphere'], q[2])
+            u_inf = wind.get_speed(cfg['wind_model'], theta0['wind'], q[2])
+            WdA = WdA + 0.5 * b_ref * torch.sqrt(dq @ dq + 1e-16) * rho * u_inf ** 2
+        return F_sum, WdA
+
     return Model(
         layout=layout, gc_names=gc_names, arch=arch, cfg=cfg, scaling=scaling,
         theta0_init=theta0_init, eq_fn=eq_fn, ineq_fn=ineq_fn,
         outputs_fn=outputs_fn, power_fn=power_fn,
         eq_slices=eq_slices, ineq_slices=ineq_slices,
         variable_bounds_scaled=bounds,
-        split=split, to_si=to_si, scale_full=scale_full)
+        split=split, to_si=to_si, scale_full=scale_full,
+        avg_induction_fn=avg_induction_integrands)

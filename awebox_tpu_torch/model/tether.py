@@ -87,12 +87,41 @@ def reynolds_number(cfg, theta0, zz, ua_norm, diam):
     return rho * ua_norm * diam / mu
 
 
+def _step_in_out(x, lb, ub, eps):
+    """Smooth indicator of lb < x < ub."""
+    step_in = torch.atan((x - lb) / eps) / np.pi + 0.5
+    step_out = torch.atan((x - ub) / eps) / np.pi + 0.5
+    return step_in - step_out
+
+
 def drag_coefficient(cfg, theta0, reynolds):
-    """cd(Re); only the 'constant' model is ported."""
+    """cd(Re) per the selected model: 'constant' uses theta0.tether.cd;
+    'piecewise' is Roshko's unit steps of linear fits (Stokes regime,
+    laminar plateau, laminar separation, level, drag crisis, turbulent
+    separation, high-Re plateau), smoothed with arctan steps in log10(Re);
+    'polyfit' uses the same curve (the reference's polyfit interpolates the
+    piecewise fit)."""
     model = cfg.get('tether_cd_model', 'constant')
     if model == 'constant':
         return theta0['tether']['cd']
-    raise NotImplementedError(f'tether cd model {model!r} is not ported')
+    if model not in ('piecewise', 'polyfit'):
+        raise ValueError(f'invalid tether cd model {model!r}')
+    eps = cfg.get('tether_reynolds_smoothing', 1e-4)
+    re = torch.clamp(reynolds, min=1.0)
+    log_re = torch.log10(re)
+    segs = [
+        (0.0, 2.0, 100. / re),
+        (2.0, 4.0, torch.ones_like(re)),
+        (4.0, 4.3, 1.02198077356237e-5 * re + 1.01141242),
+        (4.3, 5.26, -1.03659206648679e-7 * re + 1.2046901692),
+        (5.26, 5.74, -3.28441892597317e-6 * re + 1.8415437577),
+        (5.74, 7.0, 7.10799367510221e-8 * re + 0.2824178662),
+        (7.0, 10.0, 0.8 * torch.ones_like(re)),
+    ]
+    cd = 0.
+    for lb, ub, val in segs:
+        cd = cd + _step_in_out(log_re, lb, ub, eps) * val
+    return cd
 
 
 def element_drag(cfg, theta0, q_upper, q_lower, dq_upper, dq_lower, diam):

@@ -1,10 +1,14 @@
 """Direct-collocation transcription: model -> NLP functions over a flat V.
 
 Counterpart of ``awebox_tpu/ocp/transcription.py`` for the periodic
-power_cycle problem under zero-order-hold controls: the per-node model
-residuals are evaluated with one ``torch.func.vmap`` over the collocation and
-shooting nodes, the objective's regularization sums are one weighted-square
-pass over nodes, and continuity/periodicity are static linear maps.
+power_cycle problem by direct collocation, under zero-order-hold or
+polynomial controls: the per-node model residuals are evaluated with one
+``torch.func.vmap`` over the collocation and shooting nodes, the objective's
+regularization sums are one weighted-square pass over nodes, and
+continuity/periodicity are static linear maps. The energy is a state or,
+under model.integral_outputs, the collocation quadrature of the power; the
+trajectory-averaged induction model adds its one momentum-balance row over
+the horizon.
 
 Everything returned is a plain function of (V, P) where
 P = {'cost': {...}, 'ref': V-like vector, 'weights': model-var vector,
@@ -22,6 +26,7 @@ from ..model.aero import kite_aero
 from ..model.builder import Model, take
 from ..model.lagrangian import const
 from ..model.system import PHI_NAMES
+from ..options import derived
 from ..tree import to_tensors
 from .collocation import Collocation
 from .vstruct import VStruct
@@ -67,8 +72,8 @@ def check_ported(options):
     if disc != 'direct_collocation':
         raise NotImplementedError(f'nlp.discretization={disc!r} is not ported')
     u_param = nlp_opts['collocation']['u_param']
-    if u_param != 'zoh':
-        raise NotImplementedError(f'nlp.collocation.u_param={u_param!r} is not ported')
+    if u_param not in ('zoh', 'poly'):
+        raise ValueError(f'unknown u_param {u_param!r}')
     traj_type = options['user_options']['trajectory']['type']
     if traj_type != 'power_cycle':
         raise NotImplementedError(
@@ -111,15 +116,19 @@ def build_ocp(model: Model, options: dict) -> OCP:
     n_k = int(nlp_opts['n_k'])
     d = int(nlp_opts['collocation']['d'])
     scheme = nlp_opts['collocation']['scheme']
+    poly_u = nlp_opts['collocation']['u_param'] == 'poly'
     coll = Collocation.build(d, scheme)
     layout = model.layout
     arch = model.arch
 
     traj = options['user_options']['trajectory']
-    phase_fix = traj['lift_mode']['phase_fix']
-    single_reelout = phase_fix == 'single_reelout' and traj['type'] == 'power_cycle'
+    lift_mode = traj['system_type'] == 'lift_mode'
+    phase_fix = traj['lift_mode']['phase_fix'] if lift_mode else 'simple'
+    single_reelout = lift_mode and phase_fix == 'single_reelout' \
+        and traj['type'] == 'power_cycle'
 
-    vstruct = VStruct.build(layout, n_k, d, single_reelout, 'zoh')
+    vstruct = VStruct.build(layout, n_k, d, single_reelout,
+                            nlp_opts['collocation']['u_param'])
 
     switch_kdx = round(n_k * nlp_opts['phase_fix_reelout']) if single_reelout else n_k
     phase_idx = np.array([0 if k < switch_kdx else 1 for k in range(n_k)])
@@ -157,7 +166,8 @@ def build_ocp(model: Model, options: dict) -> OCP:
         return torch.cat(cols, dim=1)
 
     def assemble_nodes(V):
-        """Returns (shooting_vecs (n_k, nv), coll_vecs (n_k*d, nv))."""
+        """Returns (shooting_vecs (n_k, nv) or None under poly controls,
+        coll_vecs (n_k*d, nv))."""
         X = vstruct.get_x_all(V)             # (n_k+1, nx)
         CX = vstruct.get_coll_x(V)           # (n_k, d, nx)
         CZ = vstruct.get_coll_z(V)           # (n_k, d, nz)
@@ -170,11 +180,15 @@ def build_ocp(model: Model, options: dict) -> OCP:
             / (h * tfk[:, None, None])
 
         TH_c = TH[:, None, :].expand(n_k, d, ntheta_model)
-        U = vstruct.get_u_all(V)             # (n_k, nu)
-        XD = vstruct.get_xdot_all(V)         # (n_k, nxd)
-        Z = vstruct.get_z_all(V)             # (n_k, nz)
-        shooting = torch.cat([X[:n_k], XD, U, Z, TH], dim=1)
-        U_c = U[:, None, :].expand(n_k, d, nu)
+        if poly_u:
+            U_c = vstruct.get_coll_u(V)      # (n_k, d, nu)
+            shooting = None
+        else:
+            U = vstruct.get_u_all(V)         # (n_k, nu)
+            XD = vstruct.get_xdot_all(V)     # (n_k, nxd)
+            Z = vstruct.get_z_all(V)         # (n_k, nz)
+            shooting = torch.cat([X[:n_k], XD, U, Z, TH], dim=1)
+            U_c = U[:, None, :].expand(n_k, d, nu)
         coll_vecs = torch.cat([CX, Xdot_coll, U_c, CZ, TH_c], dim=2)
         return shooting, coll_vecs.reshape(n_k * d, -1)
 
@@ -183,19 +197,26 @@ def build_ocp(model: Model, options: dict) -> OCP:
         CX = vstruct.get_coll_x(Vref)
         CZ = vstruct.get_coll_z(Vref)
         TH = model_theta_all(Vref)
-        U_c = vstruct.get_u_all(Vref)[:, None, :].expand(n_k, d, nu)
+        if poly_u:
+            U_c = vstruct.get_coll_u(Vref)
+        else:
+            U_c = vstruct.get_u_all(Vref)[:, None, :].expand(n_k, d, nu)
         TH_c = TH[:, None, :].expand(n_k, d, ntheta_model)
         XD0 = torch.zeros(n_k, d, nxd, dtype=Vref.dtype, device=Vref.device)
         coll_vecs = torch.cat([CX, XD0, U_c, CZ, TH_c], dim=2)
         return coll_vecs.reshape(n_k * d, -1)
 
     # --- structural row selection for shooting equalities ------------------
-    keep_rows = keep_rows_of(model)
+    # poly controls place no model equalities at shooting nodes at all (no
+    # u, xdot or z live there)
+    keep_rows = np.zeros(0, dtype=int) if poly_u else keep_rows_of(model)
     n_sh = len(keep_rows)
 
     # periodicity mask over x entries
+    integral_outputs = options['model']['integral_outputs']
     periodic_keep = np.ones(nx, dtype=bool)
-    periodic_keep[layout.slices['x']['e']] = False
+    if not integral_outputs:
+        periodic_keep[layout.slices['x']['e']] = False
     for name in layout.names('x'):
         if name.startswith('w') or name.startswith('dw'):
             periodic_keep[layout.slices['x'][name]] = False
@@ -212,15 +233,33 @@ def build_ocp(model: Model, options: dict) -> OCP:
         eq_slices[name] = slice(cursor, cursor + dim)
         cursor += dim
 
-    add_eq('initial_e', 1)
+    if not integral_outputs:
+        add_eq('initial_e', 1)
     add_eq('shooting', n_k * n_sh)
     add_eq('collocation', n_k * d * model.n_eq)
     add_eq('continuity', n_k * nx)
     add_eq('periodic', int(periodic_keep.sum()))
+    averaged_induction = model.cfg.get('induction_model') == 'averaged'
+    if averaged_induction:
+        # trajectory-averaged momentum balance F_avg/T = 4a(1-a) WdA_int
+        add_eq('avg_induction', 1)
+        # row scale: the build-time estimate of the WdA integral (dynamic
+        # pressure x swept area over the reelout) or of the aero force,
+        # whichever is larger, keeps the residual O(1)
+        avg_row_scale = max(
+            0.5 * float(np.asarray(options['processed']['geometry']['b_ref']))
+            * float(options['solver']['initialization']['groundspeed']) * 1.225
+            * float(options['user_options']['wind']['u_ref']) ** 2
+            * float(derived.estimate_time_period(options, arch))
+            * arch.number_of_kites,
+            float(derived.estimate_aero_force(options)))
+        a_scale = float(model.scaling['theta'][layout.slices['theta']['a']][0])
+        reelout_mask = (phase_idx == 0).astype(float) if single_reelout else np.ones(n_k)
     n_eq_total = cursor
 
     radau = (scheme == 'radau')
-    e_slice_in_x = layout.slices['x']['e']
+    e_slice_in_x = None if integral_outputs else layout.slices['x']['e']
+    gamma_i = PHI_NAMES.index('gamma')
 
     def terminal_x(V):
         if radau:
@@ -233,12 +272,15 @@ def build_ocp(model: Model, options: dict) -> OCP:
         shooting, coll_vecs = assemble_nodes(V)
 
         X = vstruct.get_x_all(V)
-        ref_x0 = vstruct.get_x_all(P['ref'])[0]
-        res = [X[0][e_slice_in_x] - ref_x0[e_slice_in_x]]
+        res = []
+        if e_slice_in_x is not None:
+            ref_x0 = vstruct.get_x_all(P['ref'])[0]
+            res.append(X[0][e_slice_in_x] - ref_x0[e_slice_in_x])
 
-        eq_sh = torch.func.vmap(model.eq_fn, in_dims=(0, None, None))(
-            shooting, phi, theta0)
-        res.append(take(eq_sh.T, keep_rows).T.reshape(-1))
+        if not poly_u:
+            eq_sh = torch.func.vmap(model.eq_fn, in_dims=(0, None, None))(
+                shooting, phi, theta0)
+            res.append(take(eq_sh.T, keep_rows).T.reshape(-1))
 
         eq_coll = torch.func.vmap(model.eq_fn, in_dims=(0, None, None))(
             coll_vecs, phi, theta0)
@@ -252,6 +294,27 @@ def build_ocp(model: Model, options: dict) -> OCP:
 
         diff = X[0] - terminal_x(V)
         res.append(take(diff, periodic_idx))
+
+        if averaged_induction:
+            F_nodes, WdA_nodes = torch.func.vmap(
+                model.avg_induction_fn, in_dims=(0, None, None))(
+                    coll_vecs, phi, theta0)
+            tfk = tf_per_k(V)
+            # per-interval quadrature over the reelout phase
+            w_k = const(int_w, V)
+            mask = const(reelout_mask, V)
+            Fk = (F_nodes.reshape(n_k, d) @ w_k) * h * tfk * mask
+            Wk = (WdA_nodes.reshape(n_k, d) @ w_k) * h * tfk * mask
+            a_scaled = vstruct.get_theta(V, 'a')[0]
+            a = a_scaled * a_scale
+            expr = (Fk.sum() / time_period(V) - 4. * a * (1. - a) * Wk.sum()) \
+                / avg_row_scale
+            # gamma blend: while the fictitious-force relaxation is on
+            # (gamma=1) the row pins a at its initial guess; the momentum
+            # balance takes over as gamma -> 0
+            gamma_h = phi[gamma_i]
+            res.append(torch.atleast_1d(gamma_h * (a_scaled - 1.0)
+                                        + (1. - gamma_h) * expr))
         return torch.cat(res)
 
     # --- inequality layout --------------------------------------------------
@@ -263,7 +326,9 @@ def build_ocp(model: Model, options: dict) -> OCP:
         ineq_slices[name] = slice(icursor, icursor + dim)
         icursor += dim
 
-    add_ineq('path', n_k * n_ineq_model)
+    # path inequalities bind at the n_k shooting nodes under zoh, at the
+    # n_k*d collocation nodes under poly controls
+    add_ineq('path', (n_k * d if poly_u else n_k) * n_ineq_model)
     if single_reelout:
         add_ineq('t_f_bounds', 2)
     n_ineq_total = icursor
@@ -273,11 +338,11 @@ def build_ocp(model: Model, options: dict) -> OCP:
     def ineq_fn(V, P):
         phi = vstruct.get_phi(V)
         theta0 = P['theta0']
-        shooting, _ = assemble_nodes(V)
+        shooting, coll_vecs = assemble_nodes(V)
         res = []
         if n_ineq_model:
             path = torch.func.vmap(model.ineq_fn, in_dims=(0, None, None))(
-                shooting, phi, theta0)
+                coll_vecs if poly_u else shooting, phi, theta0)
             res.append(path.reshape(-1))
         else:
             res.append(V[:0])
@@ -320,10 +385,23 @@ def build_ocp(model: Model, options: dict) -> OCP:
         'beta': n_k * N_kites,
     }
 
-    def e_final_scaled(V, P):
-        return vstruct.get_x_all(V)[n_k][e_slice_in_x][0]
+    # energy bookkeeping: the e state, or under integral_outputs the
+    # collocation quadrature of the instantaneous power
+    e_scale_proc = options['processed']['scaling']['x'].get('e')
+    e_quad_scale = float(np.asarray(e_scale_proc).ravel()[0]) \
+        if e_scale_proc is not None else 1.0
 
-    e_state_scale = float(model.scaling['x'][e_slice_in_x][0])
+    def e_final_scaled(V, P):
+        if e_slice_in_x is not None:
+            return vstruct.get_x_all(V)[n_k][e_slice_in_x][0]
+        _, coll_vecs = assemble_nodes(V)
+        p_nodes = torch.func.vmap(model.power_fn, in_dims=(0, None, None))(
+            coll_vecs, vstruct.get_phi(V), P['theta0'])     # SI watts per node
+        ek = (p_nodes.reshape(n_k, d) @ const(int_w, V)) * h * tf_per_k(V)
+        return ek.sum() / e_quad_scale
+
+    e_state_scale = float(model.scaling['x'][e_slice_in_x][0]) \
+        if e_slice_in_x is not None else e_quad_scale
 
     def e_final_si(V, P):
         return e_final_scaled(V, P) * e_state_scale

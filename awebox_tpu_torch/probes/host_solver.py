@@ -3,7 +3,9 @@
 (``opti/ipsolver.py``) at the bench configuration (or, with --config sixdof,
 at the 6-DOF flagship configuration, ``configs.flagship_options(N, 3)``:
 at N = 4 the single-kite 6-DOF health configuration, n = 569 variables, an
-augmented K of 1125), and optionally a cold solve of it.
+augmented K of 1125; or with --config NAME at the end-to-end configuration
+``configs.e2e_options(NAME)``, NAME one of ``configs.E2E_NAMES``, whose grid
+is its own), and optionally a cold solve of it.
 
 The bench configuration at n_k=4 (the default) is timed at the committed
 anchor's state (tests/artifacts/bench_anchor_nk4_d3.npz, mu = 1e-3, the
@@ -23,15 +25,18 @@ barrier objective, each with its count of aten operations. With --solve, a
 cold Trial.optimize of the configuration at n_k=N on the same device, uncut,
 printing each homotopy step's status, iterations, seconds and KKT error, and
 the power and period (against the anchor's for the bench configuration at
-N = 4); --solve-only runs the
+N = 4, against the JAX package's solve of an end-to-end configuration, its
+payload tests/artifacts/e2e_NAME.pkl or --reference PATH, with the JAX
+package's iterations and statuses a step); --solve-only runs the
 cold solve alone, --final STEP stops it after that homotopy step (at n_k=14,
 the first grid past the previous K12's reach, the final step runs to its
 2000-iteration cap in the JAX package), --max-iter M caps every step at M
 iterations (solver.max_iter, 2000 by default). Prints one JSON line at the
 end.
 
-    python3 awebox_tpu_torch/probes/host_solver.py [--config bench|sixdof] [--nk N]
-        [--solve | --solve-only] [--final STEP] [--max-iter M] [--device cpu]
+    python3 awebox_tpu_torch/probes/host_solver.py [--config bench|sixdof|NAME] [--nk N]
+        [--solve | --solve-only] [--final STEP] [--max-iter M] [--reference PATH]
+        [--device cpu]
 """
 import argparse
 import json
@@ -46,6 +51,14 @@ from torch.func import grad, hessian, jacfwd
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 ANCHOR = os.path.join(ROOT, 'tests', 'artifacts', 'bench_anchor_nk4_d3.npz')
+
+
+def e2e_payload(name, path=None):
+    """The JAX package's solved end-to-end configuration ``name`` (its
+    committed payload, or the one at ``path``)."""
+    import pickle
+    with open(path or os.path.join(ROOT, 'tests', 'artifacts', f'e2e_{name}.pkl'), 'rb') as fh:
+        return pickle.load(fh)
 
 
 def timed(call, dev, runs):
@@ -72,19 +85,26 @@ def main():
     ap.add_argument('--final', help="the last homotopy step of the cold solve (default: all)")
     ap.add_argument('--max-iter', type=int, help='solver.max_iter (default: 2000)')
     ap.add_argument('--nk', type=int, default=4)
-    ap.add_argument('--config', choices=('bench', 'sixdof'), default='bench')
+    ap.add_argument('--config', default='bench',
+                    help='bench, sixdof or one of configs.E2E_NAMES')
+    ap.add_argument('--reference', help='a JAX package payload to compare an end-to-end '
+                    'configuration\'s solve with (default: its committed one)')
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     from awebox_tpu_torch.api.trial import Trial
-    from awebox_tpu_torch.configs import bench_options, flagship_options
+    from awebox_tpu_torch.configs import E2E_NAMES, bench_options, e2e_options, flagship_options
+    if args.config not in ('bench', 'sixdof') + E2E_NAMES:
+        ap.error(f'--config {args.config!r}: not bench, sixdof or one of {E2E_NAMES}')
     options_of = {'bench': lambda n_k: bench_options(n_k=n_k),
-                  'sixdof': lambda n_k: flagship_options(n_k, 3)}[args.config]
+                  'sixdof': lambda n_k: flagship_options(n_k, 3)}.get(
+                      args.config, lambda n_k: e2e_options(args.config))
     at_anchor = args.config == 'bench' and args.nk == 4
+    reference = e2e_payload(args.config, args.reference) if args.config in E2E_NAMES else None
     if args.solve_only:
         dev = torch.device(args.device)
         out = dict(device=str(dev), n_k=args.nk, config=args.config,
                    solve=cold_solve(Trial, options_of, args.nk, dev, args.final,
-                                    args.max_iter, at_anchor))
+                                    args.max_iter, at_anchor, reference))
         if dev.type == 'cuda':
             out['card'] = torch.cuda.get_device_name(0)
         print(json.dumps(out), flush=True)
@@ -181,15 +201,18 @@ def main():
 
     if args.solve:
         out['solve'] = cold_solve(Trial, options_of, args.nk, dev, args.final, args.max_iter,
-                                  at_anchor)
+                                  at_anchor, reference)
     print(json.dumps(out), flush=True)
 
 
-def cold_solve(Trial, options_of, n_k, dev, final=None, max_iter=None, at_anchor=False):
+def cold_solve(Trial, options_of, n_k, dev, final=None, max_iter=None, at_anchor=False,
+               reference=None):
     """Trial(options_of(n_k)).build().optimize() on dev, uncut (through the
     homotopy step ``final`` if given, each step capped at ``max_iter``
     iterations if given): each homotopy step's line and the solve's, against
-    the anchor's power and period ``at_anchor``; returns its record."""
+    the anchor's power and period ``at_anchor`` or against those and the
+    iterations a step of a JAX package's saved solve ``reference``; returns
+    its record."""
     options = options_of(n_k)
     if max_iter:
         options['solver.max_iter'] = max_iter
@@ -205,7 +228,9 @@ def cold_solve(Trial, options_of, n_k, dev, final=None, max_iter=None, at_anchor
         res = cold.solution.step_results[key]
         steps[key] = dict(status=res['status'], iterations=st_['iterations'][key],
                           seconds=st_['t_wall'][key], kkt_error=res['kkt_error'])
-        print(f'[host_solver] {key}: {res["status"]}, {st_["iterations"][key]} iterations, '
+        jax_it = '' if reference is None else \
+            f' (the JAX package: {reference["stats"]["iterations"].get(key)})'
+        print(f'[host_solver] {key}: {res["status"]}, {st_["iterations"][key]} iterations{jax_it}, '
               f'{st_["t_wall"][key]:.1f} s, '
               f'{1e3 * st_["t_wall"][key] / max(st_["iterations"][key], 1):.0f} ms/iter, '
               f'KKT error {res["kkt_error"]:.3e}', flush=True)
@@ -214,11 +239,17 @@ def cold_solve(Trial, options_of, n_k, dev, final=None, max_iter=None, at_anchor
     line = (f'[host_solver] cold solve at n_k={n_k}: {cold.solve_succeeded}, {seconds:.1f} s, '
             f'{sum(st_["iterations"].values())} iterations; power {go["avg_power_watts"]!r} W, '
             f'period {go["time_period"]!r} s')
-    if at_anchor:
-        anchor = dict(np.load(ANCHOR))
-        rec['rel_power'] = go['avg_power_watts'] / float(anchor['avg_power_watts']) - 1.
-        rec['rel_period'] = go['time_period'] / float(anchor['time_period']) - 1.
-        line += f' ({rec["rel_power"]:.2e}, {rec["rel_period"]:.2e} relative to the anchor)'
+    if at_anchor or reference is not None:
+        ref = dict(np.load(ANCHOR)) if at_anchor else reference['global_outputs']
+        rec['rel_power'] = go['avg_power_watts'] / float(ref['avg_power_watts']) - 1.
+        rec['rel_period'] = go['time_period'] / float(ref['time_period']) - 1.
+        line += (f' ({rec["rel_power"]:.2e}, {rec["rel_period"]:.2e} relative to the '
+                 + ('anchor)' if at_anchor else 'JAX package\'s)'))
+    if reference is not None:
+        rec['jax_iterations'] = dict(reference['stats']['iterations'])
+        rec['same_iterations'] = rec['jax_iterations'] == dict(st_['iterations'])
+        rec['jax_statuses'] = reference.get('step_statuses')
+        rec['same_statuses'] = rec['jax_statuses'] == {k: v['status'] for k, v in steps.items()}
     print(line, flush=True)
     return rec
 

@@ -6,9 +6,11 @@ Ampyx AP2 3-DOF power cycle (n_k=4, d=3: n=280 variables, m=263
 constraints, a 543x543 augmented KKT system per lane), the same sweep on
 the n_k=8 grid (n=540, m=515, 1055x1055), and the cold homotopy solve of
 the configuration through Trial.optimize (at n_k=4, and capped at n_k=18:
-n=1190, m=1145, 2335x2335) and of the 6-DOF kite (n_k=4, capped: n=569,
-m=556, 1125x1125), through its public entry points,
-and checks the hand-written CUDA kernels on the way:
+n=1190, m=1145, 2335x2335), of the 6-DOF kite (n_k=4, capped: n=569,
+m=556, 1125x1125) and of the eight further configurations of the
+reference's end-to-end matrix (capped: n = 166 .. 516, K of 317 .. 1017),
+through its public entry points, and checks the hand-written CUDA kernels
+on the way:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA
               versions; TF32 off for matmul and cuDNN
@@ -120,6 +122,26 @@ and checks the hand-written CUDA kernels on the way:
               kernel or plain version, the first direction held to the
               CPU's plain path; then K10 and K12/K13 on the path's own M and
               K in [kernels] rows
+ 11. configs  Trial(e2e_options(name)).build().optimize() on the card for
+              each configuration of the reference's end-to-end matrix
+              beyond the 6-DOF kite (configs.E2E_NAMES: the dual kites, drag
+              mode, the actuator-disk and averaged induction models, the
+              polynomial controls, the 'single' homotopy, the integral
+              outputs, the Reynolds-dependent tether drag;
+              [slice-trial-configs]), each homotopy step capped at
+              CONFIG_ITERS iterations: the JAX package's steps
+              (JAX_CONFIG_ITERS), every direction through K10's cluster
+              variant, K12 and K13 twice and no other kernel or plain
+              version, the first direction held to the CPU's plain path;
+              then K10 on the dual kite's M and K12/K13 on its K and on the
+              actuator model's K in [kernels] rows
+
+Phases 8-11 run in a second process (``chip_smoke.py --trials PATH``,
+trial_worker), started before phase 4 and joined before phase 7: both it and
+phases 4-6 are host-bound, so they share the card without slowing each other,
+and the [kernels] rows of phases 9-11 are timed after the join, with the card
+to this process alone. The worker's lines are printed when it is joined; it
+is stopped if this process fails or ends first.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero before printing a
@@ -130,8 +152,10 @@ result. Run from the repository root:
 import importlib.util
 import json
 import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -151,7 +175,12 @@ N_TIMED = 7
 # iterations; they gate no convergence), the LU slice (to convergence, 22
 # iterations -> LU_ITERS; its convergence stays gated on the CPU in
 # tests/test_torch_refine.py) and the condensed solver's slice (to
-# convergence, 34 iterations -> DENSE_ITERS)
+# convergence, 34 iterations -> DENSE_ITERS). [slice-trial-configs] takes no
+# depth from them: the cold solves of Trial.optimize ([slice-trial] ..
+# [slice-trial-configs]) run in a second process (trial_worker) beside the
+# batched slices ([slice] .. [slice-dense]); both are host-bound, and a
+# derivative pass takes the same time with one, two or three such processes
+# on the card (awebox_tpu_torch/probes/contention.py; PERF.md section 4)
 NK8_ITERS = 3     # iterations of each n_k=8 slice (its lanes do not converge; see main)
 # iterations a homotopy step of [slice-trial-nk18] (solver.max_iter; the
 # homotopy advances despite it), set from its ms/iter so that the script
@@ -164,6 +193,11 @@ NK18_ITERS = 3
 # one does, runs in `probes/host_solver.py --config sixdof --solve-only
 # --max-iter 150`
 SIXDOF_ITERS = 3
+# iterations a homotopy step of each configuration of [slice-trial-configs]
+# (solver.max_iter), set so that the trial worker ends before the batched
+# slices do; the uncut solves (JAX_CONFIG_ITERS) run in
+# `probes/host_solver.py --config NAME --solve-only`
+CONFIG_ITERS = 1
 LU_ITERS = 6
 DENSE_ITERS = 8
 # The JAX package's converged B=2 sweep (u_ref 9.5, 10.5 m/s) through
@@ -194,6 +228,33 @@ JAX_TRIAL_ITERS = {'initial_0': 23, 'fictitious_0': 5, 'fictitious_1': 2, 'power
 # run to the 2000-iteration cap)
 JAX_SIXDOF_ITERS = {'initial_0': 2000, 'fictitious_0': 2000, 'fictitious_1': 57,
                     'power_0': 18, 'power_1': 1, 'final_0': 13}
+# The JAX package's cold homotopy of each configuration of the end-to-end
+# matrix on the CPU, its iterations a step: uncut (`python -m
+# tests.trial_cold_cpu e2e jax NAME`) where no step runs to the
+# 2000-iteration cap, else capped at 150 a step (`--max-iter 150`), as the
+# payloads tests/artifacts/e2e_NAME.pkl hold them. Uncut, the integral
+# outputs' last three steps run to the cap (461/4/1/2000/2000/2000), the
+# actuator model's first and third too and its second fails, ending the
+# homotopy there (2000/1269/2000, regularization_failed); the dual kite's
+# capped solve stops at the cap in every step (PERF.md section 6)
+JAX_CONFIG_ITERS = {
+    'dual_kite': {'initial_0': 150, 'fictitious_0': 150, 'fictitious_1': 150, 'power_0': 150,
+                  'power_1': 150, 'final_0': 150},
+    'drag_mode': {'initial_0': 20, 'fictitious_0': 4, 'fictitious_1': 1, 'power_0': 34,
+                  'power_1': 1, 'final_0': 10},
+    'actuator_qaxi': {'initial_0': 150, 'fictitious_0': 150, 'fictitious_1': 150,
+                      'induction_0': 150, 'induction_1': 150, 'power_0': 150, 'power_1': 150,
+                      'final_0': 150},
+    'averaged_induction': {'initial_0': 23, 'fictitious_0': 9, 'fictitious_1': 14,
+                           'power_0': 54, 'power_1': 4, 'final_0': 14},
+    'poly_controls': {'initial_0': 65, 'fictitious_0': 4, 'fictitious_1': 1, 'power_0': 20,
+                      'power_1': 1, 'final_0': 82},
+    'single_homotopy': {'initial_0': 23, 'middle_0': 35, 'middle_1': 1, 'final_0': 47},
+    'integral_outputs': {'initial_0': 150, 'fictitious_0': 56, 'fictitious_1': 1, 'power_0': 150,
+                         'power_1': 150, 'final_0': 150},
+    'reynolds_cd': {'initial_0': 23, 'fictitious_0': 5, 'fictitious_1': 2, 'power_0': 36,
+                    'power_1': 1, 'final_0': 156},
+}
 # the first kkt_solve of [slice-trial] on the card against the CPU's plain
 # path (LAPACK getrf/getrs and potrf there, K12, K13 and K10 here) at the same
 # state and derivatives, over each part's max: K's condition number there is
@@ -202,7 +263,19 @@ JAX_SIXDOF_ITERS = {'initial_0': 2000, 'fictitious_0': 2000, 'fictitious_1': 57,
 TOL_FIRST_KKT = 1e-8
 
 
-T_START = time.time()
+# the clock of every line's (+N s): the trial worker takes main's
+T_START = float(os.environ.get('CHIP_SMOKE_T0', time.time()))
+# the plain versions a run of the solvers may reach, each counted while one
+# runs: on the card none may run
+SOLVER_PLAIN = ('block_factor_plain', 'block_solve_plain', 'chol_factor_batched_plain',
+                'chol_solve_batched_plain', 'advance_state_plain', 'newton_kkt_plain',
+                'ip_step_plain', 'lu_factor_batched_plain', 'lu_solve_batched_plain',
+                'ruiz_scale_plain', 'qr_factor_batched_plain', 'qr_solve_batched_plain')
+# the seconds after the script's start by which the trial worker must have
+# ended (its work takes ~500 s on an H100 80GB HBM3 at 700 W)
+WORKER_DEADLINE = 1100.
+# (process, log, folder) of the trial worker, stopped at exit if it still runs
+WORKERS = []
 
 
 def phase(name, msg):
@@ -273,9 +346,8 @@ def main():
     sys.path.insert(0, HERE)
     from awebox_tpu_torch.api.sweep import Sweep
     from awebox_tpu_torch.api.trial import Trial, install_anchor
-    from awebox_tpu_torch.configs import bench_options, flagship_options
-    from awebox_tpu_torch.opti.homotopy import (build_p_fix, final_cost_values,
-                                                linear_solver_choice)
+    from awebox_tpu_torch.configs import bench_options
+    from awebox_tpu_torch.opti.homotopy import build_p_fix, final_cost_values
     from awebox_tpu_torch.opti.initialization import build_reference
     from awebox_tpu_torch.opti.ipsolver import InteriorPointSolver
     from awebox_tpu_torch.parallel import batch, kernels
@@ -1393,6 +1465,21 @@ def main():
         phase('kernels', f'one {fac} iteration card vs cpu plain: max |w diff| {dw_gap:.3e} '
               f'(step {step:.3e})')
 
+    # the cold solves of Trial.optimize, [slice-trial] .. [slice-trial-configs],
+    # run in a second process (trial_worker) beside the batched slices here,
+    # from now until the n_k=8 slices, whose [kernels] rows time kernels with
+    # the card to main alone; its lines are printed when it is joined
+    work_dir = tempfile.mkdtemp(prefix='chip_smoke_')
+    worker_out = os.path.join(work_dir, 'trials.pt')
+    worker_log = os.path.join(work_dir, 'trials.log')
+    with open(worker_log, 'w') as log:
+        worker = subprocess.Popen([sys.executable, os.path.abspath(__file__), '--trials',
+                                   worker_out], stdout=log, stderr=subprocess.STDOUT,
+                                  env=dict(os.environ, CHIP_SMOKE_T0=repr(T_START)))
+    WORKERS.append((worker, worker_log, work_dir))
+    phase('slice-trial', f'the cold solves of Trial.optimize started in a second process '
+          f'(pid {worker.pid}), beside [slice] .. [slice-dense]')
+
     # --- 4. the slices and 5. their paths ---------------------------------
     # the plain version of every kernel is counted while a slice runs: on
     # the card none may run
@@ -1532,10 +1619,6 @@ def main():
     lbf, ubf = sweep_bounds(trial)
     state_h16 = {k: v.cpu() for k, v in state.items()}
     P_h16 = tree_map(lambda t: t.cpu(), P64)
-    solver_plain = ('block_factor_plain', 'block_solve_plain', 'chol_factor_batched_plain',
-                    'chol_solve_batched_plain', 'advance_state_plain', 'newton_kkt_plain',
-                    'ip_step_plain', 'lu_factor_batched_plain', 'lu_solve_batched_plain',
-                    'ruiz_scale_plain', 'qr_factor_batched_plain', 'qr_solve_batched_plain')
 
     def run_solver(tag, kkt, mode, kw, n_iter, converge=True, cut='', sweep=None):
         """make_batched_solver with ``kkt`` ('auto': the default, not passed),
@@ -1562,7 +1645,7 @@ def main():
         if sweep is None:
             solve = batch.make_batched_solver(ocp, lbf, ubf, n_iter=n_iter, batch_p=True,
                                               tol=1e-5, **pick, **kw)
-        plain_calls = {k: 0 for k in solver_plain}
+        plain_calls = {k: 0 for k in SOLVER_PLAIN}
         saved = {k: getattr(kernels, k) for k in plain_calls}
 
         def counted(name):
@@ -1717,6 +1800,18 @@ def main():
         phase('slice-sweep', 'Sweep.run_batched, 3 iterations as a path check: finite iterates')
     launches_block, launches_dense = solver_runs['block'][0], solver_runs['dense'][0]
 
+    # the trial worker's end: its lines, then its gates' verdict
+    try:
+        worker_rc = worker.wait(timeout=max(60., WORKER_DEADLINE - (time.time() - T_START)))
+    except subprocess.TimeoutExpired:
+        worker_rc = None
+    with open(worker_log) as log:
+        sys.stdout.write(log.read())
+    sys.stdout.flush()
+    require(worker_rc == 0 and os.path.exists(worker_out),
+            f'the trial worker ([slice-trial] .. [slice-trial-configs]) failed: exit code '
+            f'{worker_rc}' + (' (still running past its deadline)' if worker_rc is None else ''))
+
     # --- 7. the n_k=8 slices ----------------------------------------------
     # bench_options(n_k=8) from tests/artifacts/bench_anchor_nk8_d3.npz:
     # n=540, m=515, N=1055, which only the blocked factors take. The anchor
@@ -1786,6 +1881,124 @@ def main():
           f'max relative gap {float(np.abs(powers_qr8 / powers_lu8 - 1.).max()):.3e} (the '
           f'lanes have not converged: not gated)')
 
+    # --- 8.-11. the cold solves' [kernels] rows --------------------------
+    # K10 and K12/K13 on the M and K of the trial worker's paths, timed here
+    # with the card to main alone: [slice-trial-nk18]'s and
+    # [slice-trial-6dof]'s (K10's stream variant), the dual kite's (K10's
+    # cluster variant, K12/K13) and the actuator model's K
+    res = torch.load(worker_out)
+    launches_trial, launches_nk18 = res['launches_trial'], res['launches_nk18']
+    launches_6dof, launches_configs = res['launches_6dof'], res['launches_configs']
+    M18, K18_, rhs18 = (t.to(dev) for t in res['systems']['nk18'])
+    n18, N18 = M18.shape[1], K18_.shape[1]
+    b18 = torch.as_tensor(np.random.default_rng(n18).standard_normal((1, n18)), device=dev)
+    stream_at[f'n={n18} B=1 path'], ssolve_at[f'n={n18} B=1 path'] = hold_chol(
+        f'n={n18} B=1 the path\'s M', M18, b18, 'stream')
+    lu64_at[f'N={N18} B=1 path'], solve64_at[f'N={N18} B=1 path'] = hold_lu64(
+        f'N={N18} B=1 the path\'s K', K18_, rhs18)
+    M6, K6_, rhs6 = (t.to(dev) for t in res['systems']['6dof'])
+    n6, N6 = M6.shape[1], K6_.shape[1]
+    b6 = torch.as_tensor(np.random.default_rng(n6).standard_normal((1, n6)), device=dev)
+    stream_at[f'n={n6} B=1 path 6-DOF'], ssolve_at[f'n={n6} B=1 path 6-DOF'] = hold_chol(
+        f'n={n6} B=1 the 6-DOF path\'s M', M6, b6, 'stream')
+    lu64_at[f'N={N6} B=1 path 6-DOF'], solve64_at[f'N={N6} B=1 path 6-DOF'] = hold_lu64(
+        f'N={N6} B=1 the 6-DOF path\'s K', K6_, rhs6)
+    for name, what in (('dual_kite', 'the dual kite\'s'), ('actuator_qaxi', 'the actuator model\'s')):
+        M_c, K_c, rhs_c = (t.to(dev) for t in res['systems'][name])
+        n_c, N_c = M_c.shape[1], K_c.shape[1]
+        if name == 'dual_kite':
+            b_c = torch.as_tensor(np.random.default_rng(n_c).standard_normal((1, n_c)), device=dev)
+            chol_at[f'n={n_c} B=1 path {name}'], csolve_at[f'n={n_c} B=1 path {name}'] = \
+                hold_chol(f'n={n_c} B=1 {what} M', M_c, b_c, 'cluster')
+        lu64_at[f'N={N_c} B=1 path {name}'], solve64_at[f'N={N_c} B=1 path {name}'] = hold_lu64(
+            f'N={N_c} B=1 {what} K', K_c, rhs_c)
+    report['chol_factor_stream'] = dict(stream_at[f'n={n18} B=1 path'], at=stream_at)
+
+    # each kernel's launches are those of the slice whose path holds it: the
+    # QR slice, the port's default path, for its own kernels and for K1 and
+    # K4, which both paths share; the LU slice for the LU kernels; the n_k=8
+    # slices for the blocked variants; [slice-trial-nk18] for K10's stream
+    # variant
+    sources = {'newton_kkt': 'awebox_tpu/parallel/batch.py:154',
+               'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
+               'lu_factor_cluster': 'awebox_tpu/parallel/batch.py:414',
+               'lu_factor_blocked': 'awebox_tpu/parallel/batch.py:414',
+               'lu_solve_batched': 'awebox_tpu/parallel/batch.py:416',
+               'ip_step': 'awebox_tpu/parallel/batch.py:189',
+               'kkt_assemble': 'awebox_tpu/parallel/batch.py:333',
+               'ruiz_scale': 'awebox_tpu/parallel/batch.py:375',
+               'qr_factor_cluster': 'awebox_tpu/parallel/batch.py:382',
+               'qr_factor_blocked': 'awebox_tpu/parallel/batch.py:382',
+               'qr_solve_batched': 'awebox_tpu/parallel/batch.py:344',
+               'advance_state': 'awebox_tpu/parallel/batch.py:449',
+               'chol_factor_cluster': 'awebox_tpu/parallel/batch.py:215',
+               'chol_factor_stream': 'awebox_tpu/opti/ipsolver.py:183',
+               'chol_solve_batched': 'awebox_tpu/parallel/batch.py:234',
+               'block_factor': 'awebox_tpu/ocp/blockkkt.py:539',
+               'block_solve': 'awebox_tpu/ocp/blockkkt.py:646',
+               'lu_factor_f64': 'awebox_tpu/opti/ipsolver.py:194',
+               'lu_solve_f64': 'awebox_tpu/opti/ipsolver.py:195'}
+    own = {'kkt_assemble_scaled': launches_lu, 'lu_factor_cluster': launches_lu,
+           'lu_solve_batched': launches_lu, 'lu_factor_blocked': launches_lu8,
+           'qr_factor_blocked': launches_qr8, 'advance_state': launches_block,
+           'block_factor': launches_block, 'block_solve': launches_block,
+           'chol_factor_cluster': launches_dense, 'chol_factor_stream': launches_nk18,
+           'chol_solve_batched': launches_dense, 'lu_factor_f64': launches_trial,
+           'lu_solve_f64': launches_trial}
+    phase('done', f'chip_smoke.py ran {time.time() - t_start:.1f} s')
+    print(json.dumps({'kernels': [
+        dict(name=k, route='cuda', source='awebox_tpu_torch/csrc/auglu.cu',
+             replaces=sources[k], launches=own.get(k, launches_qr)[k],
+             launches_lu_slice=launches_lu[k], launches_qr_slice=launches_qr[k],
+             launches_nk8_lu_slice=launches_lu8[k], launches_nk8_qr_slice=launches_qr8[k],
+             launches_block_slice=launches_block[k], launches_dense_slice=launches_dense[k],
+             launches_trial_slice=launches_trial[k], launches_trial_nk18_slice=launches_nk18[k],
+             launches_trial_6dof_slice=launches_6dof[k],
+             launches_trial_configs_slice=launches_configs.get(k, 0),
+             **report[k])
+        for k in sources]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def trial_worker(out_path):
+    """[slice-trial] .. [slice-trial-configs], the cold solves of
+    Trial.optimize on the card, in a process of their own: main starts it
+    beside its batched slices (both are host-bound) and joins it before the
+    n_k=8 slices. Its gates raise; each run's kernel launches, and the M, K
+    and rhs of the directions that main's [kernels] rows hold, are saved to
+    ``out_path``."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    # PR_SET_PDEATHSIG: the worker ends with the process that started it
+    ctypes.CDLL(None).prctl(1, signal.SIGTERM)
+    sys.path.insert(0, HERE)
+    from awebox_tpu_torch.api.trial import Trial
+    from awebox_tpu_torch.configs import E2E_NAMES, bench_options, e2e_options, flagship_options
+    from awebox_tpu_torch.opti.homotopy import linear_solver_choice
+    from awebox_tpu_torch.opti.ipsolver import InteriorPointSolver
+    from awebox_tpu_torch.parallel import kernels
+
+    dev = torch.device('cuda')
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.library()
+    anchor = dict(np.load(ANCHOR))
+    systems = {}
+
+    def path_system(run):
+        """The M, K and rhs of a run's first direction whose inertia test
+        passed, on the CPU."""
+        sys_ = run['solver']._augmented(*run['first']['args_ok'])
+        return tuple(sys_[k][None].contiguous().cpu() for k in ('M', 'K', 'rhs'))
+
     # --- 8. the host solver behind Trial.optimize: [slice-trial] ----------
     # Trial(bench_options()).build().optimize() on the card: the cold
     # homotopy of the bench configuration at its published size, through
@@ -1799,11 +2012,12 @@ def main():
     # error within its tol; K10, K12 and K13 launched, once, once and twice a
     # direction, and no other kernel; no plain version called. Each step's
     # iterations are printed beside the JAX package's (JAX_TRIAL_ITERS).
-    def cold_trial(tag, options, jax_iters=JAX_TRIAL_ITERS, jax_what='at n_k=4'):
+    def cold_trial(tag, options, jax_iters=JAX_TRIAL_ITERS, jax_what='at n_k=4', who=''):
         """Trial(options).build().optimize() on the card, with the first
         kkt_solve's arguments and outputs kept (and the arguments of the
         first whose inertia test passed), every plain version counted and
-        the launches of the run; the steps' lines printed."""
+        the launches of the run; the steps' lines printed, each after
+        ``who``."""
         cold = Trial(options, f'chip_smoke_{tag}').build()
         require(linear_solver_choice(cold.ocp) == 'dense', f'{tag}: auto is not dense')
         solver = InteriorPointSolver(cold.ocp.f_fn, cold.ocp.eq_fn, cold.ocp.ineq_fn,
@@ -1821,7 +2035,7 @@ def main():
             return out
         solver._kkt_solve = kkt_kept
         cold._solver_cache['solver'] = solver
-        plain = {k: 0 for k in solver_plain + ('lu_factor_f64_plain', 'lu_solve_f64_plain')}
+        plain = {k: 0 for k in SOLVER_PLAIN + ('lu_factor_f64_plain', 'lu_solve_f64_plain')}
         saved = {k: getattr(kernels, k) for k in plain}
 
         def counted_plain(name):
@@ -1844,7 +2058,7 @@ def main():
         stats = cold.solution.stats
         for key in stats['iterations']:
             res_ = cold.solution.step_results[key]
-            phase(tag, f'{key}: {res_["status"]}, {stats["iterations"][key]} iterations '
+            phase(tag, f'{who}{key}: {res_["status"]}, {stats["iterations"][key]} iterations '
                   f'(the JAX package {jax_what}: {jax_iters.get(key)}), '
                   f'{stats["t_wall"][key]:.1f} s, '
                   f'{1e3 * stats["t_wall"][key] / max(stats["iterations"][key], 1):.0f} ms/iter, '
@@ -1852,12 +2066,13 @@ def main():
         return dict(cold=cold, solver=solver, first=first, kkt_inner=kkt_inner,
                     launches=launches, plain=plain, seconds=seconds, stats=stats)
 
-    def hold_path(tag, run, variant):
+    def hold_path(tag, run, variant, who=''):
         """A cold run's [path]: K10 (in ``variant``), K12 and two K13 a
         direction, no other kernel and no plain version; and its first
         kkt_solve on the CPU's plain path at the same state, within
-        TOL_FIRST_KKT."""
+        TOL_FIRST_KKT. ``who`` names the run in the lines and errors."""
         launches, first, solver = run['launches'], run['first'], run['solver']
+        phase_tag, tag = tag, f'{tag}: {who.strip()}' if who else tag
         n_dir = launches['lu_factor_f64']
         kernels_of = ('lu_factor_f64', 'lu_solve_f64', 'chol_factor_batched',
                       f'chol_factor_{variant}')
@@ -1877,8 +2092,8 @@ def main():
         require(max(gaps.values()) <= TOL_FIRST_KKT,
                 f'{tag}: the first kkt_solve differs from the CPU\'s: {gaps}')
         cond = float(torch.linalg.cond(solver._augmented(*cpu_args)['K']))
-        phase(tag, f'the first kkt_solve on the card against the plain path on the CPU at the '
-              f'same state (cond(K) {cond:.2e}): inertia ok {bool(out_h[6])} in both; max gaps '
+        phase(phase_tag, f'{who}the first kkt_solve on the card against the plain path on the '
+              f'CPU at the same state (cond(K) {cond:.2e}): inertia ok {bool(out_h[6])} in both; max gaps '
               f'over max |.|: ' + ', '.join(f'{k} {v:.2e}' for k, v in gaps.items())
               + f' (tolerance {TOL_FIRST_KKT})')
         phase('path', f'{tag}: kernel launches in the solve: '
@@ -1923,7 +2138,7 @@ def main():
     # direction, nothing else; the first direction against the CPU's plain
     # path). Then K10 on the first M of the path that it factors (the first
     # iterate's fails the inertia test: the delta_w ladder follows) and
-    # K12/K13 on that direction's K, as [kernels] rows.
+    # K12/K13 on that direction's K, as main's [kernels] rows.
     o18 = bench_options(n_k=18)
     o18['solver.max_iter'] = NK18_ITERS
     nk18_run = cold_trial('slice-trial-nk18', o18)
@@ -1941,14 +2156,7 @@ def main():
             f'slice-trial-nk18: steps and iterations {stats18["iterations"]}')
     hold_path('slice-trial-nk18', nk18_run, 'stream')
     require('args_ok' in nk18_run['first'], 'slice-trial-nk18: no inertia test passed')
-    sys18 = nk18_run['solver']._augmented(*nk18_run['first']['args_ok'])
-    M18, K18_, rhs18 = (sys18[k][None].contiguous() for k in ('M', 'K', 'rhs'))
-    n18, N18 = M18.shape[1], K18_.shape[1]
-    b18 = torch.as_tensor(np.random.default_rng(n18).standard_normal((1, n18)), device=dev)
-    stream_at[f'n={n18} B=1 path'], ssolve_at[f'n={n18} B=1 path'] = hold_chol(
-        f'n={n18} B=1 the path\'s M', M18, b18, 'stream')
-    lu64_at[f'N={N18} B=1 path'], solve64_at[f'N={N18} B=1 path'] = hold_lu64(
-        f'N={N18} B=1 the path\'s K', K18_, rhs18)
+    systems['nk18'] = path_system(nk18_run)
 
     # --- 10. the 6-DOF kite through Trial.optimize: [slice-trial-6dof] ----
     # flagship_options(n_k=4, d=3), the single-kite 6-DOF health
@@ -1961,7 +2169,7 @@ def main():
     # takes 4089 iterations; see SIXDOF_ITERS). Gates: six steps, the [path]
     # of hold_path, the first direction against the CPU's; then
     # K10 on the first M of the path that it factors and K12/K13 on that
-    # direction's K as [kernels] rows.
+    # direction's K as main's [kernels] rows.
     o6 = flagship_options(4, 3)
     o6['solver.max_iter'] = SIXDOF_ITERS
     six_run = cold_trial('slice-trial-6dof', o6, JAX_SIXDOF_ITERS, '6-DOF uncut')
@@ -1979,63 +2187,69 @@ def main():
             f'slice-trial-6dof: steps and iterations {stats6["iterations"]}')
     hold_path('slice-trial-6dof', six_run, 'stream')
     require('args_ok' in six_run['first'], 'slice-trial-6dof: no inertia test passed')
-    sys6 = six_run['solver']._augmented(*six_run['first']['args_ok'])
-    M6, K6_, rhs6 = (sys6[k][None].contiguous() for k in ('M', 'K', 'rhs'))
-    n6, N6 = M6.shape[1], K6_.shape[1]
-    b6 = torch.as_tensor(np.random.default_rng(n6).standard_normal((1, n6)), device=dev)
-    stream_at[f'n={n6} B=1 path 6-DOF'], ssolve_at[f'n={n6} B=1 path 6-DOF'] = hold_chol(
-        f'n={n6} B=1 the 6-DOF path\'s M', M6, b6, 'stream')
-    lu64_at[f'N={N6} B=1 path 6-DOF'], solve64_at[f'N={N6} B=1 path 6-DOF'] = hold_lu64(
-        f'N={N6} B=1 the 6-DOF path\'s K', K6_, rhs6)
-    report['chol_factor_stream'] = dict(stream_at[f'n={n18} B=1 path'], at=stream_at)
+    systems['6dof'] = path_system(six_run)
 
-    # each kernel's launches are those of the slice whose path holds it: the
-    # QR slice, the port's default path, for its own kernels and for K1 and
-    # K4, which both paths share; the LU slice for the LU kernels; the n_k=8
-    # slices for the blocked variants; [slice-trial-nk18] for K10's stream
-    # variant
-    sources = {'newton_kkt': 'awebox_tpu/parallel/batch.py:154',
-               'kkt_assemble_scaled': 'awebox_tpu/parallel/batch.py:409',
-               'lu_factor_cluster': 'awebox_tpu/parallel/batch.py:414',
-               'lu_factor_blocked': 'awebox_tpu/parallel/batch.py:414',
-               'lu_solve_batched': 'awebox_tpu/parallel/batch.py:416',
-               'ip_step': 'awebox_tpu/parallel/batch.py:189',
-               'kkt_assemble': 'awebox_tpu/parallel/batch.py:333',
-               'ruiz_scale': 'awebox_tpu/parallel/batch.py:375',
-               'qr_factor_cluster': 'awebox_tpu/parallel/batch.py:382',
-               'qr_factor_blocked': 'awebox_tpu/parallel/batch.py:382',
-               'qr_solve_batched': 'awebox_tpu/parallel/batch.py:344',
-               'advance_state': 'awebox_tpu/parallel/batch.py:449',
-               'chol_factor_cluster': 'awebox_tpu/parallel/batch.py:215',
-               'chol_factor_stream': 'awebox_tpu/opti/ipsolver.py:183',
-               'chol_solve_batched': 'awebox_tpu/parallel/batch.py:234',
-               'block_factor': 'awebox_tpu/ocp/blockkkt.py:539',
-               'block_solve': 'awebox_tpu/ocp/blockkkt.py:646',
-               'lu_factor_f64': 'awebox_tpu/opti/ipsolver.py:194',
-               'lu_solve_f64': 'awebox_tpu/opti/ipsolver.py:195'}
-    own = {'kkt_assemble_scaled': launches_lu, 'lu_factor_cluster': launches_lu,
-           'lu_solve_batched': launches_lu, 'lu_factor_blocked': launches_lu8,
-           'qr_factor_blocked': launches_qr8, 'advance_state': launches_block,
-           'block_factor': launches_block, 'block_solve': launches_block,
-           'chol_factor_cluster': launches_dense, 'chol_factor_stream': launches_nk18,
-           'chol_solve_batched': launches_dense, 'lu_factor_f64': launches_trial,
-           'lu_solve_f64': launches_trial}
-    phase('done', f'chip_smoke.py ran {time.time() - t_start:.1f} s')
-    print(json.dumps({'kernels': [
-        dict(name=k, route='cuda', source='awebox_tpu_torch/csrc/auglu.cu',
-             replaces=sources[k], launches=own.get(k, launches_qr)[k],
-             launches_lu_slice=launches_lu[k], launches_qr_slice=launches_qr[k],
-             launches_nk8_lu_slice=launches_lu8[k], launches_nk8_qr_slice=launches_qr8[k],
-             launches_block_slice=launches_block[k], launches_dense_slice=launches_dense[k],
-             launches_trial_slice=launches_trial[k], launches_trial_nk18_slice=launches_nk18[k],
-             launches_trial_6dof_slice=launches_6dof[k],
-             **report[k])
-        for k in sources]}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}), flush=True)
+    # --- 11. the reference's end-to-end matrix: [slice-trial-configs] -----
+    # Trial(e2e_options(name)).build().optimize() on the card for the eight
+    # configurations of tests/test_e2e_configs.py beyond the 6-DOF kite:
+    # n = 166 .. 516 variables, K of 317 .. 1017, so 'auto' takes the dense
+    # direction (and three of them are dense-only), whose inertia test runs
+    # K10's cluster variant (n <= 554) and whose factor K12 takes K in full
+    # panels (N <= 1024). Each homotopy step is capped at CONFIG_ITERS
+    # iterations (CUT: the uncut solves, JAX_CONFIG_ITERS, run in
+    # probes/host_solver.py --config NAME --solve-only), so every step runs.
+    # Gates, each configuration: the JAX package's steps, each run to at
+    # most the cap; the [path] of hold_path (K10 cluster, K12 and two K13 a
+    # direction, nothing else; the first direction against the CPU's plain
+    # path). Then K10 on the dual kite's first M that it factors, and K12/K13
+    # on the K of that direction and of the actuator model's, as main's
+    # [kernels] rows.
+    launches_configs = {}
+    for name in E2E_NAMES:
+        oc = e2e_options(name)
+        oc['solver.max_iter'] = CONFIG_ITERS
+        run = cold_trial('slice-trial-configs', oc, JAX_CONFIG_ITERS[name], 'uncut or at 150',
+                         who=f'{name} ')
+        stats_c, ocp_c = run['stats'], run['cold'].ocp
+        n_c = ocp_c.vstruct.total
+        n_itc = sum(stats_c['iterations'].values())
+        phase('slice-trial-configs', f'{name}: Trial(e2e_options({name!r})).build().optimize() '
+              f'on the card, n={n_c}, m={ocp_c.n_eq} + {ocp_c.n_ineq}, N='
+              f'{n_c + ocp_c.n_eq + ocp_c.n_ineq} (CUT: solver.max_iter = {CONFIG_ITERS} a step): '
+              f'{len(stats_c["iterations"])} homotopy steps, {n_itc} iterations in '
+              f'{run["seconds"]:.1f} s, {1e3 * run["seconds"] / max(n_itc, 1):.0f} ms/iter, '
+              f'{run["launches"]["lu_factor_f64"]} directions; not gated on convergence')
+        require(list(stats_c['iterations']) == list(JAX_CONFIG_ITERS[name])
+                and all(0 < v <= CONFIG_ITERS for v in stats_c['iterations'].values()),
+                f'slice-trial-configs: {name}: steps and iterations {stats_c["iterations"]}, the '
+                f'JAX package\'s steps {list(JAX_CONFIG_ITERS[name])}')
+        hold_path('slice-trial-configs', run, 'cluster', who=f'{name} ')
+        require('args_ok' in run['first'], f'slice-trial-configs: {name}: no inertia test passed')
+        for k, v in run['launches'].items():
+            launches_configs[k] = launches_configs.get(k, 0) + v
+        if name in ('dual_kite', 'actuator_qaxi'):
+            systems[name] = path_system(run)
+    phase('slice-trial-configs', f'{len(E2E_NAMES)} configurations through Trial.optimize on the '
+          f'card; kernel launches over them: { {k: v for k, v in launches_configs.items() if v} }')
+    torch.save(dict(launches_trial=launches_trial, launches_nk18=launches_nk18,
+                    launches_6dof=launches_6dof, launches_configs=launches_configs,
+                    systems=systems), out_path)
     return 0
+
+
+def stop_workers():
+    """Stops every process main started that is still running (with the end
+    of its output on stderr) and removes its folder."""
+    import shutil
+    for proc, log_path, work_dir in WORKERS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+            with open(log_path) as log:
+                tail = log.readlines()[-40:]
+            print(f'chip_smoke: stopped the trial worker (pid {proc.pid}); the end of its '
+                  f'output:\n' + ''.join(tail), file=sys.stderr)
+        shutil.rmtree(work_dir, ignore_errors=True)
 
 
 def same_tree(a, b):
@@ -2053,4 +2267,10 @@ def _take_lanes(tree, sel):
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    if len(sys.argv) == 3 and sys.argv[1] == '--trials':
+        sys.exit(trial_worker(sys.argv[2]))
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        sys.exit(main())
+    finally:
+        stop_workers()

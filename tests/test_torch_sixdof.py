@@ -326,9 +326,9 @@ def test_graft_entry_matches(which):
 # --- refusals and reach ------------------------------------------------------
 
 @pytest.mark.parametrize('settings, what', [
-    ({'user_options.trajectory.system_type': 'drag_mode'}, 'system_type'),
-    ({'user_options.induction_model': 'actuator'}, 'induction'),
-    ({'model.integral_outputs': True}, 'integral_outputs'),
+    ({'user_options.induction_model': 'vortex'}, 'vortex'),
+    ({'nlp.discretization': 'multiple_shooting'}, 'discretization'),
+    ({'user_options.trajectory.type': 'nominal_landing'}, 'trajectory.type'),
     ({'user_options.system_model.architecture': {1: 0, 2: 1, 3: 1},
       'user_options.system_model.cross_tether': True}, 'cross tether'),
 ])
